@@ -9,8 +9,10 @@ Phases, each printing one JSON line and each fatal on failure:
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the CUDA kernel library from the sources in ``acn_tpu_torch/csrc``;
 2. kernel: each kernel against its plain PyTorch version on the card, on
-   edge cases and at the serving shape, forward and backward, with times
-   (CUDA events) beside the least time the card could take;
+   edge cases and at the serving shape, forward, backward through autograd
+   and the reverse kernel directly, on an unaligned view, on two streams at
+   once and across the wrap of its launch epoch, with times (CUDA events)
+   beside the least time the card could take, and a sweep of sizes;
 3. main path: full 1080×1920 frames of the ``configs/train_occ.json`` model
    (random weights from a seed) through ``Renderer.render_image``, with the
    kernel's launch count held to chunks × frames and the host's waits for
@@ -67,32 +69,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ---------------------------------------------------------------- timing
-
-
-def time_ms(fn, reps: int, torch) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls, by CUDA events.
-    A spin kernel queued first keeps the card busy while the host enqueues
-    every call, so host overhead between calls is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(200_000_000)
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in ev)
-
-
 # ---------------------------------------------------------------- phase 2
 
 
-def scan_cases(torch):
-    """(name, x f32, starts bool) on the CPU. Tiles hold 1024 elements,
-    warps 128, threads 4; the aggregate scan takes 1024 tiles per pass."""
+def scan_cases(torch, segscan):
+    """(name, x f32, starts bool, offset) on the CPU. Boundaries are placed
+    on the kernel's own edges: tiles of ``segscan.TILE`` elements, warps of
+    ``segscan.WARP``, threads of ``segscan.ITEMS``. ``offset`` > 0 asks for
+    the buffers as views that many elements into larger ones."""
+    T, Wp, I = segscan.TILE, segscan.WARP, segscan.ITEMS
     g = np.random.default_rng(0)
 
     def segs(n, mean):
@@ -100,39 +85,60 @@ def scan_cases(torch):
         s[0] = True
         return s
 
+    def only(n, *slices):
+        s = np.zeros(n, bool)
+        for sl in slices:
+            s[sl] = True
+        s[0] = True
+        return s
+
     cases = []
-    n = 3 * 1024 + 357
-    cases.append(("ragged_length", g.normal(size=n), segs(n, 7)))
-    n = 5 * 1024 + 11
-    s = np.zeros(n, bool); s[0] = True
-    cases.append(("one_segment", g.normal(size=n), s))
-    n = 2 * 1024 + 5
-    cases.append(("single_samples", g.normal(size=n), np.ones(n, bool)))
-    n = 8 * 1024
-    s = np.zeros(n, bool)
-    s[::1024] = s[128::256] = s[4::132] = s[1023::1024] = True
-    cases.append(("tile_warp_thread_edges", g.normal(size=n), s))
+    for n in (1, 31):  # less than a warp of one tile
+        cases.append((f"tiny_{n}", g.normal(size=n), segs(n, 7), 0))
+    n = 3 * T + 357  # the tail tile takes the scalar path
+    cases.append(("ragged_length", g.normal(size=n), segs(n, 7), 0))
+    n = 7 * T + 4 * 11 + 3  # n % 4 == 3, n % 16 == 15
+    cases.append(("length_not_multiple_of_4", g.normal(size=n), segs(n, 50), 0))
+    # contiguous but 4 bytes (1 byte for the flags) off 16-byte alignment:
+    # the wrapper takes it and every tile runs the scalar path
+    n = 6 * T + 2
+    cases.append(("offset_view", g.normal(size=n), segs(n, 9), 1))
+    n = 5 * T + 11  # the look-back runs the whole chain of tiles
+    cases.append(("one_segment", g.normal(size=n), only(n), 0))
+    n = 100 * T + 11  # ... over more than one window of 32 states
+    cases.append(("one_segment_long", g.normal(size=n), only(n), 0))
+    n = 2 * T + 5
+    cases.append(("single_samples", g.normal(size=n), np.ones(n, bool), 0))
+    n = 8 * T
+    cases.append(("tile_warp_thread_edges", g.normal(size=n),
+                  only(n, slice(None, None, T), slice(Wp, None, 2 * Wp),
+                       slice(I, None, Wp + I), slice(T - 1, None, T)), 0))
+    # one boundary per tile, at its last / its first element: every
+    # aggregate is closed by a boundary and the carry is a whole tile's sum
+    n = 40 * T
+    cases.append(("boundary_at_tile_last", g.normal(size=n),
+                  only(n, slice(T - 1, None, T)), 0))
+    cases.append(("boundary_at_tile_first", g.normal(size=n),
+                  only(n, slice(None, None, T)), 0))
     # opaque scale: ≈ −23 per sample, segments of 1..256 samples
     n = SERVING_B
-    s = np.zeros(n, bool)
-    s[np.cumsum(g.integers(1, 257, n // 64)).clip(max=n - 1)] = True
-    s[0] = True
-    cases.append(("opaque_scale", -23.0 + g.normal(size=n), s))
-    # several passes of the aggregate scan (> 1024 tiles)
+    s = only(n, np.cumsum(g.integers(1, 257, n // 64)).clip(max=n - 1))
+    cases.append(("opaque_scale", -23.0 + g.normal(size=n), s, 0))
+    # a grid of more blocks than the card holds at once: rays, and one
+    # segment whose chain of tiles runs from wave to wave
     n = 3_000_000
-    cases.append(("multi_pass_aggregates", g.normal(size=n), segs(n, 40)))
+    cases.append(("multi_pass_aggregates", g.normal(size=n), segs(n, 40), 0))
+    cases.append(("one_segment_many_waves", g.normal(size=n + 5), only(n + 5), 0))
     # the serving shape as composite_packed makes it: per-ray segments of
     # log(1 − α) over the real slots, then a tail of pad slots (ray 0)
     n = SERVING_B
     n_real = int(0.8 * n)
     lens = g.integers(1, 64, n)
-    s = np.zeros(n, bool)
-    s[np.cumsum(lens)[np.cumsum(lens) < n_real]] = True
-    s[0] = s[n_real] = True
+    s = only(n, np.cumsum(lens)[np.cumsum(lens) < n_real], n_real)
     alpha = np.where(np.arange(n) < n_real, g.random(n) ** 3, 0.0)
-    cases.append(("serving", np.log(1.0 - alpha * 0.999 + 1e-10), s))
+    cases.append(("serving", np.log(1.0 - alpha * 0.999 + 1e-10), s, 0))
     return [(name, torch.from_numpy(x.astype(np.float32)),
-             torch.from_numpy(s)) for name, x, s in cases]
+             torch.from_numpy(s), off) for name, x, s, off in cases]
 
 
 def compare(got, want, x, starts) -> dict:
@@ -150,40 +156,159 @@ def compare(got, want, x, starts) -> dict:
             "worst_err": float(err[i]), "worst_tol": float(tol[i])}
 
 
-def phase_kernel(torch, segscan):
+def on_card(torch, t, offset: int):
+    """``t`` on the card; with ``offset``, as a view that many elements into
+    a larger buffer: contiguous, but not 16-byte aligned."""
+    if not offset:
+        return t.cuda()
+    view = torch.cat([t.new_ones(offset), t]).cuda()[offset:]
+    check(view.data_ptr() % 16 != 0, "the offset view is 16-byte aligned")
+    return view
+
+
+def check_two_streams(torch, segscan, a, b) -> dict:
+    """Forward and reverse scans of two buffers queued on two streams at
+    once (both streams held back first, so that the kernels overlap), each
+    against its plain version. The streams' scratch buffers differ."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    want = [(segscan.seg_excl_sum_plain(x, s), segscan.seg_excl_rsum_plain(x, s))
+            for x, s in (a, b)]
+    torch.cuda.synchronize()
+    got, scratch = [], []
+    for st, (x, s) in zip(streams, (a, b)):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(100_000_000)
+            got.append([(segscan.seg_excl_sum_kernel(x, s),
+                         segscan.seg_excl_rsum_kernel(x, s)) for _ in range(4)])
+            scratch.append(segscan.scan_scratch(x.device).data_ptr())
+    torch.cuda.synchronize()
+    check(scratch[0] != scratch[1], "two streams share one scratch buffer")
+    ok = all(compare(f, w[0], x, s)["ok"] and compare(r, w[1], x, s)["ok"]
+             for runs, w, (x, s) in zip(got, want, (a, b)) for f, r in runs)
+    check(ok, "scans queued on two streams at once disagree with the plain version")
+    return {"streams": 2, "scans_per_stream": 8, "ok": ok}
+
+
+def check_epoch_wrap(torch, segscan, short, long) -> dict:
+    """Scans across the wrap of the launch epoch kept in the scratch buffer:
+    two launches of few tiles at the last two epochs, then launches of many
+    tiles at epochs 0, 1, ... A state planted beyond the short launches'
+    tiles, valid-looking for epoch 0, must have been zeroed by the wrap."""
+    x, s = long
+    scratch = segscan.scan_scratch(x.device)
+    torch.cuda.synchronize()
+    scratch[0] = (segscan.EPOCH_MAX - 1) << 32
+    planted = 2 + 50  # the state of tile 50: epoch 0, prefix, value 1e9
+    scratch[planted] = (2 << 32) | int(np.float32(1e9).view(np.uint32))
+    epochs, ok = [], True
+    for i, (xi, si) in enumerate((short, short, long, long, long)):
+        kernel, plain = ((segscan.seg_excl_sum_kernel, segscan.seg_excl_sum_plain)
+                         if i % 2 == 0 else
+                         (segscan.seg_excl_rsum_kernel, segscan.seg_excl_rsum_plain))
+        ok &= compare(kernel(xi, si), plain(xi, si), xi, si)["ok"]
+        word = int(scratch[0])
+        epochs.append(word >> 32)
+        ok &= word & 0xffffffff == 0  # the ticket is back at 0
+        if i == 1:  # the launch at the last epoch zeroed every state
+            ok &= int(scratch[planted]) == 0
+    want = [segscan.EPOCH_MAX, 0, 1, 2, 3]
+    check(ok and epochs == want, f"scans across the epoch's wrap: results ok "
+          f"{ok}, epochs after each launch {epochs}, want {want}")
+    return {"epochs_after_each_launch": epochs, "ok": ok}
+
+
+def phase_kernel(torch, segscan, bench):
+    time_ms = bench.time_ms
     errs, worst = {}, 0.0
-    cases = scan_cases(torch)
-    serving = next((x, s) for name, x, s in cases if name == "serving")
-    for name, x, s in cases:
-        xc = x.cuda().requires_grad_(True)
-        sc = s.cuda()
-        gr = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda()
+    cases = scan_cases(torch, segscan)
+    on = {name: (on_card(torch, x, off), on_card(torch, s, off))
+          for name, x, s, off in cases}
+    for name, x, s, off in cases:
+        xc = on_card(torch, x, off).requires_grad_(True)
+        sc = on[name][1]
+        gr = on_card(torch, torch.randn(
+            x.shape, generator=torch.Generator().manual_seed(1)), off)
+        counts = (segscan.seg_excl_sum_kernel.launches,
+                  segscan.seg_excl_rsum_kernel.launches)
         got = segscan.seg_excl_sum(xc, sc)  # kernel, forward
-        (got * gr).sum().backward()  # kernel, backward
-        xp = x.cuda().requires_grad_(True)
+        (got * gr).sum().backward()  # reverse kernel, through autograd
+        rev = segscan.seg_excl_rsum_kernel(gr, sc)  # reverse kernel, directly
+        check((segscan.seg_excl_sum_kernel.launches,
+               segscan.seg_excl_rsum_kernel.launches)
+              == (counts[0] + 1, counts[1] + 2),
+              f"{name}: want one forward and two reverse launches")
+        xp = on_card(torch, x, off).requires_grad_(True)
         want = segscan.seg_excl_sum_plain(xp, sc)  # plain, on the card
         (want * gr).sum().backward()
+        want_rev = segscan.seg_excl_rsum_plain(gr, sc)
         torch.cuda.synchronize()
-        # the backward scan runs over the same segments, reversed
-        fwd = compare(got, want, x, s)
-        bwd = compare(xc.grad, xp.grad, gr, s)
-        errs[name] = {"n": int(x.numel()), "fwd": fwd, "bwd": bwd}
-        check(fwd["ok"] and bwd["ok"] and math.isfinite(fwd["err"] + bwd["err"]),
+        # the reverse scan runs over the same segments
+        res = {"fwd": compare(got, want, x, s),
+               "bwd": compare(xc.grad, xp.grad, gr, s),
+               "rev": compare(rev, want_rev, gr, s)}
+        errs[name] = {"n": int(x.numel()), "offset": off, **res}
+        check(all(r["ok"] and math.isfinite(r["err"]) for r in res.values()),
               f"kernel disagrees with the plain version on {name}: {errs[name]}")
-        worst = max(worst, fwd["err"], bwd["err"])
+        worst = max(worst, *(r["err"] for r in res.values()))
 
-    x, s = serving[0].cuda(), serving[1].cuda()
-    ms = time_ms(lambda: segscan.seg_excl_sum_kernel(x, s), 100, torch)
-    plain_ms = time_ms(lambda: segscan.seg_excl_sum_plain(x, s), 20, torch)
+    two = check_two_streams(torch, segscan, on["multi_pass_aggregates"], on["serving"])
+    wrap = check_epoch_wrap(torch, segscan, on["one_segment"], on["one_segment_long"])
+
+    x, s = on["serving"]
+    g = torch.randn(SERVING_B, generator=torch.Generator().manual_seed(2)).cuda()
+
+    def via_flips():  # the backward as it was: three copies and a forward scan
+        end = torch.cat([s[1:], s.new_ones(1)])
+        return segscan.seg_excl_sum_kernel(g.flip(0), end.flip(0)).flip(0)
+
+    def in_a_row():
+        for _ in range(10):
+            segscan.seg_excl_sum_kernel(x, s)
+
+    one = torch.zeros(1, device="cuda")
+    zero, y = torch.zeros((), device="cuda"), torch.empty_like(x)
+    ms = time_ms(lambda: segscan.seg_excl_sum_kernel(x, s), 100)
+    reverse_ms = time_ms(lambda: segscan.seg_excl_rsum_kernel(g, s), 100)
+    flips_ms = time_ms(via_flips, 100)
+    plain_ms = time_ms(lambda: segscan.seg_excl_sum_plain(x, s), 20)
     bytes_moved = SERVING_B * (4 + 1 + 4)  # read x and flag, write out
     bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
                          SERVING_B / F32_OPS_PER_S)
     emit({"phase": "kernel", "name": "seg_excl_sum", "cases": errs,
-          "max_abs_err": worst, "B": SERVING_B, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": "bytes",
-          "bytes_per_launch": bytes_moved})
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms}
+          "two_streams": two, "epoch_wrap": wrap,
+          "max_abs_err": worst, "B": SERVING_B, "ms": ms,
+          "reverse_ms": reverse_ms, "reverse_via_flips_ms": flips_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "bytes_per_launch": bytes_moved,
+          # what the clock costs: per launch when ten scans run between one
+          # pair of events; a one-element PyTorch kernel between a pair; and
+          # a PyTorch kernel without dependencies that moves the same bytes
+          "ms_in_a_row": time_ms(in_a_row, 30) / 10,
+          "one_element_add_ms": time_ms(lambda: one.add_(1.0), 100),
+          "where_same_bytes_ms": time_ms(
+              lambda: torch.where(s, x, zero, out=y), 100)})
+
+    sweep = []
+    for mult in (1, 4, 16):
+        n = mult * SERVING_B
+        xs, ss = bench.random_case(n, 32, seed=mult)
+        check(bench.agrees(segscan.seg_excl_sum_kernel(xs, ss),
+                           segscan.seg_excl_sum_plain(xs, ss), xs, ss)
+              and bench.agrees(segscan.seg_excl_rsum_kernel(xs, ss),
+                               segscan.seg_excl_rsum_plain(xs, ss), xs, ss),
+              f"kernel disagrees with the plain version at B = {n}")
+        t = time_ms(lambda: segscan.seg_excl_sum_kernel(xs, ss), 100)
+        ys = torch.empty_like(xs)
+        sweep.append({"B": n, "ms": t, "bound_ms": 1e3 * 9 * n / HBM_BYTES_PER_S,
+                      "gb_per_s": 9 * n / (1e-3 * t) / 1e9,
+                      "where_same_bytes_ms": time_ms(
+                          lambda: torch.where(ss, xs, zero, out=ys), 100)})
+        del xs, ss, ys
+    emit({"sweep": sweep, "bytes_per_element": 9,
+          "one_element_scan_ms": time_ms(
+              lambda: segscan.seg_excl_sum_kernel(x[:1], s[:1]), 100)})
+    return {"max_abs_err": worst, "ms": ms, "reverse_ms": reverse_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -191,6 +316,9 @@ def phase_kernel(torch, segscan):
 
 def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     cfg, P, occ_cfg = toy.train_occ_config()
+    # the frames start from an empty allocator, whatever the kernel phase
+    # before them left cached
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = toy.serving_model(cfg, seed=0, device="cuda")
     boxes, _ = toy.quadrant_layout(cfg.num_submodules)
@@ -205,6 +333,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
 
     torch.cuda.reset_peak_memory_stats()
     segscan.seg_excl_sum_kernel.launches = 0
+    segscan.seg_excl_rsum_kernel.launches = 0
     t0 = time.perf_counter()
     renderer.render_image(model, occ, H=H, W=W, download=False, **cam)  # warm
     warm_ms = 1e3 * (time.perf_counter() - t0)
@@ -239,7 +368,9 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     emit({"phase": "main_path", "H": H, "W": W, "rays_per_chunk": rows * W,
           "packed_samples_per_chunk": rows * W * int(P.occ_budget_per_ray),
           "chunks_per_frame": chunks, "frames": frames,
-          "seg_excl_sum_launches": launches, "host_syncs_per_frame": syncs,
+          "seg_excl_sum_launches": launches,
+          "seg_excl_rsum_launches": segscan.seg_excl_rsum_kernel.launches,
+          "host_syncs_per_frame": syncs,
           "host_sync_sites": dict(sites),
           "setup_s": setup_s, "warm_frame_ms": warm_ms, "frame_ms": frame_ms,
           "mean_frame_ms": statistics.mean(frame_ms),
@@ -266,8 +397,16 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
                                           row_limit=40)
         (Path(profile_dir) / "frame_kernels.txt").write_text(table)
         print(table, flush=True)
+        # the scan kernel in place, between the ops that make its input and
+        # read its output (the table above may cut it off)
+        scan = [e for e in prof.key_averages() if "seg_scan_kernel" in e.key]
+        scan_us = sum(getattr(e, "device_time_total", 0)
+                      or getattr(e, "cuda_time_total", 0) for e in scan)
+        scan_n = sum(e.count for e in scan)
         emit({"phase": "profile", "frame_wall_ms": wall_ms,
-              "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms})
+              "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+              "scan_kernel_launches": scan_n,
+              "scan_kernel_mean_us": scan_us / max(scan_n, 1)})
     return model, occ, cam, launches
 
 
@@ -333,6 +472,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from acn_tpu_torch import toy
     from acn_tpu_torch.ops import cuda_lib, segscan
+    from acn_tpu_torch.scripts import bench_segscan
     from acn_tpu_torch.pipelines.renderer import Renderer
 
     smi = nvidia_smi()
@@ -345,7 +485,7 @@ def main() -> int:
           "build_wall_s": time.perf_counter() - t0,
           "ptxas": cuda_lib.build_log()})
 
-    k = phase_kernel(torch, segscan)
+    k = phase_kernel(torch, segscan, bench_segscan)
     model, occ, cam, launches = phase_main_path(
         torch, segscan, toy, Renderer, args.profile)
     phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
@@ -355,7 +495,7 @@ def main() -> int:
         "source": "acn_tpu_torch/csrc/segscan.cu",
         "replaces": "acn_tpu/ops/segscan.py:180",
         "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "library_note": "no single PyTorch call computes a segmented scan",
     }]})
