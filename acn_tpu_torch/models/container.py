@@ -6,7 +6,9 @@ their leading K axis (``experts``, a module tree with the JAX tree's keys),
 the background head is ``bg_mlp``, and centroids / expert AABBs / the global
 AABB are buffers. All-expert evaluation is a loop over K (the JAX package
 vmaps it); ``Container.expert(k)`` hands one expert's parameters to the
-functional ``ngp`` forward as views.
+functional ``ngp`` forward as views. Training works on ``Container.params()``,
+the parameters as a plain tree ``{"experts", "bg_mlp"}``, and runs an expert
+on any tree of that structure (fast weights) through ``ngp.ngp_forward``.
 """
 
 from __future__ import annotations
@@ -97,6 +99,16 @@ class Container(tnn.Module):
         """Expert k's parameter dict (views into the stacked tensors)."""
         return _to_tree(self.experts, k)
 
+    def params(self) -> dict:
+        """The trainable parameters as the JAX ``params`` tree:
+        ``{"experts": stacked (K, ...) leaves, "bg_mlp": [...]}`` (no
+        ``bg_mlp`` without a background head). The leaves are the module's
+        own ``Parameter``s."""
+        tree = {"experts": _to_tree(self.experts)}
+        if self.bg_mlp is not None:
+            tree["bg_mlp"] = _to_tree(self.bg_mlp)
+        return tree
+
 
 def init_container(
     cfg: ContainerConfig,
@@ -157,6 +169,24 @@ def routing_weights(
     return torch.nn.functional.one_hot(hard, centroids.shape[0]).to(pts.dtype)
 
 
+# ============================ expert access ============================
+
+
+def expert_slice(experts: dict, k: int) -> dict:
+    """Expert ``k`` of a stacked (K, ...) tree, as views."""
+    return nn.tree_map(lambda a: a[k], experts)
+
+
+def param_group_labels(params: dict) -> dict:
+    """Optimizer-group labels for ``Container.params()``: a tree of strings
+    in {encoding, sigma, color, background} of the parameters' structure
+    (``acn_tpu/models/container.py:270-281``)."""
+    labels = {"experts": ngp_mod.param_group_labels(params["experts"])}
+    if "bg_mlp" in params:
+        labels["bg_mlp"] = nn.tree_map(lambda _: "background", params["bg_mlp"])
+    return labels
+
+
 # ============================ network calls ============================
 
 
@@ -182,14 +212,18 @@ def container_forward(
     return torch.einsum("nk,kno->no", w, ys)
 
 
-def background_color(model: Container, d: torch.Tensor) -> torch.Tensor:
-    """Background RGB from ray directions: SH encoding → 2-layer sigmoid
-    MLP."""
-    cfg = model.cfg
-    if not cfg.use_bg_nerf:
-        raise RuntimeError("background_color called but use_bg_nerf=False")
+def bg_mlp_color(layers: list, cfg: ContainerConfig,
+                 d: torch.Tensor) -> torch.Tensor:
+    """Background RGB from ray directions with the head's two layers given
+    as a list of ``{w, b}``: SH encoding → 2-layer sigmoid MLP."""
     dn = d / torch.clamp(nn.norm3(d), min=1e-9)
     enc = sh_encode(dn, cfg.bg_sh_levels)
-    layers = _to_tree(model.bg_mlp)
     h = torch.relu(nn.apply_linear(layers[0], enc.to(torch.float32)))
     return torch.sigmoid(nn.apply_linear(layers[1], h))
+
+
+def background_color(model: Container, d: torch.Tensor) -> torch.Tensor:
+    """Background RGB from ray directions with the model's own head."""
+    if not model.cfg.use_bg_nerf:
+        raise RuntimeError("background_color called but use_bg_nerf=False")
+    return bg_mlp_color(_to_tree(model.bg_mlp), model.cfg, d)

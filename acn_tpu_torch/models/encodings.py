@@ -2,16 +2,20 @@
 hash grid.
 
 Port of ``acn_tpu/models/encodings.py``: SH, ``HashGridConfig``,
-``init_hash_table`` (cell layout) and the cell-layout forward
-(``_hash_encode_cell_impl`` / ``_cell_level_lookup``, with dense levels).
+``init_hash_table`` (cell layout), the cell-layout forward
+(``_hash_encode_cell_impl`` / ``_cell_level_lookup``, with dense levels) and
+its hand-written backward (``_HashEncodeCellSaved``, the counterpart of
+``_hash_encode_cell_saved`` / ``_saved_bwd``): the gathered rows, their
+indices and the raw intra-cell fractions are kept, so the backward is a
+scatter-add per level plus elementwise work and gathers nothing again.
 The hash encode is plain PyTorch here, as it is plain XLA in the JAX package;
 a hand-written gather kernel is a candidate for a later change. The corner
-layout and the cell layout's hand-written backward belong to the training
-slice and are not here yet.
+layout is not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional
@@ -97,9 +101,13 @@ HASH_PRIMES = (1, 2654435761, 805459861)
 
 @dataclass(frozen=True)
 class HashGridConfig:
-    """``acn_tpu``'s ``HashGridConfig`` fields that the forward reads (a JAX
-    config carries across by field name, ``convert.config_from_dict``).
-    Only the ``cell`` layout is ported."""
+    """``acn_tpu``'s ``HashGridConfig`` fields that the port reads, forward
+    and backward (a JAX config carries across by field name,
+    ``convert.config_from_dict``). Only the ``cell`` layout is ported.
+
+    ``cell_backward``: ``"save_rows"`` keeps the gathered rows and fractions
+    for a backward that is scatter-add plus elementwise; ``"remat"`` leaves
+    the backward to autograd over ``_hash_encode_cell_impl``."""
 
     levels: int = 16
     min_res: int = 16
@@ -109,6 +117,7 @@ class HashGridConfig:
     hash_init_scale: float = 1e-3
     interpolation: str = "Linear"  # "Linear" | "Nearest" | "Smoothstep"
     layout: str = "corner"  # "corner" | "cell"
+    cell_backward: str = "save_rows"  # "save_rows" | "remat"
     dense_levels: bool = False
 
     @property
@@ -186,25 +195,28 @@ def _interp_frac(frac: torch.Tensor, interpolation: str) -> torch.Tensor:
 
 
 def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
-    """(..., 8) trilinear corner weights in packing order (dz fastest)."""
-    wx, wy, wz = frac[..., 0:1], frac[..., 1:2], frac[..., 2:3]
-    one = torch.ones_like(wx)
-    return torch.cat(
-        [
-            (wx if dx else one - wx) * (wy if dy else one - wy)
-            * (wz if dz else one - wz)
-            for dx in (0, 1)
-            for dy in (0, 1)
-            for dz in (0, 1)
-        ],
-        dim=-1,
-    )
+    """(..., 8) trilinear corner weights in packing order (dz fastest):
+    w[4·dx + 2·dy + dz] = (A_x[dx] · A_y[dy]) · A_z[dz] with A = (1 − f, f).
+    The products are ``acn_tpu``'s, in its order, so the values are the same
+    bits; they are taken as two broadcast products instead of one chain per
+    corner (5 kernels per call, where the chain per corner made about 30)."""
+    a = torch.stack([1.0 - frac, frac], dim=-1)  # (..., 3, 2)
+    xy = a[..., 0, :, None] * a[..., 1, None, :]  # (..., 2, 2)
+    return (xy[..., None] * a[..., 2, None, None, :]).flatten(-3)
+
+
+@functools.lru_cache(maxsize=None)
+def _res_as(res_l: int, dtype: torch.dtype) -> float:
+    """The level's resolution rounded to ``dtype``, as a host number:
+    ``acn_tpu`` multiplies by ``jnp.asarray(res, x01.dtype)``, so under bf16
+    the factor is the rounded one (4095 becomes 4096)."""
+    return float(torch.tensor(float(res_l), dtype=dtype))
 
 
 def _cell_level_lookup(tables, x01: torch.Tensor, cfg: HashGridConfig, l: int):
     """Per-level (rows (..., 8F), h (...,), frac_raw (..., 3))."""
     res_l = int(cfg.level_resolutions()[l])
-    scaled = x01 * float(res_l)
+    scaled = x01 * _res_as(res_l, x01.dtype)
     cell = torch.floor(scaled)
     frac = scaled - cell
     cell_i = cell.to(torch.int64)
@@ -217,24 +229,102 @@ def _cell_level_lookup(tables, x01: torch.Tensor, cfg: HashGridConfig, l: int):
     return tables[l][h], h, frac
 
 
-def _hash_encode_cell_impl(tables, x01: torch.Tensor,
-                           cfg: HashGridConfig) -> torch.Tensor:
+def _encode_levels(tables, x01: torch.Tensor, cfg: HashGridConfig):
     """Cell-packed hash encoding: one gathered row per (point, level) holding
     the cell's 8 corner features, blended trilinearly. (..., 3) in [0, 1] →
-    (..., L·F)."""
+    (features (..., L·F), [rows, h, frac_raw] of every level in turn)."""
     F = cfg.features_per_level
-    feats = []
+    feats, kept = [], []
     for l in range(cfg.levels):
-        rows, _, frac = _cell_level_lookup(tables, x01, cfg, l)
+        rows, h, frac = _cell_level_lookup(tables, x01, cfg, l)
         w = _corner_weights(_interp_frac(frac, cfg.interpolation))
         blended = rows.reshape(*rows.shape[:-1], 8, F) * w.to(rows.dtype)[..., None]
         feats.append(blended.sum(dim=-2))  # (..., F)
-    return torch.cat(feats, dim=-1)
+        kept += [rows, h, frac]
+    return torch.cat(feats, dim=-1), kept
+
+
+def _hash_encode_cell_impl(tables, x01: torch.Tensor,
+                           cfg: HashGridConfig) -> torch.Tensor:
+    """The encoding with its backward left to autograd."""
+    return _encode_levels(tables, x01, cfg)[0]
+
+
+# corner sign per axis in packing order (dz fastest): +1 where the corner
+# takes the fraction f, −1 where it takes 1 − f
+_CORNER_SIGNS = tuple((1.0 if dx else -1.0, 1.0 if dy else -1.0,
+                       1.0 if dz else -1.0)
+                      for dx in (0, 1) for dy in (0, 1) for dz in (0, 1))
+
+
+class _HashEncodeCellSaved(torch.autograd.Function):
+    """The cell-layout encode with ``acn_tpu``'s ``save_rows`` backward
+    (``acn_tpu/models/encodings.py:413-501``).
+
+    Forward: ``_encode_levels``; it keeps, per level,
+    the gathered rows, their indices h and the raw fraction. Backward, per
+    level: the table cotangent is ``index_add_`` of w ⊗ g at h into zeros
+    of the **operand's** row count and dtype (under bf16 the sum runs in
+    bf16, as in the JAX package), and the x cotangent, only when x01 needs
+    one (in training it never does), comes from dw/df on the kept rows.
+    On the card ``index_add_`` adds with atomics: the order, and so the last
+    bits, are free."""
+
+    @staticmethod
+    def forward(ctx, x01, cfg, *tables):
+        out, kept = _encode_levels(tables, x01, cfg)
+        ctx.cfg, ctx.x_dtype = cfg, x01.dtype
+        ctx.nrows = tuple(int(t.shape[0]) for t in tables)
+        ctx.save_for_backward(*kept)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, saved = ctx.cfg, ctx.saved_tensors
+        F = cfg.features_per_level
+        need_x = ctx.needs_input_grad[0]
+        resolutions = cfg.level_resolutions()
+        tab_grads = []
+        gx = None
+        for l in range(cfg.levels):
+            rows, h, frac_raw = saved[3 * l:3 * l + 3]
+            g_l = g[..., l * F:(l + 1) * F]
+            f = _interp_frac(frac_raw, cfg.interpolation)
+            if ctx.needs_input_grad[2 + l]:
+                w = _corner_weights(f)
+                gw = (w[..., :, None].to(g_l.dtype) * g_l[..., None, :]).reshape(-1, 8 * F)
+                tab_grads.append(
+                    torch.zeros((ctx.nrows[l], 8 * F), dtype=rows.dtype,
+                                device=rows.device)
+                    .index_add_(0, h.reshape(-1), gw.to(rows.dtype)))
+            else:
+                tab_grads.append(None)
+            if not need_x:
+                continue
+            # dout/df_a = Σ_c sign_a(c) · Π_{b≠a} A_b(c) · (rows_c · g)
+            rg = torch.einsum("...cf,...f->...c",
+                              rows.reshape(*rows.shape[:-1], 8, F),
+                              g_l.to(rows.dtype)).to(torch.float32)
+            # (8, 3); a copy from the host, on this branch only
+            signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32,
+                                 device=rows.device)
+            fa = f[..., None, :]  # (..., 1, 3)
+            A = torch.where(signs > 0, fa, 1.0 - fa).to(torch.float32)  # (..., 8, 3)
+            s = torch.stack([
+                torch.sum(signs[:, a] * A[..., (a + 1) % 3] * A[..., (a + 2) % 3]
+                          * rg, dim=-1) for a in range(3)], dim=-1)
+            if cfg.interpolation == "Smoothstep":
+                s = s * (6.0 * frac_raw * (1.0 - frac_raw)).to(torch.float32)
+            s = s * float(resolutions[l])
+            gx = s if gx is None else gx + s
+        return (gx.to(ctx.x_dtype) if need_x else None, None, *tab_grads)
 
 
 def hash_encode(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
-    """Cell-layout encoding (forward). Checks the tables against the
-    config's row ladder, as ``acn_tpu`` does."""
+    """Cell-layout encoding. Checks the tables against the config's row
+    ladder, as ``acn_tpu`` does. Backward per ``cfg.cell_backward``:
+    ``"save_rows"`` is the hand-written one; ``"remat"``, and ``"Nearest"``
+    interpolation, leave it to autograd over ``_hash_encode_cell_impl``."""
     _require_cell(cfg)
     got = tuple(int(t.shape[0]) for t in tables)
     want = tuple(cfg.level_rows(l) for l in range(cfg.levels))
@@ -242,4 +332,8 @@ def hash_encode(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
         raise ValueError(
             f"hash table rows do not match the config ladder (config expects "
             f"{want}, tables have {got})")
+    if cfg.cell_backward not in ("save_rows", "remat"):
+        raise ValueError(f"unknown cell_backward {cfg.cell_backward!r}")
+    if cfg.cell_backward == "save_rows" and cfg.interpolation != "Nearest":
+        return _HashEncodeCellSaved.apply(x01, cfg, *tables)
     return _hash_encode_cell_impl(tables, x01, cfg)

@@ -133,3 +133,13 @@ def ngp_forward(
     out = ngp_density(params, cfg, aabb, x, return_feats=True)
     rgb = ngp_color(params, cfg, d, out["geo_feat"])
     return torch.cat([rgb, out["sigma"]], dim=-1)
+
+
+def param_group_labels(params: Params) -> Params:
+    """Every leaf's optimizer group — ``encoding``, ``sigma`` or ``color`` —
+    as a tree of strings of the parameters' structure
+    (``acn_tpu/models/ngp.py:159``)."""
+    group = {"hash_table": "encoding", "sigma_trunk": "sigma",
+             "sigma_head": "sigma", "geo_head": "sigma", "color_mlp": "color"}
+    return {name: nn.tree_map(lambda _: g, params[name])
+            for name, g in group.items()}

@@ -6,6 +6,11 @@ Port of ``acn_tpu/nerfs/render.py`` (``bg_default_color``,
 ``scatter_reduce_`` into a target with one spill row at the end that is
 sliced off. On the card ``index_add_`` accumulates with atomics, so its
 order (and the last bits of the sums) may change from run to run.
+
+``composite_packed`` is differentiable in the densities and colors: the
+gradient flows through ``index_add_``, ``torch.where(real, …)``,
+``log(1 − α + 1e-10)`` and ``seg_excl_sum``, whose backward on a CUDA tensor
+is one launch of the reverse scan kernel.
 """
 
 from __future__ import annotations
@@ -14,13 +19,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from acn_tpu_torch.models.nn import clip_half_ties
 from acn_tpu_torch.ops.segscan import seg_excl_sum
 
 
 def bg_default_color(n: int, bg_color: str = "white", *, device=None,
                      dtype=torch.float32) -> Optional[torch.Tensor]:
-    """Deterministic fallback background color: "white", "black" or "none"
-    (the random policy needs a PRNG stream and is not ported)."""
+    """Deterministic fallback background color: "white", "black" or "none"."""
+    if bg_color == "random":
+        raise NotImplementedError(
+            "the 'random' background policy is not ported (ROADMAP.md, left "
+            "out of slice 1); use the background MLP, 'white', 'black' or 'none'")
     if bg_color == "none":
         return None
     if bg_color == "white":
@@ -37,6 +46,7 @@ def composite_packed(
     n_rays: int,
     bg_rgb: Optional[torch.Tensor] = None,  # (N, 3)
     alpha_thre: float = 0.0,
+    with_stats: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict]:
     """Compositing directly over the ray-major packed sample buffer.
 
@@ -52,13 +62,16 @@ def composite_packed(
     their weights, as in JAX.
 
     Returns (rgb_map (N,3), depth (N,), acc (N,), extras {wmax, went}).
+    ``with_stats=False`` leaves the extras out (an empty dict): the training
+    loss does not read them, and eager PyTorch would otherwise compute them
+    and keep their graph in every loss (under ``jit`` XLA drops them).
     """
     t0_b, t1_b = samples["t0_b"], samples["t1_b"]
     rid = samples["ray_id"]
     real = samples["slot_real"]
 
     dt = torch.clamp(t1_b - t0_b, min=0.0)
-    sigma = torch.where(real, torch.clamp(sigmas_b, min=0.0), 0.0)
+    sigma = torch.where(real, clip_half_ties(sigmas_b, 0.0), 0.0)
     alpha = 1.0 - torch.exp(-sigma * dt)
     if alpha_thre > 0.0:
         alpha = torch.where(alpha >= alpha_thre, alpha, 0.0)
@@ -81,13 +94,15 @@ def composite_packed(
     depth = seg_sum(w * t_mid)
     acc = seg_sum(w)
 
+    if bg_rgb is not None:
+        rgb_map = rgb_map + (1.0 - acc[:, None]) * bg_rgb.to(rgb_map.dtype)
+    if not with_stats:
+        return rgb_map, depth, acc, {}
+
     # weight-shape stats: segment max and entropy of the weights
     wmax = torch.zeros(n_rays + 1, dtype=torch.float32, device=w.device)
     wmax = wmax.scatter_reduce_(0, rid_safe, w, "amax", include_self=True)[:n_rays]
     wlogw = seg_sum(w * torch.log(torch.clamp(w, min=1e-12)))
     wsum = torch.clamp(acc, min=1e-12)
     went = torch.log(wsum) - wlogw / wsum
-
-    if bg_rgb is not None:
-        rgb_map = rgb_map + (1.0 - acc[:, None]) * bg_rgb.to(rgb_map.dtype)
     return rgb_map, depth, acc, {"wmax": wmax, "went": went}

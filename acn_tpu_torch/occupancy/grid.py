@@ -1,11 +1,13 @@
 """Occupancy grids and budget-packed ray marching.
 
-Port of ``acn_tpu/occupancy/grid.py`` (the serving path's part):
+Port of ``acn_tpu/occupancy/grid.py`` (the packed-budget path's part):
 ``OccConfig``, ``level_aabbs``, ``init_occ_state``, ``occupancy_lookup`` and
-``march_rays_budget`` with bin midpoints (no jitter) and no coarse
-range-finding pre-pass. An occupancy state is a dict of tensors:
-``occs`` (L, R, R, R) f32, ``binaries`` (L, R, R, R) bool and ``aabbs``
-(L, 2, 3); the container's per-expert states carry a leading K axis.
+``march_rays_budget`` with bin midpoints or the counter-hash jitter
+(``_u01``) and no coarse range-finding pre-pass. The grid update, the
+strided ``march_rays`` and ``coarse_ray_range`` are not ported. An occupancy
+state is a dict of tensors: ``occs`` (L, R, R, R) f32, ``binaries``
+(L, R, R, R) bool and ``aabbs`` (L, 2, 3); the container's per-expert states
+carry a leading K axis.
 
 JAX's dropping scatter (``.at[i].set(v, mode="drop")``) becomes a scatter
 into a target with one spill slot at the end, sliced off afterwards.
@@ -15,15 +17,17 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 
 @dataclass(frozen=True)
 class OccConfig:
-    """The fields of ``acn_tpu``'s ``OccConfig`` that rendering reads, with
-    its defaults (the grid-update and annealing fields come with training)."""
+    """The fields of ``acn_tpu``'s ``OccConfig`` that marching and rendering
+    read, with its defaults. The training step marches fixed grids; the
+    fields of the grid update (EMA decay, annealing, update cadence) come
+    with ``update_occ_grid``."""
 
     resolution: int = 128
     levels: int = 1
@@ -91,6 +95,30 @@ def bin_edges(s_max: int, device: torch.device) -> torch.Tensor:
     return torch.linspace(0.0, 1.0, s_max + 1, dtype=torch.float32)[None, :].to(device)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h · c) mod 2³² for int64 ``h`` in [0, 2³²) and a constant below 2³²,
+    in two halves so that no product leaves int64 (h · c can reach 2⁶⁴)."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _u01(idx: torch.Tensor, salt: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Counter hash of non-negative integer ``idx`` and a salt → U[0, 1) in
+    float32 with 24 random bits: ``acn_tpu``'s ``_u01``
+    (``acn_tpu/occupancy/grid.py:483-488``) bit for bit. There it is uint32
+    arithmetic with wraparound; here int64, masked to 32 bits after every
+    multiply and before every shift."""
+    h = _mul32((idx.to(torch.int64) + salt) & _M32, 0x9E3779B1)
+    h = _mul32(h ^ (h >> 16), 0x85EBCA6B)
+    h = _mul32(h ^ (h >> 13), 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def march_rays_budget(
     state: Dict[str, torch.Tensor],
     rays: torch.Tensor,  # (N, 8)
@@ -98,6 +126,7 @@ def march_rays_budget(
     s_max: int,
     budget_per_ray: int,
     extra_valid_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    salt: Optional[Union[int, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Occupancy marching with a global cross-ray sample budget.
 
@@ -130,7 +159,8 @@ def march_rays_budget(
         torch.arange(N, dtype=torch.int64, device=dev)[:, None] * s_max
         + torch.arange(s_max, dtype=torch.int64, device=dev)[None, :]
     )  # (N, s_max)
-    t_s = t0 + 0.5 * (t1 - t0)
+    u = 0.5 if salt is None else _u01(flat_ids, salt)
+    t_s = t0 + u * (t1 - t0)
     x = o[:, None, :] + d[:, None, :] * t_s[..., None]  # (N, s_max, 3)
 
     valid = (t1 > t0) & occupancy_lookup(state, x)
@@ -158,7 +188,8 @@ def march_rays_budget(
     e1 = e0 + inv_s
     t0_b = nr * (1.0 - e0) + fr * e0
     t1_b = nr * (1.0 - e1) + fr * e1
-    t_sb = t0_b + 0.5 * (t1_b - t0_b)
+    u_b = 0.5 if salt is None else _u01(buffer_idx, salt)
+    t_sb = t0_b + u_b * (t1_b - t0_b)
     d_b = d[rid]
     xd = torch.cat([o[rid] + d_b * t_sb[:, None], d_b], dim=-1)
 

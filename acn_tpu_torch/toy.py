@@ -1,4 +1,4 @@
-"""The synthetic serving scene, built without JAX.
+"""The synthetic serving scene and training batch, built without JAX.
 
 The model is ``configs/train_occ.json`` as ``acn_tpu``'s runner resolves it
 (``runner.build_model_configs`` / ``build_occ_config`` with the config
@@ -7,27 +7,39 @@ with 2^(20−3) rows and dense coarse levels (min res 16, max res 4096),
 64-wide σ and color MLPs (σ depth 2, color depth 2), SH-4 directions and an
 SH-4 → 32 → 3 background MLP; boundary margin 1.05, 2-D clustering; an
 occupancy grid of 128³ × 1 level with alpha threshold 1e-2; a packed budget
-of 32 samples per ray over 256 bins, and 4,000,000 chunk points.
+of 32 samples per ray over 256 bins, and 4,000,000 chunk points. Training:
+FoMAML with 8 inner steps at rate 0.015, bf16 compute (``use_amp``), Adam
+with per-group rates decayed tenfold over 10,000 steps, the global-norm clip
+at 1 and the non-finite guard; 3 tasks per expert of 1,024 support and 512
+query rays.
 
 The scene is the one the JAX package's render benchmark builds
 (``acn_tpu/scripts/bench_render.py``): the [-1, 1]³ box cut into four
 quadrant expert AABBs with ~10 % overlap, centroids at (0, ±0.55, ±0.55),
 per-expert random occupancy at a 10 % fill, and an overhead camera. Weights
-are random, drawn from a seed.
+are random, drawn from a seed. The training batch is the synthetic one of
+the JAX package's step benchmark (``bench.py``): rays from z = 2 down
+through the box, random colors.
 """
 
 from __future__ import annotations
 
 import types
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
-from acn_tpu_torch.models.container import Container, ContainerConfig, init_container
+from acn_tpu_torch.models.container import (
+    Container,
+    ContainerConfig,
+    init_container,
+    param_group_labels,
+)
 from acn_tpu_torch.models.encodings import HashGridConfig
 from acn_tpu_torch.models.ngp import NGPConfig
 from acn_tpu_torch.occupancy.grid import OccConfig, init_occ_state
+from acn_tpu_torch.utils.optim import Optimizer, build_optimizer
 
 SCENE_AABB = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
 
@@ -53,6 +65,13 @@ def train_occ_config() -> Tuple[ContainerConfig, types.SimpleNamespace, OccConfi
         ray_samples=96, chunk_points=4_000_000, bg_color_default="random",
         occ_s_max=256, occ_s_kept=64, occ_budget_per_ray=32,
         occ_render_s_max=0,
+        # training (configs/train_occ.json over the config defaults)
+        algo="fomaml", inner_iter=8, inner_lr=0.015, use_amp=True,
+        color_space="linear", train_chunk_rays=0, fim=False,
+        batch_size=3, support_rays=1024, query_rays=512,
+        optimizer="adam", encoding_lr=1e-2, sigma_lr=2e-3, color_lr=2e-3,
+        bg_lr=1e-3, lr=1e-4, outer_steps=10_000, decay_factor=10.0,
+        no_scheduler=False, grad_clip=1.0, guard_nonfinite=1,
     )
     occ_cfg = OccConfig(resolution=128, levels=1, alpha_thre=1e-2,
                         near_plane=0.0, far_plane=100000.0)
@@ -110,3 +129,38 @@ def overhead_camera(H: int, W: int) -> Dict[str, np.ndarray]:
     fy = 0.7 * H
     intr = np.array([fy, fy, W / 2, H / 2], np.float32)
     return {"c2w": c2w, "intrinsics": intr, "aabb": SCENE_AABB.copy()}
+
+
+def training_batch(K: int, T: int, S: int, Q: int,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """The synthetic episode batch of ``bench.py``: for every expert and
+    task, S support and Q query rays (o, d, near, far) that start on the
+    plane z = 2 within |x|, |y| < 0.5 and point down (d_z ≤ −0.5 before
+    normalization) over [1, 3], with uniform random colors.
+    {support_rays (K, T, S, 8), support_rgbs (K, T, S, 3), query_rays,
+    query_rgbs}, float32."""
+    rng = np.random.default_rng(seed)
+    n = S + Q
+    o = np.concatenate(
+        [rng.uniform(-0.5, 0.5, (K, T, n, 2)).astype(np.float32),
+         np.full((K, T, n, 1), 2.0, np.float32)], axis=-1)
+    d = rng.normal(size=(K, T, n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[..., 2] = -np.abs(d[..., 2]) - 0.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    nf = np.concatenate([np.full((K, T, n, 1), 1.0, np.float32),
+                         np.full((K, T, n, 1), 3.0, np.float32)], axis=-1)
+    rays = np.concatenate([o, d, nf], axis=-1)
+    rgbs = rng.uniform(0, 1, (K, T, n, 3)).astype(np.float32)
+    return {"support_rays": rays[:, :, :S], "support_rgbs": rgbs[:, :, :S],
+            "query_rays": rays[:, :, S:], "query_rgbs": rgbs[:, :, S:]}
+
+
+def init_train_state(model: Container, P) -> Tuple[Optimizer, Dict[str, Any]]:
+    """(optimizer, fresh training state {"model", "opt_state", "step"}) for
+    ``make_meta_train_step``: per-group Adam over the model's parameters with
+    P's rates, clip and guard."""
+    params = model.params()
+    opt = build_optimizer(P, param_group_labels(params),
+                          grad_clip=getattr(P, "grad_clip", 1.0))
+    return opt, {"model": model, "opt_state": opt.init(params), "step": 0}

@@ -2,7 +2,8 @@
 """GPU smoke test of the PyTorch port (acn_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --profile DIR   # also profile one frame, table in DIR
+    python3 chip_smoke.py --profile DIR   # also profile one frame and one
+                                          # training step, tables in DIR
 
 Phases, each printing one JSON line and each fatal on failure:
 
@@ -22,7 +23,20 @@ Phases, each printing one JSON line and each fatal on failure:
    ``render_rays`` on the CPU (plain scan) on 2,048 rays of that frame, at
    the config's alpha threshold and at alpha threshold 0 with the σ-head
    bias raised to +2 (so the scan sees opaque samples);
-5. the kernels line, then the card's ``nvidia-smi`` line, then the result
+5. train step: four FoMAML meta-training steps (one warm, three timed) of
+   that model through ``make_meta_train_step`` in the packed-budget regime,
+   bf16 compute, 3 tasks of 1,024 support and 512 query rays per expert,
+   salts from a seeded generator; every metric finite, every parameter
+   moved, the optimizer's count at 4, and the scan's forward and reverse
+   kernels each launched K·T·(inner_iter + 1) = 108 times per step; the
+   host's waits for the card in one step; both kernels against their plain
+   versions, and timed, on the segments of a real support and query march
+   (B = 32,768 and 16,384); one episode's loss and gradient on the card
+   (kernels) against the CPU (plain scans) in float32; and that episode in
+   bf16, as the step runs it, on the card against the CPU and against
+   float32 on the card (loss, and each parameter group's gradient as one
+   vector, in length and direction);
+6. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -40,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -50,6 +65,12 @@ SERVING_B = 983_040  # packed samples per 1080p chunk (30,720 rays × 32)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 EPS32 = float(np.finfo(np.float32).eps)
+# the bf16 episode against a second computation of it: the loss within this
+# relative error; a parameter group's gradient, as one vector, within this
+# factor in length and this cosine in direction
+BF16_LOSS_RTOL = 2e-3
+BF16_NORM_FACTOR = 1.05
+BF16_MIN_COS = 0.99
 
 
 def emit(obj) -> None:
@@ -271,6 +292,7 @@ def phase_kernel(torch, segscan, bench):
     reverse_ms = time_ms(lambda: segscan.seg_excl_rsum_kernel(g, s), 100)
     flips_ms = time_ms(via_flips, 100)
     plain_ms = time_ms(lambda: segscan.seg_excl_sum_plain(x, s), 20)
+    reverse_plain_ms = time_ms(lambda: segscan.seg_excl_rsum_plain(g, s), 20)
     bytes_moved = SERVING_B * (4 + 1 + 4)  # read x and flag, write out
     bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
                          SERVING_B / F32_OPS_PER_S)
@@ -278,7 +300,8 @@ def phase_kernel(torch, segscan, bench):
           "two_streams": two, "epoch_wrap": wrap,
           "max_abs_err": worst, "B": SERVING_B, "ms": ms,
           "reverse_ms": reverse_ms, "reverse_via_flips_ms": flips_ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "plain_ms": plain_ms, "reverse_plain_ms": reverse_plain_ms,
+          "bound_ms": bound_ms, "bound_by": "bytes",
           "bytes_per_launch": bytes_moved,
           # what the clock costs: per launch when ten scans run between one
           # pair of events; a one-element PyTorch kernel between a pair; and
@@ -307,8 +330,10 @@ def phase_kernel(torch, segscan, bench):
     emit({"sweep": sweep, "bytes_per_element": 9,
           "one_element_scan_ms": time_ms(
               lambda: segscan.seg_excl_sum_kernel(x[:1], s[:1]), 100)})
-    return {"max_abs_err": worst, "ms": ms, "reverse_ms": reverse_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms}
+    rev_worst = max(c["rev"]["err"] for c in errs.values())
+    return {"max_abs_err": worst, "reverse_max_abs_err": rev_worst, "ms": ms,
+            "reverse_ms": reverse_ms, "plain_ms": plain_ms,
+            "reverse_plain_ms": reverse_plain_ms, "bound_ms": bound_ms}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -344,24 +369,21 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
     # every wait of the host for the card in one frame: the frame's inputs
     # and its end may wait, a chunk may not
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        renderer.render_image(model, occ, H=H, W=W, download=False, **cam)
-    torch.cuda.set_sync_debug_mode("default")
-    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
-                                for w in caught if "synchroniz" in str(w.message))
-    syncs = sum(sites.values())
+    _, syncs, sites = host_syncs(torch, lambda: renderer.render_image(
+        model, occ, H=H, W=W, download=False, **cam))
     check(syncs < chunks, f"{syncs} host syncs in a frame of {chunks} chunks "
-          f"at {dict(sites)}")
+          f"at {sites}")
     t0 = time.perf_counter()
     rgb, depth, acc = renderer.render_image(model, occ, H=H, W=W, **cam)
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     launches = segscan.seg_excl_sum_kernel.launches
+    rev_launches = segscan.seg_excl_rsum_kernel.launches
     frames = 6
     check(launches == chunks * frames,
           f"seg_excl_sum launched {launches} times, want {chunks} chunks × "
           f"{frames} frames")
+    check(rev_launches == 0, f"seg_excl_rsum launched {rev_launches} times in "
+          f"{frames} frames, want 0: serving takes no gradient")
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all()
           and np.isfinite(depth).all() and np.isfinite(acc).all(),
           "the frame is not finite or has the wrong shape")
@@ -369,9 +391,9 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
           "packed_samples_per_chunk": rows * W * int(P.occ_budget_per_ray),
           "chunks_per_frame": chunks, "frames": frames,
           "seg_excl_sum_launches": launches,
-          "seg_excl_rsum_launches": segscan.seg_excl_rsum_kernel.launches,
+          "seg_excl_rsum_launches": rev_launches,
           "host_syncs_per_frame": syncs,
-          "host_sync_sites": dict(sites),
+          "host_sync_sites": sites,
           "setup_s": setup_s, "warm_frame_ms": warm_ms, "frame_ms": frame_ms,
           "mean_frame_ms": statistics.mean(frame_ms),
           "frame_ms_with_download": e2e_ms,
@@ -407,7 +429,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
               "scan_kernel_launches": scan_n,
               "scan_kernel_mean_us": scan_us / max(scan_n, 1)})
-    return model, occ, cam, launches
+    return model, occ, cam, (launches, rev_launches)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -451,6 +473,281 @@ def phase_vs_cpu(torch, toy, Renderer, model, occ, cam):
           "the opaque case composited nothing opaque")
     emit({"phase": "main_path_vs_cpu", "rays": 2048, "atol": atol,
           "rtol": rtol, **out})
+    return occ_cpu
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def host_syncs(torch, fn):
+    """Run ``fn`` with PyTorch's sync debug mode on; (its result, the count
+    of host waits for the card, their sites)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in caught if "synchroniz" in str(w.message))
+    return out, sum(sites.values()), dict(sites)
+
+
+def scan_on_training_segments(torch, segscan, bench, samples) -> dict:
+    """Both kernels against their plain versions, and timed, on the segment
+    boundaries of one real training march (its packed ray ids), with the
+    log-transmittance of random opacities as values."""
+    rid, real = samples["ray_id"], samples["slot_real"]
+    B = int(rid.numel())
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=rid.device),
+                        rid[1:] != rid[:-1]])
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    alpha = torch.where(real, torch.rand(B, generator=gen, device="cuda") ** 3, 0.0)
+    x = torch.log(1.0 - 0.999 * alpha + 1e-10)
+    g = torch.randn(B, generator=gen, device="cuda")
+    fwd, rev = compare(segscan.seg_excl_sum_kernel(x, starts),
+                       segscan.seg_excl_sum_plain(x, starts), x, starts), \
+        compare(segscan.seg_excl_rsum_kernel(g, starts),
+                segscan.seg_excl_rsum_plain(g, starts), g, starts)
+    check(fwd["ok"] and rev["ok"], f"kernel disagrees with the plain version "
+          f"on a training march of B = {B}: {fwd} {rev}")
+    return {"B": B, "segments": int(starts.sum()), "real": int(real.sum()),
+            "max_abs_err": fwd["err"], "reverse_max_abs_err": rev["err"],
+            "ms": bench.time_ms(lambda: segscan.seg_excl_sum_kernel(x, starts), 100),
+            "reverse_ms": bench.time_ms(
+                lambda: segscan.seg_excl_rsum_kernel(g, starts), 100),
+            "plain_ms": bench.time_ms(
+                lambda: segscan.seg_excl_sum_plain(x, starts), 20),
+            "reverse_plain_ms": bench.time_ms(
+                lambda: segscan.seg_excl_rsum_plain(g, starts), 20),
+            "bound_ms": 1e3 * 9 * B / HBM_BYTES_PER_S}
+
+
+def episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np) -> dict:
+    """One episode's loss and gradient, 256 rays, one salt, the σ-head bias at
+    +2 so that the transmittance (and with it the reverse scan) carries weight:
+    float32 on the card (scan kernels) against float32 on the CPU (plain
+    scans); the bf16 episode (``use_amp``, the path the step runs) on the card
+    against the same on the CPU, and against the float32 one on the card."""
+    cfg, P, occ_cfg = toy.train_occ_config()
+    rays, rgbs = batch_np["support_rays"][0, 0, :256], batch_np["support_rgbs"][0, 0, :256]
+    n_tables = len(model_cpu.params()["experts"]["hash_table"])
+    out = {}
+    for label, dev, amp in (("card", "cuda", False), ("cpu", "cpu", False),
+                            ("card_bf16", "cuda", True), ("cpu_bf16", "cpu", True)):
+        P_run = types.SimpleNamespace(**{**vars(P), "use_amp": amp})
+        loss_fn, prep = ts.make_episode_loss(cfg, P_run, occ_cfg)
+        params = model_cpu.params()
+        expert = nn.tree_map(
+            lambda a: a[0].detach().clone().to(dev).requires_grad_(True),
+            params["experts"])
+        with torch.no_grad():
+            expert["sigma_head"]["b"].fill_(2.0)
+        bg = nn.tree_map(lambda a: a.detach().to(dev), params["bg_mlp"])
+        r = torch.from_numpy(rays).to(dev)
+        smp = prep({k: v[0].to(dev) for k, v in occ_cpu.items()}, r, 12345)
+        loss = loss_fn(expert, bg, model_cpu.expert_aabbs[0].to(dev), r,
+                       torch.from_numpy(rgbs).to(dev), smp)
+        leaves = nn.tree_leaves(expert)
+        grads = torch.autograd.grad(loss, leaves)
+        check(all(g.dtype == torch.float32 for g in grads),
+              f"{label}: a gradient of a float32 leaf is not float32")
+        out[label] = (float(loss.detach()), [g.double().cpu() for g in grads])
+    (lg, gg), (lc, gc) = out["card"], out["cpu"]
+    (lb, gb), (lbc, gbc) = out["card_bf16"], out["cpu_bf16"]
+    # tolerances: cuBLAS sums f32 products in another order than the CPU;
+    # the table gradient is a scatter-add with atomics, whose order is free
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"episode loss: card {lg}, CPU {lc}")
+    err = {"table": 0.0, "mlp": 0.0}
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        kind = "table" if i < n_tables else "mlp"
+        rtol = 1e-3 if kind == "table" else 1e-4
+        err[kind] = max(err[kind], float((a - b).abs().max()))
+        check(torch.allclose(a, b, atol=1e-6, rtol=rtol),
+              f"episode gradient leaf {i} ({kind}): card vs CPU max |diff| "
+              f"{float((a - b).abs().max())}")
+    check(any(float(g.abs().max()) > 0 for g in gc[:n_tables]),
+          "the episode's table gradient is all zero")
+
+    def against(ga, gb_, sl):
+        """Two gradients' leaves ``sl`` as one vector each: (ratio of their
+        lengths, cosine of their angle)."""
+        a = torch.cat([g.reshape(-1) for g in ga[sl]])
+        b = torch.cat([g.reshape(-1) for g in gb_[sl]])
+        return (float(a.norm() / b.norm()),
+                float((a * b).sum() / (a.norm() * b.norm())))
+
+    groups = (("table", slice(0, n_tables)), ("mlp", slice(n_tables, None)))
+    # The bf16 episode (the path the step runs) on the card against the same
+    # episode on the CPU: one arithmetic, so the same cells; the matmuls
+    # round to bf16 from sums taken in another order, and the table
+    # gradient's bf16 scatter-add depends on its order (atomics on the card).
+    # So no entry is compared: the loss, and each group's gradient as one
+    # vector, in length and in direction.
+    check(all(bool(torch.isfinite(g).all()) for g in gb),
+          "the bf16 episode's gradient on the card is not finite")
+    same = {"loss_card": lb, "loss_cpu": lbc, "loss_rel_err": abs(lb - lbc) / abs(lbc)}
+    for kind, sl in groups:
+        ratio, cos = against(gb, gbc, sl)
+        same[kind] = {"norm_ratio": ratio, "cos": cos}
+    same["table_cos_by_level"] = [against(gb, gbc, slice(i, i + 1))[1]
+                                  for i in range(n_tables)]
+    check(same["loss_rel_err"] <= BF16_LOSS_RTOL and all(
+        1.0 / BF16_NORM_FACTOR <= same[k]["norm_ratio"] <= BF16_NORM_FACTOR
+        and same[k]["cos"] >= BF16_MIN_COS for k, _ in groups),
+        f"bf16 episode, card against CPU: {same}")
+    # bf16 against float32, both on the card: the loss and the MLP gradient
+    # are held. The table gradient is reported level by level and not held,
+    # because the two land on different entries, as in the reference: the
+    # grids span the scene and an expert's box is a quadrant of it, so most
+    # samples are clamped to x01 = 1 − ε, which bf16 rounds to 1.0 (cell
+    # `res`, fraction 0, where float32 has cell `res − 1`, fraction ≈ 1); and
+    # x·resolution in bf16 keeps 8 bits, so from a resolution of about a
+    # hundred on the bf16 cell is another cell than the float32 one.
+    vs32 = {"loss_rel_err": abs(lb - lg) / abs(lg)}
+    ratio, cos = against(gb, gg, groups[1][1])
+    vs32["mlp"] = {"norm_ratio": ratio, "cos": cos}
+    vs32["table_norm_ratio"] = against(gb, gg, groups[0][1])[0]
+    vs32["table_cos_by_level"] = [against(gb, gg, slice(i, i + 1))[1]
+                                  for i in range(n_tables)]
+    check(vs32["loss_rel_err"] <= BF16_LOSS_RTOL
+          and 1.0 / BF16_NORM_FACTOR <= ratio <= BF16_NORM_FACTOR
+          and cos >= BF16_MIN_COS,
+          f"bf16 episode against float32, both on the card: {vs32}")
+    return {"rays": 256, "loss_card": lg, "loss_cpu": lc,
+            "max_abs_err_table_grad": err["table"],
+            "max_abs_err_mlp_grad": err["mlp"],
+            "bf16_card_vs_cpu": same, "bf16_vs_f32_on_card": vs32}
+
+
+def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir):
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+
+    cfg, P, occ_cfg = toy.train_occ_config()
+    K, T = cfg.num_submodules, int(P.batch_size)
+    S, Q = int(P.support_rays), int(P.query_rays)
+    per_step = K * T * (int(P.inner_iter) + 1)
+    torch.cuda.empty_cache()
+    model = toy.serving_model(cfg, seed=0, device="cuda")
+    occ = {k: v.cuda() for k, v in occ_cpu.items()}
+    batch_np = toy.training_batch(K, T, S, Q, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    opt, state = toy.init_train_state(model, P)
+    step = ts.make_meta_train_step(cfg, P, opt, occ_cfg)  # the card by default
+    gen = torch.Generator().manual_seed(0)
+    start = nn.tree_map(lambda p: p.detach().clone(), model.params())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    step_ms, launches, metrics, syncs, sites = [], [], None, 0, {}
+    for i in range(4):  # one warm step, three timed
+        salts = ts.draw_salts(K, T, gen)
+        segscan.seg_excl_sum_kernel.launches = 0
+        segscan.seg_excl_rsum_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 3:  # the last timed step also counts the host's waits
+            (state, metrics), syncs, sites = host_syncs(
+                torch, lambda: step(state, batch, occ, salts))
+        else:
+            state, metrics = step(state, batch, occ, salts)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append((segscan.seg_excl_sum_kernel.launches,
+                         segscan.seg_excl_rsum_kernel.launches))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check(all(l == (per_step, per_step) for l in launches),
+          f"scan kernel launches per step (forward, reverse) {launches}, want "
+          f"{per_step} of each")
+    check(syncs < per_step, f"{syncs} host syncs in a step of {per_step} "
+          f"episode losses at {sites}")
+    m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+    check(set(m) == {"loss_out", "loss_in", "psnr_out", "psnr_in", "loss_total",
+                     "grad_norm", "occ_overflow"}
+          and all(np.isfinite(v).all() for v in m.values()),
+          f"a metric is missing or not finite: {m}")
+    check(0.0 <= float(m["occ_overflow"]) <= 1.0 and float(m["grad_norm"]) > 0.0,
+          f"occ_overflow {m['occ_overflow']}, grad_norm {m['grad_norm']}")
+    check(int(state["opt_state"]["count"]) == 4 and state["step"] == 4
+          and int(state["opt_state"]["total_notfinite"]) == 0,
+          f"optimizer count {int(state['opt_state']['count'])}, step "
+          f"{state['step']}, want 4; skipped updates "
+          f"{int(state['opt_state']['total_notfinite'])}, want 0")
+    moved = {}
+
+    def note(a, b, label):
+        changed = bool((a != b).any()) and bool(torch.isfinite(b).all())
+        moved[label] = moved.get(label, True) and changed
+
+    nn.tree_map(note, start, model.params(), opt.labels)
+    check(set(moved) == {"encoding", "sigma", "color", "background"}
+          and all(moved.values()), f"parameter groups that moved: {moved}")
+    del start
+
+    # the kernels on the segments of a real support and a real query march
+    prep = ts.make_episode_loss(cfg, P, occ_cfg)[1]
+    occ0 = {k: v[0] for k, v in occ.items()}
+    shapes = [scan_on_training_segments(
+        torch, segscan, bench, prep(occ0, batch[name][0, 0], 12345))
+        for name in ("support_rays", "query_rays")]
+    check([s["B"] for s in shapes] == [S * int(P.occ_budget_per_ray),
+                                       Q * int(P.occ_budget_per_ray)],
+          f"packed samples per episode {[s['B'] for s in shapes]}")
+    vs_cpu = episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np)
+
+    rays_per_step = K * T * (int(P.inner_iter) * S + Q)  # ray renders per step
+    emit({"phase": "train_step", "K": K, "T": T, "support_rays": S,
+          "query_rays": Q, "inner_iter": int(P.inner_iter), "use_amp": bool(P.use_amp),
+          "step_ms": step_ms, "mean_step_ms": statistics.mean(step_ms),
+          "rays_per_s": rays_per_step / (1e-3 * statistics.mean(step_ms)),
+          "fwd_launches_per_step": launches[-1][0],
+          "rev_launches_per_step": launches[-1][1],
+          "syncs_per_step": syncs, "sync_sites": sites, "peak_mem_mb": peak_mb,
+          "metrics": {k: v.tolist() for k, v in m.items()},
+          "scan_on_training_segments": shapes,
+          "one_element_add_ms": bench.time_ms(
+              lambda: torch.zeros(1, device="cuda").add_(1.0), 100),
+          "episode_card_vs_cpu": vs_cpu})
+
+    if profile_dir:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        salts = ts.draw_salts(K, T, gen)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch, occ, salts)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == DeviceType.CUDA)
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=45)
+        (Path(profile_dir) / "train_step_kernels.txt").write_text(table)
+        print(table, flush=True)
+        # the step waits on the host: the same events by the host's own time
+        host = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30)
+        (Path(profile_dir) / "train_step_host.txt").write_text(host)
+        print(host, flush=True)
+        scan = {}
+        for e in prof.key_averages():
+            if "seg_scan_kernel" in e.key:
+                us = (getattr(e, "device_time_total", 0)
+                      or getattr(e, "cuda_time_total", 0))
+                scan[e.key[:120]] = {"launches": e.count,
+                                     "mean_us": us / max(e.count, 1)}
+        emit({"phase": "train_step_profile", "step_wall_ms": wall_ms,
+              "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+              "scan_kernels": scan,
+              "scan_share_of_busy": 1e-3 * sum(
+                  v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
+    return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
+            "steps": len(launches), "shapes": shapes}
 
 
 # ---------------------------------------------------------------- main
@@ -486,19 +783,44 @@ def main() -> int:
           "ptxas": cuda_lib.build_log()})
 
     k = phase_kernel(torch, segscan, bench_segscan)
-    model, occ, cam, launches = phase_main_path(
+    model, occ, cam, (fwd_render, rev_render) = phase_main_path(
         torch, segscan, toy, Renderer, args.profile)
-    phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
+    occ_cpu = phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
+    del model, occ
+    cfg = toy.train_occ_config()[0]
+    train = phase_train_step(torch, segscan, bench_segscan, toy,
+                             toy.serving_model(cfg, seed=0, device="cpu"),
+                             occ_cpu, args.profile)
 
-    emit({"kernels": [{
-        "name": "seg_excl_sum", "route": "cuda",
-        "source": "acn_tpu_torch/csrc/segscan.cu",
-        "replaces": "acn_tpu/ops/segscan.py:180",
-        "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "library_note": "no single PyTorch call computes a segmented scan",
-    }]})
+    # launches: the counters as read after the main paths' runs (6 frames;
+    # the sum over the 4 training steps), each counted from 0 just before its
+    # path was driven. ms, plain_ms and bound_ms at the serving chunk
+    # (B = 983,040); "train_shapes" holds the same at the training step's
+    # B = 32,768 and 16,384.
+    fwd_train, rev_train = train["launches"]
+    common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
+              "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
+              "library_note": "no single PyTorch call computes a segmented scan"}
+    emit({"kernels": [
+        {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
+         "launches": fwd_render + fwd_train,
+         "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train},
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
+         "train_shapes": [{key: sh[key] for key in (
+             "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             for sh in train["shapes"]], **common},
+        {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
+         "launches": rev_render + rev_train,
+         "launches_by_path": {"render_image": rev_render, "train_step": rev_train},
+         "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
+         "plain_ms": k["reverse_plain_ms"],
+         "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],
+                           "plain_ms": sh["reverse_plain_ms"],
+                           "bound_ms": sh["bound_ms"],
+                           "max_abs_err": sh["reverse_max_abs_err"]}
+                          for sh in train["shapes"]], **common},
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,9 @@ flip an occupancy or hash cell, so a mismatch is a fault to find, not a
 tolerance to loosen. Float outputs: the packed geometry is the same f32
 arithmetic (rtol 1e-6); composited colors go through f32 MLPs, exp/log and
 differently ordered segment sums (atol 1e-5 on values in [0, 1], rtol 1e-5
-on depths).
+on depths). With jitter (the counter hash ``_u01``) the same holds, and
+the jitter itself is bit-equal. ``composite_packed``'s gradients: rtol 1e-4 /
+atol 1e-6 (the reverse scan and the segment sums add in another order).
 """
 
 import jax
@@ -143,3 +145,107 @@ def test_render_rays_occ_budget_matches(scene, alpha_thre):
                                atol=1e-5)
     np.testing.assert_allclose(extras_g["wmax"].numpy(),
                                np.asarray(extras_w["wmax"]), atol=1e-5)
+
+
+# ------------------------------------------------ jitter and the gradients
+
+
+def _u01_uint32(idx, salt):
+    """acn_tpu's ``_u01`` (a closure of its ``march_rays_budget``) in numpy
+    uint32 arithmetic."""
+    with np.errstate(over="ignore"):
+        h = (idx.astype(np.uint32) + np.uint32(salt)) * np.uint32(0x9E3779B1)
+        h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+        h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        h = h ^ (h >> np.uint32(16))
+    return (h >> np.uint32(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+@pytest.mark.parametrize("salt", [0, 1, 0x7FFFFFFE, 0x12345678, 0x7FFF0000])
+def test_u01_bit_equal_to_uint32_arithmetic(salt):
+    idx = np.concatenate([np.arange(4096), np.random.default_rng(salt % 97)
+                          .integers(0, 2**31 - 1, 4096)]).astype(np.int64)
+    want = _u01_uint32(idx, salt)
+    got = tgrid._u01(torch.from_numpy(idx), salt).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(  # the salt as a tensor, as on the card
+        tgrid._u01(torch.from_numpy(idx), torch.tensor(salt)).numpy(), want)
+    assert got.min() >= 0.0 and got.max() < 1.0 and 0.4 < got.mean() < 0.6
+
+
+@pytest.mark.parametrize("seed,budget", [(0, 64), (1, 6), (2, 2), (3, 6)])
+def test_march_rays_budget_jittered_exact(scene, seed, budget):
+    """One expert's grid, no extra validity, with jitter, as the training
+    step marches: the salt acn_tpu draws from its key goes to the port.
+    Integers equal, floats bit-equal; JAX op by op (no fusion)."""
+    rays = _rays(seed=seed)
+    key = jax.random.PRNGKey(seed)
+    salt = int(jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max))
+    jstate = {k: v[1] for k, v in scene.jocc.items()}
+    tstate = {k: v[1] for k, v in scene.tocc.items()}
+    with jax.disable_jit():
+        want = jax.device_get(jgrid.march_rays_budget(
+            jstate, jnp.asarray(rays), scene.jocc_cfg, 64, budget, key=key))
+    got = tgrid.march_rays_budget(tstate, torch.from_numpy(rays),
+                                  scene.tocc_cfg, 64, budget, salt=salt)
+    mid = tgrid.march_rays_budget(tstate, torch.from_numpy(rays),
+                                  scene.tocc_cfg, 64, budget)
+    for k in INT_KEYS + ("t0_b", "t1_b", "xd", "t_starts", "t_ends", "overflow"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    assert not torch.equal(got["xd"], mid["xd"])  # the jitter moved the samples
+
+
+def _composite_inputs(scene, seed):
+    rays = _rays(seed=seed)
+    smp, _ = _march_both(scene, rays, 64, 6)
+    rng = np.random.default_rng(seed + 20)
+    B = smp["xd"].shape[0]
+    sig = rng.exponential(8.0, B).astype(np.float32)
+    sig[::17] = 0.0  # σ on the clamp's bound
+    rgb = rng.random((B, 3)).astype(np.float32)
+    bg = rng.random((rays.shape[0], 3)).astype(np.float32)
+    ct = rng.normal(size=(rays.shape[0], 3)).astype(np.float32)
+    return rays.shape[0], smp, sig, rgb, bg, ct
+
+
+@pytest.mark.parametrize("alpha_thre", [0.0, 0.05])
+def test_composite_packed_gradients_match_jax_grad(scene, alpha_thre):
+    n, smp, sig, rgb, bg, ct = _composite_inputs(scene, 5)
+    jsmp = {k: jnp.asarray(v) for k, v in smp.items()}
+
+    def jfn(s, c, b):
+        out = jrender.composite_packed(s, c, jsmp, n, b, alpha_thre)
+        return jnp.sum(out[0] * ct) + jnp.sum(out[2])
+
+    want = jax.jit(jax.grad(jfn, argnums=(0, 1, 2)))(
+        jnp.asarray(sig), jnp.asarray(rgb), jnp.asarray(bg))
+    args = [torch.tensor(a, requires_grad=True) for a in (sig, rgb, bg)]
+    tsmp = {k: torch.from_numpy(np.array(v)) for k, v in smp.items()}
+    out = trender.composite_packed(args[0], args[1], tsmp, n, bg_rgb=args[2],
+                                   alpha_thre=alpha_thre, with_stats=False)
+    assert out[3] == {}
+    (torch.sum(out[0] * torch.from_numpy(ct)) + torch.sum(out[2])).backward()
+    for a, w, name in zip(args, want, ("sigma", "rgb", "bg")):
+        assert float(a.grad.abs().max()) > 0
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_composite_packed_stats_do_not_change_the_rest(scene):
+    n, smp, sig, rgb, bg, _ = _composite_inputs(scene, 6)
+    tsmp = {k: torch.from_numpy(np.array(v)) for k, v in smp.items()}
+    a = trender.composite_packed(torch.from_numpy(sig), torch.from_numpy(rgb),
+                                 tsmp, n, bg_rgb=torch.from_numpy(bg))
+    b = trender.composite_packed(torch.from_numpy(sig), torch.from_numpy(rgb),
+                                 tsmp, n, bg_rgb=torch.from_numpy(bg),
+                                 with_stats=False)
+    assert set(a[3]) == {"wmax", "went"} and b[3] == {}
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
+def test_random_background_policy_is_named_as_not_ported():
+    with pytest.raises(NotImplementedError, match="random"):
+        trender.bg_default_color(2, "random")
+    with pytest.raises(ValueError):
+        trender.bg_default_color(2, "plaid")

@@ -10,6 +10,9 @@ acn_tpu_torch.convert. Tolerances, with their reasons:
 * elementwise polynomials (SH) and the hash blend: rtol/atol ~1e-6 — the
   same f32 operations, summed in a possibly different order.
 
+* hash-encode gradients: atol 1e-6 — the table gradient is a scatter-add
+  whose order differs; bf16 cell decisions (floor, fraction) are exact.
+
 ``small_scene`` is shared with the other test_torch_* files.
 """
 
@@ -36,6 +39,8 @@ from acn_tpu_torch import convert
 from acn_tpu_torch.models import container as tcont
 from acn_tpu_torch.models import encodings as tenc
 from acn_tpu_torch.models import ngp as tngp
+from acn_tpu_torch.models import nn as tnn
+from acn_tpu.models import nn as jnn
 from acn_tpu_torch.models.trunc_exp import trunc_exp as ttrunc_exp
 
 # L4/F2, 2^10 rows, resolutions 4, 10, 25, 64: two dense levels, two hashed
@@ -51,17 +56,18 @@ def _jax_init(jcfg):
 
 
 def small_scene(K=4, sigma_bias=None, alpha_thre=0.0, budget=8, s_max=64,
-                fill=0.3, seed=0):
-    """A small K-expert scene in both packages.
+                fill=0.3, seed=0, hash_kw=None, use_bg_nerf=True):
+    """A small K-expert scene in both packages (hash grid ``SMALL_HASH``
+    unless ``hash_kw`` gives another).
 
     Returns a namespace with the JAX side (jcfg, jvars, jocc_cfg, jocc) and
     the port's (tcfg, model, tocc_cfg, tocc) on the CPU, holding the same
     weights and occupancy, plus the render params P."""
     jcfg = JContainerConfig(
         num_submodules=K, boundary_margin=1.05, cluster_2d=True,
-        use_bg_nerf=True, bg_hidden=8,
+        use_bg_nerf=use_bg_nerf, bg_hidden=8,
         expert=JNGPConfig(hidden=16, color_hidden=16, color_depth=2,
-                          hash=JHashGridConfig(**SMALL_HASH)),
+                          hash=JHashGridConfig(**(hash_kw or SMALL_HASH))),
     )
     rng = np.random.default_rng(seed)
     quad = []
@@ -258,3 +264,184 @@ def test_port_init_matches_jax_init_shapes_and_bias(scene):
         assert torch.all(model.experts["sigma_head"]["b"] == -1.0)
         w = model.experts["sigma_trunk"][0]["w"]
         assert float(w.abs().max()) <= 1.0 / np.sqrt(w.shape[1])
+
+
+# ------------------------------------------------ the training slice's parts
+
+
+def _hash_grads(interpolation, cell_backward):
+    """Table and x gradients of Σ(encode · cotangent) in both packages."""
+    kw = dict(SMALL_HASH, interpolation=interpolation, cell_backward=cell_backward)
+    cfg_j, cfg_t = JHashGridConfig(**kw), tenc.HashGridConfig(**kw)
+    rng = np.random.default_rng(11)
+    # features of size 0.02: the x gradient (features × resolution, summed
+    # over levels) is then of order 1, and atol 1e-6 is a few of its ulps
+    tables = [(0.02 * rng.normal(size=(cfg_j.level_rows(l),
+                                       8 * cfg_j.features_per_level)))
+              .astype(np.float32) for l in range(cfg_j.levels)]
+    x = _hash_points(256, seed=12)
+    x[:64] += np.float32(0.003)  # off the faces: the x gradient jumps there
+    ct = rng.normal(size=(256, cfg_j.out_dim)).astype(np.float32)
+    want = jax.jit(jax.grad(lambda t, p: jnp.sum(
+        jenc.hash_encode(t, p, cfg_j) * ct), argnums=(0, 1)))(
+        [jnp.asarray(t) for t in tables], jnp.asarray(x))
+    tt = [torch.tensor(t, requires_grad=True) for t in tables]
+    tx = torch.tensor(x, requires_grad=True)
+    (tenc.hash_encode(tt, tx, cfg_t) * torch.from_numpy(ct)).sum().backward()
+    return want, ([t.grad for t in tt], tx.grad)
+
+
+@pytest.mark.parametrize("cell_backward", ["save_rows", "remat"])
+@pytest.mark.parametrize("interpolation", ["Linear", "Smoothstep", "Nearest"])
+def test_hash_encode_backward_matches_jax_grad(interpolation, cell_backward):
+    (want_t, want_x), (got_t, got_x) = _hash_grads(interpolation, cell_backward)
+    for l, (g, w) in enumerate(zip(got_t, want_t)):  # dense and hashed levels
+        assert g.shape == w.shape
+        np.testing.assert_allclose(_np(g), np.asarray(w), atol=1e-6, rtol=1e-5,
+                                   err_msg=f"level {l}")
+    np.testing.assert_allclose(_np(got_x), np.asarray(want_x), atol=1e-6,
+                               rtol=1e-4)
+    if interpolation != "Nearest":
+        assert float(got_x.abs().max()) > 0
+
+
+@pytest.mark.parametrize("interpolation", ["Linear", "Smoothstep"])
+def test_hash_encode_remat_equals_save_rows(interpolation):
+    _, (save_t, save_x) = _hash_grads(interpolation, "save_rows")
+    _, (remat_t, remat_x) = _hash_grads(interpolation, "remat")
+    for a, b in zip(save_t, remat_t):
+        np.testing.assert_allclose(_np(a), _np(b), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(_np(save_x), _np(remat_x), atol=1e-6, rtol=1e-4)
+
+
+def test_hash_encode_skips_x_gradient_and_takes_rows_from_operand():
+    cfg = tenc.HashGridConfig(**SMALL_HASH)
+    tables = [torch.randn(cfg.level_rows(l), 8 * cfg.features_per_level,
+                          generator=torch.Generator().manual_seed(l),
+                          requires_grad=True) for l in range(cfg.levels)]
+    x = torch.from_numpy(_hash_points(64))
+    out = tenc._HashEncodeCellSaved.apply(x, cfg, *tables)
+    out.sum().backward()
+    assert all(t.grad.shape == t.shape for t in tables)
+    # a table with more rows than the config's ladder: the cotangent follows
+    # the operand (the public wrapper refuses it; the function does not)
+    big = [torch.cat([t.detach(), torch.zeros(5, t.shape[1])]).requires_grad_(True)
+           for t in tables]
+    tenc._HashEncodeCellSaved.apply(x, cfg, *big).sum().backward()
+    assert all(b.grad.shape == b.shape for b in big)
+    with pytest.raises(ValueError, match="row"):
+        tenc.hash_encode(big, x, cfg)
+    with pytest.raises(ValueError, match="cell_backward"):
+        tenc.hash_encode(tables, x, dataclasses.replace(cfg, cell_backward="x"))
+
+
+def test_cell_lookup_bf16_decisions_exact_at_full_width():
+    """Under bf16 the level's resolution is rounded first (4095 → 4096), as
+    acn_tpu multiplies by ``jnp.asarray(res, bfloat16)``: cell and fraction
+    are then the same bits. JAX op by op, no fusion."""
+    kw = dict(levels=8, min_res=16, max_res=4096, log2_hashmap_size=12,
+              features_per_level=2, layout="cell", dense_levels=True)
+    cfg_j, cfg_t = JHashGridConfig(**kw), tenc.HashGridConfig(**kw)
+    x = _hash_points(512, seed=13)
+    xb_t = torch.from_numpy(x).to(torch.bfloat16)
+    xb_j = jnp.asarray(x).astype(jnp.bfloat16)
+    tables = [np.zeros((cfg_j.level_rows(l), 16), np.float32)
+              for l in range(cfg_j.levels)]
+    tt = [torch.from_numpy(t).to(torch.bfloat16) for t in tables]
+    jt = [jnp.asarray(t).astype(jnp.bfloat16) for t in tables]
+    np.testing.assert_array_equal(_np(xb_t.to(torch.float32)),
+                                  np.asarray(xb_j.astype(jnp.float32)))
+    for l in range(cfg_t.levels):
+        _, h_t, frac_t = tenc._cell_level_lookup(tt, xb_t, cfg_t, l)
+        _, h_j, frac_j = jenc._cell_level_lookup(jt, xb_j, cfg_j, l)
+        np.testing.assert_array_equal(_np(h_t), np.asarray(h_j), err_msg=str(l))
+        np.testing.assert_array_equal(_np(frac_t.to(torch.float32)),
+                                      np.asarray(frac_j.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corner_weights_bit_equal(dtype):
+    """The port takes the eight products as two broadcast products; they are
+    acn_tpu's products in its order, so the bits are the same (JAX op by op)."""
+    f = np.random.default_rng(14).random((257, 3)).astype(np.float32)
+    ft = torch.from_numpy(f).to(getattr(torch, dtype))
+    fj = jnp.asarray(f).astype(getattr(jnp, dtype))
+    got = tenc._corner_weights(ft)
+    want = jenc._corner_weights(fj)
+    assert got.shape == (257, 8) and got.dtype == ft.dtype
+    np.testing.assert_array_equal(_np(got.to(torch.float32)),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_trunc_exp_bf16_forward_and_gradient():
+    x = np.array([-200.0, -88.5, -3.0, 0.0, 2.5, 87.9, 88.0, 150.0], np.float32)
+    g = np.linspace(-1, 1, x.size).astype(np.float32)
+    jy, jvjp = jax.vjp(jtrunc_exp, jnp.asarray(x).astype(jnp.bfloat16))
+    xt = torch.tensor(x).to(torch.bfloat16).requires_grad_(True)
+    ty = ttrunc_exp(xt)
+    ty.backward(torch.tensor(g).to(torch.bfloat16))
+    jg = jvjp(jnp.asarray(g).astype(jnp.bfloat16))[0]
+    assert ty.dtype == torch.bfloat16 and xt.grad.dtype == torch.bfloat16
+    # one bf16 ulp (2^-8): exp is rounded from different float32 results
+    np.testing.assert_allclose(_np(ty.to(torch.float32)),
+                               np.asarray(jy.astype(jnp.float32)), rtol=2**-7,
+                               atol=1e-37)
+    np.testing.assert_allclose(_np(xt.grad.to(torch.float32)),
+                               np.asarray(jg.astype(jnp.float32)), rtol=2**-6,
+                               atol=1e-37)
+    assert np.isfinite(_np(xt.grad.to(torch.float32))).all()
+
+
+def test_tree_cast_casts_floating_leaves_and_gradient_returns_in_f32():
+    tree = {"a": [torch.ones(2, requires_grad=True)],
+            "i": torch.arange(3), "b": {"w": torch.ones(2, 2)}}
+    cast = tnn.tree_cast(tree, torch.bfloat16)
+    assert cast["a"][0].dtype == cast["b"]["w"].dtype == torch.bfloat16
+    assert cast["i"].dtype == torch.int64
+    (cast["a"][0] * 3).sum().backward()
+    assert tree["a"][0].grad.dtype == torch.float32
+    jt = jnn.tree_cast({"a": jnp.ones(2), "i": jnp.arange(3)}, jnp.bfloat16)
+    assert jt["a"].dtype == jnp.bfloat16 and jt["i"].dtype == jnp.int32
+
+
+def test_param_group_labels_match(scene):
+    want = jcont.param_group_labels(scene.jvars, scene.jcfg)
+    got = tcont.param_group_labels(scene.model.params())
+    assert jax.tree.leaves(got) == jax.tree.leaves(want)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert tngp.param_group_labels(scene.model.expert(0)) == got["experts"]
+
+
+def test_expert_slice_and_params_are_views_of_the_module(scene):
+    params = scene.model.params()
+    assert set(params) == {"experts", "bg_mlp"}
+    e1 = tcont.expert_slice(params["experts"], 1)
+    jp = scene.jvars["params"]["experts"]
+    np.testing.assert_array_equal(_np(e1["color_mlp"][0]["w"]),
+                                  jp["color_mlp"][0]["w"][1])
+    assert e1["hash_table"][2].data_ptr() == \
+        scene.model.experts["hash_table"][2][1].data_ptr()
+    back = convert.to_jax_variables(scene.model)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(scene.jvars)):
+        np.testing.assert_array_equal(a, b)
+    assert jax.tree.structure(back) == jax.tree.structure(scene.jvars)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.0, None), (None, 1.0)])
+def test_clip_half_ties_has_jnp_clip_gradient(lo, hi):
+    x = np.array([-1.0, 0.0, 0.25, 1.0, 2.0], np.float32)
+    want = jax.grad(lambda v: jnp.sum(jnp.clip(v, lo, hi) * 3.0))(jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    y = tnn.clip_half_ties(xt, lo, hi)
+    (y * 3.0).sum().backward()
+    np.testing.assert_array_equal(_np(y), np.asarray(jnp.clip(jnp.asarray(x), lo, hi)))
+    np.testing.assert_array_equal(_np(xt.grad), np.asarray(want))
+    assert 1.5 in _np(xt.grad)  # half at a tie, where torch.clamp passes all
+
+
+def test_config_conversion_carries_cell_backward():
+    jcfg = JContainerConfig(expert=JNGPConfig(hash=JHashGridConfig(
+        **SMALL_HASH, cell_backward="remat")))
+    assert convert.config_from_dict(
+        dataclasses.asdict(jcfg)).expert.hash.cell_backward == "remat"
+    assert tenc.HashGridConfig().cell_backward == JHashGridConfig().cell_backward
