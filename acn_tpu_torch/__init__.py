@@ -6,15 +6,18 @@ module there by path and name (``acn_tpu_torch/occupancy/grid.py`` ↔
 ``tests/test_torch_*.py`` parity tests. This package imports neither ``jax``
 nor ``acn_tpu``.
 
-What is ported so far is the packed-budget path, served and trained: full
-frames of the K-expert occupancy model through
-``pipelines.renderer.Renderer`` (``render_image`` / ``render_rays``), and the
-FoMAML meta-training step through
-``pipelines.offline_stage.train_step.make_meta_train_step``. The one TPU
-kernel on those paths, the segmented exclusive scan, is a hand-written CUDA
-kernel for ``sm_90a`` (``csrc/segscan.cu``, bound in ``ops/segscan.py``),
-built with ``nvcc`` at first use into ``acn_tpu_torch/_build/``; serving
-launches its forward mode, training its forward and its reverse mode.
+What is ported so far: full frames of the K-expert model through
+``pipelines.renderer.Renderer`` (``render_image`` / ``render_rays``; packed
+budget, per-ray strided occupancy or stratified), the FoMAML meta-training
+step in every regime of a run (stratified warm-up, strided occupancy with
+the would-be overflow, packed budget) through
+``pipelines.offline_stage.train_step.make_meta_train_step``, the eval step,
+and between steps the occupancy update and the auto-regime switch
+(``pipelines.offline_stage.trainer``). The one TPU kernel, the segmented
+exclusive scan of the packed-budget paths, is a hand-written CUDA kernel for
+``sm_90a`` (``csrc/segscan.cu``, bound in ``ops/segscan.py``), built with
+``nvcc`` at first use into ``acn_tpu_torch/_build/``; serving launches its
+forward mode, training its forward and its reverse mode.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU.

@@ -1,5 +1,5 @@
 """Carry weights, occupancy state, optimizer state and configs across from
-``acn_tpu``, and weights and optimizer state back.
+``acn_tpu``, and weights, occupancy state and optimizer state back.
 
 The inputs are what the JAX package holds, as plain Python: the
 ``variables`` tree and the stacked ``occ_states`` as nested dicts and lists
@@ -84,6 +84,12 @@ def from_jax_occ_states(tree: Mapping[str, Any], device=None) -> Dict[str, torch
 
 def _numpy(tree):
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def to_jax_occ_states(occ_states: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Stacked occupancy states back as numpy arrays, the inverse of
+    ``from_jax_occ_states``."""
+    return _numpy(dict(occ_states))
 
 
 def to_jax_variables(model: Container) -> Dict[str, Any]:

@@ -53,6 +53,11 @@ class ContainerConfig:
     def bg_enc_dim(self) -> int:
         return sh_out_dim(self.bg_sh_levels)
 
+    @property
+    def expert_density(self):
+        """The experts' density query, ``ngp.ngp_density``."""
+        return ngp_mod.ngp_density
+
 
 def _to_module(tree) -> tnn.Module:
     """Nested dicts / lists of tensors → ParameterDict / ParameterList leaves
@@ -210,6 +215,27 @@ def container_forward(
     w = routing_weights(model.centroids, x[..., :3], cfg.cluster_2d,
                         cfg.boundary_margin).to(ys.dtype)
     return torch.einsum("nk,kno->no", w, ys)
+
+
+def container_density(
+    model: Container,
+    xyz: torch.Tensor,  # (N, 3)
+    active_module: Optional[int] = None,
+) -> torch.Tensor:
+    """Routed density query → σ (N,): one expert's when ``active_module`` is
+    set, else Σ_k w_k · σ_k with the dense routing weights."""
+    cfg = model.cfg
+    dens = cfg.expert_density
+    if active_module is not None:
+        return dens(model.expert(active_module), cfg.expert,
+                    model.expert_aabbs[active_module], xyz)[..., 0]
+    sig = torch.stack([
+        dens(model.expert(k), cfg.expert, model.expert_aabbs[k], xyz)[..., 0]
+        for k in range(cfg.num_submodules)
+    ])  # (K, N)
+    w = routing_weights(model.centroids, xyz, cfg.cluster_2d,
+                        cfg.boundary_margin).to(sig.dtype)
+    return torch.einsum("nk,kn->n", w, sig)
 
 
 def bg_mlp_color(layers: list, cfg: ContainerConfig,

@@ -1,7 +1,18 @@
-"""Volume compositing over the packed sample buffer.
+"""Volume rendering: fixed-layout and stratified compositing, and
+compositing over the packed sample buffer.
 
-Port of ``acn_tpu/nerfs/render.py`` (``bg_default_color``,
-``composite_packed``). JAX's dropping scatter-add / scatter-max
+Port of ``acn_tpu/nerfs/render.py``: ``bg_default_color``,
+``volume_render``, ``render_weights_from_density``, ``composite``,
+``composite_packed``, ``stratified_t_vals`` and ``render_rays_stratified``.
+The stratified jitter ``u`` is injected (JAX draws it from a key); None
+samples the bin edges themselves (JAX's ``randomized=False``).
+
+Every ``jnp.clip`` / ``jnp.maximum`` on a differentiable value is
+``nn.clip_half_ties``: JAX passes half the gradient at a tie. The
+fixed-layout transmittance is a ``torch.cumprod`` (JAX's ``jnp.cumprod``
+multiplies in another order: float32 rounding differs in the last bits).
+
+JAX's dropping scatter-add / scatter-max
 (``.at[rid].add(..., mode="drop")``) becomes ``index_add_`` /
 ``scatter_reduce_`` into a target with one spill row at the end that is
 sliced off. On the card ``index_add_`` accumulates with atomics, so its
@@ -15,11 +26,13 @@ is one launch of the reverse scan kernel.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from acn_tpu_torch.models.nn import clip_half_ties
+from acn_tpu_torch.models.trunc_exp import trunc_exp
+from acn_tpu_torch.occupancy.grid import unit_linspace
 from acn_tpu_torch.ops.segscan import seg_excl_sum
 
 
@@ -106,3 +119,119 @@ def composite_packed(
     wsum = torch.clamp(acc, min=1e-12)
     went = torch.log(wsum) - wlogw / wsum
     return rgb_map, depth, acc, {"wmax": wmax, "went": went}
+
+
+# ============================ fixed-layout compositing ============================
+
+
+def _exclusive_trans(alpha: torch.Tensor) -> torch.Tensor:
+    """Π_{j<i} (1 − α_j + 1e-10) along each ray, (N, S)."""
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=1)
+    return torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
+
+
+def volume_render(
+    rgb_sigma: torch.Tensor,  # (N, S, 4) [rgb in 0..1, sigma >= 0] unless raw_*
+    t_vals: torch.Tensor,  # (N, S)
+    bg_rgb: Optional[torch.Tensor] = None,  # (N, 3)
+    *,
+    raw_rgb: bool = False,
+    raw_sigma: bool = False,
+    sigma_scale: float = 1.0,
+    sample_mask: Optional[torch.Tensor] = None,  # (N, S) bool; False ⇒ zero alpha
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Discrete transmittance integration: α_i = 1 − exp(−σ_i Δ_i),
+    T_i = Π_{j<i}(1 − α_j), w_i = α_i T_i, with Δ the gap to the next sample
+    (≥ 1e-4; the last repeats the one before it).
+
+    Returns (rgb_map (N,3), depth_map (N,), weights (N,S), acc_map (N,))."""
+    rgb_raw, sigma_in = rgb_sigma[..., :3], rgb_sigma[..., 3]
+    rgb = torch.sigmoid(rgb_raw) if raw_rgb else clip_half_ties(rgb_raw, 0.0, 1.0)
+    sigma = trunc_exp(sigma_in) if raw_sigma else clip_half_ties(sigma_in, 0.0)
+    if sigma_scale != 1.0:
+        sigma = sigma * float(sigma_scale)
+
+    dists = torch.clamp(t_vals[:, 1:] - t_vals[:, :-1], min=1e-4)
+    dists = torch.cat([dists, dists[:, -1:]], dim=1)
+    if sample_mask is not None:
+        sigma = torch.where(sample_mask, sigma, 0.0)
+
+    alpha = clip_half_ties(1.0 - torch.exp(-sigma * dists), 0.0, 1.0 - 1e-7)
+    weights = alpha * _exclusive_trans(alpha)
+    rgb_map, depth_map, acc_map = composite(weights, rgb, t_vals, bg_rgb)
+    return rgb_map, depth_map, weights, acc_map
+
+
+def render_weights_from_density(
+    t_starts: torch.Tensor,  # (N, S)
+    t_ends: torch.Tensor,  # (N, S)
+    sigmas: torch.Tensor,  # (N, S)
+    sample_mask: Optional[torch.Tensor] = None,  # (N, S)
+    dts: Optional[torch.Tensor] = None,  # (N, S) interval-width override
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample weights from interval densities over a fixed layout;
+    ``dts`` overrides the interval widths (the strided march widens them by
+    its stride). Returns (weights (N,S), trans (N,S))."""
+    dt = torch.clamp(t_ends - t_starts if dts is None else dts, min=0.0)
+    sigma = clip_half_ties(sigmas, 0.0)
+    if sample_mask is not None:
+        sigma = torch.where(sample_mask, sigma, 0.0)
+    alpha = 1.0 - torch.exp(-sigma * dt)
+    trans = _exclusive_trans(alpha)
+    return alpha * trans, trans
+
+
+def composite(
+    weights: torch.Tensor,  # (N, S)
+    rgbs: torch.Tensor,  # (N, S, 3)
+    t_mids: torch.Tensor,  # (N, S)
+    bg_rgb: Optional[torch.Tensor] = None,  # (N, 3)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Color, depth and opacity accumulated along each ray."""
+    rgb_map = torch.sum(weights[..., None] * rgbs, dim=1)
+    depth = torch.sum(weights * t_mids, dim=1)
+    acc = torch.sum(weights, dim=1)
+    if bg_rgb is not None:
+        rgb_map = rgb_map + (1.0 - acc[..., None]) * bg_rgb.to(rgb_map.dtype)
+    return rgb_map, depth, acc
+
+
+# ============================ stratified sampling ============================
+
+
+def stratified_t_vals(
+    near: torch.Tensor,  # (N,)
+    far: torch.Tensor,  # (N,)
+    ray_samples: int,
+    u: Optional[torch.Tensor] = None,  # (N, ray_samples) in [0, 1)
+) -> torch.Tensor:
+    """``ray_samples`` depths per ray spread over [near, far]; with ``u``,
+    each moves to fraction u of its stratum (between the midpoints to its
+    neighbours). Returns (N, ray_samples)."""
+    t_lin = unit_linspace(ray_samples, near.device)
+    t_vals = near[:, None] * (1.0 - t_lin) + far[:, None] * t_lin
+    if u is None:
+        return t_vals
+    mids = 0.5 * (t_vals[:, :-1] + t_vals[:, 1:])
+    low = torch.cat([t_vals[:, :1], mids], dim=1)
+    high = torch.cat([mids, t_vals[:, -1:]], dim=1)
+    return low + (high - low) * u
+
+
+def render_rays_stratified(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],  # (M, 6) → (M, 4) [rgb, σ]
+    rays: torch.Tensor,  # (N, 8)
+    ray_samples: int,
+    *,
+    u: Optional[torch.Tensor] = None,
+    bg_rgb: Optional[torch.Tensor] = None,  # (N, 3)
+    sigma_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The stratified renderer over a point-query function (one expert, or
+    the routed container). Returns (rgb_map, depth_map, weights, acc_map)."""
+    o, d = rays[:, :3], rays[:, 3:6]
+    t_vals = stratified_t_vals(rays[:, 6], rays[:, 7], ray_samples, u)
+    pts = o[:, None, :] + d[:, None, :] * t_vals[..., None]  # (N, S, 3)
+    xd = torch.cat([pts, d[:, None, :].expand_as(pts)], dim=-1).reshape(-1, 6)
+    rgb_sigma = model_fn(xd).reshape(pts.shape[0], pts.shape[1], 4)
+    return volume_render(rgb_sigma, t_vals, bg_rgb=bg_rgb, sigma_scale=sigma_scale)

@@ -1,9 +1,11 @@
-"""Occupancy-guided soft-MoE rendering over a global sample budget.
+"""Occupancy-guided soft-MoE rendering: per-ray strided, and over a global
+sample budget.
 
 Port of ``acn_tpu/nerfs/render_occ.py`` (``_any_expert_valid_fn``,
-``_soft_moe_eval``, ``render_rays_occ_budget``). All experts share one
+``_soft_moe_eval``, ``render_rays_occ``, ``render_rays_occ_budget``; the
+single-expert ``render_expert_occ*`` are not ported). All experts share one
 t-schedule per ray; a sample survives if ANY expert's (AABB ∩ occupancy)
-claims it, and the K experts' outputs are blended at every packed sample:
+claims it, and the K experts' outputs are blended at every sample:
 
     σ_mix(x)   = Σ_k w_k(x) σ_k(x)
     rgb_mix(x) = Σ_k w_k(x) σ_k(x) c_k(x) / σ_mix(x)
@@ -11,7 +13,7 @@ claims it, and the K experts' outputs are blended at every packed sample:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,7 +21,11 @@ from acn_tpu_torch.models import container as cont
 from acn_tpu_torch.models import ngp as ngp_mod
 from acn_tpu_torch.models.container import Container
 from acn_tpu_torch.nerfs import scene_box as sbox
-from acn_tpu_torch.nerfs.render import composite_packed
+from acn_tpu_torch.nerfs.render import (
+    composite,
+    composite_packed,
+    render_weights_from_density,
+)
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
 
@@ -94,3 +100,51 @@ def render_rays_occ_budget(
         alpha_thre=alpha_thre,
     )
     return rgb_map, depth, extras, acc
+
+
+def render_rays_occ(
+    model: Container,
+    occ_states: Dict[str, torch.Tensor],  # stacked (K, ...) occupancy states
+    occ_cfg: OccConfig,
+    rays: torch.Tensor,  # (N, 8)
+    *,
+    s_max: int,
+    s_kept: int,
+    alpha_thre: float = 0.0,
+    u: Optional[torch.Tensor] = None,
+    phase_bits: Optional[torch.Tensor] = None,
+    bg_rgb=None,
+):
+    """Full-container occupancy rendering to a fixed (N, s_kept) layout:
+    ``s_max`` bins over each ray's [near, far], valid where any expert's
+    (AABB ∩ occupancy) claims the sample point (at fraction ``u`` of the bin,
+    or its midpoint), the strided compaction (phase from ``phase_bits``, or
+    0), the soft-MoE blend at the kept samples, and fixed-layout compositing
+    with the stride-widened widths. Samples with alpha under ``alpha_thre``
+    are masked.
+
+    Returns (rgb_map, depth, weights (N, s_kept), acc)."""
+    any_expert_valid = _any_expert_valid_fn(occ_states, model.expert_aabbs)
+    o, d, _, _, t0, t1 = occ_grid.ray_bins(rays, occ_cfg, s_max)
+    t_s = t0 + (0.5 if u is None else u) * (t1 - t0)
+    x_all = o[:, None, :] + d[:, None, :] * t_s[..., None]
+    valid = (t1 > t0) & any_expert_valid(x_all)
+    smp = occ_grid.strided_samples(t0, t1, x_all, valid, s_kept, phase_bits)
+
+    xk = smp["positions"]  # (N, S, 3)
+    xd = torch.cat([xk, d[:, None, :].expand_as(xk)], dim=-1).reshape(-1, 6)
+    sigma_mix, rgb_mix = _soft_moe_eval(model, xd)
+    N, S = xk.shape[0], xk.shape[1]
+    sigmas = sigma_mix.reshape(N, S)
+    rgbs = rgb_mix.reshape(N, S, 3)
+
+    mask = smp["mask"]
+    if alpha_thre > 0.0:
+        dt = torch.clamp(smp["dts"], min=0.0)
+        alpha = 1.0 - torch.exp(-torch.clamp(sigmas, min=0.0) * dt)
+        mask = mask & (alpha >= alpha_thre)
+    weights, _ = render_weights_from_density(
+        smp["t_starts"], smp["t_ends"], sigmas, sample_mask=mask, dts=smp["dts"])
+    t_mid = 0.5 * (smp["t_starts"] + smp["t_ends"])
+    rgb_map, depth, acc = composite(weights, rgbs, t_mid, bg_rgb=bg_rgb)
+    return rgb_map, depth, weights, acc

@@ -1,13 +1,20 @@
-"""Occupancy grids and budget-packed ray marching.
+"""Occupancy grids, their EMA update, and ray marching.
 
-Port of ``acn_tpu/occupancy/grid.py`` (the packed-budget path's part):
-``OccConfig``, ``level_aabbs``, ``init_occ_state``, ``occupancy_lookup`` and
-``march_rays_budget`` with bin midpoints or the counter-hash jitter
-(``_u01``) and no coarse range-finding pre-pass. The grid update, the
-strided ``march_rays`` and ``coarse_ray_range`` are not ported. An occupancy
-state is a dict of tensors: ``occs`` (L, R, R, R) f32, ``binaries``
-(L, R, R, R) bool and ``aabbs`` (L, 2, 3); the container's per-expert states
-carry a leading K axis.
+Port of ``acn_tpu/occupancy/grid.py``: ``OccConfig``, ``level_aabbs``,
+``init_occ_state``, ``cell_centers``, ``_anneal_alpha_thre``,
+``update_occ_grid``, ``occupancy_lookup``, the compactions
+``compact_samples`` and ``compact_samples_strided``, the per-ray strided
+``march_rays`` (with ``report_budget``) and the packed ``march_rays_budget``
+with bin midpoints or the counter-hash jitter (``_u01``). Not ported:
+``mark_invisible_cells``, ``march_t_schedule`` and ``coarse_ray_range``. An
+occupancy state is a dict of tensors: ``occs`` (L, R, R, R) f32,
+``binaries`` (L, R, R, R) bool and ``aabbs`` (L, 2, 3); the container's
+per-expert states carry a leading K axis.
+
+Randomness is injected: JAX draws from a key, the port takes the draws
+(``u``, ``phase_bits``, ``jitter``) as tensors, or ``draw_march`` /
+a ``torch.Generator`` makes them. Given JAX's own draws the port marches the
+same samples.
 
 JAX's dropping scatter (``.at[i].set(v, mode="drop")``) becomes a scatter
 into a target with one spill slot at the end, sliced off afterwards.
@@ -16,24 +23,50 @@ into a target with one spill slot at the end, sliced off afterwards.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from acn_tpu_torch.models.nn import norm3
+
+# points per density block of the grid update, as in acn_tpu
+UPDATE_BLOCK = 262_144
 
 
 @dataclass(frozen=True)
 class OccConfig:
-    """The fields of ``acn_tpu``'s ``OccConfig`` that marching and rendering
-    read, with its defaults. The training step marches fixed grids; the
-    fields of the grid update (EMA decay, annealing, update cadence) come
-    with ``update_occ_grid``."""
+    """``acn_tpu``'s ``OccConfig``, with its defaults."""
 
     resolution: int = 128
     levels: int = 1
+    occ_thre: float = 1e-2
+    ema_decay: float = 0.95
+    warmup_steps: int = 256
+    update_interval: int = 16
     alpha_thre: float = 1e-2
+    alpha_thre_start: float = 0.0
+    cosine_anneal: bool = True
+    cone_angle: float = 1.0 / 256.0
     near_plane: float = 0.05
     far_plane: float = 1e3
+    render_step_size: Optional[float] = None  # None ⇒ diag(roi)/1000
+
+    def step_size_for(self, aabb) -> float:
+        if self.render_step_size is not None:
+            return float(self.render_step_size)
+        ext = np.asarray(aabb[1], np.float32) - np.asarray(aabb[0], np.float32)
+        return float(np.linalg.norm(ext) / 1000.0)
+
+    def step_size_for_traced(self, aabb: torch.Tensor) -> torch.Tensor:
+        """diag(aabb)/1000 as a 0-dim tensor on the aabb's device (no host
+        sync), unless ``render_step_size`` overrides it."""
+        if self.render_step_size is not None:
+            return torch.tensor(self.render_step_size, dtype=torch.float32,
+                                device=aabb.device)
+        return norm3(aabb[1] - aabb[0])[0] / 1000.0
 
 
 def level_aabbs(roi_aabb: torch.Tensor, levels: int) -> torch.Tensor:
@@ -55,6 +88,78 @@ def init_occ_state(roi_aabb: torch.Tensor, cfg: OccConfig) -> Dict[str, torch.Te
         "occs": torch.zeros((L, R, R, R), dtype=torch.float32, device=dev),
         "binaries": torch.zeros((L, R, R, R), dtype=torch.bool, device=dev),
         "aabbs": level_aabbs(roi_aabb.to(torch.float32), L),
+    }
+
+
+def cell_centers(state: Dict[str, torch.Tensor], cfg: OccConfig) -> torch.Tensor:
+    """(L, R³, 3) world-space cell centers per level."""
+    R = cfg.resolution
+    dev = state["aabbs"].device
+    r = torch.arange(R, device=dev)
+    idx = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+    u = (idx.to(torch.float32) + 0.5) / R  # cell-center unit coords
+    aabbs = state["aabbs"]  # (L, 2, 3)
+    return aabbs[:, 0][:, None, :] + u[None, :, :] * (
+        aabbs[:, 1] - aabbs[:, 0])[:, None, :]
+
+
+def _anneal_alpha_thre(cfg: OccConfig, step) -> torch.Tensor:
+    """Alpha-threshold ramp start → end over the warm-up, cosine or linear,
+    as a 0-dim float32 tensor (``step`` may be a number or a tensor)."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    t = torch.clamp(step / max(1, cfg.warmup_steps - 1), 0.0, 1.0)
+    mix = 0.5 * (1.0 - torch.cos(math.pi * t)) if cfg.cosine_anneal else t
+    return (1.0 - mix) * cfg.alpha_thre_start + mix * cfg.alpha_thre
+
+
+def update_occ_grid(
+    state: Dict[str, torch.Tensor],
+    density_fn: Callable[[torch.Tensor], torch.Tensor],  # (M, 3) world → (M,) σ
+    cfg: OccConfig,
+    step_size,
+    jitter: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """One EMA occupancy update over every cell, as ``acn_tpu`` does it.
+
+    occ ← max(occ · decay, σ(x) · step_size) where occ ≥ 0 (cells marked
+    invisible, occ < 0, stay as they are), at x = cell center + jitter · cell
+    size; binaries = occ > max(min(occ_thre, mean occ over visible cells),
+    1e-6). ``jitter`` (L, R³, 3) in [−0.5, 0.5) is injected, or drawn from
+    ``generator`` (on its device); one of the two is required.
+
+    The densities are evaluated in blocks of ``UPDATE_BLOCK`` points, the
+    last one padded with zeros, without autograd: the peak is one block's."""
+    L, R = cfg.levels, cfg.resolution
+    centers = cell_centers(state, cfg)  # (L, R³, 3)
+    cell_size = (state["aabbs"][:, 1] - state["aabbs"][:, 0]) / R  # (L, 3)
+    if jitter is None:
+        if generator is None:
+            raise ValueError("update_occ_grid needs a jitter tensor or a generator")
+        jitter = torch.rand(centers.shape, generator=generator,
+                            device=generator.device) - 0.5
+    x = (centers + jitter.to(centers.device) * cell_size[:, None, :]).reshape(-1, 3)
+
+    m = x.shape[0]
+    pad = (-m) % UPDATE_BLOCK
+    x_pad = torch.cat([x, x.new_zeros((pad, 3))])
+    with torch.no_grad():
+        sigma = torch.cat([density_fn(b) for b in x_pad.split(UPDATE_BLOCK)])[:m]
+    new_occ = sigma.reshape(L, R * R * R).to(torch.float32) * step_size
+
+    occs = state["occs"].reshape(L, -1)
+    visible = occs >= 0.0
+    updated = torch.maximum(occs * cfg.ema_decay, new_occ)
+    occs = torch.where(visible, updated, occs)
+
+    mean_occ = torch.sum(torch.where(visible, occs, 0.0)) / torch.clamp(
+        torch.sum(visible), min=1)
+    # floor the threshold: occ = σ·Δ < 1e-6 ⇒ alpha < 1e-6, always skippable
+    thre = torch.clamp(torch.clamp(mean_occ, max=cfg.occ_thre), min=1e-6)
+    return {
+        "occs": occs.reshape(L, R, R, R),
+        "binaries": (occs > thre).reshape(L, R, R, R),
+        "aabbs": state["aabbs"],
     }
 
 
@@ -84,15 +189,34 @@ def occupancy_lookup(state: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.T
 
 
 @functools.lru_cache(maxsize=None)
-def bin_edges(s_max: int, device: torch.device) -> torch.Tensor:
-    """(1, s_max+1) float32 fractions 0..1 — ``jnp.linspace``'s values.
+def unit_linspace(n: int, device: torch.device) -> torch.Tensor:
+    """(1, n) float32 fractions 0..1, ``jnp.linspace(0, 1, n)``'s bits: XLA
+    takes i · (1/(n−1)) in float32 and sets the last to 1 (``torch.linspace``
+    differs from it by an ulp at most sizes, 96 among them).
 
     Built on the CPU and moved, so the bins (and with them every discrete
     occupancy and hash decision) are the same bits on the card as on the
-    CPU; ``torch.linspace`` on the CPU equals ``jnp.linspace`` at these
-    sizes (17, 33, 65, 129, 257 points). Cached per (s_max, device): the
-    blocking host-to-device copy happens once, not in every chunk."""
-    return torch.linspace(0.0, 1.0, s_max + 1, dtype=torch.float32)[None, :].to(device)
+    CPU. Cached per (n, device): the blocking host-to-device copy happens
+    once, not in every chunk."""
+    if n == 1:
+        return torch.zeros((1, 1), device=device)
+    i = torch.arange(n - 1, dtype=torch.float32)
+    frac = torch.cat([i * torch.tensor(1.0 / (n - 1), dtype=torch.float32),
+                      torch.ones(1)])
+    return frac[None, :].to(device)
+
+
+def ray_bins(rays: torch.Tensor, cfg: OccConfig, s_max: int):
+    """(o, d, near, far, t0, t1): the rays' clamped [near, far] cut into
+    ``s_max`` uniform bins [t0, t1) (N, s_max); an invalid ray gets an empty
+    interval."""
+    o, d = rays[:, :3], rays[:, 3:6]
+    near = torch.clamp(rays[:, 6], min=cfg.near_plane)
+    far = torch.clamp(rays[:, 7], max=cfg.far_plane)
+    far = torch.maximum(far, near)
+    e = unit_linspace(s_max + 1, rays.device)  # bin edges as fractions
+    edges = near[:, None] * (1.0 - e) + far[:, None] * e
+    return o, d, near, far, edges[:, :-1], edges[:, 1:]
 
 
 _M32 = 0xFFFFFFFF
@@ -142,19 +266,11 @@ def march_rays_budget(
     ray_start (N,), gpos (N, s_max), valid (N, s_max), t_starts/t_ends
     (N, s_max), overflow (0-dim)}. Nothing here synchronizes with the host.
     """
-    o, d = rays[:, :3], rays[:, 3:6]
-    near, far = rays[:, 6], rays[:, 7]
-    near = torch.clamp(near, min=cfg.near_plane)
-    far = torch.clamp(far, max=cfg.far_plane)
-    far = torch.maximum(far, near)
-
+    o, d, near, far, t0, t1 = ray_bins(rays, cfg, s_max)
     N = rays.shape[0]
     B = N * int(budget_per_ray)
     dev = rays.device
 
-    e = bin_edges(s_max, dev)
-    edges = near[:, None] * (1.0 - e) + far[:, None] * e
-    t0, t1 = edges[:, :-1], edges[:, 1:]
     flat_ids = (
         torch.arange(N, dtype=torch.int64, device=dev)[:, None] * s_max
         + torch.arange(s_max, dtype=torch.int64, device=dev)[None, :]
@@ -208,3 +324,113 @@ def march_rays_budget(
         "t_ends": t1,
         "overflow": overflow,
     }
+
+
+# ============================ per-ray compaction ============================
+
+
+def _scatter_kept(pos: torch.Tensor, s_kept: int) -> torch.Tensor:
+    """(N, s_kept) int64: row n holds at slot ``pos[n, j]`` the bin index j,
+    and 0 where no bin lands; slots ≥ ``s_kept`` are dropped (JAX's
+    ``.at[p].set(s, mode="drop")``, here a spill column sliced off)."""
+    n, s_max = pos.shape
+    src = torch.arange(s_max, device=pos.device).expand(n, s_max)
+    out = torch.zeros((n, s_kept + 1), dtype=torch.int64, device=pos.device)
+    return out.scatter_(1, torch.clamp(pos, max=s_kept), src)[:, :s_kept]
+
+
+def compact_samples(valid: torch.Tensor, s_kept: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray stable compaction: the bin indices of the first ``s_kept``
+    valid samples (N, s_kept) and their validity mask."""
+    counts = torch.cumsum(valid, dim=1)  # inclusive prefix counts
+    pos = torch.where(valid, counts - 1, s_kept)
+    kept_valid = (torch.arange(s_kept, device=valid.device)[None, :]
+                  < counts[:, -1:])
+    return _scatter_kept(pos, s_kept), kept_valid
+
+
+def compact_samples_strided(
+    valid: torch.Tensor, s_kept: int, phase_bits: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Even-stride compaction: keep every ⌈n_valid/s_kept⌉-th valid sample
+    of each ray, from a phase in [0, stride).
+
+    ``phase_bits`` (N,) integers in [0, 2³⁰) give the phase as
+    ``phase_bits % stride`` (JAX's ``randint(key, (N,), 0, 1 << 30)``);
+    None is phase 0. Returns (idx (N, s_kept) int64, mask (N, s_kept) bool,
+    scale (N,) f32 = the stride, by which the renderer widens each kept
+    interval so that the expected opacity stays unbiased)."""
+    n = valid.shape[0]
+    counts = torch.cumsum(valid, dim=1)  # inclusive
+    n_valid = counts[:, -1]
+    stride = torch.clamp(-torch.div(-n_valid, s_kept, rounding_mode="floor"), min=1)
+
+    rank = counts - 1  # a valid sample's rank among the valid ones
+    phase = (torch.zeros(n, dtype=torch.int64, device=valid.device)
+             if phase_bits is None else phase_bits.to(valid.device) % stride)
+    rel = rank - phase[:, None]
+    take = valid & (rel >= 0) & (torch.remainder(rel, stride[:, None]) == 0)
+    slot = torch.div(rel, stride[:, None], rounding_mode="floor")  # < s_kept
+    idx = _scatter_kept(torch.where(take, slot, s_kept), s_kept)
+
+    kept = torch.clamp(-torch.div(-(n_valid - phase), stride, rounding_mode="floor"),
+                       min=0)
+    mask = torch.arange(s_kept, device=valid.device)[None, :] < kept[:, None]
+    return idx, mask, stride.to(torch.float32)
+
+
+def draw_march(n: int, s_max: int, generator: torch.Generator):
+    """One strided march's draws from ``generator``, on its device: (u
+    (n, s_max) in [0, 1), phase_bits (n,) in [0, 2³⁰))."""
+    dev = generator.device
+    return (torch.rand((n, s_max), generator=generator, device=dev),
+            torch.randint(0, 1 << 30, (n,), generator=generator, device=dev))
+
+
+def strided_samples(t0, t1, x, valid, s_kept: int,
+                    phase_bits: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The strided compaction of candidate bins [t0, t1) (N, s_max) with
+    sample points x (N, s_max, 3) and validity: {t_starts, t_ends (N, s_kept)
+    the kept bins, dts their stride-widened widths (use these for opacity),
+    positions (N, s_kept, 3), mask (N, s_kept)}."""
+    idx, mask, scale = compact_samples_strided(valid, s_kept, phase_bits)
+    t0k = torch.gather(t0, 1, idx)
+    t1k = torch.gather(t1, 1, idx)
+    xk = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+    return {"t_starts": t0k, "t_ends": t1k, "dts": (t1k - t0k) * scale[:, None],
+            "positions": xk, "mask": mask}
+
+
+def march_rays(
+    state: Dict[str, torch.Tensor],
+    rays: torch.Tensor,  # (N, 8)
+    cfg: OccConfig,
+    s_max: int,
+    s_kept: int,
+    u: Optional[torch.Tensor] = None,
+    phase_bits: Optional[torch.Tensor] = None,
+    extra_valid_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    report_budget: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Occupancy-guided marching to a fixed (N, s_kept) layout.
+
+    ``s_max`` uniform bins span each ray's [near, far]; a bin is valid when
+    its sample point (at fraction ``u`` (N, s_max) of the bin, or its
+    midpoint) is occupied and ``extra_valid_fn`` agrees; the strided
+    compaction keeps ``s_kept`` of them per ray (``strided_samples``).
+    ``report_budget > 0`` adds ``overflow``, the share of valid candidates
+    that ``march_rays_budget`` WOULD drop at that budget per ray on this
+    batch (the auto-regime switch reads it)."""
+    o, d, _, _, t0, t1 = ray_bins(rays, cfg, s_max)
+    t_s = t0 + (0.5 if u is None else u) * (t1 - t0)
+    x = o[:, None, :] + d[:, None, :] * t_s[..., None]  # (N, s_max, 3)
+
+    valid = (t1 > t0) & occupancy_lookup(state, x)
+    if extra_valid_fn is not None:
+        valid = valid & extra_valid_fn(x)
+    out = strided_samples(t0, t1, x, valid, s_kept, phase_bits)
+    if report_budget > 0:
+        n_valid = torch.sum(valid)
+        cap = rays.shape[0] * int(report_budget)
+        out["overflow"] = torch.clamp(n_valid - cap, min=0) / torch.clamp(n_valid, min=1)
+    return out

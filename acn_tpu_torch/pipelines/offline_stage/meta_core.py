@@ -20,8 +20,9 @@ import torch
 from acn_tpu_torch.models.nn import tree_leaves, tree_map
 
 Params = Any
-# loss_fn(params, batch) -> 0-dim tensor
-LossFn = Callable[[Params, Any], torch.Tensor]
+# loss_fn(params, batch, i) -> 0-dim tensor; i is the inner iteration, where
+# JAX passes that iteration's key
+LossFn = Callable[[Params, Any, int], torch.Tensor]
 
 
 def sgd_tree(params: Params, grads: Params, lr: float) -> Params:
@@ -48,16 +49,18 @@ def task_adapt(
 
     Returns (fast_params, inner_losses (iterations,)). The fast weights are
     leaves that require grad, ready for the query loss's gradient. The JAX
-    function also splits a key per iteration; the packed-budget loss reads
-    none (its samples are marched before the loop)."""
+    function splits a key per iteration; here the loss gets the iteration's
+    index ``i``, from which the caller takes that iteration's draws (the
+    stratified loss jitters anew in every step; the packed and strided
+    losses read none: their samples are marched before the loop)."""
     if not first_order:
         raise NotImplementedError(
             "second-order task_adapt (maml) is not ported: ROADMAP.md M9")
     fast = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
     leaves = tree_leaves(fast)
     losses = []
-    for _ in range(iterations):
-        loss = loss_fn(fast, support)
+    for i in range(iterations):
+        loss = loss_fn(fast, support, i)
         grads = torch.autograd.grad(loss, leaves)
         sgd_tree(leaves, list(grads), inner_lr)
         losses.append(loss.detach())

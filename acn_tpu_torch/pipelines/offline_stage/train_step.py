@@ -1,23 +1,32 @@
-"""One FoMAML meta-training step through the packed-budget occupancy renderer.
+"""One FoMAML meta-training step in each marching regime, and the eval step.
 
-Port of ``acn_tpu/pipelines/offline_stage/train_step.py`` for the "budget"
-regime: ``make_bg_fn``, ``make_episode_loss`` (the budget branch of
-``prepare_samples`` and ``render_chunk``, ``use_amp``, the unchunked loss),
-the ``fomaml`` branch of ``_meta_grads_gradbased`` and
-``make_meta_train_step`` with its seven metrics.
+Port of ``acn_tpu/pipelines/offline_stage/train_step.py``: ``make_bg_fn``,
+``make_episode_loss`` (all three regimes, ``use_amp``, the unchunked loss),
+the ``fomaml`` branch of ``_meta_grads_gradbased``, ``make_meta_train_step``
+with its seven metrics, and ``make_eval_step``. The regime is picked as
+``acn_tpu`` picks it:
+
+* ``occ_cfg=None``: **stratified**, ``P.ray_samples`` jittered samples per
+  ray (the occupancy warm-up);
+* budget 0 (``P.occ_budget_per_ray``, or ``budget_override``): the
+  **strided** per-ray march to ``P.occ_s_kept`` samples and fixed-layout
+  compositing; ``report_budget > 0`` makes ``occ_overflow`` the share the
+  budget march WOULD drop (the auto-regime switch reads it);
+* budget > 0: the **packed-budget** march and packed compositing, whose
+  segmented scan runs the CUDA kernel's forward and reverse modes.
 
 Where the JAX step is one XLA program that vmaps the K experts and scans the
 T tasks, **the K and T axes are Python loops here**, one episode at a time
 (the torch reference this system was modelled on did the same): one expert's
 fast weights are in flight at a time, and each loss's graph is freed by
 ``torch.autograd.grad`` before the next loss is built. Per step that is
-K·T·(inner_iter + 1) episode losses, each with one backward, so on the card
-the segmented scan's forward and reverse kernels launch that many times each.
+K·T·(inner_iter + 1) episode losses, each with one backward.
 
-Randomness: ``acn_tpu`` draws one salt per march from its key; here the
-caller passes ``salts`` (K, T, 2) — [..., 0] for the support march, [..., 1]
-for the query march — drawn with ``draw_salts`` from a ``torch.Generator``,
-or ``None`` for bin midpoints.
+Randomness: ``acn_tpu`` splits a key per episode, march and loss; here a
+step takes ``draws`` (see ``EpisodeDraws``): None (bin midpoints, stride
+phase 0, no stratified jitter), a ``torch.Generator`` on the step's device,
+or a function that returns each draw (the tests replay JAX's draws with
+one).
 
 bf16 (``P.use_amp``): parameters and network inputs are cast to bf16 by hand
 before ``world_to_unit`` (so the hash cell and fraction are bf16 decisions
@@ -26,10 +35,8 @@ stay float32, and gradients come back through the casts onto the float32
 parameters. ``torch.autocast`` does none of this and is not used.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-stratified step (``occ_cfg=None``), the strided ``march_rays`` step
-(budget 0) and ``report_budget``, the chunked loss (``train_chunk_rays``),
-``maml``, ``reptile`` and ``fim``; ``make_eval_step`` and
-``make_device_batch_fn`` come with the trainer loop.
+chunked loss (``train_chunk_rays``), ``maml``, ``reptile`` and ``fim``;
+``make_device_batch_fn`` comes with the trainer loop.
 """
 
 from __future__ import annotations
@@ -43,7 +50,13 @@ from acn_tpu_torch.models import ngp as ngp_mod
 from acn_tpu_torch.models.container import ContainerConfig
 from acn_tpu_torch.models.nn import tree_cast, tree_leaves, tree_map
 from acn_tpu_torch.nerfs.losses import aligned_mse_loss, psnr_from_mse
-from acn_tpu_torch.nerfs.render import bg_default_color, composite_packed
+from acn_tpu_torch.nerfs.render import (
+    bg_default_color,
+    composite,
+    composite_packed,
+    render_rays_stratified,
+    render_weights_from_density,
+)
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
 from acn_tpu_torch.pipelines.offline_stage import meta_core
@@ -51,11 +64,79 @@ from acn_tpu_torch.pipelines.renderer import resolve_device
 from acn_tpu_torch.utils.optim import Optimizer, apply_updates
 
 
-def draw_salts(K: int, T: int, generator: torch.Generator) -> torch.Tensor:
-    """(K, T, 2) march salts in [0, 2³¹ − 1), as ``acn_tpu`` draws each of
-    its own (``jax.random.randint(key, (), 0, int32.max)``)."""
-    return torch.randint(0, 2**31 - 1, (K, T, 2), generator=generator,
-                         device=generator.device)
+def _budget(P, budget_override: Optional[int]) -> int:
+    return (int(budget_override) if budget_override is not None
+            else int(getattr(P, "occ_budget_per_ray", 0) or 0))
+
+
+def regime_of(occ_cfg: Optional[OccConfig], P,
+              budget_override: Optional[int] = None) -> str:
+    """"stratified", "strided" or "budget", as ``make_episode_loss`` picks."""
+    if occ_cfg is None:
+        return "stratified"
+    return "budget" if _budget(P, budget_override) > 0 else "strided"
+
+
+class EpisodeDraws:
+    """A step's random draws, asked for by episode (expert k, task t).
+
+    * ``march(k, t, j, n)``: march j's draws (j = 0 support, 1 query rays,
+      n of them): the budget march's salt, the strided march's (u (n, s_max),
+      phase_bits (n,)), or None;
+    * ``strat(k, t, i, n)``: the stratified loss's jitter (n, ray_samples)
+      for inner iteration i, the query loss at i = inner_iter; or None.
+
+    ``draws``: None (no draws), a ``torch.Generator`` (on the step's
+    device), or a function ``fn(what, k, t, j, shape)`` with ``what`` one
+    of "salt" (budget march j), "u", "phase" (strided march j) and
+    "strat_u" (stratified loss j), returning the draw (a salt in
+    [0, 2³¹ − 1) as an int or a 0-dim tensor, u in [0, 1), phase bits in
+    [0, 2³⁰)) or None."""
+
+    def __init__(self, draws, device: torch.device, regime: str, P):
+        self.device, self.regime = device, regime
+        self.s_max = int(getattr(P, "occ_s_max", 0) or 0)
+        self.ray_samples = int(P.ray_samples)
+        if isinstance(draws, torch.Generator):
+            if draws.device.type != device.type:
+                raise ValueError(f"the generator lies on {draws.device}, the "
+                                 f"step runs on {device}")
+            self.fn = self._from_generator(draws)
+        elif draws is None or callable(draws):
+            self.fn = draws
+        else:
+            raise TypeError("draws: None, a torch.Generator or a function, "
+                            f"not {type(draws).__name__}")
+
+    @staticmethod
+    def _from_generator(gen: torch.Generator) -> Callable:
+        def fn(what, k, t, j, shape):
+            if what == "salt":
+                return torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device)
+            if what == "phase":
+                return torch.randint(0, 1 << 30, shape, generator=gen, device=gen.device)
+            return torch.rand(shape, generator=gen, device=gen.device)
+        return fn
+
+    def _get(self, what, k, t, j, shape):
+        if self.fn is None:
+            return None
+        x = self.fn(what, k, t, j, shape)
+        return x if x is None or isinstance(x, int) else torch.as_tensor(x).to(self.device)
+
+    def march(self, k: int, t: int, j: int, n: int):
+        if self.regime == "budget":
+            return self._get("salt", k, t, j, ())
+        if self.regime == "strided":
+            u = self._get("u", k, t, j, (n, self.s_max))
+            ph = self._get("phase", k, t, j, (n,))
+            return None if u is None and ph is None else (u, ph)
+        return None
+
+    def strat(self, k: int, t: int, i: int, n: int):
+        if self.regime != "stratified":
+            return None
+        return self._get("strat_u", k, t, i, (n, self.ray_samples))
 
 
 def make_bg_fn(cfg: ContainerConfig, P) -> Callable:
@@ -74,72 +155,95 @@ def make_episode_loss(
     budget_override: Optional[int] = None,
     report_budget: int = 0,
 ):
-    """The episode loss and its march for the packed-budget regime.
+    """The episode loss and its march, for the regime that ``regime_of``
+    names.
 
     Returns (loss_fn, prepare_samples):
 
-    * ``loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples)`` → 0-dim
-      loss: evaluate ONE expert (any parameter tree of an expert's structure,
-      so fast weights too) on the packed samples, composite, align and MSE
-      against the ground truth.
-    * ``prepare_samples(occ_state, rays, salt)``: the budget march of one
-      episode's rays over that expert's grid. Marching has no trainable
-      input, so the step marches once per episode and reuses the samples in
-      every inner iteration.
+    * ``loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None)``
+      → 0-dim loss: render the rays with ONE expert (any parameter tree of an
+      expert's structure, so fast weights too) on the marched samples, or
+      stratified with jitter ``u`` (N, ray_samples) when there is no
+      occupancy, and align and MSE against the ground truth.
+    * ``prepare_samples(occ_state, rays, rand)``: the march of one episode's
+      rays over that expert's grid, with ``rand`` the budget march's salt or
+      the strided march's (u, phase_bits), None for midpoints and phase 0;
+      None in the stratified regime. Marching has no trainable input, so the
+      step marches once per episode and reuses the samples in every inner
+      iteration.
     """
-    if occ_cfg is None:
-        raise NotImplementedError(
-            "the stratified episode loss (occ_cfg=None) is not ported: "
-            "ROADMAP.md M2 (render_rays_stratified)")
     if int(getattr(P, "train_chunk_rays", 0) or 0) > 0:
         raise NotImplementedError(
             "the chunked episode loss (train_chunk_rays > 0) is not ported: "
             "ROADMAP.md M2")
-    if int(report_budget):
-        raise NotImplementedError(
-            "report_budget (the strided march's would-be overflow) is not "
-            "ported: ROADMAP.md M3 (march_rays)")
-    budget = (int(budget_override) if budget_override is not None
-              else int(getattr(P, "occ_budget_per_ray", 0) or 0))
-    if budget <= 0:
-        raise NotImplementedError(
-            "the per-ray occupancy step (budget 0, strided march_rays) is not "
-            "ported: ROADMAP.md M3")
+    regime = regime_of(occ_cfg, P, budget_override)
+    budget = _budget(P, budget_override)
     bg_fn = make_bg_fn(cfg, P)
     use_amp = bool(getattr(P, "use_amp", False))
-    s_max = int(P.occ_s_max)
 
-    def prepare_samples(occ_state, rays, salt):
-        return occ_grid.march_rays_budget(occ_state, rays, occ_cfg, s_max,
-                                          budget, salt=salt)
+    def prepare_samples(occ_state, rays, rand):
+        if regime == "budget":
+            return occ_grid.march_rays_budget(occ_state, rays, occ_cfg,
+                                              int(P.occ_s_max), budget, salt=rand)
+        if regime == "strided":
+            u, phase_bits = rand if rand is not None else (None, None)
+            return occ_grid.march_rays(
+                occ_state, rays, occ_cfg, int(P.occ_s_max), int(P.occ_s_kept),
+                u=u, phase_bits=phase_bits, report_budget=int(report_budget))
+        return None
 
-    def loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples):
+    def loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None):
         bg = bg_fn(bg_params, rays[:, 3:6])
-        xd = samples["xd"]
         if use_amp:
             expert_params = tree_cast(expert_params, torch.bfloat16)
-            xd = xd.to(torch.bfloat16)
-        out = ngp_mod.ngp_forward(expert_params, cfg.expert, aabb, xd)
-        out = out.to(torch.float32)
-        rgb_map = composite_packed(out[..., 3], out[..., :3], samples,
-                                   rays.shape[0], bg_rgb=bg,
-                                   with_stats=False)[0]
+
+        def fwd(xd):
+            if use_amp:
+                xd = xd.to(torch.bfloat16)
+            return ngp_mod.ngp_forward(expert_params, cfg.expert, aabb,
+                                       xd).to(torch.float32)
+
+        n = rays.shape[0]
+        if regime == "stratified":
+            rgb_map = render_rays_stratified(fwd, rays, int(P.ray_samples), u=u,
+                                             bg_rgb=bg)[0]
+        elif regime == "budget":
+            out = fwd(samples["xd"])
+            rgb_map = composite_packed(out[..., 3], out[..., :3], samples, n,
+                                       bg_rgb=bg, with_stats=False)[0]
+        else:
+            x = samples["positions"]
+            xd = torch.cat([x, rays[:, None, 3:6].expand_as(x)], dim=-1)
+            out = fwd(xd.reshape(-1, 6)).reshape(x.shape[0], x.shape[1], 4)
+            weights, _ = render_weights_from_density(
+                samples["t_starts"], samples["t_ends"], out[..., 3],
+                sample_mask=samples["mask"], dts=samples["dts"])
+            t_mid = 0.5 * (samples["t_starts"] + samples["t_ends"])
+            rgb_map = composite(weights, out[..., :3], t_mid, bg_rgb=bg)[0]
         return aligned_mse_loss(rgb_map, rgbs, P.color_space)
 
     return loss_fn, prepare_samples
 
 
-def _salt(salts, k: int, t: int, j: int):
-    """One march's salt: a Python int from host salts (no copy to the card),
-    a 0-dim tensor from salts on the card (no wait for it), None for none."""
-    if salts is None:
-        return None
-    s = salts[k, t, j]
-    return s if isinstance(s, torch.Tensor) and s.device.type != "cpu" else int(s)
+def _expert_occ(occ_states, k: int):
+    """Expert k's occupancy state, or None (the stratified regime's
+    placeholder, ``trainer.dummy_occ_states``, or None)."""
+    if isinstance(occ_states, dict):
+        return {name: v[k] for name, v in occ_states.items()}
+    return None
+
+
+def _check_devices(device, params, batch, occ_states) -> None:
+    occ = (list(occ_states.values()) if isinstance(occ_states, dict)
+           else [] if occ_states is None else [occ_states])
+    on = {t.device.type for t in (*tree_leaves(params), *batch.values(), *occ)}
+    if on != {device.type}:
+        raise ValueError(f"this step runs on {device.type!r}; the model, "
+                         f"batch or occupancy states lie on {sorted(on)}")
 
 
 def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
-                       salts, inner_lr: float, inner_iter: int):
+                       rnd: EpisodeDraws, inner_lr: float, inner_iter: int):
     """FoMAML meta-gradients, one episode at a time.
 
     Per expert k and task t: march the support and the query rays once;
@@ -155,6 +259,7 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
     experts, bg = params["experts"], params.get("bg_mlp")
     has_bg = bg is not None
     K, T = batch["support_rays"].shape[:2]
+    dev = batch["support_rays"].device
     g_experts = tree_map(torch.zeros_like, experts)
     g_bg = tree_map(torch.zeros_like, bg) if has_bg else None
     bg_const = tree_map(lambda p: p.detach(), bg) if has_bg else None
@@ -162,19 +267,26 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
     for k in range(K):
         expert_p = cont.expert_slice(experts, k)
         aabb = aabbs[k]
-        occ_state = {name: v[k] for name, v in occ_states.items()}
+        occ_state = _expert_occ(occ_states, k)
         g_bg_k = tree_map(torch.zeros_like, bg) if has_bg else None
         for t in range(T):
             sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
             qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
-            smp_s = prep(occ_state, sr, _salt(salts, k, t, 0))
-            smp_q = prep(occ_state, qr, _salt(salts, k, t, 1))
-            ovfs.append((smp_s["overflow"] + smp_q["overflow"]) * 0.5)
+            smp_s = prep(occ_state, sr, rnd.march(k, t, 0, sr.shape[0]))
+            smp_q = prep(occ_state, qr, rnd.march(k, t, 1, qr.shape[0]))
+            # the budget march's drop, or the strided march's would-be drop
+            ovf = torch.zeros((), device=dev)
+            for smp in (smp_s, smp_q):
+                if smp is not None and "overflow" in smp:
+                    ovf = ovf + smp["overflow"]
+            ovfs.append(ovf * 0.5)
 
             fast, inner = meta_core.task_adapt(
-                lambda p, b: episode_loss(p, bg_const, aabb, b[0], b[1], smp_s),
+                lambda p, b, i: episode_loss(p, bg_const, aabb, b[0], b[1], smp_s,
+                                             u=rnd.strat(k, t, i, b[0].shape[0])),
                 expert_p, (sr, sg), inner_lr, inner_iter, first_order=True)
-            q_loss = episode_loss(fast, bg, aabb, qr, qg, smp_q)
+            q_loss = episode_loss(fast, bg, aabb, qr, qg, smp_q,
+                                  u=rnd.strat(k, t, inner_iter, qr.shape[0]))
             fast_leaves = tree_leaves(fast)
             wrt = fast_leaves + (tree_leaves(bg) if has_bg else [])
             grads = torch.autograd.grad(q_loss, wrt)
@@ -200,31 +312,7 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
             g_experts, g_bg, torch.mean(torch.stack(ovfs)))
 
 
-def make_meta_train_step(
-    cfg: ContainerConfig,
-    P,
-    optimizer: Optimizer,
-    occ_cfg: Optional[OccConfig] = None,
-    budget_override: Optional[int] = None,
-    report_budget: int = 0,
-    device=None,
-):
-    """Build the meta-train step of the packed-budget regime.
-
-    ``train_step(state, batch, occ_states, salts=None)`` → (state, metrics).
-    ``state`` = {"model": ``Container``, "opt_state": ``optimizer.init``'s,
-    "step": int}: the model's parameters are updated **in place** and the
-    returned state holds the same model. ``batch`` = stacked (K, T, ·, ·)
-    episode tensors {support_rays, support_rgbs, query_rays, query_rgbs},
-    ``occ_states`` the stacked (K, ...) occupancy states, ``salts`` as
-    ``draw_salts`` makes them (or None: bin midpoints). Everything lies on
-    ``device``: ``None`` means the card, and raises without one.
-
-    ``metrics`` = {loss_out, loss_in, psnr_out, psnr_in (K,), loss_total,
-    grad_norm, occ_overflow (0-dim)}, tensors on the device: the step does
-    not wait for the card, reading a metric does.
-    """
-    device = resolve_device(device)
+def _refuse_unported(P) -> None:
     algo = str(P.algo).lower()
     if algo in ("maml", "reptile"):
         raise NotImplementedError(
@@ -235,6 +323,36 @@ def make_meta_train_step(
         raise NotImplementedError(
             "the Fisher-preconditioned inner loop (fim) is not ported: "
             "ROADMAP.md M9")
+
+
+def make_meta_train_step(
+    cfg: ContainerConfig,
+    P,
+    optimizer: Optimizer,
+    occ_cfg: Optional[OccConfig] = None,
+    budget_override: Optional[int] = None,
+    report_budget: int = 0,
+    device=None,
+):
+    """Build the meta-train step of the regime that ``regime_of`` names.
+
+    ``train_step(state, batch, occ_states, draws=None)`` → (state, metrics).
+    ``state`` = {"model": ``Container``, "opt_state": ``optimizer.init``'s,
+    "step": int}: the model's parameters are updated **in place** and the
+    returned state holds the same model. ``batch`` = stacked (K, T, ·, ·)
+    episode tensors {support_rays, support_rgbs, query_rays, query_rgbs},
+    ``occ_states`` the stacked (K, ...) occupancy states (in the stratified
+    regime ``trainer.dummy_occ_states`` or None), ``draws`` as
+    ``EpisodeDraws`` takes them. Everything lies on ``device``: ``None``
+    means the card, and raises without one.
+
+    ``metrics`` = {loss_out, loss_in, psnr_out, psnr_in (K,), loss_total,
+    grad_norm, occ_overflow (0-dim)}, tensors on the device: the step does
+    not wait for the card, reading a metric does.
+    """
+    device = resolve_device(device)
+    _refuse_unported(P)
+    regime = regime_of(occ_cfg, P, budget_override)
     episode_loss, prep = make_episode_loss(
         cfg, P, occ_cfg, budget_override=budget_override,
         report_budget=report_budget)
@@ -242,19 +360,13 @@ def make_meta_train_step(
     inner_iter = int(P.inner_iter)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                   occ_states: Dict[str, torch.Tensor],
-                   salts=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+                   occ_states, draws=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         model = state["model"]
         params = model.params()
-        on = {t.device.type for t in (*tree_leaves(params), *batch.values(),
-                                      *occ_states.values())}
-        if on != {device.type}:
-            raise ValueError(f"this step runs on {device.type!r}; the model, "
-                             f"batch or occupancy states lie on {sorted(on)}")
-
+        _check_devices(device, params, batch, occ_states)
         q_losses, inner_losses, g_experts, g_bg, occ_overflow = _meta_grads_fomaml(
             episode_loss, prep, params, model.expert_aabbs, occ_states, batch,
-            salts, inner_lr, inner_iter)
+            EpisodeDraws(draws, device, regime, P), inner_lr, inner_iter)
         grads = {"experts": g_experts}
         if g_bg is not None:
             grads["bg_mlp"] = g_bg
@@ -279,3 +391,64 @@ def make_meta_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(
+    cfg: ContainerConfig,
+    P,
+    occ_cfg: Optional[OccConfig] = None,
+    tto: Optional[int] = None,
+    device=None,
+):
+    """Mid-training eval: adapt each test task's expert with ``tto`` inner
+    steps (``P.inner_iter`` when None) on its support rays, then the query
+    loss at the adapted weights. The batch is the train step's.
+
+    ``eval_step(model, batch, occ_states, draws=None)`` → {loss_out,
+    psnr_out (K,), psnr (0-dim)}; the model is not changed."""
+    device = resolve_device(device)
+    if bool(getattr(P, "fim", False)):
+        raise NotImplementedError(
+            "the Fisher-preconditioned inner loop (fim) is not ported: "
+            "ROADMAP.md M9")
+    regime = regime_of(occ_cfg, P)
+    episode_loss, prep = make_episode_loss(cfg, P, occ_cfg)
+    inner_lr = float(P.inner_lr)
+    iterations = int(P.inner_iter if tto is None else tto)
+
+    def eval_step(model, batch: Dict[str, torch.Tensor], occ_states,
+                  draws=None) -> Dict[str, torch.Tensor]:
+        params = model.params()
+        _check_devices(device, params, batch, occ_states)
+        rnd = EpisodeDraws(draws, device, regime, P)
+        bg = params.get("bg_mlp")
+        bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
+        K, T = batch["support_rays"].shape[:2]
+        q_losses = []
+        for k in range(K):
+            expert_p = cont.expert_slice(params["experts"], k)
+            aabb = model.expert_aabbs[k]
+            occ_state = _expert_occ(occ_states, k)
+            for t in range(T):
+                sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
+                qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
+                smp_s = prep(occ_state, sr, rnd.march(k, t, 0, sr.shape[0]))
+                smp_q = prep(occ_state, qr, rnd.march(k, t, 1, qr.shape[0]))
+                fast = expert_p
+                if iterations > 0:
+                    fast, _ = meta_core.task_adapt(
+                        lambda p, b, i: episode_loss(
+                            p, bg, aabb, b[0], b[1], smp_s,
+                            u=rnd.strat(k, t, i, b[0].shape[0])),
+                        expert_p, (sr, sg), inner_lr, iterations, first_order=True)
+                with torch.no_grad():
+                    q_losses.append(episode_loss(
+                        fast, bg, aabb, qr, qg, smp_q,
+                        u=rnd.strat(k, t, iterations, qr.shape[0])))
+                del fast
+        q = torch.stack(q_losses).reshape(K, T)
+        loss_out = torch.mean(q, dim=1)
+        return {"loss_out": loss_out, "psnr_out": psnr_from_mse(loss_out),
+                "psnr": psnr_from_mse(torch.mean(q))}
+
+    return eval_step

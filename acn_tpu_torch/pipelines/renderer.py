@@ -1,15 +1,16 @@
-"""Full-frame and ray-batch rendering of the routed container through the
-packed-budget occupancy path.
+"""Full-frame and ray-batch rendering of the routed container, stratified
+or occupancy-guided.
 
-Port of ``acn_tpu/pipelines/renderer.py`` for its serving configuration:
-``use_occ`` with ``P.occ_budget_per_ray > 0`` and no ``active_module`` (the
-soft-MoE packed path). Chunking is over a fixed chunk size computed exactly
-as in JAX, so every chunk packs the same B samples; the last chunk is
-padded. Everything stays on the device until the frame is done: no chunk
-synchronizes with the host.
+Port of ``acn_tpu/pipelines/renderer.py`` without an ``active_module``
+(the soft-MoE paths): stratified over ``container_forward`` when there is no
+``OccConfig``; with one, the strided per-ray march (``render_rays_occ``)
+when ``P.occ_budget_per_ray`` is 0, else the packed-budget march
+(``render_rays_occ_budget``). Chunking is over a fixed chunk size computed
+exactly as in JAX; the last chunk is padded. Everything stays on the device
+until the frame is done: no chunk synchronizes with the host.
 
-The stratified, per-ray occupancy and routed (per-expert) paths, the mesh
-fan-out and randomized sampling are not ported yet.
+The routed (per-expert) paths, the mesh fan-out and randomized sampling are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from acn_tpu_torch.models import container as cont
 from acn_tpu_torch.models.container import Container, ContainerConfig
 from acn_tpu_torch.models.nn import norm3
 from acn_tpu_torch.nerfs import rays as raylib
-from acn_tpu_torch.nerfs.render import bg_default_color
-from acn_tpu_torch.nerfs.render_occ import render_rays_occ_budget
+from acn_tpu_torch.nerfs.render import bg_default_color, render_rays_stratified
+from acn_tpu_torch.nerfs.render_occ import render_rays_occ, render_rays_occ_budget
 from acn_tpu_torch.occupancy.grid import OccConfig
 
 
@@ -65,8 +66,8 @@ def _pinhole_block_rays(rows: int, W: int, c2w, intr, aabb, nf, row0: float,
 
 
 class Renderer:
-    """Renders a ``Container`` with its stacked occupancy states on
-    ``device`` (default: the card)."""
+    """Renders a ``Container`` with its stacked occupancy states (ignored by
+    the stratified path) on ``device`` (default: the card)."""
 
     def __init__(
         self,
@@ -83,13 +84,13 @@ class Renderer:
         self._chunk_override = None if chunk_rays is None else int(chunk_rays)
         self.chunk_rays = self._chunk_size(occ_cfg is not None)
         self.budget = int(getattr(P, "occ_budget_per_ray", 0) or 0)
-        if occ_cfg is None or self.budget <= 0:
-            raise NotImplementedError(
-                "only the packed-budget occupancy path is ported: pass an "
-                "OccConfig and set P.occ_budget_per_ray > 0")
-        # render-time bin resolution (serving may march coarser bins)
-        self.s_max = (int(getattr(P, "occ_render_s_max", 0) or 0)
-                      or int(P.occ_s_max))
+        self.ray_samples = int(P.ray_samples)
+        if occ_cfg is not None:
+            # render-time bin resolution (serving may march coarser bins),
+            # and the strided march's kept samples, scaled with ray_samples
+            self.s_max = (int(getattr(P, "occ_render_s_max", 0) or 0)
+                          or int(P.occ_s_max))
+            self.s_kept = min(int(P.occ_s_kept), max(self.ray_samples, 8))
 
     def _chunk_size(self, use_occ: bool) -> int:
         """Rays per chunk, budgeting point-expert evals from
@@ -115,19 +116,32 @@ class Renderer:
     # ---------------- chunk functions ----------------
 
     def _render_chunk(self, model: Container, occ_states, rays: torch.Tensor):
-        """One chunk through the packed-budget path →
-        (rgb (n,3), depth (n,), acc (n,), wmax (n,), went (n,))."""
+        """One chunk → (rgb (n,3), depth (n,), acc (n,), wmax (n,), went (n,));
+        wmax and went (the entropy of the normalized weights) are the
+        weight-shape statistics fog suppression reads."""
         n = rays.shape[0]
         if self.cfg.use_bg_nerf:
             bg = cont.background_color(model, rays[:, 3:6])
         else:
             bg = bg_default_color(n, self.P.bg_color_default, device=rays.device)
-        rgb, depth, extras, acc = render_rays_occ_budget(
-            model, occ_states, self.occ_cfg, rays, s_max=self.s_max,
-            budget_per_ray=self.budget, alpha_thre=self.occ_cfg.alpha_thre,
-            bg_rgb=bg,
-        )
-        return rgb, depth, acc, extras["wmax"], extras["went"]
+        if self.occ_cfg is None:
+            rgb, depth, weights, acc = render_rays_stratified(
+                lambda xd: cont.container_forward(model, xd), rays,
+                self.ray_samples, bg_rgb=bg)
+        elif self.budget > 0:
+            rgb, depth, extras, acc = render_rays_occ_budget(
+                model, occ_states, self.occ_cfg, rays, s_max=self.s_max,
+                budget_per_ray=self.budget, alpha_thre=self.occ_cfg.alpha_thre,
+                bg_rgb=bg)
+            return rgb, depth, acc, extras["wmax"], extras["went"]
+        else:
+            rgb, depth, weights, acc = render_rays_occ(
+                model, occ_states, self.occ_cfg, rays, s_max=self.s_max,
+                s_kept=self.s_kept, alpha_thre=self.occ_cfg.alpha_thre, bg_rgb=bg)
+        wsum = torch.clamp(torch.sum(weights, dim=1, keepdim=True), min=1e-12)
+        p = weights / wsum
+        went = -torch.sum(p * torch.log(torch.clamp(p, min=1e-12)), dim=1)
+        return rgb, depth, acc, torch.amax(weights, dim=1), went
 
     def _frame_chunk(self, model, occ_states, W: int, rows: int, c2w, intr,
                      aabb, nf, row0: float, col0: float):

@@ -6,8 +6,12 @@ defaults): 4 NGP experts, a cell-layout hash grid of 8 levels × 4 features
 with 2^(20−3) rows and dense coarse levels (min res 16, max res 4096),
 64-wide σ and color MLPs (σ depth 2, color depth 2), SH-4 directions and an
 SH-4 → 32 → 3 background MLP; boundary margin 1.05, 2-D clustering; an
-occupancy grid of 128³ × 1 level with alpha threshold 1e-2; a packed budget
-of 32 samples per ray over 256 bins, and 4,000,000 chunk points. Training:
+occupancy grid of 128³ × 1 level with alpha threshold 1e-2, rebuilt every 16
+steps by an EMA update (decay 0.95, threshold 1e-2) after a stratified
+warm-up of 256 steps; 64 kept samples per ray in the strided march and a
+packed budget of 32 per ray over 256 bins, switched to automatically once
+the would-be overflow stays at or under 2 % for 3 readings; 4,000,000 chunk
+points. Training:
 FoMAML with 8 inner steps at rate 0.015, bf16 compute (``use_amp``), Adam
 with per-group rates decayed tenfold over 10,000 steps, the global-norm clip
 at 1 and the non-finite guard; 3 tasks per expert of 1,024 support and 512
@@ -72,9 +76,15 @@ def train_occ_config() -> Tuple[ContainerConfig, types.SimpleNamespace, OccConfi
         optimizer="adam", encoding_lr=1e-2, sigma_lr=2e-3, color_lr=2e-3,
         bg_lr=1e-3, lr=1e-4, outer_steps=10_000, decay_factor=10.0,
         no_scheduler=False, grad_clip=1.0, guard_nonfinite=1,
+        # the regime schedule: stratified for occ_warmup steps, then strided
+        # with the would-be overflow measured until the auto switch
+        occ_warmup=256, occ_regime="auto", occ_auto_thresh=0.02,
+        occ_auto_patience=3,
     )
-    occ_cfg = OccConfig(resolution=128, levels=1, alpha_thre=1e-2,
-                        near_plane=0.0, far_plane=100000.0)
+    occ_cfg = OccConfig(resolution=128, levels=1, occ_thre=1e-2, ema_decay=0.95,
+                        warmup_steps=256, update_interval=16, alpha_thre=1e-2,
+                        alpha_thre_start=0.0, cosine_anneal=True,
+                        cone_angle=0.004, near_plane=0.0, far_plane=100000.0)
     return cfg, P, occ_cfg
 
 

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --profile DIR   # also profile one frame and one
-                                          # training step, tables in DIR
+                                          # budget, stratified and strided
+                                          # step each, tables in DIR
 
 Phases, each printing one JSON line and each fatal on failure:
 
@@ -26,7 +27,7 @@ Phases, each printing one JSON line and each fatal on failure:
 5. train step: four FoMAML meta-training steps (one warm, three timed) of
    that model through ``make_meta_train_step`` in the packed-budget regime,
    bf16 compute, 3 tasks of 1,024 support and 512 query rays per expert,
-   salts from a seeded generator; every metric finite, every parameter
+   draws from a seeded generator on the card; every metric finite, every parameter
    moved, the optimizer's count at 4, and the scan's forward and reverse
    kernels each launched K·T·(inner_iter + 1) = 108 times per step; the
    host's waits for the card in one step; both kernels against their plain
@@ -36,7 +37,25 @@ Phases, each printing one JSON line and each fatal on failure:
    bf16, as the step runs it, on the card against the CPU and against
    float32 on the card (loss, and each parameter group's gradient as one
    vector, in length and direction);
-6. the kernels line, then the card's ``nvidia-smi`` line, then the result
+6. the regime schedule of a run of ``configs/train_occ.json``, at full
+   width (K 4, T 3, S 1,024, Q 512, 8 inner steps, bf16, 256 bins, 64 kept
+   samples, 128³ grids), on a fresh model (seed 1): (a) two stratified
+   steps (96 samples per ray); (b) two passes of the all-expert occupancy
+   update built from that model, each checked against its own EMA and
+   threshold, and one expert's update at 32³ (hash features scaled so
+   that σ varies over the grid) on the card against the CPU with the same
+   injected jitter; (c) five strided steps on 10 % random grids
+   (``bench.py``'s "auto" regime) with ``report_budget`` 32, 2, 32, 32, 32,
+   whose would-be overflows feed ``AutoRegime``: the overflowing reading
+   at budget 2 restarts its count and it must fire on the fifth; one
+   strided step on the updated grids, the budget step after the switch,
+   and one float32 strided episode on the card against the CPU; (d) the
+   budget-0 renderer (strided march, ``render_rays_occ``): ``render_rays``
+   on the card against the CPU, a warm 1080p frame and a timed one. The
+   stratified and strided steps and the budget-0 renderer must launch no
+   scan kernel; the budget step after the switch 108 forward and 108
+   reverse;
+7. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -435,10 +454,13 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
 # ---------------------------------------------------------------- phase 4
 
 
-def phase_vs_cpu(torch, toy, Renderer, model, occ, cam):
+def phase_vs_cpu(torch, toy, Renderer, model, occ, cam, P=None, phase="main_path_vs_cpu"):
+    """``render_rays`` on the card against the CPU for the render params
+    ``P`` (the config's: the packed-budget path)."""
     from acn_tpu_torch.pipelines.renderer import _pinhole_block_rays
 
-    cfg, P, occ_cfg = toy.train_occ_config()
+    cfg, P_cfg, occ_cfg = toy.train_occ_config()
+    P = P or P_cfg
     args = [torch.from_numpy(np.asarray(a, np.float32)) for a in
             (cam["c2w"], cam["intrinsics"], cam["aabb"])]
     rays = _pinhole_block_rays(H, W, *args, torch.tensor([-np.inf, np.inf]),
@@ -471,8 +493,7 @@ def phase_vs_cpu(torch, toy, Renderer, model, occ, cam):
         check(ok, f"card vs CPU render_rays disagree at {name}: {errs}")
     check(out["alpha_thre_0_bias_2"]["max_acc"] > 0.5,
           "the opaque case composited nothing opaque")
-    emit({"phase": "main_path_vs_cpu", "rays": 2048, "atol": atol,
-          "rtol": rtol, **out})
+    emit({"phase": phase, "rays": 2048, "atol": atol, "rtol": rtol, **out})
     return occ_cpu
 
 
@@ -524,6 +545,54 @@ def scan_on_training_segments(torch, segscan, bench, samples) -> dict:
             "bound_ms": 1e3 * 9 * B / HBM_BYTES_PER_S}
 
 
+def episode_loss_grads(torch, ts, nn, cfg, P, occ_cfg, model_cpu, occ_cpu, rays,
+                       rgbs, dev, rand):
+    """Expert 0's episode loss on ``rays`` and its gradient (float32 leaves,
+    as float64 on the CPU), with the σ-head bias at +2 so that the
+    transmittance carries weight, on ``dev``; ``rand`` is the march's
+    draws."""
+    loss_fn, prep = ts.make_episode_loss(cfg, P, occ_cfg)
+    params = model_cpu.params()
+    expert = nn.tree_map(
+        lambda a: a[0].detach().clone().to(dev).requires_grad_(True),
+        params["experts"])
+    with torch.no_grad():
+        expert["sigma_head"]["b"].fill_(2.0)
+    bg = nn.tree_map(lambda a: a.detach().to(dev), params["bg_mlp"])
+    r = torch.from_numpy(rays).to(dev)
+    if isinstance(rand, tuple):
+        rand = tuple(x.to(dev) for x in rand)
+    smp = prep({k: v[0].to(dev) for k, v in occ_cpu.items()}, r, rand)
+    loss = loss_fn(expert, bg, model_cpu.expert_aabbs[0].to(dev), r,
+                   torch.from_numpy(rgbs).to(dev), smp)
+    grads = torch.autograd.grad(loss, nn.tree_leaves(expert))
+    check(all(g.dtype == torch.float32 for g in grads),
+          f"{dev}: a gradient of a float32 leaf is not float32")
+    return float(loss.detach()), [g.double().cpu() for g in grads]
+
+
+def check_card_vs_cpu_f32(torch, got, want, n_tables, what) -> dict:
+    """A float32 episode's loss and gradient on the card against the CPU:
+    loss rtol 1e-5, gradients atol 1e-6 with rtol 1e-3 on the tables and
+    1e-4 on the MLPs (cuBLAS sums f32 products in another order than the
+    CPU; the table gradient is a scatter-add with atomics, whose order is
+    free)."""
+    (lg, gg), (lc, gc) = got, want
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"{what} loss: card {lg}, CPU {lc}")
+    err = {"table": 0.0, "mlp": 0.0}
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        kind = "table" if i < n_tables else "mlp"
+        rtol = 1e-3 if kind == "table" else 1e-4
+        err[kind] = max(err[kind], float((a - b).abs().max()))
+        check(torch.allclose(a, b, atol=1e-6, rtol=rtol),
+              f"{what} gradient leaf {i} ({kind}): card vs CPU max |diff| "
+              f"{float((a - b).abs().max())}")
+    check(any(float(g.abs().max()) > 0 for g in gc[:n_tables]),
+          f"{what}: the table gradient is all zero")
+    return {"loss_card": lg, "loss_cpu": lc, "max_abs_err_table_grad": err["table"],
+            "max_abs_err_mlp_grad": err["mlp"]}
+
+
 def episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np) -> dict:
     """One episode's loss and gradient, 256 rays, one salt, the σ-head bias at
     +2 so that the transmittance (and with it the reverse scan) carries weight:
@@ -537,38 +606,11 @@ def episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np) -> dic
     for label, dev, amp in (("card", "cuda", False), ("cpu", "cpu", False),
                             ("card_bf16", "cuda", True), ("cpu_bf16", "cpu", True)):
         P_run = types.SimpleNamespace(**{**vars(P), "use_amp": amp})
-        loss_fn, prep = ts.make_episode_loss(cfg, P_run, occ_cfg)
-        params = model_cpu.params()
-        expert = nn.tree_map(
-            lambda a: a[0].detach().clone().to(dev).requires_grad_(True),
-            params["experts"])
-        with torch.no_grad():
-            expert["sigma_head"]["b"].fill_(2.0)
-        bg = nn.tree_map(lambda a: a.detach().to(dev), params["bg_mlp"])
-        r = torch.from_numpy(rays).to(dev)
-        smp = prep({k: v[0].to(dev) for k, v in occ_cpu.items()}, r, 12345)
-        loss = loss_fn(expert, bg, model_cpu.expert_aabbs[0].to(dev), r,
-                       torch.from_numpy(rgbs).to(dev), smp)
-        leaves = nn.tree_leaves(expert)
-        grads = torch.autograd.grad(loss, leaves)
-        check(all(g.dtype == torch.float32 for g in grads),
-              f"{label}: a gradient of a float32 leaf is not float32")
-        out[label] = (float(loss.detach()), [g.double().cpu() for g in grads])
-    (lg, gg), (lc, gc) = out["card"], out["cpu"]
+        out[label] = episode_loss_grads(torch, ts, nn, cfg, P_run, occ_cfg, model_cpu,
+                                        occ_cpu, rays, rgbs, dev, 12345)
+    lg, gg = out["card"]
     (lb, gb), (lbc, gbc) = out["card_bf16"], out["cpu_bf16"]
-    # tolerances: cuBLAS sums f32 products in another order than the CPU;
-    # the table gradient is a scatter-add with atomics, whose order is free
-    check(abs(lg - lc) <= 1e-5 * abs(lc), f"episode loss: card {lg}, CPU {lc}")
-    err = {"table": 0.0, "mlp": 0.0}
-    for i, (a, b) in enumerate(zip(gg, gc)):
-        kind = "table" if i < n_tables else "mlp"
-        rtol = 1e-3 if kind == "table" else 1e-4
-        err[kind] = max(err[kind], float((a - b).abs().max()))
-        check(torch.allclose(a, b, atol=1e-6, rtol=rtol),
-              f"episode gradient leaf {i} ({kind}): card vs CPU max |diff| "
-              f"{float((a - b).abs().max())}")
-    check(any(float(g.abs().max()) > 0 for g in gc[:n_tables]),
-          "the episode's table gradient is all zero")
+    f32 = check_card_vs_cpu_f32(torch, out["card"], out["cpu"], n_tables, "episode")
 
     def against(ga, gb_, sl):
         """Two gradients' leaves ``sl`` as one vector each: (ratio of their
@@ -615,10 +657,35 @@ def episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np) -> dic
           and 1.0 / BF16_NORM_FACTOR <= ratio <= BF16_NORM_FACTOR
           and cos >= BF16_MIN_COS,
           f"bf16 episode against float32, both on the card: {vs32}")
-    return {"rays": 256, "loss_card": lg, "loss_cpu": lc,
-            "max_abs_err_table_grad": err["table"],
-            "max_abs_err_mlp_grad": err["mlp"],
-            "bf16_card_vs_cpu": same, "bf16_vs_f32_on_card": vs32}
+    return {"rays": 256, **f32, "bf16_card_vs_cpu": same, "bf16_vs_f32_on_card": vs32}
+
+
+def profile_window(torch, fn, profile_dir, name):
+    """``fn`` once under ``torch.profiler``, between two synchronizations:
+    (the profile, wall ms, the card's busy ms, kernel launches). Writes the
+    ops by device time and by host time to DIR/<name>_kernels.txt and
+    DIR/<name>_host.txt and prints the first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="cuda_time_total", row_limit=45)
+    (Path(profile_dir) / f"{name}_kernels.txt").write_text(table)
+    print(table, flush=True)
+    # a step waits on the host: the same events by the host's own time
+    (Path(profile_dir) / f"{name}_host.txt").write_text(
+        avgs.table(sort_by="self_cpu_time_total", row_limit=30))
+    launches = sum(e.count for e in avgs if e.key == "cudaLaunchKernel")
+    return prof, wall_ms, busy_ms, launches
 
 
 def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir):
@@ -636,23 +703,22 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     opt, state = toy.init_train_state(model, P)
     step = ts.make_meta_train_step(cfg, P, opt, occ_cfg)  # the card by default
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     start = nn.tree_map(lambda p: p.detach().clone(), model.params())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     step_ms, launches, metrics, syncs, sites = [], [], None, 0, {}
     for i in range(4):  # one warm step, three timed
-        salts = ts.draw_salts(K, T, gen)
         segscan.seg_excl_sum_kernel.launches = 0
         segscan.seg_excl_rsum_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 3:  # the last timed step also counts the host's waits
             (state, metrics), syncs, sites = host_syncs(
-                torch, lambda: step(state, batch, occ, salts))
+                torch, lambda: step(state, batch, occ, gen))
         else:
-            state, metrics = step(state, batch, occ, salts)
+            state, metrics = step(state, batch, occ, gen)
         torch.cuda.synchronize()
         if i:
             step_ms.append(1e3 * (time.perf_counter() - t0))
@@ -713,27 +779,8 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
           "episode_card_vs_cpu": vs_cpu})
 
     if profile_dir:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        Path(profile_dir).mkdir(parents=True, exist_ok=True)
-        salts = ts.draw_salts(K, T, gen)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(state, batch, occ, salts)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
-                             if e.device_type == DeviceType.CUDA)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=45)
-        (Path(profile_dir) / "train_step_kernels.txt").write_text(table)
-        print(table, flush=True)
-        # the step waits on the host: the same events by the host's own time
-        host = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30)
-        (Path(profile_dir) / "train_step_host.txt").write_text(host)
-        print(host, flush=True)
+        prof, wall_ms, busy_ms, n_launch = profile_window(
+            torch, lambda: step(state, batch, occ, gen), profile_dir, "train_step")
         scan = {}
         for e in prof.key_averages():
             if "seg_scan_kernel" in e.key:
@@ -743,11 +790,275 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
                                      "mean_us": us / max(e.count, 1)}
         emit({"phase": "train_step_profile", "step_wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-              "scan_kernels": scan,
+              "kernel_launches": n_launch, "scan_kernels": scan,
               "scan_share_of_busy": 1e-3 * sum(
                   v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
     return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
             "steps": len(launches), "shapes": shapes}
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+# the 32³ update check scales expert 0's hash features by this: from the
+# random init (U(±1e-4)) σ is all but constant over the grid, and about a
+# fifth of the cells would sit in the threshold band where a cell may flip.
+# Not by more: the σ MLP's sums grow with the features, and cuBLAS sums them
+# in another order than the CPU (on an H100 at ×5,000 occs differ by 1.3e-6)
+UPDATE_TABLE_SCALE = 1000.0
+UPDATE_BAND = 1e-5  # relative distance from the threshold
+
+
+def _scan_counts(segscan):
+    return (segscan.seg_excl_sum_kernel.launches, segscan.seg_excl_rsum_kernel.launches)
+
+
+def _zero_scan_counts(segscan) -> None:
+    segscan.seg_excl_sum_kernel.launches = 0
+    segscan.seg_excl_rsum_kernel.launches = 0
+
+
+def update_card_vs_cpu(torch, occ_grid, nn, cfg, occ_cfg, model) -> dict:
+    """Expert 0's occupancy update at 32³, its hash features scaled by
+    ``UPDATE_TABLE_SCALE``, on the card and on the CPU with one injected
+    jitter: occs within rtol 1e-6, binaries equal for every cell farther than
+    ``UPDATE_BAND`` (relative) from the threshold, that band under 1 % of the
+    cells, and the cut between 5 % and 95 % occupied."""
+    occ32 = dataclasses.replace(occ_cfg, resolution=32)
+    aabb_cpu = model.expert_aabbs[0].detach().cpu()
+    state = occ_grid.init_occ_state(aabb_cpu, occ32)
+    jitter = torch.rand((occ32.levels, 32 ** 3, 3),
+                        generator=torch.Generator().manual_seed(3)) - 0.5
+    params = nn.tree_map(lambda a: a.detach(), model.expert(0))
+    params["hash_table"] = [t * UPDATE_TABLE_SCALE for t in params["hash_table"]]
+
+    def update(params, aabb, on):
+        return occ_grid.update_occ_grid(
+            {k: v.to(on) for k, v in state.items()},
+            lambda x: cfg.expert_density(params, cfg.expert, aabb, x)[..., 0],
+            occ32, occ32.step_size_for_traced(aabb), jitter=jitter.to(on))
+
+    got = update(params, model.expert_aabbs[0], "cuda")
+    want = update(nn.tree_map(lambda a: a.cpu(), params), aabb_cpu, "cpu")
+    occ_g, occ_w = got["occs"].cpu().double(), want["occs"].double()
+    rel = float(((occ_g - occ_w).abs() / occ_w.abs().clamp(min=1e-30)).max())
+    thre = max(min(occ32.occ_thre, float(occ_w.mean())), 1e-6)
+    band = (occ_w - thre).abs() <= UPDATE_BAND * thre
+    differ = got["binaries"].cpu() != want["binaries"]
+    out = {"cells": 32 ** 3, "hash_table_scale": UPDATE_TABLE_SCALE,
+           "max_rel_err_occs": rel, "cells_in_band": int(band.sum()),
+           "binaries_differ_in_band": int((differ & band).sum()),
+           "binaries_differ_outside_band": int((differ & ~band).sum()),
+           "occupied_share": float(want["binaries"].float().mean())}
+    check(rel <= 1e-6 and out["binaries_differ_outside_band"] == 0
+          and out["cells_in_band"] < 0.01 * out["cells"]
+          and 0.05 < out["occupied_share"] < 0.95,
+          f"occupancy update, card against CPU: {out}")
+    return out
+
+
+def check_update_pass(torch, occ_cfg, before, after) -> list:
+    """What one full-width pass must satisfy whatever the densities: the EMA
+    never falls below occs · decay, and binaries is occs above the threshold
+    recomputed from occs (a mean over the visible cells, floored at 1e-6).
+    Returns the occupied share per expert."""
+    occs = after["occs"]
+    check(bool(torch.isfinite(occs).all()), "the occupancy update is not finite")
+    check(bool((occs >= before["occs"] * occ_cfg.ema_decay).all()),
+          "an updated cell fell below its decayed value")
+    for k in range(occs.shape[0]):  # the update's own reduction, expert by expert
+        flat = occs[k].reshape(occs.shape[1], -1)
+        visible = flat >= 0.0
+        mean = torch.sum(torch.where(visible, flat, 0.0)) / torch.clamp(
+            torch.sum(visible), min=1)
+        thre = torch.clamp(torch.clamp(mean, max=occ_cfg.occ_thre), min=1e-6)
+        check(torch.equal(after["binaries"][k].reshape(flat.shape), flat > thre),
+              f"expert {k}: binaries is not occs above the threshold")
+    share = after["binaries"].float().mean(dim=(1, 2, 3, 4)).tolist()
+    check(all(0.0 < x < 1.0 for x in share), f"occupied share per expert {share}")
+    return share
+
+
+def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir) -> dict:
+    """The regime schedule of a run (module docstring, phase 6). Returns the
+    scan's launch counts summed over the phase's steps and its frames."""
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.occupancy import grid as occ_grid
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+    from acn_tpu_torch.pipelines.offline_stage import trainer as tr
+
+    cfg, P, occ_cfg = toy.train_occ_config()
+    K, T = cfg.num_submodules, int(P.batch_size)
+    S, Q, I = int(P.support_rays), int(P.query_rays), int(P.inner_iter)
+    rays_per_step = K * T * (I * S + Q)
+    per_step = K * T * (I + 1)
+    torch.cuda.empty_cache()
+    model = toy.serving_model(cfg, seed=1, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in toy.training_batch(K, T, S, Q, seed=1).items()}
+    opt, state = toy.init_train_state(model, P)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    boxes, _ = toy.quadrant_layout(K)
+    occ10 = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
+    counted = {"fwd": 0, "rev": 0}
+
+    def steps(step, occ, n):
+        """``n`` steps of ``step`` from the running state: (ms per step,
+        scan launches per step, the last metrics as numpy)."""
+        nonlocal state
+        ms, launches, metrics = [], [], None
+        for _ in range(n):
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, occ, gen)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches.append(_scan_counts(segscan))
+            counted["fwd"] += launches[-1][0]
+            counted["rev"] += launches[-1][1]
+        m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+        check(all(np.isfinite(v).all() for v in m.values()), f"a metric is not finite: {m}")
+        return ms, launches, m
+
+    def summary(ms, launches, m, peak):
+        return {"step_ms": ms, "rays_per_s": [rays_per_step / (1e-3 * t) for t in ms],
+                "scan_launches_per_step": launches, "peak_mem_mb": peak,
+                "loss_total": float(m["loss_total"]), "occ_overflow": float(m["occ_overflow"])}
+
+    # (a) the warm-up: stratified, no occupancy
+    torch.cuda.reset_peak_memory_stats()
+    step_strat = ts.make_meta_train_step(cfg, P, opt, None)
+    ms, launches, m = steps(step_strat, tr.dummy_occ_states(K, "cuda"), 2)
+    check(all(l == (0, 0) for l in launches),
+          f"the stratified step launched scan kernels {launches}, want none")
+    strat = summary(ms, launches, m, torch.cuda.max_memory_allocated() / 1e6)
+    emit({"phase": "regimes_stratified", "ray_samples": int(P.ray_samples), **strat})
+
+    # (b) the occupancy update from the model after (a), twice (the second
+    # is the EMA over the first)
+    update = tr.make_occ_update_fn(cfg, occ_cfg)
+    occ_upd = tr.init_occ_states(model.expert_aabbs, occ_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    update_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before, occ_upd = occ_upd, update(model, occ_upd, generator=gen)
+        torch.cuda.synchronize()
+        update_ms.append(1e3 * (time.perf_counter() - t0))
+        share = check_update_pass(torch, occ_cfg, before, occ_upd)
+    del before
+    upd = {"update_ms": update_ms, "cells_per_expert": int(occ_upd["occs"][0].numel()),
+           "density_queries": int(occ_upd["occs"].numel()),
+           "occupied_share_per_expert": share,
+           "peak_mem_mb": torch.cuda.max_memory_allocated() / 1e6,
+           "expert0_32cubed_card_vs_cpu": update_card_vs_cpu(
+               torch, occ_grid, nn, cfg, occ_cfg, model)}
+    emit({"phase": "regimes_occ_update", **upd})
+
+    # (c) strided with the would-be overflow measured on bench.py's 10 %
+    # grids and read by the auto switch: report budget 32 (the config's),
+    # then 2 (which overflows, and so restarts the switch's count), then 32
+    # three times, after which the switch must fire; a strided step on the
+    # updated grids; the budget step after the switch
+    budget = int(P.occ_budget_per_ray)
+    ctl = tr.AutoRegime(float(P.occ_auto_thresh), int(P.occ_auto_patience))
+    torch.cuda.reset_peak_memory_stats()
+    step_auto = {b: ts.make_meta_train_step(cfg, P, opt, occ_cfg, budget_override=0,
+                                            report_budget=b)
+                 for b in (budget, 2)}
+    schedule = [budget, 2, budget, budget, budget]
+    readings, fired = [], []
+    auto_ms, auto_launches = [], []
+    for b in schedule:
+        ms, launches, m = steps(step_auto[b], occ10, 1)
+        auto_ms += ms
+        auto_launches += launches
+        readings.append(float(m["occ_overflow"]))
+        fired.append(ctl.observe(readings[-1]))
+    auto = summary(auto_ms, auto_launches, m, torch.cuda.max_memory_allocated() / 1e6)
+    check(all(l == (0, 0) for l in auto_launches),
+          f"the strided step launched scan kernels {auto_launches}, want none")
+    check([r > ctl.thresh for r in readings] == [b != budget for b in schedule],
+          f"would-be overflow readings {readings} at report budgets {schedule}: want "
+          f"above {ctl.thresh} at budget 2 only")
+    check(fired == [False, False, False, False, True] and ctl.switched,
+          f"AutoRegime fired {fired} on readings {readings}")
+    ms, launches, m = steps(ts.make_meta_train_step(cfg, P, opt, occ_cfg, budget_override=0),
+                            occ_upd, 1)
+    check(launches == [(0, 0)], f"the strided step launched scan kernels {launches}")
+    on_updated = summary(ms, launches, m, None)
+    ms, launches, m = steps(ts.make_meta_train_step(cfg, P, opt, occ_cfg), occ10, 1)
+    check(launches == [(per_step, per_step)],
+          f"the budget step after the switch launched {launches}, want "
+          f"{per_step} forward and {per_step} reverse")
+    after_switch = summary(ms, launches, m, None)
+    check(state["step"] == 2 + len(schedule) + 2, f"the schedule took {state['step']} steps")
+    # one float32 strided episode on the card against the CPU
+    P32 = types.SimpleNamespace(**{**vars(P), "use_amp": False, "occ_budget_per_ray": 0})
+    bnp = toy.training_batch(K, T, S, Q, seed=0)
+    rays, rgbs = bnp["support_rays"][0, 0, :256], bnp["support_rgbs"][0, 0, :256]
+    rand = occ_grid.draw_march(rays.shape[0], int(P.occ_s_max),
+                               torch.Generator().manual_seed(7))
+    n_tables = len(model_cpu.params()["experts"]["hash_table"])
+    episode = check_card_vs_cpu_f32(
+        torch, *(episode_loss_grads(torch, ts, nn, cfg, P32, occ_cfg, model_cpu, occ_cpu,
+                                    rays, rgbs, on, rand) for on in ("cuda", "cpu")),
+        n_tables, "strided episode")
+    emit({"phase": "regimes_strided", "s_max": int(P.occ_s_max), "s_kept": int(P.occ_s_kept),
+          "report_budgets": schedule, "auto": auto, "would_overflow_readings": readings,
+          "auto_regime_fired": fired, "strided_on_updated_grids": on_updated,
+          "budget_step_after_switch": after_switch,
+          "strided_episode_card_vs_cpu": {"rays": int(rays.shape[0]), **episode}})
+
+    if profile_dir:
+        step_plain = ts.make_meta_train_step(cfg, P, opt, occ_cfg, budget_override=0)
+        for name, step, occ in (("stratified_step", step_strat,
+                                 tr.dummy_occ_states(K, "cuda")),
+                                ("strided_step", step_plain, occ10)):
+            prof, wall_ms, busy_ms, n_launch = profile_window(
+                torch, lambda: step(state, batch, occ, gen), profile_dir, name)
+            top = sorted(prof.key_averages(), key=lambda e: -(
+                getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)))[:10]
+            emit({"phase": f"{name}_profile", "step_wall_ms": wall_ms,
+                  "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+                  "kernel_launches": n_launch,
+                  "top_ops_device_ms": {e.key[:60]: 1e-3 * (
+                      getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+                      for e in top}})
+    del state, opt, model, step_auto, step_strat
+
+    # (d) the budget-0 renderer: the strided march, render_rays_occ; a warm
+    # frame (downloaded and checked), then a timed frame left on the device,
+    # as in phase 3
+    P0 = types.SimpleNamespace(**{**vars(P), "occ_budget_per_ray": 0})
+    model = toy.serving_model(cfg, seed=0, device="cuda")
+    occ = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
+    cam = toy.overhead_camera(H, W)
+    _zero_scan_counts(segscan)
+    phase_vs_cpu(torch, toy, Renderer, model, occ, cam, P=P0,
+                 phase="budget0_render_rays_vs_cpu")
+    renderer = Renderer(cfg, P0, occ_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth, acc = renderer.render_image(model, occ, H=H, W=W, **cam)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    renderer.render_image(model, occ, H=H, W=W, download=False, **cam)
+    frame_ms = 1e3 * (time.perf_counter() - t0)
+    check(_scan_counts(segscan) == (0, 0),
+          f"the budget-0 renderer launched scan kernels {_scan_counts(segscan)}")
+    check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
+          and np.isfinite(acc).all(), "the budget-0 frame is not finite or misshapen")
+    rows = renderer.chunk_rays // W
+    emit({"phase": "budget0_frame", "H": H, "W": W, "rays_per_chunk": rows * W,
+          "kept_samples_per_ray": renderer.s_kept, "chunks": -(-H // rows),
+          "warm_frame_ms_with_download": warm_ms, "frame_ms": frame_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "mean_acc": float(acc.mean()), "sigma_head_bias": 2.0})
+    return counted
 
 
 # ---------------------------------------------------------------- main
@@ -788,31 +1099,37 @@ def main() -> int:
     occ_cpu = phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
     del model, occ
     cfg = toy.train_occ_config()[0]
-    train = phase_train_step(torch, segscan, bench_segscan, toy,
-                             toy.serving_model(cfg, seed=0, device="cpu"),
+    model_cpu = toy.serving_model(cfg, seed=0, device="cpu")
+    train = phase_train_step(torch, segscan, bench_segscan, toy, model_cpu,
                              occ_cpu, args.profile)
+    regimes = phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu,
+                            args.profile)
 
     # launches: the counters as read after the main paths' runs (6 frames;
-    # the sum over the 4 training steps), each counted from 0 just before its
-    # path was driven. ms, plain_ms and bound_ms at the serving chunk
-    # (B = 983,040); "train_shapes" holds the same at the training step's
-    # B = 32,768 and 16,384.
+    # the sum over the 4 training steps; the sum over phase 6's steps and
+    # frames, where only the budget step after the switch launches), each
+    # counted from 0 just before its path was driven. ms, plain_ms and
+    # bound_ms at the serving chunk (B = 983,040); "train_shapes" holds the
+    # same at the training step's B = 32,768 and 16,384.
     fwd_train, rev_train = train["launches"]
+    fwd_reg, rev_reg = regimes["fwd"], regimes["rev"]
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
     emit({"kernels": [
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
-         "launches": fwd_render + fwd_train,
-         "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train},
+         "launches": fwd_render + fwd_train + fwd_reg,
+         "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
+                              "regime_schedule": fwd_reg},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
          "train_shapes": [{key: sh[key] for key in (
              "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for sh in train["shapes"]], **common},
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
-         "launches": rev_render + rev_train,
-         "launches_by_path": {"render_image": rev_render, "train_step": rev_train},
+         "launches": rev_render + rev_train + rev_reg,
+         "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
+                              "regime_schedule": rev_reg},
          "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
          "plain_ms": k["reverse_plain_ms"],
          "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],

@@ -215,6 +215,19 @@ def test_container_forward_matches(scene, active_module):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("active_module", [None, 1])
+def test_container_density_matches(scene, active_module):
+    xyz = _points(seed=15)[:, :3]
+    want = jax.jit(lambda v, x: jcont.container_density(
+        v, scene.jcfg, x, active_module=active_module))(
+        jax.tree.map(jnp.asarray, scene.jvars), jnp.asarray(xyz))
+    got = tcont.container_density(scene.model, torch.from_numpy(xyz),
+                                  active_module=active_module)
+    assert got.shape == (xyz.shape[0],)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-7)
+    assert scene.tcfg.expert_density is tngp.ngp_density
+
+
 def test_background_color_matches(scene):
     d = np.random.default_rng(7).normal(size=(128, 3)).astype(np.float32)
     want = jax.jit(lambda v, x: jcont.background_color(v, scene.jcfg, x))(

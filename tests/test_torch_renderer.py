@@ -1,6 +1,7 @@
 """The port's serving renderer (acn_tpu_torch.pipelines.renderer) against
-acn_tpu's Renderer on the same weights and occupancy, through the
-packed-budget soft-MoE path; and the port's isolation from JAX.
+acn_tpu's Renderer on the same weights and occupancy, through its three
+soft-MoE paths (packed budget, strided per-ray march with budget 0, and
+stratified without an ``OccConfig``); and the port's isolation from JAX.
 
 Tolerances: ``render_image`` returns u8 colors and f16 depth/acc, so rgb
 may differ by one quantization step (1/255) where a value sits on a
@@ -14,6 +15,7 @@ live in test_torch_march_render.py.
 
 import ast
 import os
+import types
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from acn_tpu.pipelines.renderer import Renderer as JRenderer
-from acn_tpu_torch import toy
+from acn_tpu_torch import convert, toy
 from acn_tpu_torch.pipelines import renderer as trenderer
 from acn_tpu_torch.pipelines.renderer import Renderer as TRenderer
 from test_torch_models import small_scene
@@ -37,10 +39,22 @@ def scene():
     return small_scene(sigma_bias=2.0, alpha_thre=1e-2, budget=6, s_max=64)
 
 
-def _renderers(scene):
-    # 64-ray chunks: a 12×16 frame is three chunks of 4 rows
-    j = JRenderer(scene.jcfg, scene.P, scene.jocc_cfg, chunk_rays=64)
-    t = TRenderer(scene.tcfg, scene.P, scene.tocc_cfg, chunk_rays=64, device="cpu")
+PATHS = ("budget", "strided", "stratified")
+
+
+def _renderers(scene, path="budget"):
+    """(JAX, port) renderers of one path; 64-ray chunks: a 12×16 frame is
+    three chunks of 4 rows. The strided path keeps 16 of 64 bins per ray,
+    the stratified one takes 24 samples."""
+    P, jocc, tocc = scene.P, scene.jocc_cfg, scene.tocc_cfg
+    if path == "strided":
+        P = types.SimpleNamespace(**{**vars(P), "occ_budget_per_ray": 0,
+                                     "occ_s_kept": 16})
+    if path == "stratified":
+        P = types.SimpleNamespace(**{**vars(P), "ray_samples": 24})
+        jocc = tocc = None
+    j = JRenderer(scene.jcfg, P, jocc, chunk_rays=64)
+    t = TRenderer(scene.tcfg, P, tocc, chunk_rays=64, device="cpu")
     return j, t
 
 
@@ -53,8 +67,23 @@ def test_chunk_size_matches_jax_at_full_width():
     assert -(-1080 // rows) == 68  # chunks per 1080p frame
 
 
-def test_render_image_matches_jax(scene):
-    jr, tr = _renderers(scene)
+@pytest.mark.parametrize("path,chunk,s_kept", [("strided", 15_625, 64),
+                                               ("stratified", 10_416, None)])
+def test_chunk_size_of_the_other_paths_at_full_width(path, chunk, s_kept):
+    """acn_tpu's sizing: 4,000,000 point-expert evaluations over K = 4 and
+    the kept samples (min(occ_s_kept, ray_samples) = 64) or the 96
+    stratified samples."""
+    cfg, P, occ_cfg = toy.train_occ_config()
+    P = types.SimpleNamespace(**{**vars(P), "occ_budget_per_ray": 0})
+    r = TRenderer(cfg, P, occ_cfg if path == "strided" else None, device="cpu")
+    j = JRenderer(cfg, P, occ_cfg if path == "strided" else None)
+    assert r.chunk_rays == j.chunk_rays == chunk
+    assert getattr(r, "s_kept", None) == s_kept
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_render_image_matches_jax(scene, path):
+    jr, tr = _renderers(scene, path)
     cam = toy.overhead_camera(H, W)
     want = jr.render_image(scene.jvars, scene.jocc, H=H, W=W, **cam)
     got = tr.render_image(scene.model, scene.tocc, H=H, W=W, **cam)
@@ -68,8 +97,9 @@ def test_render_image_matches_jax(scene):
                            **cam) == (None, None, None)
 
 
-def test_render_rays_matches_jax(scene):
-    jr, tr = _renderers(scene)
+@pytest.mark.parametrize("path", PATHS)
+def test_render_rays_matches_jax(scene, path):
+    jr, tr = _renderers(scene, path)
     cam = toy.overhead_camera(H, W)
     rays = trenderer._pinhole_block_rays(
         H, W, *(torch.from_numpy(np.asarray(a, np.float32)) for a in
@@ -90,10 +120,29 @@ def test_default_device_is_the_card(monkeypatch):
         TRenderer(cfg, P, occ_cfg)
 
 
-def test_only_the_budget_path_is_ported():
-    cfg, P, occ_cfg = toy.train_occ_config()
-    with pytest.raises(NotImplementedError):
-        TRenderer(cfg, P, None, device="cpu")
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("path", ("strided", "stratified"))
+def test_render_rays_on_card_matches_plain(scene, path):
+    """The strided and stratified paths on the card against the CPU; they
+    launch no kernel of the port (no packed scan)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from acn_tpu_torch.ops import segscan
+    _, cpu = _renderers(scene, path)
+    card = TRenderer(cpu.cfg, cpu.P, cpu.occ_cfg, chunk_rays=64)
+    cam = toy.overhead_camera(H, W)
+    rays = trenderer._pinhole_block_rays(
+        H, W, *(torch.from_numpy(np.asarray(a, np.float32)) for a in
+                (cam["c2w"], cam["intrinsics"], cam["aabb"])),
+        torch.tensor([-np.inf, np.inf]), 0.0, 0.0).numpy()
+    before = segscan.seg_excl_sum_kernel.launches
+    got = card.render_rays(convert.from_jax_variables(scene.jvars, scene.tcfg, "cuda"),
+                           {k: v.cuda() for k, v in scene.tocc.items()}, rays,
+                           with_stats=True)
+    assert segscan.seg_excl_sum_kernel.launches == before
+    want = cpu.render_rays(scene.model, scene.tocc, rays, with_stats=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
 def _port_files():

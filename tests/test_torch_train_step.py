@@ -1,13 +1,21 @@
-"""The port's FoMAML budget training step (acn_tpu_torch.pipelines.
-offline_stage, utils.optim, nerfs.color / losses) against acn_tpu's.
+"""The port's FoMAML training step in its three regimes, and its eval step
+(acn_tpu_torch.pipelines.offline_stage, utils.optim, nerfs.color / losses),
+against acn_tpu's.
 
 Micro shapes: K 2 experts, T 2 tasks, 64 support and 32 query rays, 2 inner
-steps, 32 bins, budget 6, a 3-level hash grid (one dense, two hashed levels)
-and 16³ occupancy grids at a 60 % fill, so that the budget overflows a little.
-Inputs come from numpy seeds; weights from acn_tpu's init, carried across
-with acn_tpu_torch.convert; the march salts of the JAX step are replayed from
-its key and handed to the port. The JAX side runs on the CPU with the scan's
-XLA backend, each configuration jitted once.
+steps, 16 stratified samples, 32 bins, 16 kept samples, budget 6, a 3-level
+hash grid (one dense, two hashed levels) and 16³ occupancy grids at a 60 %
+fill, so that the budget overflows a little. Inputs come from numpy seeds;
+weights from acn_tpu's init, carried across with acn_tpu_torch.convert; the
+JAX step's draws (march salts, the strided march's jitter and phases, the
+stratified jitter of every loss) are replayed from its key and handed to the
+port through a ``draws`` function. The JAX side runs on the CPU with the scan's XLA backend, each
+configuration jitted once.
+
+The regimes: "budget" (packed march, ``occ_budget_per_ray`` 6), "strided"
+(per-ray march with ``report_budget`` 6, so that ``occ_overflow`` is the
+would-be drop) and "stratified" (no occupancy). Each is held at the same
+tolerances.
 
 Tolerances, with their reasons:
 
@@ -55,6 +63,7 @@ from acn_tpu_torch.nerfs import color as tcolor
 from acn_tpu_torch.nerfs import losses as tlosses
 from acn_tpu_torch.pipelines.offline_stage import meta_core as tmeta
 from acn_tpu_torch.pipelines.offline_stage import train_step as tts
+from acn_tpu_torch.pipelines.offline_stage import trainer as ttrainer
 from acn_tpu_torch.utils import optim as toptim
 from test_torch_models import small_scene
 
@@ -75,10 +84,10 @@ def make_P(**over):
 
 
 @functools.lru_cache(maxsize=None)
-def micro_scene(use_bg_nerf=True):
+def micro_scene(use_bg_nerf=True, sigma_bias=2.0):
     """The micro scene in both packages, without the background head when
     asked."""
-    return small_scene(K=K, sigma_bias=2.0, fill=0.6, seed=1,
+    return small_scene(K=K, sigma_bias=sigma_bias, fill=0.6, seed=1,
                        hash_kw=MICRO_HASH, use_bg_nerf=use_bg_nerf)
 
 
@@ -86,18 +95,35 @@ def fresh_model(sc):
     return convert.from_jax_variables(sc.jvars, sc.tcfg, "cpu")
 
 
-def jax_salts(key):
-    """The march salts acn_tpu's step draws from ``key``: the key splits of
-    ``_meta_grads_gradbased`` and ``march_rays_budget``'s ``randint``."""
+def jax_draws(key, mode="train", iterations=2):
+    """The draws of acn_tpu's train step (``mode`` "train") or eval step
+    ("eval", ``iterations`` inner steps) from ``key``, as the port's
+    ``EpisodeDraws`` asks for them: the key splits of
+    ``_meta_grads_gradbased`` / ``make_eval_step``, ``task_adapt`` and the
+    episode loss, and the draws of ``march_rays_budget``, ``march_rays`` and
+    ``stratified_t_vals``."""
     keys = jax.random.split(key, K * T).reshape(K, T, -1)
-    salts = np.zeros((K, T, 2), np.int64)
-    for k in range(K):
-        for t in range(T):
-            _, k_ms, k_mq = jax.random.split(keys[k, t], 3)
-            for j, kk in enumerate((k_ms, k_mq)):
-                salts[k, t, j] = int(jax.random.randint(
-                    kk, (), 0, jnp.iinfo(jnp.int32).max))
-    return salts
+
+    def fn(what, k, t, j, shape):
+        if mode == "train":
+            kk, k_ms, k_mq = jax.random.split(keys[k, t], 3)
+            k_in, k_q = jax.random.split(kk)
+        else:
+            k_in, k_q, k_ms, k_mq = jax.random.split(keys[k, t], 4)
+        if what == "salt":
+            return int(jax.random.randint((k_ms, k_mq)[j], (), 0,
+                                          jnp.iinfo(jnp.int32).max))
+        if what in ("u", "phase"):
+            k_jit, k_phase = jax.random.split((k_ms, k_mq)[j])
+            if what == "u":
+                return np.array(jax.random.uniform(k_jit, shape, dtype=jnp.float32))
+            return np.array(jax.random.randint(k_phase, shape, 0, 1 << 30), np.int64)
+        assert what == "strat_u"
+        loss_key = jax.random.split(k_in, iterations)[j] if j < iterations else k_q
+        k_render = jax.random.split(loss_key)[0]
+        return np.array(jax.random.uniform(k_render, shape, dtype=jnp.float32))
+
+    return fn
 
 
 def _np(t):
@@ -117,34 +143,70 @@ def _leaves(tree):
 # ------------------------------------------------------------ the whole step
 
 
+REGIMES = ("stratified", "strided")
+
+
+def regime_setup(regime, **P_over):
+    """(scene, P, JAX occ_cfg, port occ_cfg, JAX occ states, port occ
+    states, report_budget) of a regime.
+
+    The stratified regime's scene has the σ-head bias at −0.5, not +2: its
+    16 samples span the whole ray, and at σ ≈ e² the rays' transmittance
+    falls to ≈ 5e-5, where 1 − acc (the background's weight, and its
+    gradient) keeps no float32 digit that both frameworks agree on. The
+    metrics agree to 1e-8 at every bias tried (−1, −0.5, 0, +0.5, +1); the
+    parameters sit on the tolerances' edges at some: at 0 and +1 a table
+    entry whose gradients cancel over the tasks ends 1.7e-6 / 1.8e-6 apart
+    in float32 (Adam bounds the error of an update by lr·r/4), and in bf16
+    at −1 and +0.5 one small leaf (a 16-entry bias, a trunk weight) has an
+    entry whose near-zero gradient takes the other sign, a gap of 0.28 /
+    0.25 of its float32 movement against the bound 0.2."""
+    sc = micro_scene(sigma_bias=-0.5 if regime == "stratified" else 2.0)
+    return (sc, *_regime_setup(sc, regime, **P_over))
+
+
+def _regime_setup(sc, regime, **P_over):
+    if regime == "budget":
+        return make_P(**P_over), sc.jocc_cfg, sc.tocc_cfg, sc.jocc, sc.tocc, 0
+    if regime == "strided":
+        return (make_P(occ_budget_per_ray=0, **P_over), sc.jocc_cfg, sc.tocc_cfg,
+                sc.jocc, sc.tocc, 6)
+    # acn_tpu's dummy_occ_states, written out: its trainer module imports
+    # flax (checkpoints), which the card tests here run without
+    return (make_P(**P_over), None, None, jnp.zeros((K,), jnp.float32),
+            ttrainer.dummy_occ_states(K), 0)
+
+
 @functools.lru_cache(maxsize=None)
-def _both_steps(use_amp):
+def _both_steps(use_amp, regime="budget"):
     """Two steps of both packages from one converted state. Returns, per
     step, (JAX metrics, port metrics), and the final parameters and optimizer
     states of both."""
-    sc = micro_scene()
-    P = make_P(use_amp=use_amp)
+    sc, P, jocc_cfg, tocc_cfg, jocc, tocc, report = regime_setup(regime,
+                                                                 use_amp=use_amp)
     labels = jcont.param_group_labels(sc.jvars, sc.jcfg)
     jopt = joptim.build_optimizer(P, labels, grad_clip=P.grad_clip)
-    jstep = jax.jit(jts.make_meta_train_step(sc.jcfg, P, jopt, sc.jocc_cfg))
+    jstep = jax.jit(jts.make_meta_train_step(sc.jcfg, P, jopt, jocc_cfg,
+                                             report_budget=report))
     jvars = jax.tree.map(jnp.asarray, sc.jvars)
     jstate = {"variables": jvars, "opt_state": jopt.init(jvars["params"]),
               "step": jnp.zeros((), jnp.int32)}
 
     model = fresh_model(sc)
     topt, tstate = toy.init_train_state(model, P)
-    tstep = tts.make_meta_train_step(sc.tcfg, P, topt, sc.tocc_cfg, device="cpu")
+    tstep = tts.make_meta_train_step(sc.tcfg, P, topt, tocc_cfg,
+                                     report_budget=report, device="cpu")
 
     batch = toy.training_batch(K, T, S, Q, seed=3)
     metrics = []
     for i in range(2):
         key = jax.random.PRNGKey(10 + i)
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
-                           sc.jocc, key)
-        tstate, tm = tstep(tstate, _tt(batch), sc.tocc, salts=jax_salts(key))
+                           jocc, key)
+        tstate, tm = tstep(tstate, _tt(batch), tocc, draws=jax_draws(key))
         metrics.append((jax.device_get(jm), {k: _np(v) for k, v in tm.items()}))
     return types.SimpleNamespace(
-        sc=sc, P=P, metrics=metrics, labels=labels,
+        sc=sc, P=P, metrics=metrics, labels=labels, regime=regime,
         jparams=jax.device_get(jstate["variables"]["params"]),
         jopt_state=jax.device_get(jstate["opt_state"]), jopt=jopt,
         tstate=tstate, tparams=convert.to_jax_variables(tstate["model"])["params"])
@@ -154,16 +216,30 @@ METRICS = ("loss_out", "loss_in", "psnr_out", "psnr_in", "loss_total",
            "grad_norm", "occ_overflow")
 
 
-@pytest.mark.parametrize("step", [0, 1])
-@pytest.mark.parametrize("name", METRICS)
-def test_two_steps_fp32_metrics(name, step):
-    jm, tm = _both_steps(False).metrics[step]
+def _check_metric(r, name, step):
+    jm, tm = r.metrics[step]
     assert set(tm) == set(METRICS) and tm[name].shape == np.shape(jm[name])
     np.testing.assert_allclose(tm[name], jm[name], rtol=1e-5, atol=1e-7)
     if name == "occ_overflow":
-        assert 0.0 < float(tm[name]) < 1.0  # the drop path is exercised
+        if r.regime == "stratified":
+            assert float(tm[name]) == 0.0
+        else:  # the (would-be) drop is exercised
+            assert 0.0 < float(tm[name]) < 1.0
     if name == "grad_norm":
         assert float(tm[name]) > 0.0
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("name", METRICS)
+def test_two_steps_fp32_metrics(name, step):
+    _check_metric(_both_steps(False), name, step)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("regime", REGIMES)
+def test_two_steps_fp32_metrics_by_regime(regime, name, step):
+    _check_metric(_both_steps(False, regime), name, step)
 
 
 def _flat(tree):
@@ -171,8 +247,7 @@ def _flat(tree):
             for p, l in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def test_two_steps_fp32_parameters():
-    r = _both_steps(False)
+def _check_parameters(r):
     want, got, start = _flat(r.jparams), _flat(r.tparams), _flat(r.sc.jvars["params"])
     assert want.keys() == got.keys()
     for name in want:
@@ -181,8 +256,16 @@ def test_two_steps_fp32_parameters():
         assert np.any(got[name] != start[name]), f"{name} did not move"
 
 
-def test_two_steps_fp32_optimizer_state():
-    r = _both_steps(False)
+def test_two_steps_fp32_parameters():
+    _check_parameters(_both_steps(False))
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_two_steps_fp32_parameters_by_regime(regime):
+    _check_parameters(_both_steps(False, regime))
+
+
+def _check_optimizer_state(r):
     tl = tcont.param_group_labels(r.tstate["model"].params())
     want = convert.opt_state_from_optax(r.jopt_state, tl)
     got = r.tstate["opt_state"]
@@ -194,8 +277,16 @@ def test_two_steps_fp32_optimizer_state():
             np.testing.assert_allclose(g, w, atol=1e-7, rtol=1e-3)
 
 
-def test_one_step_bf16():
-    r, r32 = _both_steps(True), _both_steps(False)
+def test_two_steps_fp32_optimizer_state():
+    _check_optimizer_state(_both_steps(False))
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_two_steps_fp32_optimizer_state_by_regime(regime):
+    _check_optimizer_state(_both_steps(False, regime))
+
+
+def _check_bf16(r, r32):
     for jm, tm in r.metrics:
         for name in METRICS:
             np.testing.assert_allclose(tm[name], jm[name], rtol=5e-3, atol=1e-6,
@@ -218,6 +309,15 @@ def test_one_step_bf16():
             table_gap.append(np.linalg.norm(dt - d32) / scale)
     # the bound above is one that a float32 table update would not meet
     assert min(table_gap) > 0.5, table_gap
+
+
+def test_one_step_bf16():
+    _check_bf16(_both_steps(True), _both_steps(False))
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_one_step_bf16_by_regime(regime):
+    _check_bf16(_both_steps(True, regime), _both_steps(False, regime))
 
 
 # --------------------------------------------------------- the episode loss
@@ -269,6 +369,62 @@ def test_episode_loss_and_gradient(use_bg_nerf):
     for g, w in zip(tflat, jflat):
         np.testing.assert_allclose(g, np.asarray(w), atol=1e-7, rtol=1e-4)
     assert any(np.abs(g).max() > 0 for g in tflat)
+
+
+@pytest.mark.parametrize("regime", REGIMES)
+def test_episode_loss_and_gradient_by_regime(regime):
+    """One expert's loss and gradient in the stratified and the strided
+    regime, with JAX's own march and stratified draws from one key, float32,
+    with rays that hit nothing among them."""
+    sc, P, jocc_cfg, tocc_cfg, jocc, tocc, report = regime_setup(regime)
+    k = 0
+    batch = toy.training_batch(K, T, S, Q, seed=5)
+    rays, rgbs = batch["support_rays"][k, 1].copy(), batch["support_rgbs"][k, 1]
+    rays[::9, 6:8] = (0.0, -1.0)  # inert: no bin, the color is the background's
+    key = jax.random.PRNGKey(6)
+    jloss, jprep = jts.make_episode_loss(sc.jcfg, P, jocc_cfg, report_budget=report)
+    jp = jax.tree.map(lambda a: jnp.asarray(a[k]), sc.jvars["params"]["experts"])
+    jbg = jax.tree.map(jnp.asarray, sc.jvars["params"]["bg_mlp"])
+    jstate = {n: v[k] for n, v in jocc.items()} if jocc_cfg else None
+    aabb = jnp.asarray(sc.jvars["buffers"]["expert_aabbs"][k])
+
+    def jfn(p, bg):
+        smp = jprep(jstate, jnp.asarray(rays), key)
+        return jloss(p, bg, aabb, jstate, jnp.asarray(rays), jnp.asarray(rgbs), key,
+                     samples=smp)
+
+    want, jgrads = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1)))(jp, jbg)
+
+    n = rays.shape[0]
+    k_jit, k_phase = jax.random.split(key)
+    rand = None if regime == "stratified" else (
+        torch.from_numpy(np.array(jax.random.uniform(k_jit, (n, P.occ_s_max)))),
+        torch.from_numpy(np.array(jax.random.randint(k_phase, (n,), 0, 1 << 30),
+                                  np.int64)))
+    u = (torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.split(key)[0], (n, P.ray_samples)))) if regime == "stratified"
+        else None)
+    model = fresh_model(sc)
+    tloss, tprep = tts.make_episode_loss(sc.tcfg, P, tocc_cfg, report_budget=report)
+    params = model.params()
+    tp = tree_map(lambda a: a.detach().clone().requires_grad_(True),
+                  tcont.expert_slice(params["experts"], k))
+    tbg = params["bg_mlp"]
+    smp = tprep({n_: v[k] for n_, v in tocc.items()} if tocc_cfg else None,
+                torch.from_numpy(rays), rand)
+    if regime == "strided":
+        assert smp["mask"].any() and not smp["mask"].all()
+    got = tloss(tp, tbg, model.expert_aabbs[k], torch.from_numpy(rays),
+                torch.from_numpy(rgbs), smp, u=u)
+    flat = torch.autograd.grad(got, tree_leaves((tp, tbg)))
+    it = iter(flat)
+    tgrads = tree_map(lambda _: next(it), (tp, tbg))
+    jflat, tflat = jax.tree.leaves(jgrads), _leaves(tgrads)
+    assert len(jflat) == len(tflat)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    for g, w in zip(tflat, jflat):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-7, rtol=1e-4)
+    assert all(np.abs(g).max() > 0 for g in tflat[-4:])  # bg head and more
 
 
 # ------------------------------------------------------------ color, losses
@@ -343,7 +499,10 @@ def test_task_adapt_fast_weights_after_two_iterations():
         return jnp.mean((b[0] @ q["lin"]["w"] + q["lin"]["b"]
                          + q["tabs"][0][idx] - b[1]) ** 2)
 
-    def tloss(q, b):
+    seen = []
+
+    def tloss(q, b, i):
+        seen.append(i)  # the iteration, where JAX passes its key
         return torch.mean((b[0] @ q["lin"]["w"] + q["lin"]["b"]
                            + q["tabs"][0][torch.from_numpy(idx)] - b[1]) ** 2)
 
@@ -354,6 +513,7 @@ def test_task_adapt_fast_weights_after_two_iterations():
     got, gl = tmeta.task_adapt(tloss, tp, (torch.from_numpy(x), torch.from_numpy(y)),
                                0.1, 2, first_order=True)
     np.testing.assert_allclose(_np(gl), np.asarray(wl), rtol=1e-6)
+    assert seen == [0, 1]
     for g, w, start in zip(_leaves(got), jax.tree.leaves(want), jax.tree.leaves(p)):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-7)
         assert not np.array_equal(g, start)
@@ -475,11 +635,7 @@ def test_schedule_and_group_lrs(step):
     ("maml", {}, {"algo": "maml"}, "M9"),
     ("reptile", {}, {"algo": "reptile"}, "M9"),
     ("fim", {}, {"fim": True}, "M9"),
-    ("stratified", {"occ_cfg": None}, {}, "M2"),
-    ("strided_march", {}, {"occ_budget_per_ray": 0}, "M3"),
-    ("budget_override_0", {"budget_override": 0}, {}, "M3"),
     ("chunked_loss", {}, {"train_chunk_rays": 16}, "M2"),
-    ("report_budget", {"report_budget": 8}, {}, "M3"),
 ])
 def test_unported_branches_raise_naming_the_roadmap(what, kwargs, P_over, item):
     sc = micro_scene()
@@ -490,6 +646,23 @@ def test_unported_branches_raise_naming_the_roadmap(what, kwargs, P_over, item):
         tts.make_meta_train_step(sc.tcfg, P, topt, **kw)
 
 
+@pytest.mark.parametrize("kwargs,P_over,regime", [
+    ({"occ_cfg": None}, {}, "stratified"),
+    ({}, {"occ_budget_per_ray": 0}, "strided"),
+    ({"budget_override": 0}, {}, "strided"),
+    ({"report_budget": 8}, {}, "budget"),
+    ({"budget_override": 3, "report_budget": 8}, {"occ_budget_per_ray": 0}, "budget"),
+])
+def test_regimes_are_picked_as_acn_tpu_picks_them(kwargs, P_over, regime):
+    sc = micro_scene()
+    P = make_P(**P_over)
+    kw = {"occ_cfg": sc.tocc_cfg, **kwargs}
+    assert tts.regime_of(kw["occ_cfg"], P, kw.get("budget_override")) == regime
+    topt = toptim.build_optimizer(P, tcont.param_group_labels(fresh_model(sc).params()))
+    tts.make_meta_train_step(sc.tcfg, P, topt, device="cpu", **kw)
+    tts.make_eval_step(sc.tcfg, P, kw["occ_cfg"], device="cpu")
+
+
 def test_unported_meta_core_entry_points_raise():
     for fn in (tmeta.maml_outer_loss, tmeta.reptile_adapt):
         with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
@@ -498,6 +671,8 @@ def test_unported_meta_core_entry_points_raise():
         tmeta.task_adapt(None, {}, None, 0.1, 1, first_order=False)
     with pytest.raises(NotImplementedError, match="adam"):
         toptim.build_optimizer(make_P(optimizer="sgd"), {})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
+        tts.make_eval_step(micro_scene().tcfg, make_P(fim=True), device="cpu")
 
 
 def test_step_needs_a_card_unless_asked_for_the_cpu():
@@ -514,20 +689,52 @@ def test_step_needs_a_card_unless_asked_for_the_cpu():
         step(state, {k: v.to("meta") for k, v in batch.items()}, sc.tocc)
 
 
-def test_salts_none_is_midpoints_and_draw_salts_is_seeded():
-    a = tts.draw_salts(K, T, torch.Generator().manual_seed(3))
-    b = tts.draw_salts(K, T, torch.Generator().manual_seed(3))
-    assert a.shape == (K, T, 2) and torch.equal(a, b)
-    assert int(a.min()) >= 0 and int(a.max()) < 2**31 - 1
-    sc = micro_scene()
-    P = make_P(inner_iter=1)
+@pytest.mark.parametrize("regime", ["stratified", "strided", "budget"])
+def test_generator_draws_are_seeded_and_refused_elsewhere(regime):
+    """A generator's draws repeat with its seed and differ from no draws
+    (bin midpoints, phase 0, no jitter); a generator on another device than
+    the step's, and draws of another kind, are refused."""
+    sc, P, _, tocc_cfg, _, tocc, report = regime_setup(regime, inner_iter=1)
+    batch = _tt(toy.training_batch(K, T, S, Q))
     outs = []
-    for salts in (None, a, a.numpy()):
+    for draws in (torch.Generator().manual_seed(4), torch.Generator().manual_seed(4),
+                  None):
         topt, state = toy.init_train_state(fresh_model(sc), P)
-        step = tts.make_meta_train_step(sc.tcfg, P, topt, sc.tocc_cfg, device="cpu")
-        _, m = step(state, _tt(toy.training_batch(K, T, S, Q)), sc.tocc, salts=salts)
+        step = tts.make_meta_train_step(sc.tcfg, P, topt, tocc_cfg,
+                                        report_budget=report, device="cpu")
+        _, m = step(state, batch, tocc, draws=draws)
         outs.append(float(m["loss_total"]))
-    assert outs[1] == outs[2] and outs[0] != outs[1]
+    assert outs[0] == outs[1] and outs[0] != outs[2]
+    with pytest.raises(TypeError, match="Generator"):
+        step(state, batch, tocc, draws=np.zeros((K, T, 2), np.int64))
+    with pytest.raises(ValueError, match="generator"):
+        tts.EpisodeDraws(torch.Generator(), torch.device("cuda"), regime, P)
+
+
+# ----------------------------------------------------------------- eval step
+
+
+@pytest.mark.parametrize("regime,tto", [("stratified", None), ("strided", None),
+                                        ("budget", None), ("strided", 0)])
+def test_eval_step_matches(regime, tto):
+    """Adapt with ``tto`` inner steps (the config's 2 when None), then the
+    query loss, against acn_tpu's eval step with its own draws replayed."""
+    sc, P, jocc_cfg, tocc_cfg, jocc, tocc, _ = regime_setup(regime)
+    jeval = jax.jit(jts.make_eval_step(sc.jcfg, P, jocc_cfg, tto=tto))
+    batch = toy.training_batch(K, T, S, Q, seed=8)
+    key = jax.random.PRNGKey(30)
+    want = jax.device_get(jeval(jax.tree.map(jnp.asarray, sc.jvars),
+                                {k: jnp.asarray(v) for k, v in batch.items()}, jocc, key))
+    model = fresh_model(sc)
+    before = _flat(convert.to_jax_variables(model)["params"])
+    teval = tts.make_eval_step(sc.tcfg, P, tocc_cfg, tto=tto, device="cpu")
+    iters = P.inner_iter if tto is None else tto
+    got = teval(model, _tt(batch), tocc, draws=jax_draws(key, "eval", iters))
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(_np(got[name]), want[name], rtol=1e-5, err_msg=name)
+    after = _flat(convert.to_jax_variables(model)["params"])
+    assert all(np.array_equal(before[n], after[n]) for n in before)  # untouched
 
 
 def test_training_batch_is_the_bench_construction():
@@ -581,3 +788,48 @@ def test_episode_gradient_on_card_matches_plain(use_amp):
     np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=rtol)
     for g, w in zip(ggrads, wgrads):
         np.testing.assert_allclose(_np(g), _np(w), rtol=rtol * 10, atol=atol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("regime", REGIMES)
+def test_episode_gradient_on_card_matches_plain_by_regime(regime):
+    """The stratified and strided episode losses on the card (no scan: they
+    launch no kernel of the port) against the CPU, float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the step runs on the card")
+    from acn_tpu_torch.ops import segscan
+    sc, P, _, tocc_cfg, _, tocc, report = regime_setup(regime)
+    b = toy.training_batch(K, T, S, Q, seed=4)
+    rays, rgbs = b["support_rays"][0, 0], b["support_rgbs"][0, 0]
+    gen = torch.Generator().manual_seed(5)
+    rand = (None if regime == "stratified"
+            else tgrid_draws(rays.shape[0], P.occ_s_max, gen))
+    u = (torch.rand((rays.shape[0], P.ray_samples), generator=gen)
+         if regime == "stratified" else None)
+    before = (segscan.seg_excl_sum_kernel.launches,
+              segscan.seg_excl_rsum_kernel.launches)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = fresh_model(sc).to(dev)
+        loss_fn, prep = tts.make_episode_loss(sc.tcfg, P, tocc_cfg, report_budget=report)
+        params = model.params()
+        tp = tree_map(lambda a: a.detach().clone().requires_grad_(True),
+                      tcont.expert_slice(params["experts"], 0))
+        occ = {n: v[0].to(dev) for n, v in tocc.items()} if tocc_cfg else None
+        r = torch.from_numpy(rays).to(dev)
+        smp = prep(occ, r, None if rand is None else tuple(x.to(dev) for x in rand))
+        loss = loss_fn(tp, params["bg_mlp"], model.expert_aabbs[0], r,
+                       torch.from_numpy(rgbs).to(dev), smp,
+                       u=None if u is None else u.to(dev))
+        out[dev] = (loss, torch.autograd.grad(loss, tree_leaves(tp)))
+    assert (segscan.seg_excl_sum_kernel.launches,
+            segscan.seg_excl_rsum_kernel.launches) == before
+    (got, ggrads), (want, wgrads) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()), rtol=1e-4)
+    for g, w in zip(ggrads, wgrads):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-3, atol=1e-7)
+
+
+def tgrid_draws(n, s_max, gen):
+    from acn_tpu_torch.occupancy import grid as tgrid
+    return tgrid.draw_march(n, s_max, gen)
