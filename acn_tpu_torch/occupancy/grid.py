@@ -5,8 +5,9 @@ Port of ``acn_tpu/occupancy/grid.py``: ``OccConfig``, ``level_aabbs``,
 ``update_occ_grid``, ``occupancy_lookup``, the compactions
 ``compact_samples`` and ``compact_samples_strided``, the per-ray strided
 ``march_rays`` (with ``report_budget``) and the packed ``march_rays_budget``
-with bin midpoints or the counter-hash jitter (``_u01``). Not ported:
-``mark_invisible_cells``, ``march_t_schedule`` and ``coarse_ray_range``. An
+with bin midpoints or the counter-hash jitter (``_u01``), and the camera
+prune ``mark_invisible_cells``. Not ported: ``march_t_schedule`` and
+``coarse_ray_range``. An
 occupancy state is a dict of tensors: ``occs`` (L, R, R, R) f32,
 ``binaries`` (L, R, R, R) bool and ``aabbs`` (L, 2, 3); the container's
 per-expert states carry a leading K axis.
@@ -161,6 +162,50 @@ def update_occ_grid(
         "binaries": (occs > thre).reshape(L, R, R, R),
         "aabbs": state["aabbs"],
     }
+
+
+INVISIBLE_BLOCK = 65536  # cells per block of mark_invisible_cells
+
+
+def mark_invisible_cells(
+    state: Dict[str, torch.Tensor],
+    K_mats: torch.Tensor,  # (C, 3, 3) intrinsics
+    c2w_rdf: torch.Tensor,  # (C, 3, 4) camera-to-world, RDF camera basis
+    width: int,
+    height: int,
+    near_plane: float = 0.0,
+    cfg: OccConfig = OccConfig(),
+) -> Dict[str, torch.Tensor]:
+    """Mark the cells no camera sees with occ = −1 (a one-time prune; the
+    update never raises them again) and clear their binaries.
+
+    A cell is seen by a camera when its center lies in front of it (depth
+    above ``near_plane``) and projects inside the image, ``0 ≤ u < width``
+    and ``0 ≤ v < height``. Both 3×3 products are written out as three
+    products summed in index order, the order of ``acn_tpu``'s einsums, so
+    that a center on the image border falls on the same side; the cells are
+    taken in blocks of ``INVISIBLE_BLOCK`` against every camera."""
+    centers = cell_centers(state, cfg).reshape(-1, 3)  # (M, 3)
+    R_wc = c2w_rdf[:, :3, :3]  # (C, 3, 3) cam → world
+    t_wc = c2w_rdf[:, :3, 3]  # (C, 3)
+    seen_any = []
+    for xb in centers.split(INVISIBLE_BLOCK):
+        rel = xb[None, :, :] - t_wc[:, None, :]  # (C, B, 3)
+        # world → camera: x_cam[j] = Σ_i R[i, j] · rel[i]
+        x_cam = (rel[..., 0:1] * R_wc[:, None, 0, :] + rel[..., 1:2] * R_wc[:, None, 1, :]
+                 + rel[..., 2:3] * R_wc[:, None, 2, :])
+        z = x_cam[..., 2]  # RDF: +z forward
+        # uvw[i] = Σ_j K[i, j] · x_cam[j]
+        uvw = (x_cam[..., 0:1] * K_mats[:, None, :, 0] + x_cam[..., 1:2] * K_mats[:, None, :, 1]
+               + x_cam[..., 2:3] * K_mats[:, None, :, 2])
+        zs = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+        u, v = uvw[..., 0] / zs, uvw[..., 1] / zs
+        seen = (z > near_plane) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+        seen_any.append(seen.any(dim=0))
+    visible = torch.cat(seen_any).reshape(state["occs"].shape)
+    occs = torch.where(visible, state["occs"], -1.0)
+    return {"occs": occs, "binaries": state["binaries"] & (occs >= 0),
+            "aabbs": state["aabbs"]}
 
 
 def occupancy_lookup(state: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Port of ``acn_tpu/pipelines/offline_stage/train_step.py``: ``make_bg_fn``,
 ``make_episode_loss`` (all three regimes, ``use_amp``, the unchunked loss),
 the ``fomaml`` branch of ``_meta_grads_gradbased``, ``make_meta_train_step``
-with its seven metrics, and ``make_eval_step``. The regime is picked as
-``acn_tpu`` picks it:
+with its seven metrics, ``make_eval_step``, and the episodic sampler on the
+card, ``make_device_batch_fn``. The regime is picked as ``acn_tpu`` picks
+it:
 
 * ``occ_cfg=None``: **stratified**, ``P.ray_samples`` jittered samples per
   ray (the occupancy warm-up);
@@ -35,16 +36,17 @@ stay float32, and gradients come back through the casts onto the float32
 parameters. ``torch.autocast`` does none of this and is not used.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-chunked loss (``train_chunk_rays``), ``maml``, ``reptile`` and ``fim``;
-``make_device_batch_fn`` comes with the trainer loop.
+chunked loss (``train_chunk_rays``), ``maml``, ``reptile`` and ``fim``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from acn_tpu_torch.data.tasks import EpisodeConstraints
 from acn_tpu_torch.models import container as cont
 from acn_tpu_torch.models import ngp as ngp_mod
 from acn_tpu_torch.models.container import ContainerConfig
@@ -452,3 +454,137 @@ def make_eval_step(
                 "psnr": psnr_from_mse(torch.mean(q))}
 
     return eval_step
+
+
+# ------------------------------------------------------ episodic sampling
+
+
+def pools_to_device(pools, device=None) -> Dict[str, torch.Tensor]:
+    """``data.tasks.build_device_pools``'s arrays as tensors on ``device``
+    (``None`` is the card), the ray store and its index pools kept once."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(v).to(device) for k, v in pools.items()}
+
+
+def draw_episodes(pools: Dict[str, torch.Tensor], T: int,
+                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The four draws of each of the K·T episodes, from ``generator`` (on
+    the pools' device): ``cell`` (K, T) uniform over each expert's eligible
+    cells (the largest of C uniforms, the others masked), ``u`` (K, T, I)
+    uniforms that order the cell's images, and ``offs_s`` / ``offs_q``
+    (K, T, I) integers in [0, 2³⁰) that start each image's support and
+    fresh query window."""
+    elig = pools["eligible"]
+    K, C = elig.shape
+    I = pools["img_start"].shape[2]
+    dev = elig.device
+    score = torch.rand((K, T, C), generator=generator, device=dev)
+    cell = torch.argmax(torch.where(elig[:, None, :], score, -1.0), dim=-1)
+    return {"cell": cell,
+            "u": torch.rand((K, T, I), generator=generator, device=dev),
+            "offs_s": torch.randint(0, 1 << 30, (K, T, I), generator=generator, device=dev),
+            "offs_q": torch.randint(0, 1 << 30, (K, T, I), generator=generator, device=dev)}
+
+
+def _split_take(lens, n_use, target: int, cap: int):
+    """Greedy capped allocation over the image slots: slot i (< n_use)
+    takes min(remaining, cap, len_i). Returns (take, cumulative bounds)."""
+    slots = torch.arange(lens.shape[-1], device=lens.device)
+    desired = torch.where(slots < n_use[..., None], torch.clamp(lens, max=cap), 0)
+    before = torch.cumsum(desired, -1) - desired
+    take = torch.minimum(torch.clamp(target - before, min=0), desired)
+    return take, torch.cumsum(take, -1)
+
+
+def _gather_split(n: int, bounds, take, starts, lens, offs):
+    """Pool positions of a split's n rays: ray j (mod the split's total)
+    falls in the slot whose bounds hold it, at its rank within the slot,
+    read from that image's circular window that starts at ``offs``."""
+    total = torch.clamp(bounds[..., -1], min=1)
+    jm = torch.arange(n, device=bounds.device) % total[..., None]
+    # Σ_i [jm ≥ bounds_i]; JAX clamps the one out-of-range slot (an empty
+    # split), torch's gather would raise
+    slot = torch.clamp(torch.searchsorted(bounds, jm, right=True), max=bounds.shape[-1] - 1)
+    at = lambda a: torch.gather(a, -1, slot)
+    rank = jm - (at(bounds) - at(take))
+    return at(starts) + (at(offs) + rank) % torch.clamp(at(lens), min=1)
+
+
+def episode_ray_ids(pools: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
+                    S: int, Q: int, constraints: Optional[EpisodeConstraints] = None):
+    """(support ids (K, T, S), query ids (K, T, Q)): rows of each expert's
+    ray store, for the episodes that ``draws`` (``draw_episodes``'s form)
+    pick, as ``acn_tpu``'s ``make_device_batch_fn`` takes them, batched
+    over (K, T) in a few tensor ops.
+
+    Per episode: a random order of the cell's images (the slots past its
+    image count sort last: stable argsort of u + 10⁹); support from the
+    first ``max_images_support`` images, each capped at ⌈cap·S⌉ rays; query
+    from the next slots (image-disjoint while images remain, else borrowing
+    the support's images in a window after the support's, so that the rays
+    stay disjoint), each capped at ⌈cap·Q⌉. Integers are int64; the values
+    equal JAX's int32 ones (pool positions < 2³¹)."""
+    cst = constraints or EpisodeConstraints()
+    cap_s = max(1, int(np.ceil(cst.image_cap * S)))
+    cap_q = max(1, int(np.ceil(cst.image_cap * Q)))
+    cell = draws["cell"].long()
+    K = cell.shape[0]
+    dev = cell.device
+    kk = torch.arange(K, device=dev)[:, None]
+    I = pools["img_start"].shape[2]
+    slots = torch.arange(I, device=dev)
+
+    n_img = torch.clamp(pools["img_count"][kk, cell].long(), min=1)  # (K, T)
+    rkeys = draws["u"] + (slots >= n_img[..., None]).to(torch.float32) * 1e9
+    order = torch.argsort(rkeys, dim=-1, stable=True)  # valid slots first, shuffled
+    starts_p = torch.gather(pools["img_start"][kk, cell].long(), -1, order)
+    lens_p = torch.gather(pools["img_len"][kk, cell].long(), -1, order)
+
+    n_s = torch.clamp(n_img, max=cst.max_images_support)
+    take_s, bounds_s = _split_take(lens_p, n_s, S, cap_s)
+    offs_s = draws["offs_s"].long() % torch.clamp(lens_p, min=1)
+    s_pos = _gather_split(S, bounds_s, take_s, starts_p, lens_p, offs_s)
+
+    n_disj = torch.clamp(n_img - n_s, min=0)
+    n_q = torch.where(n_disj >= cst.min_images_query,
+                      torch.clamp(n_disj, max=cst.max_images_query),
+                      torch.clamp(n_img, max=cst.min_images_query))
+    after = n_s[..., None] + slots
+    qsrc = after % n_img[..., None]  # position in the image order per q-slot
+    borrowed = after >= n_img[..., None]
+    at = lambda a: torch.gather(a, -1, qsrc)
+    lens_raw, take_sq = at(lens_p), at(take_s)
+    lens_q = torch.where(borrowed, torch.clamp(lens_raw - take_sq, min=0), lens_raw)
+    take_q, bounds_q = _split_take(lens_q, n_q, Q, cap_q)
+    offs_fresh = draws["offs_q"].long() % torch.clamp(lens_q, min=1)
+    # borrowed images continue right after the support's circular window
+    offs_q = torch.where(borrowed, (at(offs_s) + take_sq) % torch.clamp(lens_raw, min=1),
+                         offs_fresh)
+    q_pos = _gather_split(Q, bounds_q, take_q, at(starts_p),
+                          torch.where(borrowed, lens_raw, lens_q), offs_q)
+
+    k3, c3 = kk[..., None], cell[..., None]
+    return (pools["pool_idx"][k3, c3, s_pos].long(),
+            pools["pool_idx"][k3, c3, q_pos].long())
+
+
+def make_device_batch_fn(T: int, S: int, Q: int,
+                         constraints: Optional[EpisodeConstraints] = None):
+    """Episodic sampling on the pools' device: ``sample_batch(pools,
+    draws)`` → the stacked (K, T, ·, ·) batch of ``make_meta_train_step``
+    ({support_rays, support_rgbs, query_rays, query_rgbs}), the layout of
+    ``data.tasks.MultiTaskSampler.sample_batch``. ``pools`` from
+    ``pools_to_device``; ``draws`` a ``torch.Generator`` on their device or
+    ``draw_episodes``'s dict (the tests inject JAX's draws). No host wait."""
+
+    def sample_batch(pools: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
+        if isinstance(draws, torch.Generator):
+            draws = draw_episodes(pools, T, draws)
+        s_ids, q_ids = episode_ray_ids(pools, draws, S, Q, constraints)
+        k3 = torch.arange(s_ids.shape[0], device=s_ids.device)[:, None, None]
+        return {"support_rays": pools["rays"][k3, s_ids],
+                "support_rgbs": pools["rgbs"][k3, s_ids],
+                "query_rays": pools["rays"][k3, q_ids],
+                "query_rgbs": pools["rgbs"][k3, q_ids]}
+
+    return sample_batch

@@ -17,6 +17,17 @@ with per-group rates decayed tenfold over 10,000 steps, the global-norm clip
 at 1 and the non-finite guard; 3 tasks per expert of 1,024 support and 512
 query rays.
 
+``camera_ray_stores`` is a synthetic dataset over the quadrant scene: per
+expert, pinhole cameras looking down on its quadrant, all their pixels' rays
+(with near and far from the expert's box) in a ray store, colored by a
+pattern of the point where each ray leaves the box.
+
+``bench_problem`` is the model of the JAX package's step benchmark
+(``bench.py``, through ``__graft_entry__._toy_problem``): K experts over
+the same [-1, 1]³ box, a cell-layout hash grid of 8 levels × 4 features
+with 2^16 rows (max res 1024), 64-wide MLPs; ``bench_params`` its P and
+``bench_occ_config`` its occupancy grid.
+
 The scene is the one the JAX package's render benchmark builds
 (``acn_tpu/scripts/bench_render.py``): the [-1, 1]³ box cut into four
 quadrant expert AABBs with ~10 % overlap, centroids at (0, ±0.55, ±0.55),
@@ -42,6 +53,8 @@ from acn_tpu_torch.models.container import (
 )
 from acn_tpu_torch.models.encodings import HashGridConfig
 from acn_tpu_torch.models.ngp import NGPConfig
+from acn_tpu_torch.models.nn import norm3
+from acn_tpu_torch.nerfs import rays as raylib
 from acn_tpu_torch.occupancy.grid import OccConfig, init_occ_state
 from acn_tpu_torch.utils.optim import Optimizer, build_optimizer
 
@@ -80,6 +93,10 @@ def train_occ_config() -> Tuple[ContainerConfig, types.SimpleNamespace, OccConfi
         # with the would-be overflow measured until the auto switch
         occ_warmup=256, occ_regime="auto", occ_auto_thresh=0.02,
         occ_auto_patience=3,
+        # the loop (meta_trainer) and its data
+        seed=0, cell_dim=5, test_batch_size=1, max_test_tasks=4, eval_step=200,
+        eval_render="stratified", save_step=500, save_optimizer=1, print_step=20,
+        watchdog_timeout=900, profile_at=0, profile_steps=3, near=0.0,
     )
     occ_cfg = OccConfig(resolution=128, levels=1, occ_thre=1e-2, ema_decay=0.95,
                         warmup_steps=256, update_interval=16, alpha_thre=1e-2,
@@ -174,3 +191,93 @@ def init_train_state(model: Container, P) -> Tuple[Optimizer, Dict[str, Any]]:
     opt = build_optimizer(P, param_group_labels(params),
                           grad_clip=getattr(P, "grad_clip", 1.0))
     return opt, {"model": model, "opt_state": opt.init(params), "step": 0}
+
+
+def bench_problem(K: int = 4, seed: int = 0, device=None) -> Container:
+    """``__graft_entry__._toy_problem``'s model: K experts, each over the
+    whole [-1, 1]³ box, centroids on a √K × √K grid in the y-z plane,
+    boundary margin 1.1, background MLP; random weights (CPU generator from
+    ``seed``, then moved)."""
+    cfg = ContainerConfig(
+        num_submodules=K, boundary_margin=1.1, cluster_2d=True, use_bg_nerf=True,
+        expert=NGPConfig(hidden=64, color_hidden=64, hash=HashGridConfig(
+            levels=8, min_res=16, max_res=1024, log2_hashmap_size=16, layout="cell",
+            features_per_level=4, dense_levels=True)))
+    side = int(np.ceil(np.sqrt(K)))
+    cents = np.asarray([[0.0, -0.5 + (k // side) / max(side - 1, 1),
+                         -0.5 + (k % side) / max(side - 1, 1)] for k in range(K)],
+                       np.float32)
+    boxes = np.stack([SCENE_AABB] * K)
+    gen = torch.Generator().manual_seed(seed)
+    return init_container(cfg, torch.from_numpy(cents), torch.from_numpy(boxes),
+                          torch.from_numpy(SCENE_AABB), generator=gen).to(device)
+
+
+def bench_params(inner_iter: int = 8, **over) -> types.SimpleNamespace:
+    """``bench.py``'s P (its optimizer, inner loop, 96 stratified samples,
+    256 bins → 64 kept, bf16, white background), with ``over`` on top."""
+    return types.SimpleNamespace(**{**dict(
+        algo="fomaml", inner_iter=inner_iter, inner_lr=0.015, ray_samples=96,
+        color_space="linear", bg_color_default="white", optimizer="adam",
+        encoding_lr=1e-2, sigma_lr=2e-3, color_lr=2e-3, bg_lr=1e-3, lr=1e-4,
+        outer_steps=10_000, decay_factor=10.0, no_scheduler=False, grad_clip=1.0,
+        occ_s_max=256, occ_s_kept=64, use_amp=True, train_chunk_rays=0, fim=False,
+        occ_budget_per_ray=0), **over})
+
+
+def bench_occ_config() -> OccConfig:
+    """``bench.py``'s occupancy grid: 128³, one level, near 1e-3, far 1e3."""
+    return OccConfig(resolution=128, levels=1, near_plane=1e-3, far_plane=1e3)
+
+
+def camera_ray_stores(K: int = 4, cams: int = 32, H: int = 192, W: int = 256,
+                      seed: int = 0, device=None) -> Dict[str, Any]:
+    """A synthetic dataset of the quadrant scene: per expert, ``cams``
+    pinhole cameras (focal length W) half a unit above its box's top face
+    (x = −1; x is Down), looking straight down, each turned by a random angle
+    about the vertical and placed at random over the quadrant so that its
+    whole image sees the box; every pixel's ray (``nerfs.rays.get_rays``,
+    near and far from the expert's box) goes into the expert's store. A
+    ray's color is a pattern of the point where it leaves the box.
+
+    Returns {"stores": K × (rays (N, 8), rgbs (N, 3), image ids (N,)) numpy
+    with N = cams·H·W, "intrinsics" (K·cams, 4) (fx, fy, cx, cy), "c2w"
+    (K·cams, 3, 4) RUB camera-to-world, "H", "W"}. The rays are made on
+    ``device`` (None: the card), one camera at a time."""
+    from acn_tpu_torch.pipelines.renderer import resolve_device
+
+    device = resolve_device(device)
+    boxes, _ = quadrant_layout(K)
+    rng = np.random.default_rng(seed)
+    f = float(W)
+    j = torch.arange(H, dtype=torch.float32, device=device)[:, None] + 0.5
+    i = torch.arange(W, dtype=torch.float32, device=device)[None, :] + 0.5
+    dirs = torch.stack([(i - W / 2).expand(H, W) / f, -(j - H / 2).expand(H, W) / f,
+                        -torch.ones((H, W), device=device)], dim=-1)
+    dirs = dirs / norm3(dirs)
+    reach = 0.5 * float(np.hypot(W / 2, H / 2)) / f  # footprint radius on the top face
+    stores, intr, poses = [], [], []
+    for k in range(K):
+        lo, hi = boxes[k]
+        box = torch.from_numpy(boxes[k]).to(device)
+        rays_k = []
+        for _ in range(cams):
+            a = rng.uniform(0, 2 * np.pi)
+            right = np.array([0.0, np.sin(a), np.cos(a)])
+            up = np.array([0.0, np.cos(a), -np.sin(a)])
+            pos = [lo[0] - 0.5, rng.uniform(lo[1] + reach, hi[1] - reach),
+                   rng.uniform(lo[2] + reach, hi[2] - reach)]
+            c2w = np.stack([right, up, np.cross(right, up), pos], 1).astype(np.float32)
+            rays_k.append(raylib.get_rays(dirs, torch.from_numpy(c2w).to(device),
+                                          aabb=box).reshape(-1, 8).cpu().numpy())
+            intr.append([f, f, W / 2, H / 2])
+            poses.append(c2w)
+        rays = np.concatenate(rays_k)
+        exit_pt = rays[:, :3] + rays[:, 7:8] * rays[:, 3:6]
+        y, z = exit_pt[:, 1], exit_pt[:, 2]
+        rgbs = 0.5 + 0.5 * np.stack([np.sin(7 * y), np.sin(5 * z + 1),
+                                     np.sin(3 * (y + z) + 2)], 1)
+        img = np.repeat(np.arange(cams, dtype=np.int32), H * W)
+        stores.append((rays, rgbs.astype(np.float32), img))
+    return {"stores": stores, "intrinsics": np.asarray(intr, np.float32),
+            "c2w": np.stack(poses), "H": H, "W": W}

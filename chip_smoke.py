@@ -55,7 +55,25 @@ Phases, each printing one JSON line and each fatal on failure:
    stratified and strided steps and the budget-0 renderer must launch no
    scan kernel; the budget step after the switch 108 forward and 108
    reverse;
-7. the kernels line, then the card's ``nvidia-smi`` line, then the result
+7. the training loop, ``meta_trainer``, at full width on a synthetic
+   dataset: per expert 32 cameras of 192 × 256 pixels over its quadrant
+   (``toy.camera_ray_stores``, 1,572,864 rays), routed to 5 × 5 micro-cells,
+   sampled on the card (``make_device_batch_fn`` over the pools of
+   ``build_device_pools``), grids premarked from the same cameras; a model
+   whose density varies over the grid (``LOOP_*``); the schedule cut to 12
+   steps (warm-up 3, update every 2, the switch after 2 readings, eval every
+   4 on one test task, a step save every 6), then a resume from ``step6``
+   for two steps. It fails unless the steps run stratified, strided, then
+   budget after the switch, with 0 scan launches in the first two and 108 +
+   108 in each budget step; the card's sampler gives the CPU's ids on the
+   same draws and never a padded ray, support and query apart; ``best``,
+   ``step6``, ``step12`` and ``last`` are written, and ``best``, ``step6``
+   and ``last`` reload bit for bit (``last`` equal to the run's end); the
+   resumed run
+   starts from step 6's state (best, optimizer count, grids, regime), and
+   its non-log step waits for the card no more often than phase 5's bare
+   step; every metric finite;
+8. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -794,7 +812,7 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
               "scan_share_of_busy": 1e-3 * sum(
                   v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
     return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
-            "steps": len(launches), "shapes": shapes}
+            "steps": len(launches), "shapes": shapes, "syncs": syncs}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1061,6 +1079,313 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     return counted
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+# the phase-7 model's density, made to vary over the grid as a trained
+# field's does: hash features ×3·10⁴ (from U(±1e-4)), the σ head's weights
+# ×4 and its bias −4. At the init's scale σ is all but constant, half the
+# cells sit above the grid's mean and every ray keeps ≈ 120 of 256 bins, so
+# the would-be overflow at 32 per ray never clears 2 % and the switch never
+# fires; with these (measured on the CPU at 64³ and a smaller table) about
+# 7 % of the cells stay occupied, ≈ 17 bins per ray
+LOOP_HASH_SCALE = 3e4
+LOOP_SIGMA_GAIN = 4.0
+LOOP_SIGMA_SHIFT = -4.0
+LOOP_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_loop"
+LOOP_CAMERAS, LOOP_IMAGE = 32, (192, 256)  # per expert; (H, W)
+DEV = "cuda"
+
+
+class _LoopProbe:
+    """The loop's draws (``trainer.LoopDraws``, one generator on the card)
+    with a mark at each point where the loop asks for them (a step, an
+    update, an eval) and at the end: the time (after a synchronization when
+    ``sync``), the scan counters and the host waits recorded so far."""
+
+    def __init__(self, torch, tr, segscan, seed, sync, caught=None):
+        self.torch, self.segscan, self.sync = torch, segscan, sync
+        self.draws = tr.LoopDraws(seed, DEV)
+        self.caught = caught if caught is not None else []
+        self.marks = []
+
+    def mark(self, what):
+        if self.sync:
+            self.torch.cuda.synchronize()
+        self.marks.append((what, time.perf_counter(), _scan_counts(self.segscan),
+                           sum("synchroniz" in str(w.message) for w in self.caught)))
+
+    def step(self):
+        self.mark("step")
+        return self.draws.step()
+
+    def occ_update(self):
+        self.mark("occ_update")
+        return self.draws.occ_update()
+
+    def occ_refresh(self):
+        self.mark("occ_refresh")
+        return self.draws.occ_refresh()
+
+    def eval(self, n):
+        self.mark("eval")
+        return self.draws.eval(n)
+
+    def per_step(self):
+        """Per step: (ms from its mark to the next mark, scan launches and
+        host waits from its mark to the next step's)."""
+        steps = [i for i, m in enumerate(self.marks) if m[0] == "step"]
+        bounds = steps[1:] + [len(self.marks) - 1]
+        out = []
+        for i, j in zip(steps, bounds):
+            (_, t0, c0, s0), (_, t1, _, _) = self.marks[i], self.marks[i + 1]
+            _, _, c1, s1 = self.marks[j]
+            out.append({"ms": 1e3 * (t1 - t0), "launches": (c1[0] - c0[0], c1[1] - c0[1]),
+                        "syncs": s1 - s0})
+        return out
+
+    def spans(self, what):
+        """ms from each ``what`` mark to the next mark."""
+        return [1e3 * (self.marks[i + 1][1] - m[1]) for i, m in enumerate(self.marks[:-1])
+                if m[0] == what]
+
+
+def loop_model(torch, toy, cfg, seed):
+    model = toy.serving_model(cfg, seed=seed, device=DEV)
+    experts = model.params()["experts"]
+    with torch.no_grad():
+        for t in experts["hash_table"]:
+            t.mul_(LOOP_HASH_SCALE)
+        experts["sigma_head"]["w"].mul_(LOOP_SIGMA_GAIN)
+        experts["sigma_head"]["b"].add_(LOOP_SIGMA_SHIFT)
+    return model
+
+
+def check_sampler(torch, ts, pools, T, S, Q) -> dict:
+    """The card's episode ids against the CPU's with the same draws (drawn
+    on the CPU, then moved), and on generator draws: every ray real (far >
+    near), support and query disjoint in every task; the sampler's time."""
+    cpu_pools = {k: v.cpu() for k, v in pools.items()}
+    draws = ts.draw_episodes(cpu_pools, T, torch.Generator().manual_seed(5))
+    want = ts.episode_ray_ids(cpu_pools, draws, S, Q)
+    got = ts.episode_ray_ids(pools, {k: v.to(DEV) for k, v in draws.items()}, S, Q)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "the card's episode ids differ from the CPU's on the same draws")
+    del cpu_pools
+    sample = ts.make_device_batch_fn(T, S, Q)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    for _ in range(4):
+        s_ids, q_ids = ts.episode_ray_ids(pools, ts.draw_episodes(pools, T, gen), S, Q)
+        K = s_ids.shape[0]
+        rays = pools["rays"][torch.arange(K, device=DEV)[:, None, None],
+                             torch.cat([s_ids, q_ids], -1)]
+        check(bool((rays[..., 7] > rays[..., 6]).all()), "a sampled ray is padding")
+        inter = (s_ids[..., :, None] == q_ids[..., None, :]).any(-1).any(-1)
+        check(not bool(inter.any()), "a task's support and query rays overlap")
+    from acn_tpu_torch.scripts import bench_segscan
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEV == "cuda" else [])
+    with profile(activities=activities) as prof:
+        sample(pools, gen)
+        torch.cuda.synchronize()
+    # sample_ms: elapsed between events on the stream (a spin kernel queued
+    # first); sample_busy_ms: the kernels' own device time in the profile
+    return {"ids_card_vs_cpu": "equal",
+            "sample_ms": bench_segscan.time_ms(lambda: sample(pools, gen), 20),
+            "sample_busy_ms": 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
+                                         if e.device_type == DeviceType.CUDA),
+            "sample_launches": sum(e.count for e in prof.key_averages()
+                                   if e.key == "cudaLaunchKernel")}
+
+
+def reload_exact(tck, run, tag, cfg, opt) -> None:
+    """Load ``tag`` into the port and write it again: every file's bytes
+    come back the same."""
+    import tempfile
+
+    payload = tck.load_checkpoint(run, tag)
+    model, occ = tck.restore_model(payload, cfg, "cpu")
+    optim = None
+    if (run / f"{tag}.optim").exists():
+        optim = tck.load_opt_state(run, tag, opt.init(model.params()), opt)
+    with tempfile.TemporaryDirectory(dir=LOOP_DIR) as d:
+        tck.save_checkpoint(d, tag, model, opt_state=optim, occ_states=occ,
+                            step=payload["step"], best=payload["best"], optimizer=opt)
+        for suffix in (".model", ".optim"):
+            if (run / f"{tag}{suffix}").exists():
+                check((Path(d) / f"{tag}{suffix}").read_bytes()
+                      == (run / f"{tag}{suffix}").read_bytes(),
+                      f"{tag}{suffix} does not reload bit for bit")
+
+
+def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
+    """The training loop at full width (module docstring, phase 7). Returns
+    the scan's launch counts over both runs."""
+    import shutil
+
+    from acn_tpu_torch.data import tasks
+    from acn_tpu_torch.data.ram_rays import RamRaysDataset
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+    from acn_tpu_torch.pipelines.offline_stage import trainer as tr
+    from acn_tpu_torch.runner import premark_occ_states
+    from acn_tpu_torch.utils import checkpoint as tck
+    from acn_tpu_torch.utils.config import load_checkpoint_cfg
+    from acn_tpu_torch.utils.logging import Logger
+
+    cfg, P, occ_cfg = toy.train_occ_config()
+    occ_cfg = dataclasses.replace(occ_cfg, warmup_steps=3, update_interval=2)
+    P.occ_warmup, P.occ_auto_patience, P.print_step = 3, 2, 1
+    P.eval_step, P.max_test_tasks, P.save_step, P.outer_steps = 4, 1, 6, 12
+    K, T = cfg.num_submodules, int(P.batch_size)
+    S, Q, I = int(P.support_rays), int(P.query_rays), int(P.inner_iter)
+    per_step = K * T * (I + 1)
+    rays_per_step = K * T * (I * S + Q)
+    torch.cuda.empty_cache()
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    LOOP_DIR.mkdir(parents=True)
+
+    t0 = time.perf_counter()
+    H_img, W_img = LOOP_IMAGE
+    data = toy.camera_ray_stores(K, cams=LOOP_CAMERAS, H=H_img, W=W_img, seed=0, device=DEV)
+    boxes, _ = toy.quadrant_layout(K)
+    stores = [RamRaysDataset.from_arrays(*st) for st in data["stores"]]
+    train = [tasks.TaskSampler(ds, boxes[k], int(P.cell_dim), S, Q, seed=int(P.seed) + k,
+                               route_cache=None) for k, ds in enumerate(stores)]
+    test = tasks.MultiTaskSampler([
+        tasks.TaskSampler(ds, boxes[k], int(P.cell_dim), S, Q, seed=int(P.seed) + 1000 + k,
+                          route_cache=None) for k, ds in enumerate(stores)])
+    pools_np = tasks.build_device_pools(train, seed=int(P.seed))
+    pools = ts.pools_to_device(pools_np, DEV)
+    del pools_np
+    occ0 = premark_occ_states(occ_cfg, boxes, data["intrinsics"], data["c2w"], data["W"],
+                              data["H"], float(P.near), device=DEV)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    n_rays = [len(ds) for ds in stores]
+    check(n_rays == [LOOP_CAMERAS * H_img * W_img] * K, f"rays per expert {n_rays}")
+    check(all(bool((ds.rays[:, 7] > ds.rays[:, 6]).all()) for ds in stores),
+          "a camera ray misses its expert's box")
+    premarked = float((occ0["occs"] < 0).float().mean())
+    sampler = check_sampler(torch, ts, pools, T, S, Q)
+    del data, stores
+
+    # the run: 12 steps from step 0
+    model = loop_model(torch, toy, cfg, seed=2)
+    opt, state = toy.init_train_state(model, P)
+    logger = Logger("run", logs_root=str(LOOP_DIR))
+    probe = _LoopProbe(torch, tr, segscan, int(P.seed), sync=True)
+    _zero_scan_counts(segscan)
+    torch.cuda.reset_peak_memory_stats()
+    out = tr.meta_trainer(P, cfg, state, opt, None, test, logger, occ_cfg=occ_cfg,
+                          occ_states=occ0, device_pools=pools, draws=probe, device=DEV)
+    probe.mark("end")
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    logger.close()
+    launches = _scan_counts(segscan)
+    rec = out["loop"]
+    steps = probe.per_step()
+    regimes = [s["regime"] for s in rec["steps"]]
+    check(len(steps) == len(regimes) == 12, f"{len(steps)} steps, want 12")
+    first = {r: regimes.index(r) for r in ("stratified", "strided", "budget") if r in regimes}
+    check(regimes[:3] == ["stratified"] * 3 and "strided" in first and "budget" in first
+          and first["strided"] < first["budget"] == rec["switched_at"]
+          and regimes[first["budget"]:] == ["budget"] * (12 - first["budget"]),
+          f"regimes {regimes}, switched after step {rec['switched_at']}")
+    for r, s in zip(regimes, steps):
+        want = (per_step, per_step) if r == "budget" else (0, 0)
+        check(s["launches"] == want, f"a {r} step launched scan kernels {s['launches']}, "
+              f"want {want}")
+    overflow = [float(x["metrics"]["occ_overflow"]) for x in rec["steps"]]
+    for x in rec["steps"]:
+        check(all(np.isfinite(v).all() for v in x["metrics"].values()),
+              f"a metric of step {x['step']} is not finite")
+    run = logger.logdir
+    for tag in ("best", "step6", "step12", "last"):
+        check((run / f"{tag}.model").exists(), f"{tag}.model was not written")
+    # each save of the port read back and written again gives its bytes
+    for tag in ("best", "step6", "last"):
+        reload_exact(tck, run, tag, cfg, opt)
+    got, occ_last = tck.restore_model(tck.load_checkpoint(run, "last"), cfg, "cpu")
+    nn.tree_map(lambda a, b: check(torch.equal(a, b.cpu()), "last.model differs from the run"),
+                got.params(), model.params())
+    check(all(torch.equal(occ_last[k], out["occ_states"][k].cpu()) for k in occ_last),
+          "last.model's grids differ from the run's")
+    share = out["occ_states"]["binaries"].float().mean(dim=(1, 2, 3, 4)).tolist()
+    by_regime = {}
+    for r, s in zip(regimes, steps):
+        by_regime.setdefault(r, []).append(s["ms"])
+    emit({"phase": "training_run", "K": K, "T": T, "support_rays": S, "query_rays": Q,
+          "inner_iter": I, "rays_per_expert": n_rays[0], "cameras_per_expert": LOOP_CAMERAS,
+          "pool_shape": list(pools["pool_idx"].shape), "premarked_invisible": premarked,
+          "data_s": data_s, **sampler, "regimes": regimes,
+          "switched_after_step": rec["switched_at"], "occ_overflow": overflow,
+          "step_ms": by_regime,
+          "rays_per_s": {r: [rays_per_step / (1e-3 * t) for t in v] for r, v in by_regime.items()},
+          "update_ms": probe.spans("occ_update"), "eval_ms": probe.spans("eval"),
+          "eval_psnr": rec["eval_psnr"], "save_hold_ms": rec["save_ms"],
+          "peak_mem_mb": peak_mb, "occupied_share": share,
+          "scan_launches": {"forward": launches[0], "reverse": launches[1]},
+          "loss_total": [float(x["metrics"]["loss_total"]) for x in rec["steps"]]})
+    del out, state, model, probe
+
+    # the resume from step6: the saved state exactly, then two steps; every
+    # second step logs, so step 7 reads nothing back and waits for the card
+    # no more than a bare budget step does (phase 5)
+    payload = tck.load_checkpoint(run, "step6")
+    model, occ = tck.restore_model(payload, cfg, DEV)
+    P2 = types.SimpleNamespace(**load_checkpoint_cfg(str(run / "step6.P.json")))
+    P2.outer_steps, P2.print_step = 8, 2
+    opt2, state2 = toy.init_train_state(model, P2)
+    state2["opt_state"] = tck.load_opt_state(run, "step6", state2["opt_state"], opt2)
+    state2["step"] = payload["step"]
+    switched = rec["switched_at"] is not None and rec["switched_at"] <= 6
+    check(payload["step"] == 6 and payload["best"] == rec["eval_psnr"][0][1]
+          and int(state2["opt_state"]["count"]) == 6
+          and (P2.occ_regime == "budget") == switched,
+          f"the resume state: step {payload['step']}, best {payload['best']}, count "
+          f"{int(state2['opt_state']['count'])}, occ_regime {P2.occ_regime}")
+    logger = Logger("run", logs_root=str(LOOP_DIR))
+    _zero_scan_counts(segscan)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe = _LoopProbe(torch, tr, segscan, 1, sync=False, caught=caught)
+            out = tr.meta_trainer(P2, cfg, state2, opt2, None, test, logger, occ_cfg=occ_cfg,
+                                  occ_states=occ, start_step=payload["step"],
+                                  best=payload["best"], device_pools=pools, draws=probe,
+                                  device=DEV)
+            probe.mark("end")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    logger.close()
+    resumed = probe.per_step()
+    rec2 = out["loop"]
+    check([x["step"] for x in rec2["steps"]] == [7, 8]
+          and all(x["regime"] == ("budget" if switched else x["regime"]) for x in rec2["steps"]),
+          f"the resumed run's steps {rec2['steps']}")
+    if switched:
+        check(all(s["launches"] == (per_step, per_step) for s in resumed),
+              f"resumed budget steps launched {[s['launches'] for s in resumed]}")
+    check(resumed[0]["syncs"] <= step_syncs,
+          f"the non-log step 7 waited for the card {resumed[0]['syncs']} times, a bare "
+          f"step {step_syncs}")
+    check((logger.logdir / "last.model").exists(), "the resumed run wrote no last.model")
+    emit({"phase": "training_resume", "from": "step6", "start_step": payload["step"],
+          "best": payload["best"], "opt_count": 6, "occ_regime": P2.occ_regime,
+          "steps": [x["step"] for x in rec2["steps"]],
+          "step_ms_no_sync": [s["ms"] for s in resumed],
+          "host_syncs_non_log_step": resumed[0]["syncs"], "host_syncs_bare_step": step_syncs,
+          "scan_launches_per_step": [s["launches"] for s in resumed]})
+    total = _scan_counts(segscan)
+    del out, state2, model, pools
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    return {"fwd": launches[0] + total[0], "rev": launches[1] + total[1]}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1104,32 +1429,36 @@ def main() -> int:
                              occ_cpu, args.profile)
     regimes = phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu,
                             args.profile)
+    del model_cpu, occ_cpu
+    loop = phase_training_run(torch, segscan, toy, train["syncs"])
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
-    # frames, where only the budget step after the switch launches), each
+    # frames, where only the budget step after the switch launches; the sum
+    # over phase 7's two loop runs, where the budget steps launch), each
     # counted from 0 just before its path was driven. ms, plain_ms and
     # bound_ms at the serving chunk (B = 983,040); "train_shapes" holds the
     # same at the training step's B = 32,768 and 16,384.
     fwd_train, rev_train = train["launches"]
     fwd_reg, rev_reg = regimes["fwd"], regimes["rev"]
+    fwd_loop, rev_loop = loop["fwd"], loop["rev"]
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
     emit({"kernels": [
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
-         "launches": fwd_render + fwd_train + fwd_reg,
+         "launches": fwd_render + fwd_train + fwd_reg + fwd_loop,
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
-                              "regime_schedule": fwd_reg},
+                              "regime_schedule": fwd_reg, "meta_trainer": fwd_loop},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
          "train_shapes": [{key: sh[key] for key in (
              "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for sh in train["shapes"]], **common},
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
-         "launches": rev_render + rev_train + rev_reg,
+         "launches": rev_render + rev_train + rev_reg + rev_loop,
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
-                              "regime_schedule": rev_reg},
+                              "regime_schedule": rev_reg, "meta_trainer": rev_loop},
          "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
          "plain_ms": k["reverse_plain_ms"],
          "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],
