@@ -13,7 +13,11 @@ step in every regime of a run (stratified warm-up, strided occupancy with
 the would-be overflow, packed budget) through
 ``pipelines.offline_stage.train_step.make_meta_train_step``, the eval step,
 and between steps the occupancy update and the auto-regime switch
-(``pipelines.offline_stage.trainer``). The one TPU kernel, the segmented
+(``pipelines.offline_stage.trainer``), the training loop, and the user's
+entry point ``python -m acn_tpu_torch --op {train,eval}`` (``runner``): the
+flag parser (``utils.config``), the loaders of a prepared dataset directory
+(``data``), and the eval with test-time optimization
+(``pipelines.online_stage.runtime_adapt``). The one TPU kernel, the segmented
 exclusive scan of the packed-budget paths, is a hand-written CUDA kernel for
 ``sm_90a`` (``csrc/segscan.cu``, bound in ``ops/segscan.py``), built with
 ``nvcc`` at first use into ``acn_tpu_torch/_build/``; serving launches its

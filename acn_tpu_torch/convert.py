@@ -1,5 +1,5 @@
-"""Carry weights, occupancy state, optimizer state and configs across from
-``acn_tpu``, and weights, occupancy state and optimizer state back.
+"""Carry weights, occupancy state and configs across from ``acn_tpu``, and
+weights and occupancy state back.
 
 The inputs are what the JAX package holds, as plain Python: the
 ``variables`` tree and the stacked ``occ_states`` as nested dicts and lists
@@ -9,10 +9,9 @@ imports ``jax`` or ``acn_tpu``. Layouts carry over unchanged: Linear weights
 ``(in, out)``, per-level cell-layout hash tables, a leading K axis on every
 expert leaf.
 
-The optimizer state crosses by duck typing: optax's state is a nest of named
-tuples (``ApplyIfFiniteState`` → chain → ``PartitionState`` →
-``MaskedState`` → ``ScaleByAdamState``), read here by attribute name and
-rebuilt with ``_replace``, so optax is not imported either.
+The optimizer state crosses in its state-dict form, the layout that
+``utils/checkpoint.py`` keeps (``optim_state_dict`` / ``opt_state_from_dict``;
+flax's ``serialization.to_state_dict`` of an optax state gives the same form).
 """
 
 from __future__ import annotations
@@ -101,101 +100,3 @@ def to_jax_variables(model: Container) -> Dict[str, Any]:
         "buffers": {name: getattr(model, name).detach().cpu().numpy().copy()
                     for name in ("centroids", "expert_aabbs", "global_aabb")},
     }
-
-
-# ---- optimizer state: optax <-> utils.optim ----
-
-
-def _is_masked(x) -> bool:
-    return type(x).__name__ == "MaskedNode"
-
-
-def _partition(ostate):
-    """(guard state or None, chain tuple, index of the PartitionState in it,
-    whether the partition stood alone) of ``build_optimizer``'s optax state."""
-    guard = ostate if hasattr(ostate, "notfinite_count") else None
-    chain = guard.inner_state if guard is not None else ostate
-    alone = hasattr(chain, "inner_states")  # no clip: no chain around it
-    if alone:
-        chain = (chain,)
-    idx = [i for i, s in enumerate(chain) if hasattr(s, "inner_states")]
-    if len(idx) != 1:
-        raise ValueError("not the optimizer state of build_optimizer: no "
-                         "per-group (multi_transform) state in it")
-    return guard, tuple(chain), idx[0], alone
-
-
-def _adam_of(group_state):
-    """(state tuple of one group's adam chain, index of ScaleByAdamState)."""
-    inner = getattr(group_state, "inner_state", group_state)  # MaskedState
-    idx = [i for i, s in enumerate(inner) if hasattr(s, "mu")]
-    if len(idx) != 1:
-        raise NotImplementedError("only optax.adam group states carry across")
-    return tuple(inner), idx[0]
-
-
-def opt_state_from_optax(ostate, labels, device=None) -> Dict[str, Any]:
-    """``acn_tpu.utils.optim.build_optimizer``'s optax state (after
-    ``jax.device_get``) as the state of ``acn_tpu_torch.utils.optim``.
-    ``labels`` is ``container.param_group_labels(params)``: each leaf's
-    moments are read from its own group's (masked) trees."""
-    guard, chain, pi, _ = _partition(ostate)
-    groups = {g: _adam_of(st) for g, st in chain[pi].inner_states.items()}
-    adam = {g: inner[i] for g, (inner, i) in groups.items()}
-    counts = {int(np.asarray(a.count)) for a in adam.values()}
-    if len(counts) != 1:
-        raise ValueError(f"the groups' step counts differ: {sorted(counts)}")
-
-    def scalar(v, dtype):
-        return torch.tensor(np.asarray(v).item(), dtype=dtype, device=device)
-
-    def moment(name):
-        return tree_map(
-            lambda label, *per_group: _tensors(
-                dict(zip(adam, per_group))[label], device),
-            labels, *(getattr(a, name) for a in adam.values()))
-
-    state = {"count": scalar(counts.pop(), torch.int32),
-             "mu": moment("mu"), "nu": moment("nu")}
-    if guard is not None:
-        state.update(
-            notfinite_count=scalar(guard.notfinite_count, torch.int32),
-            last_finite=scalar(guard.last_finite, torch.bool),
-            total_notfinite=scalar(guard.total_notfinite, torch.int32))
-    return state
-
-
-def opt_state_into_optax(state: Mapping[str, Any], template, labels):
-    """The port's optimizer state written into a copy of ``template``, an
-    optax state of the same optimizer (``optimizer.init(params)``): numpy
-    leaves, every group's count and schedule count set, masked nodes kept."""
-    guard, chain, pi, alone = _partition(template)
-    count = np.asarray(int(state["count"]), np.int32)
-    mu, nu = _numpy(state["mu"]), _numpy(state["nu"])
-
-    def masked_like(tmpl_tree, values):
-        return tree_map(lambda _, t, v: t if _is_masked(t) else v,
-                        labels, tmpl_tree, values)
-
-    new_groups = {}
-    for g, st in chain[pi].inner_states.items():
-        inner, ai = _adam_of(st)
-        inner = list(inner)
-        inner[ai] = inner[ai]._replace(
-            count=count, mu=masked_like(inner[ai].mu, mu),
-            nu=masked_like(inner[ai].nu, nu))
-        inner = [s._replace(count=count)
-                 if i != ai and hasattr(s, "count") else s
-                 for i, s in enumerate(inner)]
-        new_groups[g] = (st._replace(inner_state=tuple(inner))
-                         if hasattr(st, "inner_state") else tuple(inner))
-    chain = list(chain)
-    chain[pi] = chain[pi]._replace(inner_states=new_groups)
-    inner_state = chain[0] if alone else tuple(chain)
-    if guard is None:
-        return inner_state
-    return guard._replace(
-        notfinite_count=np.asarray(int(state["notfinite_count"]), np.int32),
-        last_finite=np.asarray(bool(state["last_finite"])),
-        total_notfinite=np.asarray(int(state["total_notfinite"]), np.int32),
-        inner_state=inner_state)

@@ -40,6 +40,7 @@ through the box, random colors.
 from __future__ import annotations
 
 import types
+from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -281,3 +282,108 @@ def camera_ray_stores(K: int = 4, cams: int = 32, H: int = 192, W: int = 256,
         stores.append((rays, rgbs.astype(np.float32), img))
     return {"stores": stores, "intrinsics": np.asarray(intr, np.float32),
             "c2w": np.stack(poses), "H": H, "W": W}
+
+
+def expert_layout(K: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(expert AABBs (K, 2, 3), centroids (K, 3)): the 2×2 quadrants for
+    K = 4, two halves of the y axis (the same ~10 % overlap) for K = 2."""
+    if K == 4:
+        return quadrant_layout(K)
+    assert K == 2, "the layouts have 2 or 4 experts"
+    boxes = np.asarray([[[-1.0, -1.0, -1.0], [1.0, 0.1, 1.0]],
+                        [[-1.0, -0.1, -1.0], [1.0, 1.0, 1.0]]], np.float32)
+    return boxes, np.asarray([[0.0, -0.55, 0.0], [0.0, 0.55, 0.0]], np.float32)
+
+
+def _zip_mask(path, mask_hw: np.ndarray) -> None:
+    """A zipped ``torch.save`` of a boolean (H, W) mask, the prepared
+    datasets' format (``acn_tpu/scripts/create_clusters.py``)."""
+    import io
+    import zipfile
+
+    buf = io.BytesIO()
+    torch.save(torch.from_numpy(np.ascontiguousarray(mask_hw)), buf)
+    info = zipfile.ZipInfo(path.stem + ".inner.pt", date_time=(1980, 1, 1, 0, 0, 0))
+    info.compress_type = zipfile.ZIP_DEFLATED
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(info, buf.getvalue())
+
+
+def write_dataset_dir(root, K: int = 4, train_cams: int = 32, val_cams: int = 8,
+                      H: int = 192, W: int = 256, downscale: float = 0.25, seed: int = 0,
+                      dirname: str = "example",
+                      mask_dirname: str = "g22_grid_bm110_ss11") -> Path:
+    """Write a prepared dataset of the layout scene in the layout that
+    ``data/dataset.py`` reads, under ``<root>/out/<dirname>``; returns that
+    directory. Run the runner on it with ``--data_path <root>`` (and
+    ``--num_submodules K``, ``--downscale downscale``).
+
+    * ``coordinates.pt``: origin 0, pose scale factor 1;
+    * ``{train,val}/metadata/<name>.pt``: {c2w (3, 4) RUB camera-to-world,
+      W, H, intrinsics (fx, fy, cx, cy)}, the size and intrinsics at full
+      resolution (1/``downscale`` times the images'), so that the loaders
+      scale them back to the PNGs' size and need no resize;
+    * ``{train,val}/rgbs/<name>.png`` (H × W), written by the port's codec
+      with the five row filters in turn (row r with filter r mod 5), so
+      that reading them takes every path of the decoder;
+    * ``masks/<mask_dirname>/{params.pt, scene_boxes.pt}`` and per expert
+      ``<k>/<name>.pt``: a zipped boolean mask of the pixels whose ray
+      leaves the scene box inside the expert's box in y and z.
+
+    The cameras are ``camera_ray_stores``'s: above the top face (x = −1;
+    x is Down), looking straight down, each turned by a random angle about
+    the vertical and placed at random over one expert's region (image i
+    over expert i mod K); a pixel's colour is a pattern of the point where
+    its ray leaves the scene box. Everything is drawn from ``seed``."""
+    from acn_tpu_torch.data.png import write_png
+    from acn_tpu_torch.data.ray_prep import get_ray_directions_np, get_rays_np
+
+    root = Path(root)
+    data = root / "out" / dirname
+    masks = data / "masks" / mask_dirname
+    for d in [*(data / sp / sub for sp in ("train", "val") for sub in ("metadata", "rgbs")),
+              *(masks / str(k) for k in range(K))]:
+        d.mkdir(parents=True, exist_ok=True)
+    boxes, cents = expert_layout(K)
+    torch.save({"origin_drb": torch.zeros(3), "pose_scale_factor": 1.0},
+               data / "coordinates.pt")
+    torch.save({"format_version": 3, "centroids": torch.from_numpy(cents),
+                "grid_dim": (1, 2, K // 2), "cluster_2d": True, "boundary_margin": 1.1,
+                "aabb_global": torch.from_numpy(SCENE_AABB)}, masks / "params.pt")
+    torch.save({"aabb_global": torch.from_numpy(SCENE_AABB),
+                "mins": torch.from_numpy(boxes[:, 0].copy()),
+                "maxs": torch.from_numpy(boxes[:, 1].copy())}, masks / "scene_boxes.pt")
+
+    rng = np.random.default_rng(seed)
+    f = float(W)
+    dirs = get_ray_directions_np(H, W, f, f, W / 2, H / 2)
+    reach = 0.5 * float(np.hypot(W / 2, H / 2)) / f  # footprint radius on the top face
+    scale = 1.0 / downscale
+    for i in range(train_cams + val_cams):
+        split = "train" if i < train_cams else "val"
+        lo, hi = boxes[i % K]
+        a = rng.uniform(0, 2 * np.pi)
+        right = np.array([0.0, np.sin(a), np.cos(a)])
+        up = np.array([0.0, np.cos(a), -np.sin(a)])
+        pos = [SCENE_AABB[0, 0] - 0.5, rng.uniform(lo[1] + reach, hi[1] - reach),
+               rng.uniform(lo[2] + reach, hi[2] - reach)]
+        c2w = np.stack([right, up, np.cross(right, up), pos], 1).astype(np.float32)
+        rays = get_rays_np(dirs, c2w, aabb=SCENE_AABB).reshape(-1, 8)
+        exit_pt = rays[:, :3] + rays[:, 7:8] * rays[:, 3:6]
+        y, z = exit_pt[:, 1], exit_pt[:, 2]
+        rgb = 0.5 + 0.5 * np.stack([np.sin(7 * y), np.sin(5 * z + 1),
+                                    np.sin(3 * (y + z) + 2)], 1)
+        name = f"{i:06d}"
+        write_png(data / split / "rgbs" / f"{name}.png",
+                  np.round(rgb * 255).astype(np.uint8).reshape(H, W, 3),
+                  filter_type=np.arange(H) % 5)
+        torch.save({"c2w": torch.from_numpy(c2w), "W": int(round(W * scale)),
+                    "H": int(round(H * scale)),
+                    "intrinsics": torch.tensor([f * scale, f * scale, W / 2 * scale,
+                                                H / 2 * scale])},
+                   data / split / "metadata" / f"{name}.pt")
+        for k in range(K):
+            inside = ((y >= boxes[k, 0, 1]) & (y <= boxes[k, 1, 1])
+                      & (z >= boxes[k, 0, 2]) & (z <= boxes[k, 1, 2]))
+            _zip_mask(masks / str(k) / f"{name}.pt", inside.reshape(H, W))
+    return data

@@ -5,7 +5,8 @@ Port of ``acn_tpu/utils/optim.py``, which builds an optax chain: the guard
 (``multi_transform`` over the labels encoding / sigma / color / background),
 each group with its own exponentially decayed rate. Here that chain is
 written out, so that every step equals optax's and the state carries across
-to and from optax's (``convert.opt_state_from_optax`` / ``_into_optax``):
+to and from optax's through the state-dict form of
+``utils/checkpoint.py`` (``optim_state_dict`` / ``opt_state_from_dict``):
 
 * **clip**: scale by ``max_norm / norm`` only where ``norm ≥ max_norm``, with
   no ``+ 1e-6`` (``torch.nn.utils.clip_grad_norm_`` divides by

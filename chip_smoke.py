@@ -73,7 +73,26 @@ Phases, each printing one JSON line and each fatal on failure:
    starts from step 6's state (best, optimizer count, grids, regime), and
    its non-log step waits for the card no more often than phase 5's bare
    step; every metric finite;
-8. the kernels line, then the card's ``nvidia-smi`` line, then the result
+8. the runner on a dataset on disk, at ``configs/train_occ.json``'s width:
+   (a) ``toy.write_dataset_dir`` writes 32 train and 8 val views of
+   192 × 256 over the 4 quadrants (PNGs, zipped masks) into
+   ``logs/chip_smoke_runner/``; (b) ``runner.main`` runs ``--op train`` with
+   ``configs/train_occ.json`` cut to 8 steps (warm-up 2, the switch after 1
+   reading, eval and save every 4, the grids rebuilt every 2 steps: the
+   runner's update interval is patched, it has no flag), building the ray
+   stores and routes afresh; it fails unless the run trains stratified,
+   then packed-budget after the switch, every budget step launching 108 +
+   108 scans and no other step any, and ``last`` and ``step4`` carry grids
+   and optimizer; (c) ``--op eval --configPath configs/eval.json --prefix
+   last --tto 0,2,0 --test_batch_size 4`` on that run: the forward scan
+   launched once per chunk of every frame (chunks × 8 views × 3 settings)
+   and the reverse never, PSNR and SSIM finite with SSIM in [-1, 1], the
+   TTO losses finite, and the two ``tto=0`` legs' scores bit-equal (the base
+   weights are restored between settings); (d) card against CPU: one
+   float32 TTO step of ``last`` on 1,024 rays with injected draws (loss,
+   gradient, parameters), SSIM and LPIPS (fallback weights) of one
+   rendered view, and SSIM of a nearly constant image against itself;
+9. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -1386,6 +1405,246 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
     return {"fwd": launches[0] + total[0], "rev": launches[1] + total[1]}
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+RUNNER_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_runner"
+RUNNER_CAMERAS, RUNNER_IMAGE = (32, 8), (192, 256)  # (train, val) cameras; (H, W)
+RUNNER_STEPS = 8
+RUNNER_TTO = "0,2,0"
+TTO_CHECK_RAYS = 1024
+
+
+def _run_flags(config, *flags):
+    return ["--configPath", str(Path(__file__).resolve().parent / "configs" / config),
+            "--data_path", str(RUNNER_DIR / "data"), *flags]
+
+
+def tto_step_card_vs_cpu(torch, trt, tck, nn, toptim, tcont, cfg, occ_cfg, P, run, md,
+                         gaabb) -> dict:
+    """One float32 TTO step of the run's ``last`` state on 1,024 rays of a
+    validation view, with one set of injected draws, on the card against
+    the CPU: the loss rtol 1e-5; the clipped gradient (the optimizer's first
+    moment over 1 − β1) atol 1e-6 with rtol 1e-3 on the tables and 1e-4 on
+    the MLPs (cuBLAS sums in another order; the table gradient is a
+    scatter-add with atomics); the parameters after the step atol 1e-6 /
+    rtol 1e-4 where the gradient is at least 1e-6 (the first Adam step is
+    lr·g/(|g| + 1e-8), so below that the gradient's rounding is most of
+    the update, and the gradient alone is held there)."""
+    from acn_tpu_torch.data.ram_rays import RamRaysDataset
+
+    store = RamRaysDataset([md], aabb=gaabb, near_far_override=(P.near, P.far), num_workers=1)
+    rays, rgbs, _ = store.sample(np.random.default_rng(0), TTO_CHECK_RAYS)
+    gen = torch.Generator().manual_seed(9)
+    rand = (torch.rand((TTO_CHECK_RAYS, int(P.occ_s_max)), generator=gen),
+            torch.randint(0, 1 << 30, (TTO_CHECK_RAYS,), generator=gen))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, occ = tck.restore_model(tck.load_checkpoint(run, "last"), cfg, dev)
+        opt = toptim.build_optimizer(P, tcont.param_group_labels(model.params()), grad_clip=1.0)
+        step = trt.make_tto_step(cfg, P, opt, occ_cfg, use_occ=True)
+        t0 = time.perf_counter()
+        state, loss = step(model, opt.init(model.params()), occ,
+                           torch.from_numpy(rays).to(dev), torch.from_numpy(rgbs).to(dev),
+                           tuple(x.to(dev) for x in rand))
+        loss = float(loss)
+        out[dev] = (loss, nn.tree_leaves(model.params()), nn.tree_leaves(state["mu"]),
+                    1e3 * (time.perf_counter() - t0))
+        del model, occ, state
+    (lg, pg, mg, ms), (lc, pc, mc, cpu_ms) = out["cuda"], out["cpu"]
+    check(np.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc),
+          f"TTO step loss: card {lg}, CPU {lc}")
+    n_tables = cfg.expert.hash.levels
+    err = {"grad_table": 0.0, "grad_mlp": 0.0, "param": 0.0}
+    for i, (a, b, ma, mb) in enumerate(zip(pg, pc, mg, mc)):
+        kind = "table" if i < n_tables else "mlp"
+        ga, gb = ma.cpu() / 0.1, mb / 0.1
+        err[f"grad_{kind}"] = max(err[f"grad_{kind}"], float((ga - gb).abs().max()))
+        check(torch.allclose(ga, gb, atol=1e-6, rtol=1e-3 if kind == "table" else 1e-4),
+              f"TTO step gradient leaf {i} ({kind}): card vs CPU max |diff| "
+              f"{float((ga - gb).abs().max())}")
+        big = gb.abs() >= 1e-6
+        if not bool(big.any()):
+            continue
+        a, b = a.detach().cpu()[big], b.detach()[big]
+        err["param"] = max(err["param"], float((a - b).abs().max()))
+        check(torch.allclose(a, b, atol=1e-6, rtol=1e-4),
+              f"TTO step parameter leaf {i}: card vs CPU max |diff| {float((a - b).abs().max())}")
+    return {"rays": TTO_CHECK_RAYS, "loss_card": lg, "loss_cpu": lc, "step_ms_card": ms,
+            "step_ms_cpu": cpu_ms, **{f"max_abs_err_{k}": v for k, v in err.items()}}
+
+
+def metrics_card_vs_cpu(torch, tlosses, LPIPS, pred, gt) -> dict:
+    """SSIM and LPIPS (fallback weights) of one rendered view and its gt, on
+    the card against the CPU: SSIM atol 1e-4 and inside [-1, 1] to a float32
+    ulp, LPIPS rtol 1e-4. cuDNN sums its convolutions in another order (TF32
+    is off), and SSIM's variances E[x²] − μ² cancel terms of ≈ 0.1–0.3 down
+    to ≈ 1e-3, so a float32 rounding of the blurred terms shows at ≈ 1e-5
+    in SSIM. Also SSIM on the card of a nearly constant image against
+    itself, the case that leaves [-1, 1] where the blur's sums lose their
+    precision: 1 to a float32 ulp (a mean of window ratios that are all 1
+    may round an ulp past it)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p, g = torch.from_numpy(pred).to(dev), torch.from_numpy(gt).to(dev)
+        out[dev] = (float(tlosses.ssim(p, g)), LPIPS(device=dev)(pred, gt))
+    (sg, lg), (sc, lc) = out["cuda"], out["cpu"]
+    check(abs(sg) <= 1.0 + 1e-6 and abs(sg - sc) <= 1e-4, f"SSIM: card {sg}, CPU {sc}")
+    check(np.isfinite(lg) and abs(lg - lc) <= 1e-4 * abs(lc), f"LPIPS: card {lg}, CPU {lc}")
+    flat = torch.from_numpy(
+        (0.5 + 1e-4 * np.random.default_rng(0).random(pred.shape)).astype(np.float32)).cuda()
+    sf = float(tlosses.ssim(flat, flat))
+    check(abs(sf - 1.0) <= 1e-6, f"SSIM of a nearly constant image against itself: {sf}")
+    return {"ssim_card": sg, "ssim_cpu": sc, "ssim_flat_self_card": sf,
+            "lpips_fallback_card": lg, "lpips_fallback_cpu": lc}
+
+
+def phase_runner(torch, segscan, toy) -> dict:
+    """The runner at full width on a dataset on disk (module docstring,
+    phase 8). Returns the scan's launch counts of the train and eval runs."""
+    import shutil
+
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.data import dataset, tasks
+    from acn_tpu_torch.models import container as tcont
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.models.lpips import LPIPS
+    from acn_tpu_torch.nerfs import losses as tlosses
+    from acn_tpu_torch.pipelines.offline_stage import trainer as tr
+    from acn_tpu_torch.pipelines.online_stage import runtime_adapt as trt
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    from acn_tpu_torch.utils import checkpoint as tck
+    from acn_tpu_torch.utils import optim as toptim
+    from acn_tpu_torch.utils.config import parse_args
+
+    torch.cuda.empty_cache()
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    # (a) the dataset; the run builds its ray stores and routes afresh
+    t0 = time.perf_counter()
+    n_train, n_val = RUNNER_CAMERAS
+    toy.write_dataset_dir(RUNNER_DIR / "data", K=4, train_cams=n_train, val_cams=n_val,
+                          H=RUNNER_IMAGE[0], W=RUNNER_IMAGE[1])
+    write_s = time.perf_counter() - t0
+    saved = (dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws)
+    dataset.RAY_CACHE, tasks.ROUTE_CACHE = RUNNER_DIR / "rays", RUNNER_DIR / "routes"
+    # the grids rebuilt every 2 steps (a constant of the runner, no flag)
+    runner.build_occ_config = lambda P, psf: dataclasses.replace(
+        saved[2](P, psf), update_interval=2)
+    probes = []
+
+    def probe(seed, device):
+        probes.append(_LoopProbe(torch, types.SimpleNamespace(LoopDraws=saved[3]), segscan,
+                                 seed, sync=True))
+        return probes[-1]
+
+    tr.LoopDraws = probe
+    run = RUNNER_DIR / "train"
+    try:
+        # (b) --op train: configs/train_occ.json cut to 8 steps
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        out = runner.main(_run_flags(
+            "train_occ.json", "--fname", str(run),
+            "--outer_steps", str(RUNNER_STEPS), "--occ_warmup", "2", "--occ_auto_patience", "1",
+            "--eval_step", "4", "--save_step", "4", "--print_step", "1"))
+        probes[-1].mark("end")
+        train_s = time.perf_counter() - t0
+        train_launches = _scan_counts(segscan)
+        # (c) --op eval on its last save, TTO 0, 2, 0
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        res = runner.main(_run_flags(
+            "eval.json", "--checkpoint_path", str(run), "--prefix", "last", "--tto",
+            RUNNER_TTO, "--test_batch_size", "4", "--fname", str(RUNNER_DIR / "eval")))
+        eval_s = time.perf_counter() - t0
+        eval_launches = _scan_counts(segscan)
+    finally:
+        dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws = saved
+    steps = probes[-1].per_step()
+    rec = out["loop"]
+    regimes = [x["regime"] for x in rec["steps"]]
+    K, T, I = 4, 3, 8
+    per_step = K * T * (I + 1)
+    check(len(steps) == len(regimes) == RUNNER_STEPS,
+          f"the runner's probe saw {len(steps)} steps and the loop logged {len(regimes)}, "
+          f"want {RUNNER_STEPS}")
+    check(regimes[:2] == ["stratified"] * 2 and "budget" in regimes
+          and regimes[regimes.index("budget"):] == ["budget"] * (
+              RUNNER_STEPS - regimes.index("budget")),
+          f"runner regimes {regimes}, switched after step {rec['switched_at']}")
+    for r, st in zip(regimes, steps):
+        want = (per_step, per_step) if r == "budget" else (0, 0)
+        check(st["launches"] == want, f"a {r} step of the runner launched {st['launches']}, "
+              f"want {want}")
+    for x in rec["steps"]:
+        check(all(np.isfinite(v).all() for v in x.get("metrics", {}).values()),
+              f"a metric of runner step {x['step']} is not finite")
+    for tag in ("last", "step4"):
+        payload = tck.load_checkpoint(run, tag)
+        check(payload["occ_states"] is not None and (run / f"{tag}.optim").exists(),
+              f"{tag} was saved without its grids or optimizer")
+    by_regime = {}
+    for r, st in zip(regimes, steps):
+        by_regime.setdefault(r, []).append(st["ms"])
+    emit({"phase": "runner_train", "images": {"train": n_train, "val": n_val},
+          "image_hw": list(RUNNER_IMAGE), "write_dataset_s": write_s,
+          "rays_s": out["setup_s"]["rays"], "route_s": out["setup_s"]["route"],
+          "train_rays_per_expert": out["setup_s"]["train_rays"],
+          "main_s": train_s, "regimes": regimes, "switched_after_step": rec["switched_at"],
+          "step_ms": by_regime, "update_ms": probes[-1].spans("occ_update"),
+          "eval_psnr": rec["eval_psnr"],
+          "scan_launches_per_step": [st["launches"] for st in steps],
+          "scan_launches": {"forward": train_launches[0], "reverse": train_launches[1]}})
+
+    # the eval: scan launches, scores, the reset between settings
+    # the eval's config; near and far need no normalizing (pose scale 1)
+    P = parse_args(_run_flags("eval.json", "--checkpoint_path", str(run),
+                              "--prefix", "last"))
+    masks = RUNNER_DIR / "data" / "out" / "example" / "masks" / P.mask_dirname
+    cfg = runner.build_model_configs(P, dataset.load_clustering_meta(masks))
+    occ_cfg = runner.build_occ_config(P, 1.0)
+    gaabb = dataset.load_scene_boxes(masks)[0]
+    rows = max(Renderer(cfg, P, occ_cfg, device="cuda").chunk_rays // RUNNER_IMAGE[1], 1)
+    chunks = -(-RUNNER_IMAGE[0] // rows)
+    ttos = [int(t) for t in RUNNER_TTO.split(",")]
+    check(eval_launches == (chunks * n_val * len(ttos), 0),
+          f"the eval launched the scan {eval_launches}, want {chunks} chunks × {n_val} "
+          f"views × {len(ttos)} settings forward and 0 reverse")
+    for r in res:
+        for v in r["views"]:
+            check(np.isfinite(v["psnr"]) and abs(v["ssim"]) <= 1.0 + 1e-6,
+                  f"tto={r['tto']}: PSNR {v['psnr']}, SSIM {v['ssim']}")
+        check(np.isfinite(r["tto_losses"]).all(), f"tto={r['tto']}: losses {r['tto_losses']}")
+    scores = lambda r: [(v["psnr"], v["ssim"]) for v in r["views"]]
+    check(scores(res[0]) == scores(res[2]), "the two tto=0 legs differ: the base weights "
+          "were not restored")
+    batches = -(-n_val // 4)
+    tto_steps = sum(t * batches for t in ttos)
+    emit({"phase": "runner_eval", "tto": ttos, "views": n_val, "chunks_per_frame": chunks,
+          "main_s": eval_s, "psnr": [r["psnr"] for r in res], "ssim": [r["ssim"] for r in res],
+          "tto_losses": [r["tto_losses"] for r in res],
+          "frame_ms": [v["frame_ms"] for r in res for v in r["views"]],
+          "ssim_ms": [v["ssim_ms"] for r in res for v in r["views"]],
+          "tto_step_ms": 1e3 * sum(r["adapt_s"] for r in res) / max(tto_steps, 1),
+          "scan_launches": {"forward": eval_launches[0], "reverse": eval_launches[1]},
+          "tto0_legs_equal": True})
+
+    # (d) card against CPU: a TTO step, and SSIM and LPIPS of one view
+    md = dataset.get_image_metadata(RUNNER_DIR / "data" / "out" / "example", P.downscale)[1][0]
+    tto = tto_step_card_vs_cpu(torch, trt, tck, nn, toptim, tcont, cfg, occ_cfg, P, run, md,
+                               gaabb)
+    model, occ = tck.restore_model(tck.load_checkpoint(run, "last"), cfg, "cuda")
+    rgb, _, _ = Renderer(cfg, P, occ_cfg, device="cuda").render_image(
+        model, occ, H=md.H, W=md.W, intrinsics=md.intrinsics, c2w=md.c2w, aabb=gaabb,
+        near_far_override=(P.near, P.far))
+    met = metrics_card_vs_cpu(torch, tlosses, LPIPS, rgb, md.load_image().astype(np.float32)
+                              / 255.0)
+    del model, occ
+    emit({"phase": "runner_vs_cpu", "tto_step": tto, **met})
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    return {"train": train_launches, "eval": eval_launches}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1431,34 +1690,39 @@ def main() -> int:
                             args.profile)
     del model_cpu, occ_cpu
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
+    run8 = phase_runner(torch, segscan, toy)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
     # frames, where only the budget step after the switch launches; the sum
-    # over phase 7's two loop runs, where the budget steps launch), each
-    # counted from 0 just before its path was driven. ms, plain_ms and
+    # over phase 7's two loop runs, where the budget steps launch; phase 8's
+    # --op train and --op eval), each counted from 0 just before its path
+    # was driven. ms, plain_ms and
     # bound_ms at the serving chunk (B = 983,040); "train_shapes" holds the
     # same at the training step's B = 32,768 and 16,384.
     fwd_train, rev_train = train["launches"]
     fwd_reg, rev_reg = regimes["fwd"], regimes["rev"]
     fwd_loop, rev_loop = loop["fwd"], loop["rev"]
+    (fwd_rtrain, rev_rtrain), (fwd_reval, rev_reval) = run8["train"], run8["eval"]
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
     emit({"kernels": [
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
-         "launches": fwd_render + fwd_train + fwd_reg + fwd_loop,
+         "launches": fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval,
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
-                              "regime_schedule": fwd_reg, "meta_trainer": fwd_loop},
+                              "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
+                              "runner_train": fwd_rtrain, "runner_eval": fwd_reval},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
          "train_shapes": [{key: sh[key] for key in (
              "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for sh in train["shapes"]], **common},
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
-         "launches": rev_render + rev_train + rev_reg + rev_loop,
+         "launches": rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval,
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
-                              "regime_schedule": rev_reg, "meta_trainer": rev_loop},
+                              "regime_schedule": rev_reg, "meta_trainer": rev_loop,
+                              "runner_train": rev_rtrain, "runner_eval": rev_reval},
          "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
          "plain_ms": k["reverse_plain_ms"],
          "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],

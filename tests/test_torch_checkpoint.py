@@ -7,7 +7,7 @@ Exact throughout: the port's ``.model`` / ``.optim`` / ``.P.json`` /
 reads the other's files to equal arrays. The optimizer states are the micro
 scene's after one jitted optax update (what acn_tpu's loop saves: a jitted
 step returns every dict with its keys sorted), carried to the port with
-``convert.opt_state_from_optax``, in the four shapes ``build_optimizer``
+its state-dict form (``optax_to_port``), in the four shapes ``build_optimizer``
 makes (with and without the non-finite guard and the clip).
 """
 
@@ -32,7 +32,7 @@ from acn_tpu_torch.utils import checkpoint as tck
 from acn_tpu_torch.utils import config as tconfig
 from acn_tpu_torch.utils import msgpack_tree
 from acn_tpu_torch.utils import optim as toptim
-from test_torch_train_step import make_P, micro_scene
+from test_torch_train_step import make_P, micro_scene, optax_to_port
 
 # (grad_clip, guard_nonfinite): the four shapes of build_optimizer's state
 OPTIMIZERS = [(1.0, 1), (None, 1), (1.0, 0), (None, 0)]
@@ -64,7 +64,7 @@ def both_states(clip, guard):
     model = convert.from_jax_variables(sc.jvars, sc.tcfg, "cpu")
     labels = tcont.param_group_labels(model.params())
     topt = toptim.build_optimizer(P, labels, grad_clip=clip)
-    tstate = convert.opt_state_from_optax(jstate, labels)
+    tstate = optax_to_port(jstate, topt)
     return sc.jvars, jstate, model, topt, tstate, jopt, P
 
 

@@ -64,6 +64,7 @@ from acn_tpu_torch.nerfs import losses as tlosses
 from acn_tpu_torch.pipelines.offline_stage import meta_core as tmeta
 from acn_tpu_torch.pipelines.offline_stage import train_step as tts
 from acn_tpu_torch.pipelines.offline_stage import trainer as ttrainer
+from acn_tpu_torch.utils import checkpoint as tck
 from acn_tpu_torch.utils import optim as toptim
 from test_torch_models import small_scene
 
@@ -89,6 +90,24 @@ def micro_scene(use_bg_nerf=True, sigma_bias=2.0):
     asked."""
     return small_scene(K=K, sigma_bias=sigma_bias, fill=0.6, seed=1,
                        hash_kw=MICRO_HASH, use_bg_nerf=use_bg_nerf)
+
+
+def optax_to_port(jstate, topt):
+    """An optax state of ``build_optimizer`` as the port's optimizer state
+    on the CPU, through the state-dict form that the checkpoints keep
+    (flax's ``to_state_dict`` of it is that form)."""
+    from flax import serialization
+
+    return tck.opt_state_from_dict(serialization.to_state_dict(jax.device_get(jstate)),
+                                   topt, device="cpu")
+
+
+def port_to_optax(tstate, topt, template):
+    """The port's optimizer state as optax's, written into ``template`` (an
+    optax state of the same optimizer) from the state-dict form."""
+    from flax import serialization
+
+    return serialization.from_state_dict(template, tck.optim_state_dict(tstate, topt))
 
 
 def fresh_model(sc):
@@ -209,7 +228,7 @@ def _both_steps(use_amp, regime="budget"):
         sc=sc, P=P, metrics=metrics, labels=labels, regime=regime,
         jparams=jax.device_get(jstate["variables"]["params"]),
         jopt_state=jax.device_get(jstate["opt_state"]), jopt=jopt,
-        tstate=tstate, tparams=convert.to_jax_variables(tstate["model"])["params"])
+        topt=topt, tstate=tstate, tparams=convert.to_jax_variables(tstate["model"])["params"])
 
 
 METRICS = ("loss_out", "loss_in", "psnr_out", "psnr_in", "loss_total",
@@ -266,8 +285,7 @@ def test_two_steps_fp32_parameters_by_regime(regime):
 
 
 def _check_optimizer_state(r):
-    tl = tcont.param_group_labels(r.tstate["model"].params())
-    want = convert.opt_state_from_optax(r.jopt_state, tl)
+    want = optax_to_port(r.jopt_state, r.topt)
     got = r.tstate["opt_state"]
     assert int(got["count"]) == int(want["count"]) == 2
     assert r.tstate["step"] == 2
@@ -590,7 +608,7 @@ def test_optimizer_three_updates_match_optax(case):
         np.testing.assert_allclose(a, np.asarray(b), rtol=2e-5, atol=1e-8)
 
     # the state carries across, both ways
-    want = convert.opt_state_from_optax(jax.device_get(jstate), tlabels)
+    want = optax_to_port(jstate, topt)
     skipped = 0 if nan_step is None else 1
     assert int(tstate["count"]) == int(want["count"]) == 3 - skipped
     if P.guard_nonfinite:
@@ -599,8 +617,7 @@ def test_optimizer_three_updates_match_optax(case):
     for name in ("mu", "nu"):
         for a, b in zip(_leaves(tstate[name]), _leaves(want[name])):
             np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-9)
-    back = convert.opt_state_into_optax(tstate, jax.device_get(jopt.init(jparams)),
-                                        tlabels)
+    back = port_to_optax(tstate, topt, jax.device_get(jopt.init(jparams)))
     wl, wdef = jax.tree.flatten(jax.device_get(jstate))
     bl, bdef = jax.tree.flatten(back)
     assert wdef == bdef
