@@ -8,13 +8,16 @@ nor ``acn_tpu``.
 
 What is ported so far: full frames of the K-expert model through
 ``pipelines.renderer.Renderer`` (``render_image`` / ``render_rays``; packed
-budget, per-ray strided occupancy or stratified), the FoMAML meta-training
+budget, per-ray strided occupancy or stratified; soft-MoE, one expert, or
+per-expert rectangles with ``render_image_routed``), the baked voxel table
+(``pipelines.baking``) and videos (``pipelines.video_gen``), the FoMAML meta-training
 step in every regime of a run (stratified warm-up, strided occupancy with
 the would-be overflow, packed budget) through
 ``pipelines.offline_stage.train_step.make_meta_train_step``, the eval step,
 and between steps the occupancy update and the auto-regime switch
 (``pipelines.offline_stage.trainer``), the training loop, and the user's
-entry point ``python -m acn_tpu_torch --op {train,eval}`` (``runner``): the
+entry point ``python -m acn_tpu_torch --op {train,eval,bake,video}``
+(``runner``): the
 flag parser (``utils.config``), the loaders of a prepared dataset directory
 (``data``), and the eval with test-time optimization
 (``pipelines.online_stage.runtime_adapt``). The one TPU kernel, the segmented

@@ -1,8 +1,9 @@
 """Volume rendering: fixed-layout and stratified compositing, and
 compositing over the packed sample buffer.
 
-Port of ``acn_tpu/nerfs/render.py``: ``bg_default_color``,
-``volume_render``, ``render_weights_from_density``, ``composite``,
+Port of ``acn_tpu/nerfs/render.py``: ``bg_default_color`` (the
+``random`` policy from a ``torch.Generator`` or injected draws),
+``apply_bg_mask``, ``volume_render``, ``render_weights_from_density``, ``composite``,
 ``composite_packed``, ``stratified_t_vals`` and ``render_rays_stratified``.
 The stratified jitter ``u`` is injected (JAX draws it from a key); None
 samples the bin edges themselves (JAX's ``randomized=False``).
@@ -37,19 +38,46 @@ from acn_tpu_torch.ops.segscan import seg_excl_sum
 
 
 def bg_default_color(n: int, bg_color: str = "white", *, device=None,
-                     dtype=torch.float32) -> Optional[torch.Tensor]:
-    """Deterministic fallback background color: "white", "black" or "none"."""
-    if bg_color == "random":
-        raise NotImplementedError(
-            "the 'random' background policy is not ported (ROADMAP.md, left "
-            "out of slice 1); use the background MLP, 'white', 'black' or 'none'")
+                     dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """Fallback background color: "white", "black", "none" (None), or
+    "random": uniform (n, 3) colors, the injected draws ``u`` or drawn from
+    ``generator`` (on its device); one of the two is required."""
     if bg_color == "none":
         return None
     if bg_color == "white":
         return torch.ones((n, 3), dtype=dtype, device=device)
     if bg_color == "black":
         return torch.zeros((n, 3), dtype=dtype, device=device)
-    raise ValueError(f"Unsupported background policy: {bg_color}")
+    if bg_color == "random":
+        return _uniform_fill((n, 3), dtype, generator, u, "bg_color='random'")
+    raise ValueError(f"Unknown background policy: {bg_color}")
+
+
+def _uniform_fill(shape, dtype, generator, u, what: str) -> torch.Tensor:
+    if u is not None:
+        return torch.as_tensor(u).to(dtype).reshape(shape)
+    if generator is None:
+        raise ValueError(f"{what} needs a generator or injected draws")
+    return torch.rand(shape, generator=generator, device=generator.device, dtype=dtype)
+
+
+def apply_bg_mask(rgb: torch.Tensor, mask_invalid: torch.Tensor, policy: str,
+                  generator: Optional[torch.Generator] = None,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fill the invalid rays' colors with a background policy: "none" and
+    "last_sample" leave them, "black" zeros, "random" uniform draws (``u``
+    of rgb's shape, or from ``generator``), anything else white."""
+    policy = str(policy).lower()
+    if policy in ("none", "last_sample"):
+        return rgb
+    if policy == "black":
+        fill = torch.zeros_like(rgb)
+    elif policy == "random":
+        fill = _uniform_fill(rgb.shape, rgb.dtype, generator, u, "policy='random'")
+    else:
+        fill = torch.ones_like(rgb)
+    return torch.where(mask_invalid[:, None], fill.to(rgb.device), rgb)
 
 
 def composite_packed(

@@ -1,9 +1,12 @@
-"""Occupancy-guided soft-MoE rendering: per-ray strided, and over a global
-sample budget.
+"""Occupancy-guided rendering of one expert, and of the soft-MoE container:
+per-ray strided, and over a global sample budget.
 
-Port of ``acn_tpu/nerfs/render_occ.py`` (``_any_expert_valid_fn``,
-``_soft_moe_eval``, ``render_rays_occ``, ``render_rays_occ_budget``; the
-single-expert ``render_expert_occ*`` are not ported). All experts share one
+Port of ``acn_tpu/nerfs/render_occ.py`` (``render_expert_occ``,
+``render_expert_occ_budget``, ``_any_expert_valid_fn``, ``_soft_moe_eval``,
+``render_rays_occ``, ``render_rays_occ_budget``; ``params_override``, which
+nothing in ``acn_tpu`` passes, is left out). The single-expert renderers
+march one expert's own grid and evaluate that expert alone (the routed
+per-rect frames). In the container renderers all experts share one
 t-schedule per ray; a sample survives if ANY expert's (AABB ∩ occupancy)
 claims it, and the K experts' outputs are blended at every sample:
 
@@ -28,6 +31,77 @@ from acn_tpu_torch.nerfs.render import (
 )
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
+
+
+def render_expert_occ(
+    model: Container,
+    occ_state: Dict[str, torch.Tensor],  # the expert's own occupancy state
+    occ_cfg: OccConfig,
+    rays: torch.Tensor,  # (N, 8)
+    *,
+    active_module: int,
+    s_max: int,
+    s_kept: int,
+    alpha_thre: float = 0.0,
+    u: Optional[torch.Tensor] = None,
+    phase_bits: Optional[torch.Tensor] = None,
+    bg_rgb=None,
+):
+    """Single-expert rendering to a fixed (N, s_kept) layout: the strided
+    march over the expert's own grid (jitter ``u`` and ``phase_bits`` as
+    ``march_rays`` takes them), expert ``active_module`` at the kept
+    samples, and fixed-layout compositing with the stride-widened widths.
+
+    Returns (rgb_map, depth, weights (N, s_kept), acc)."""
+    samples = occ_grid.march_rays(occ_state, rays, occ_cfg, s_max, s_kept,
+                                  u=u, phase_bits=phase_bits)
+    x = samples["positions"]  # (N, S, 3)
+    xd = torch.cat([x, rays[:, None, 3:6].expand_as(x)], dim=-1).reshape(-1, 6)
+    out = cont.container_forward(model, xd, active_module=active_module).reshape(
+        x.shape[0], x.shape[1], 4)
+    rgbs, sigmas = out[..., :3], out[..., 3]
+
+    mask = samples["mask"]
+    if alpha_thre > 0.0:
+        dt = torch.clamp(samples["dts"], min=0.0)
+        alpha = 1.0 - torch.exp(-torch.clamp(sigmas, min=0.0) * dt)
+        mask = mask & (alpha >= alpha_thre)
+    weights, _ = render_weights_from_density(
+        samples["t_starts"], samples["t_ends"], sigmas, sample_mask=mask,
+        dts=samples["dts"])
+    t_mid = 0.5 * (samples["t_starts"] + samples["t_ends"])
+    rgb_map, depth, acc = composite(weights, rgbs, t_mid, bg_rgb=bg_rgb)
+    return rgb_map, depth, weights, acc
+
+
+def render_expert_occ_budget(
+    model: Container,
+    occ_state: Dict[str, torch.Tensor],  # the expert's own occupancy state
+    occ_cfg: OccConfig,
+    rays: torch.Tensor,  # (N, 8)
+    *,
+    active_module: int,
+    s_max: int,
+    budget_per_ray: int,
+    alpha_thre: float = 0.0,
+    salt=None,
+    bg_rgb=None,
+    s_coarse: int = 0,
+):
+    """Single-expert rendering over a global sample budget: the packed
+    march over the expert's own grid (with the ``coarse_ray_range``
+    pre-pass when ``s_coarse`` > 0, and the ``_u01`` jitter of ``salt``),
+    expert ``active_module`` on the N·budget packed points, and
+    ``composite_packed`` (one segmented scan).
+
+    Returns (rgb_map, depth, extras {wmax, went} (N,), acc)."""
+    samples = occ_grid.march_rays_budget(occ_state, rays, occ_cfg, s_max,
+                                         budget_per_ray, salt=salt, s_coarse=s_coarse)
+    out = cont.container_forward(model, samples["xd"], active_module=active_module)
+    rgb_map, depth, acc, extras = composite_packed(
+        out[..., 3], out[..., :3], samples, rays.shape[0], bg_rgb=bg_rgb,
+        alpha_thre=alpha_thre)
+    return rgb_map, depth, extras, acc
 
 
 def _any_expert_valid_fn(occ_states: Dict[str, torch.Tensor],
@@ -74,11 +148,13 @@ def render_rays_occ_budget(
     s_max: int,
     budget_per_ray: int,
     alpha_thre: float = 0.0,
+    salt=None,
     bg_rgb=None,
 ):
     """Full-container occupancy rendering with a global cross-ray sample
     budget: the experts evaluate exactly N·budget packed points, and
-    compositing runs over the packed buffer.
+    compositing runs over the packed buffer. ``salt`` jitters the samples
+    (``march_rays_budget``).
 
     Returns (rgb_map, depth, extras {wmax, went} (N,), acc)."""
     any_expert_valid = _any_expert_valid_fn(occ_states, model.expert_aabbs)
@@ -92,7 +168,7 @@ def render_rays_occ_budget(
     }
     samples = occ_grid.march_rays_budget(
         base_state, rays, occ_cfg, s_max, budget_per_ray,
-        extra_valid_fn=any_expert_valid,
+        extra_valid_fn=any_expert_valid, salt=salt,
     )
     sigma_mix, rgb_mix = _soft_moe_eval(model, samples["xd"])
     rgb_map, depth, acc, extras = composite_packed(

@@ -6,8 +6,9 @@ Port of ``acn_tpu/occupancy/grid.py``: ``OccConfig``, ``level_aabbs``,
 ``compact_samples`` and ``compact_samples_strided``, the per-ray strided
 ``march_rays`` (with ``report_budget``) and the packed ``march_rays_budget``
 with bin midpoints or the counter-hash jitter (``_u01``), and the camera
-prune ``mark_invisible_cells``. Not ported: ``march_t_schedule`` and
-``coarse_ray_range``. An
+prune ``mark_invisible_cells``, and the range-finding pre-pass
+``coarse_ray_range`` (``march_rays_budget(s_coarse=…)``). Not ported:
+``march_t_schedule``, which nothing calls. An
 occupancy state is a dict of tensors: ``occs`` (L, R, R, R) f32,
 ``binaries`` (L, R, R, R) bool and ``aabbs`` (L, 2, 3); the container's
 per-expert states carry a leading K axis.
@@ -251,17 +252,84 @@ def unit_linspace(n: int, device: torch.device) -> torch.Tensor:
     return frac[None, :].to(device)
 
 
+def clamped_near_far(rays: torch.Tensor, cfg: OccConfig):
+    """The rays' [near, far] clamped to the config's planes; an invalid ray
+    (far < near) gets the empty interval [near, near]."""
+    near = torch.clamp(rays[:, 6], min=cfg.near_plane)
+    far = torch.clamp(rays[:, 7], max=cfg.far_plane)
+    return near, torch.maximum(far, near)
+
+
+def bins_between(near: torch.Tensor, far: torch.Tensor, s_max: int):
+    """(t0, t1) (N, s_max): [near, far] cut into ``s_max`` uniform bins."""
+    e = unit_linspace(s_max + 1, near.device)  # bin edges as fractions
+    edges = near[:, None] * (1.0 - e) + far[:, None] * e
+    return edges[:, :-1], edges[:, 1:]
+
+
 def ray_bins(rays: torch.Tensor, cfg: OccConfig, s_max: int):
     """(o, d, near, far, t0, t1): the rays' clamped [near, far] cut into
     ``s_max`` uniform bins [t0, t1) (N, s_max); an invalid ray gets an empty
     interval."""
-    o, d = rays[:, :3], rays[:, 3:6]
-    near = torch.clamp(rays[:, 6], min=cfg.near_plane)
-    far = torch.clamp(rays[:, 7], max=cfg.far_plane)
-    far = torch.maximum(far, near)
-    e = unit_linspace(s_max + 1, rays.device)  # bin edges as fractions
-    edges = near[:, None] * (1.0 - e) + far[:, None] * e
-    return o, d, near, far, edges[:, :-1], edges[:, 1:]
+    near, far = clamped_near_far(rays, cfg)
+    t0, t1 = bins_between(near, far, s_max)
+    return rays[:, :3], rays[:, 3:6], near, far, t0, t1
+
+
+def coarse_ray_range(
+    state: Dict[str, torch.Tensor],
+    o: torch.Tensor,  # (N, 3)
+    d: torch.Tensor,  # (N, 3)
+    near: torch.Tensor,  # (N,)
+    far: torch.Tensor,  # (N,)
+    s_coarse: int = 32,
+    pool_to: int = 32,
+    dilate: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tighten each ray's [near, far] to the span of occupied space: the
+    range-finding pre-pass in front of ``march_rays_budget``.
+
+    The binaries are max-pooled to ``pool_to``³ (kept at full resolution
+    when ``pool_to`` does not divide it) and dilated ``dilate`` times by
+    one cell along each axis with a roll, which wraps around as
+    ``jnp.roll`` does (it only adds occupancy). ``s_coarse`` bins over
+    [near, far] are probed at 1/4 and 3/4 of their length; the range runs
+    from one bin before the first occupied bin to one bin after the last.
+    A ray whose probes all miss gets the empty interval [far, far]. No
+    occupied fine bin falls outside the range (conservative by
+    construction)."""
+    binaries = state["binaries"]  # (L, R, R, R)
+    L, R = binaries.shape[0], binaries.shape[1]
+    Rc = min(int(pool_to), R)
+    f = R // Rc
+    if f * Rc != R:
+        Rc, f = R, 1
+    pooled = binaries.reshape(L, Rc, f, Rc, f, Rc, f).any(dim=6).any(dim=4).any(dim=2)
+    for _ in range(int(dilate)):
+        for ax in (1, 2, 3):
+            pooled = pooled | torch.roll(pooled, 1, ax) | torch.roll(pooled, -1, ax)
+    cstate = {"aabbs": state["aabbs"], "binaries": pooled}
+
+    e = unit_linspace(s_coarse + 1, near.device)
+    edges = near[:, None] * (1.0 - e) + far[:, None] * e  # (N, S+1)
+    t0c, t1c = edges[:, :-1], edges[:, 1:]
+    ta = t0c + 0.25 * (t1c - t0c)
+    tb = t0c + 0.75 * (t1c - t0c)
+    xa = o[:, None, :] + d[:, None, :] * ta[..., None]
+    xb = o[:, None, :] + d[:, None, :] * tb[..., None]
+    occ = ((occupancy_lookup(cstate, xa) | occupancy_lookup(cstate, xb))
+           & (far[:, None] > near[:, None]))
+    any_occ = torch.any(occ, dim=1)
+    # argmax of an integer copy (not every backend takes bool): the first
+    # maximal index, as jnp.argmax
+    occ_i = occ.to(torch.int32)
+    first = torch.argmax(occ_i, dim=1)
+    last = (s_coarse - 1) - torch.argmax(torch.flip(occ_i, dims=(1,)), dim=1)
+    lo = torch.clamp(first - 1, min=0)  # pad one coarse bin each side
+    hi = torch.clamp(last + 2, max=s_coarse)
+    near2 = torch.gather(edges, 1, lo[:, None])[:, 0]
+    far2 = torch.gather(edges, 1, hi[:, None])[:, 0]
+    return torch.where(any_occ, near2, far), torch.where(any_occ, far2, far)
 
 
 _M32 = 0xFFFFFFFF
@@ -296,10 +364,12 @@ def march_rays_budget(
     budget_per_ray: int,
     extra_valid_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     salt: Optional[Union[int, torch.Tensor]] = None,
+    s_coarse: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Occupancy marching with a global cross-ray sample budget.
 
-    ``s_max`` uniform bins span each ray's [near, far]; a bin is valid when
+    ``s_max`` uniform bins span each ray's [near, far] (tightened first by
+    ``coarse_ray_range`` with ``s_coarse`` bins when it is above 0); a bin is valid when
     its midpoint is occupied (and ``extra_valid_fn`` agrees). All valid bins
     of the batch pack ray-major into ONE buffer of B = N·budget_per_ray
     slots through a two-level prefix count; samples past B are dropped
@@ -311,7 +381,11 @@ def march_rays_budget(
     ray_start (N,), gpos (N, s_max), valid (N, s_max), t_starts/t_ends
     (N, s_max), overflow (0-dim)}. Nothing here synchronizes with the host.
     """
-    o, d, near, far, t0, t1 = ray_bins(rays, cfg, s_max)
+    o, d = rays[:, :3], rays[:, 3:6]
+    near, far = clamped_near_far(rays, cfg)
+    if s_coarse:
+        near, far = coarse_ray_range(state, o, d, near, far, s_coarse)
+    t0, t1 = bins_between(near, far, s_max)
     N = rays.shape[0]
     B = N * int(budget_per_ray)
     dev = rays.device

@@ -86,17 +86,22 @@ class EpisodeDraws:
       n of them): the budget march's salt, the strided march's (u (n, s_max),
       phase_bits (n,)), or None;
     * ``strat(k, t, i, n)``: the stratified loss's jitter (n, ray_samples)
-      for inner iteration i, the query loss at i = inner_iter; or None.
+      for inner iteration i, the query loss at i = inner_iter; or None;
+    * ``bg(k, t, i, n)``: that loss's ``random`` background colors (n, 3),
+      None under another policy or with the background MLP.
 
     ``draws``: None (no draws), a ``torch.Generator`` (on the step's
     device), or a function ``fn(what, k, t, j, shape)`` with ``what`` one
-    of "salt" (budget march j), "u", "phase" (strided march j) and
-    "strat_u" (stratified loss j), returning the draw (a salt in
+    of "salt" (budget march j), "u", "phase" (strided march j),
+    "strat_u" (stratified loss j) and "bg" (loss j's ``random``
+    background), returning the draw (a salt in
     [0, 2³¹ − 1) as an int or a 0-dim tensor, u in [0, 1), phase bits in
     [0, 2³⁰)) or None."""
 
-    def __init__(self, draws, device: torch.device, regime: str, P):
+    def __init__(self, draws, device: torch.device, regime: str, P, cfg=None):
         self.device, self.regime = device, regime
+        self.random_bg = (P.bg_color_default == "random"
+                          and not (cfg is not None and cfg.use_bg_nerf))
         self.s_max = int(getattr(P, "occ_s_max", 0) or 0)
         self.ray_samples = int(P.ray_samples)
         if isinstance(draws, torch.Generator):
@@ -140,14 +145,18 @@ class EpisodeDraws:
             return None
         return self._get("strat_u", k, t, i, (n, self.ray_samples))
 
+    def bg(self, k: int, t: int, i: int, n: int):
+        return self._get("bg", k, t, i, (n, 3)) if self.random_bg else None
+
 
 def make_bg_fn(cfg: ContainerConfig, P) -> Callable:
-    """(bg_params, dirs (N,3)) → (N,3) background RGB, or None."""
+    """(bg_params, dirs (N,3), u=None) → (N,3) background RGB, or None; ``u``
+    (N, 3) are the ``random`` policy's colors."""
     if cfg.use_bg_nerf:
-        return lambda bg_params, dirs: cont.bg_mlp_color(bg_params, cfg, dirs)
+        return lambda bg_params, dirs, u=None: cont.bg_mlp_color(bg_params, cfg, dirs)
     policy = P.bg_color_default
-    return lambda bg_params, dirs: bg_default_color(
-        dirs.shape[0], policy, device=dirs.device)
+    return lambda bg_params, dirs, u=None: bg_default_color(
+        dirs.shape[0], policy, device=dirs.device, u=u)
 
 
 def make_episode_loss(
@@ -162,11 +171,13 @@ def make_episode_loss(
 
     Returns (loss_fn, prepare_samples):
 
-    * ``loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None)``
-      → 0-dim loss: render the rays with ONE expert (any parameter tree of an
-      expert's structure, so fast weights too) on the marched samples, or
-      stratified with jitter ``u`` (N, ray_samples) when there is no
-      occupancy, and align and MSE against the ground truth.
+    * ``loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None,
+      bg=None)`` → 0-dim loss: render the rays with ONE expert (any
+      parameter tree of an expert's structure, so fast weights too) on the
+      marched samples, or stratified with jitter ``u`` (N, ray_samples) when
+      there is no occupancy, over the background MLP or the default policy
+      (``bg``: the ``random`` policy's (N, 3) colors), and align and MSE
+      against the ground truth.
     * ``prepare_samples(occ_state, rays, rand)``: the march of one episode's
       rays over that expert's grid, with ``rand`` the budget march's salt or
       the strided march's (u, phase_bits), None for midpoints and phase 0;
@@ -194,8 +205,8 @@ def make_episode_loss(
                 u=u, phase_bits=phase_bits, report_budget=int(report_budget))
         return None
 
-    def loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None):
-        bg = bg_fn(bg_params, rays[:, 3:6])
+    def loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None, bg=None):
+        bg = bg_fn(bg_params, rays[:, 3:6], bg)
         if use_amp:
             expert_params = tree_cast(expert_params, torch.bfloat16)
 
@@ -285,10 +296,12 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
 
             fast, inner = meta_core.task_adapt(
                 lambda p, b, i: episode_loss(p, bg_const, aabb, b[0], b[1], smp_s,
-                                             u=rnd.strat(k, t, i, b[0].shape[0])),
+                                             u=rnd.strat(k, t, i, b[0].shape[0]),
+                                             bg=rnd.bg(k, t, i, b[0].shape[0])),
                 expert_p, (sr, sg), inner_lr, inner_iter, first_order=True)
             q_loss = episode_loss(fast, bg, aabb, qr, qg, smp_q,
-                                  u=rnd.strat(k, t, inner_iter, qr.shape[0]))
+                                  u=rnd.strat(k, t, inner_iter, qr.shape[0]),
+                                  bg=rnd.bg(k, t, inner_iter, qr.shape[0]))
             fast_leaves = tree_leaves(fast)
             wrt = fast_leaves + (tree_leaves(bg) if has_bg else [])
             grads = torch.autograd.grad(q_loss, wrt)
@@ -368,7 +381,7 @@ def make_meta_train_step(
         _check_devices(device, params, batch, occ_states)
         q_losses, inner_losses, g_experts, g_bg, occ_overflow = _meta_grads_fomaml(
             episode_loss, prep, params, model.expert_aabbs, occ_states, batch,
-            EpisodeDraws(draws, device, regime, P), inner_lr, inner_iter)
+            EpisodeDraws(draws, device, regime, P, cfg), inner_lr, inner_iter)
         grads = {"experts": g_experts}
         if g_bg is not None:
             grads["bg_mlp"] = g_bg
@@ -422,7 +435,7 @@ def make_eval_step(
                   draws=None) -> Dict[str, torch.Tensor]:
         params = model.params()
         _check_devices(device, params, batch, occ_states)
-        rnd = EpisodeDraws(draws, device, regime, P)
+        rnd = EpisodeDraws(draws, device, regime, P, cfg)
         bg = params.get("bg_mlp")
         bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
         K, T = batch["support_rays"].shape[:2]
@@ -441,12 +454,14 @@ def make_eval_step(
                     fast, _ = meta_core.task_adapt(
                         lambda p, b, i: episode_loss(
                             p, bg, aabb, b[0], b[1], smp_s,
-                            u=rnd.strat(k, t, i, b[0].shape[0])),
+                            u=rnd.strat(k, t, i, b[0].shape[0]),
+                            bg=rnd.bg(k, t, i, b[0].shape[0])),
                         expert_p, (sr, sg), inner_lr, iterations, first_order=True)
                 with torch.no_grad():
                     q_losses.append(episode_loss(
                         fast, bg, aabb, qr, qg, smp_q,
-                        u=rnd.strat(k, t, iterations, qr.shape[0])))
+                        u=rnd.strat(k, t, iterations, qr.shape[0]),
+                        bg=rnd.bg(k, t, iterations, qr.shape[0])))
                 del fast
         q = torch.stack(q_losses).reshape(K, T)
         loss_out = torch.mean(q, dim=1)

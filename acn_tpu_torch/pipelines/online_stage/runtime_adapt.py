@@ -13,13 +13,16 @@ Port of ``acn_tpu/pipelines/online_stage/runtime_adapt.py``:
   ``test_batch_size`` views (all rays of those views, one optimizer for the
   whole sweep); phase B renders every view full-frame through
   ``Renderer.render_image`` and scores PSNR, SSIM and (with pretrained
-  weights) LPIPS over the full image, writing pred and gt PNGs.
+  weights) LPIPS over the full image, writing pred and gt PNGs. With a
+  baked asset (``ctx["baked_renderer"]``, ``--baked_asset``) the frames come
+  from its table and no leg adapts: a frozen table has no weights to tune.
 
 Randomness: the support batches come from numpy's ``default_rng(P.seed)``,
 as in ``acn_tpu``, so the ray ids are the same. The render's draws (the
 strided march's jitter ``u`` and phase bits, or the stratified jitter) go
 through ``TTODraws``: a ``torch.Generator`` on the device, or a function
-through which a test replays ``acn_tpu``'s keys.
+through which a test replays ``acn_tpu``'s keys. So do the ``random``
+background's colors, in the TTO step and in the frames.
 """
 
 from __future__ import annotations
@@ -49,19 +52,27 @@ from acn_tpu_torch.utils.optim import Optimizer, apply_updates, build_optimizer
 class TTODraws:
     """The render draws of TTO step ``i`` of metadata batch ``b`` on ``n``
     rays: ``render(b, i, n)`` → (u (n, s_max), phase bits (n,)) for the
-    occupancy render, u (n, ray_samples) for the stratified one.
+    occupancy render, u (n, ray_samples) for the stratified one; ``bg(b, i,
+    n)`` → the ``random`` background's (n, 3) colors (None under another
+    policy or with the background MLP); ``frame(v)`` → the draws of view
+    ``v``'s frame, as ``RenderDraws`` takes them.
 
     ``draws``: a ``torch.Generator`` on the device, or a function
     ``fn(what, b, i, shape)`` with ``what`` one of "u", "phase" (the
-    occupancy render) and "strat_u" (the stratified one). ``acn_tpu``
-    splits ``PRNGKey(P.seed)`` once per batch and that key once per step,
-    the step's key into (background, render), and the render's key into
-    (jitter, phase) for the occupancy render."""
+    occupancy render), "strat_u" (the stratified one), "bg" (the step's
+    background), or "frame_" + a ``RenderDraws`` name for chunk ``i`` of
+    view ``b``'s frame. ``acn_tpu`` splits ``PRNGKey(P.seed)`` once per
+    batch and that key once per step, the step's key into (background,
+    render), and the render's key into (jitter, phase) for the occupancy
+    render; then once per view for its frame."""
 
-    def __init__(self, draws, device: torch.device, use_occ: bool, P):
+    def __init__(self, draws, device: torch.device, use_occ: bool, P, cfg=None):
         self.device, self.use_occ = device, use_occ
         self.s_max = int(P.occ_s_max)
         self.ray_samples = int(P.ray_samples)
+        self.random_bg = (P.bg_color_default == "random"
+                          and not (cfg is not None and cfg.use_bg_nerf))
+        self.generator = draws if isinstance(draws, torch.Generator) else None
         if isinstance(draws, torch.Generator):
             gen = draws
 
@@ -82,6 +93,14 @@ class TTODraws:
             return (self._get("u", b, i, (n, self.s_max)), self._get("phase", b, i, (n,)))
         return self._get("strat_u", b, i, (n, self.ray_samples))
 
+    def bg(self, b: int, i: int, n: int):
+        return self._get("bg", b, i, (n, 3)) if self.random_bg else None
+
+    def frame(self, v: int):
+        if self.generator is not None:
+            return self.generator
+        return lambda what, c, shape: self.fn("frame_" + what, v, c, shape)
+
 
 def make_tto_step(
     cfg: ContainerConfig,
@@ -90,17 +109,18 @@ def make_tto_step(
     occ_cfg: Optional[OccConfig] = None,
     use_occ: bool = False,
 ):
-    """``tto_step(model, opt_state, occ_states, rays, rgbs, rand)`` →
-    (opt_state, loss): one Adam step of full-model MSE fine-tuning, the
+    """``tto_step(model, opt_state, occ_states, rays, rgbs, rand, bg=None)``
+    → (opt_state, loss): one Adam step of full-model MSE fine-tuning, the
     model's parameters updated in place. ``rand`` is what
-    ``TTODraws.render`` gives."""
+    ``TTODraws.render`` gives, ``bg`` what ``TTODraws.bg`` gives (the
+    ``random`` background's colors)."""
 
-    def loss_fn(model: Container, occ_states, rays, rgbs, rand):
+    def loss_fn(model: Container, occ_states, rays, rgbs, rand, bg_u):
         n = rays.shape[0]
         if cfg.use_bg_nerf:
             bg = cont.background_color(model, rays[:, 3:6])
         else:
-            bg = bg_default_color(n, P.bg_color_default, device=rays.device)
+            bg = bg_default_color(n, P.bg_color_default, device=rays.device, u=bg_u)
         if use_occ:
             u, phase_bits = rand
             rgb_map = render_rays_occ(
@@ -113,10 +133,10 @@ def make_tto_step(
                 u=rand, bg_rgb=bg)[0]
         return aligned_mse_loss(rgb_map, rgbs, P.color_space)
 
-    def tto_step(model: Container, opt_state, occ_states, rays, rgbs, rand):
+    def tto_step(model: Container, opt_state, occ_states, rays, rgbs, rand, bg=None):
         params = model.params()
         leaves = tree_leaves(params)
-        loss = loss_fn(model, occ_states, rays, rgbs, rand)
+        loss = loss_fn(model, occ_states, rays, rgbs, rand, bg)
         grads = iter(torch.autograd.grad(loss, leaves))
         updates, opt_state = optimizer.update(tree_map(lambda _: next(grads), params),
                                               opt_state)
@@ -165,7 +185,8 @@ def runtime_adapt(
         rays, rgbs, _ = support.sample(rng, batch_rays)
         opt_state, loss = tto_step_fn(
             model, opt_state, occ_states, torch.from_numpy(rays).to(device),
-            torch.from_numpy(rgbs).to(device), draws.render(batch, i, batch_rays))
+            torch.from_numpy(rgbs).to(device), draws.render(batch, i, batch_rays),
+            bg=draws.bg(batch, i, batch_rays))
     return model, opt_state, float(loss)
 
 
@@ -181,7 +202,10 @@ def runtime_evaluate(ctx: Dict[str, Any], tto: int, draws=None) -> Dict[str, Any
     optimizer); phase B renders every view of ``ctx["test_metadata"]`` and
     scores it over the full image, writing pred and gt PNGs under the run
     directory. ``draws`` as ``TTODraws`` takes them; None draws from a
-    generator on the device seeded with ``P.seed``.
+    generator on the device seeded with ``P.seed``. With
+    ``ctx["baked_renderer"]`` (a ``BakedRenderer``) the frames are the
+    baked table's, and a ``tto`` above 0 is logged and rendered without
+    adaptation, as ``acn_tpu`` does.
 
     Returns ``acn_tpu``'s {psnr, ssim, lpips, duration, n_views} and, per
     view, ``views`` [{psnr, ssim, lpips?, frame_ms, ssim_ms}], with
@@ -199,13 +223,19 @@ def runtime_evaluate(ctx: Dict[str, Any], tto: int, draws=None) -> Dict[str, Any
     use_occ = occ_cfg is not None and occ_states is not None
     if draws is None:
         draws = torch.Generator(device=device).manual_seed(int(P.seed))
-    draws = TTODraws(draws, device, use_occ, P)
+    draws = TTODraws(draws, device, use_occ, P, cfg)
     logger.log(f"======== TTO: {tto} ========")
+
+    baked = ctx.get("baked_renderer")
+    if baked is not None and tto > 0:
+        # a baked table is a frozen distillation: no weights to adapt
+        logger.log("[baked] --baked_asset set: TTO does not apply to a baked "
+                   f"table; rendering tto={tto} leg without adaptation")
 
     # ---- phase A: per-metadata-batch TTO on the eval views' rays ----
     t0 = time.perf_counter()
     tto_losses, adapt_s = [], 0.0
-    if tto > 0:
+    if tto > 0 and baked is None:
         optimizer = build_optimizer(P, cont.param_group_labels(model.params()), grad_clip=1.0)
         tto_step_fn = make_tto_step(cfg, P, optimizer, occ_cfg, use_occ)
         opt_state = None
@@ -233,7 +263,8 @@ def runtime_evaluate(ctx: Dict[str, Any], tto: int, draws=None) -> Dict[str, Any
 
     # ---- phase B: full-frame rendering, metrics over full images ----
     # without grids (a params-only checkpoint) the frames are stratified
-    renderer = Renderer(cfg, P, occ_cfg if use_occ else None, device=device)
+    renderer = (Renderer(cfg, P, occ_cfg if use_occ else None, device=device)
+                if baked is None else None)
     out_root = Path(logger.logdir) / "rendered"
     out_pred = out_root / f"pred{tto}"
     out_gt = out_root / "gt"
@@ -254,9 +285,14 @@ def runtime_evaluate(ctx: Dict[str, Any], tto: int, draws=None) -> Dict[str, Any
     views = []
     for i, md in enumerate(test_meta):
         tf = time.perf_counter()
-        rgb_pred, _, _ = renderer.render_image(
-            model, occ_states, H=md.H, W=md.W, intrinsics=md.intrinsics, c2w=md.c2w,
-            aabb=global_aabb, near_far_override=(P.near, P.far))
+        if baked is not None:
+            rgb_pred, _, _ = baked.render_image(
+                H=md.H, W=md.W, intrinsics=md.intrinsics, c2w=md.c2w,
+                near_far_override=(P.near, P.far))
+        else:
+            rgb_pred, _, _ = renderer.render_image(
+                model, occ_states, H=md.H, W=md.W, intrinsics=md.intrinsics, c2w=md.c2w,
+                aabb=global_aabb, near_far_override=(P.near, P.far), draws=draws.frame(i))
         frame_ms = 1e3 * (time.perf_counter() - tf)
         gt_srgb = md.load_image().astype(np.float32) / 255.0
 

@@ -7,12 +7,14 @@ near and far, builds the expert container on the device (restoring it, and
 its occupancy grids when it has them, from ``--checkpoint_path``), and per
 op: for ``train`` the per-expert ray stores, episodic samplers, the pools of
 the sampler on the card, the optimizer and the camera-premarked grids; for
-``eval`` (and ``video``) the validation metadata; ``view``, ``bake`` and
-``bench`` only the model. ``main`` parses the flags and runs the op:
-``train`` (``meta_trainer``) and ``eval`` (TTO and scoring) are ported;
-``video``, ``view`` and ``bake`` raise, naming the ROADMAP item that ports
-them. There is no device mesh: ``--mesh_experts`` or ``--mesh_data`` above
-1, and a multi-process run, raise (M11).
+``eval`` and ``video`` the validation metadata (cut by ``--cap_images``);
+``view``, ``bake`` and ``bench`` only the model. ``main`` parses the flags
+and runs the op: ``train`` (``meta_trainer``), ``eval`` (TTO and scoring,
+or with ``--baked_asset`` the baked table's frames, strided by default),
+``video`` (``render_video`` along ``--camera_path``, live or baked) and
+``bake`` (``baked_<R>.npz`` in the run's log directory). ``view`` raises,
+naming ROADMAP.md M12. There is no device mesh: ``--mesh_experts`` or
+``--mesh_data`` above 1, and a multi-process run, raise (M11).
 
 Entry points run on the card; ``build_context(..., device="cpu")`` and
 ``main(argv, device="cpu")`` run on the CPU, as the tests do.
@@ -57,7 +59,7 @@ from acn_tpu_torch.utils.logging import Logger
 from acn_tpu_torch.utils.optim import build_optimizer
 
 # the ops of acn_tpu's runner that are not ported, with the ROADMAP item
-UNPORTED_OPS = {"video": "M10", "bake": "M10", "view": "M12"}
+UNPORTED_OPS = {"view": "M12"}
 
 
 def build_model_configs(P, clustering_params) -> ContainerConfig:
@@ -332,8 +334,16 @@ def op_eval(ctx) -> list:
 
     P = ctx["P"]
     if getattr(P, "baked_asset", None):
-        raise NotImplementedError("evaluating a baked asset (--baked_asset) is not "
-                                  "ported: ROADMAP.md M10")
+        # the baked table scored under the eval protocol; budget 0 (the
+        # default) is the unbiased strided march, > 0 the packed one
+        from acn_tpu_torch.pipelines.baking import BakedRenderer, load_baked
+
+        ctx["baked_renderer"] = BakedRenderer(
+            load_baked(P.baked_asset, device=ctx["device"]),
+            budget_per_ray=int(getattr(P, "occ_budget_per_ray", 0) or 0),
+            s_max=int(getattr(P, "occ_render_s_max", 0) or 128),
+            chunk_points=int(P.chunk_points), bg_color=P.bg_color_default,
+            s_coarse=int(getattr(P, "occ_render_s_coarse", 0) or 0))
     model = ctx["model"]
     # TTO updates the model in place: every setting starts from a copy of
     # the checkpoint's weights
@@ -365,6 +375,37 @@ def op_eval(ctx) -> list:
     return results
 
 
+def op_video(ctx) -> str:
+    """``--video_frames`` (default 120) frames along ``--camera_path``;
+    returns the video's path."""
+    from acn_tpu_torch.pipelines.video_gen import render_video
+
+    n = int(getattr(ctx["P"], "video_frames", 0) or 120)
+    return render_video(ctx, n_poses=n)
+
+
+def op_bake(ctx) -> str:
+    """Distill the restored field into a baked serving asset,
+    ``baked_<R>.npz`` in the run's log directory, for ``--op video
+    --baked_asset`` and ``--op eval --baked_asset``; returns its path."""
+    from acn_tpu_torch.pipelines.baking import bake_container, save_baked
+
+    P, logger = ctx["P"], ctx["logger"]
+    R = int(P.bake_resolution)
+    t0 = time.time()
+    baked = bake_container(
+        ctx["model"], aabb=np.asarray(ctx["global_aabb"]), resolution=R,
+        bake_dirs=int(P.bake_dirs), sh_degree=int(getattr(P, "bake_sh", 0)),
+        supersample=int(getattr(P, "bake_supersample", 1)))
+    occ_frac = float(baked["occ_state"]["binaries"].float().mean())
+    out = Path(logger.logdir) / f"baked_{R}.npz"
+    save_baked(out, baked)
+    table_mb = baked["table"].numel() * baked["table"].element_size() / 2**20
+    logger.log(f"[bake] {R}^3 table ({table_mb:.0f} MB, {occ_frac:.1%} cells occupied) "
+               f"in {time.time() - t0:.1f}s → {out}")
+    return str(out)
+
+
 def main(argv=None, device=None):
     """Parse the flags (``argv``, else the command line) and run the op on
     ``device`` (``None``: the card). Returns the op's result."""
@@ -390,4 +431,10 @@ def main(argv=None, device=None):
     if P.op == "train":
         return op_train(ctx)
     startup.mark_ready()
-    return op_eval(ctx)
+    if P.op == "eval":
+        return op_eval(ctx)
+    if P.op == "video":
+        return op_video(ctx)
+    if P.op == "bake":
+        return op_bake(ctx)
+    raise ValueError(P.op)

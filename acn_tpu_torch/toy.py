@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import types
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +54,7 @@ from acn_tpu_torch.models.container import (
 )
 from acn_tpu_torch.models.encodings import HashGridConfig
 from acn_tpu_torch.models.ngp import NGPConfig
-from acn_tpu_torch.models.nn import norm3
+from acn_tpu_torch.models.nn import norm3, tree_map
 from acn_tpu_torch.nerfs import rays as raylib
 from acn_tpu_torch.occupancy.grid import OccConfig, init_occ_state
 from acn_tpu_torch.utils.optim import Optimizer, build_optimizer
@@ -145,18 +145,41 @@ def serving_model(cfg: ContainerConfig, seed: int = 0, device=None) -> Container
     return model.to(device)
 
 
-def overhead_camera(H: int, W: int) -> Dict[str, np.ndarray]:
-    """Camera looking down (+x is Down in DRB) from above the scene box at
-    half its largest extent: {c2w (3, 4), intrinsics (4,), aabb (2, 3)}."""
+def overhead_camera(H: int, W: int, lift: Optional[float] = None) -> Dict[str, np.ndarray]:
+    """Camera looking down (+x is Down in DRB) from ``lift`` above the scene
+    box's top face (default: half its largest extent, where the quadrant
+    experts' rects each crop about a third of the frame; from 3 the box
+    fills the middle of the frame and the sky is around it): {c2w (3, 4),
+    intrinsics (4,), aabb (2, 3)}."""
     lo, hi = SCENE_AABB
     c = 0.5 * (lo + hi)
-    cam_x = float(lo[0] - 0.5 * (hi - lo).max())
+    cam_x = float(lo[0] - (0.5 * (hi - lo).max() if lift is None else lift))
     c2w = np.array([[0.0, 0.0, -1.0, cam_x],
                     [0.0, 1.0, 0.0, float(c[1])],
                     [1.0, 0.0, 0.0, float(c[2])]], np.float32)
     fy = 0.7 * H
     intr = np.array([fy, fy, W / 2, H / 2], np.float32)
     return {"c2w": c2w, "intrinsics": intr, "aabb": SCENE_AABB.copy()}
+
+
+def identical_experts(model: Container) -> Container:
+    """A copy of ``model`` whose every expert has expert 0's weights and the
+    scene's global box: the soft-MoE blend is then expert 0's field
+    everywhere, and a routed frame (given the true boxes for its rects)
+    reproduces the dense one."""
+    K = model.cfg.num_submodules
+    params = model.params()
+    with torch.no_grad():
+        experts = tree_map(lambda t: t[:1].expand_as(t).clone(), params["experts"])
+        bg = tree_map(lambda t: t.clone(), params["bg_mlp"]) if "bg_mlp" in params else None
+    return Container(model.cfg, experts, bg, model.centroids.clone(),
+                     model.global_aabb[None].expand(K, 2, 3).clone(),
+                     model.global_aabb.clone())
+
+
+def identical_occ(occ_states: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Stacked occupancy states whose every expert holds expert 0's grid."""
+    return {k: v[:1].expand_as(v).clone() for k, v in occ_states.items()}
 
 
 def training_batch(K: int, T: int, S: int, Q: int,

@@ -2,9 +2,10 @@
 """GPU smoke test of the PyTorch port (acn_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --profile DIR   # also profile one frame and one
-                                          # budget, stratified and strided
-                                          # step each, tables in DIR
+    python3 chip_smoke.py --profile DIR   # also profile one dense, routed
+                                          # and baked frame, and one budget,
+                                          # stratified and strided step each,
+                                          # tables in DIR
 
 Phases, each printing one JSON line and each fatal on failure:
 
@@ -92,7 +93,33 @@ Phases, each printing one JSON line and each fatal on failure:
    float32 TTO step of ``last`` on 1,024 rays with injected draws (loss,
    gradient, parameters), SSIM and LPIPS (fallback weights) of one
    rendered view, and SSIM of a nearly constant image against itself;
-9. the kernels line, then the card's ``nvidia-smi`` line, then the result
+9. serving beyond the dense frame, at ``configs/train_occ.json``'s width on
+   phase 3's model and grids (σ-head bias +2, as phase 4 leaves it) and
+   phase 8's run (its directory removed at the end): (a) 1080p routed frames (``render_image_routed``, the 4
+   quadrant experts' rects): one warm, two timed, one downloaded, the
+   forward scan launched once per dispatched chunk and the reverse never;
+   with every expert set to expert 0's weights, box and grid, the routed
+   frame equals the dense ``render_image`` one within 0.02 in rgb and acc
+   (the tolerances of ``tests/test_renderer_routed.py:50-68``); a 64 × 96
+   routed frame on the card against the CPU (u8 rgb within 1/255, f16
+   depth/acc rtol 1e-3); (b) ``render_image(active_module=k)`` per expert
+   at budget 32 (a scan per chunk), budget 0 (none) and with
+   ``occ_render_s_coarse`` 32, and the range pre-pass's mean kept share of
+   each ray; (c) ``--op bake`` of phase 8's ``last`` at ``--bake_resolution
+   256`` (the flag's default 512 cut for time), timed; ``load_baked`` gives
+   back the table and grid bit for bit; ``bake_field`` at 24³ (chunk 24³)
+   with SH 0 and SH 1 on the card against the CPU, f32 atol 1e-5 / rtol
+   1e-5; (d) 1080p ``BakedRenderer`` frames at budget 24, with the range
+   pre-pass of 32 bins, and at budget 0 (a scan per chunk, none at 0); a
+   64 × 96 baked frame on the card against the CPU; (e) ``--op eval
+   --baked_asset --tto 0,2``: finite PSNR and SSIM, the ``tto=2`` leg
+   rendered without adaptation (``acn_tpu``'s log line) and scored as
+   ``tto=0`` within 1e-3 dB and 1e-4 SSIM per view (atomic sums may move a
+   pixel by one u8 step between two renders), scans as the merged
+   ``occ_budget_per_ray`` says; (f) ``--op
+   video --video_frames 8``, live and baked: a file of 8 frames, the
+   encoder named, a scan per chunk per frame on budget paths;
+10. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -485,7 +512,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
               "scan_kernel_launches": scan_n,
               "scan_kernel_mean_us": scan_us / max(scan_n, 1)})
-    return model, occ, cam, (launches, rev_launches)
+    return model, occ, cam, (launches, rev_launches), frame_ms
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1501,7 +1528,8 @@ def metrics_card_vs_cpu(torch, tlosses, LPIPS, pred, gt) -> dict:
 
 def phase_runner(torch, segscan, toy) -> dict:
     """The runner at full width on a dataset on disk (module docstring,
-    phase 8). Returns the scan's launch counts of the train and eval runs."""
+    phase 8). Returns the scan's launch counts of the train and eval runs,
+    and the train run's directory, which phase 9 reads and then removes."""
     import shutil
 
     from acn_tpu_torch import runner
@@ -1641,8 +1669,339 @@ def phase_runner(torch, segscan, toy) -> dict:
                               / 255.0)
     del model, occ
     emit({"phase": "runner_vs_cpu", "tto_step": tto, **met})
+    return {"train": train_launches, "eval": eval_launches, "run": run}
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+SERVE_SMALL = (64, 96)  # the card-against-CPU frames
+BAKE_RES = 256  # --bake_resolution's default of 512, cut for the smoke's time
+BAKE_CHECK_RES = 24
+VIDEO_FRAMES = 8
+ROUTED_ATOL = 0.02  # tests/test_renderer_routed.py:50-68, rgb and acc
+
+
+def _frames_vs_cpu(got, want, what) -> dict:
+    """u8 rgb within one step, f16 depth and acc within rtol 1e-3 (atol
+    1e-3): card against CPU."""
+    errs = {k: float(np.abs(np.asarray(g) - np.asarray(w)).max())
+            for k, g, w in zip(("rgb", "depth", "acc"), got, want)}
+    check(np.isfinite(got[0]).all() and errs["rgb"] <= 1.0 / 255 + 1e-6
+          and all(np.allclose(g, w, rtol=1e-3, atol=1e-3) for g, w in zip(got[1:], want[1:])),
+          f"{what}: card vs CPU frames disagree {errs}")
+    return errs
+
+
+def _timed(torch, fn, n: int) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _gif_or_mp4_frames(path: str, fps: int = 30) -> int:
+    """Frames in a written video: a GIF's total duration over one frame's
+    (Pillow merges identical neighbours), an MP4's frames through imageio."""
+    if path.endswith(".gif"):
+        from PIL import Image
+
+        # a merged frame lasts k frames' time, stored in whole centiseconds
+        d = max(int(1000 / fps), 20)
+        with Image.open(path) as im:
+            n = 0
+            for i in range(im.n_frames):
+                im.seek(i)
+                n += round(im.info["duration"] / d)
+        return n
+    import imageio.v3 as iio
+
+    return int(iio.imread(path).shape[0])
+
+
+def _profile_frame(torch, fn, profile_dir, name) -> None:
+    """One frame under the profiler: its busy and idle share and the ops
+    that took most of the card's time."""
+    prof, wall_ms, busy_ms, launches = profile_window(torch, fn, profile_dir, name)
+    top = sorted(prof.key_averages(), key=lambda e: -(
+        getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)))[:12]
+    emit({"phase": f"{name}_profile", "frame_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+          "top_ops_device_ms": {e.key[:60]: 1e-3 * (
+              getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+              for e in top}})
+
+
+def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -> dict:
+    """Routed, single-expert and baked serving, the bake, and the runner's
+    baked eval and video (module docstring, phase 9), on phase 3's model and
+    grids (with phase 4's σ-head bias of +2) and phase 8's run. Returns the
+    scan's launch counts of each path. With ``profile_dir``, a routed and a
+    baked frame are profiled too."""
+    import shutil
+
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.occupancy import grid as occ_grid
+    from acn_tpu_torch.pipelines import baking
+    from acn_tpu_torch.pipelines.renderer import Renderer, _pinhole_block_rays
+
+    t_phase = time.perf_counter()
+    cfg, P, occ_cfg = toy.train_occ_config()
+    boxes, _ = toy.quadrant_layout(cfg.num_submodules)
+    cam = toy.overhead_camera(H, W)
+    renderer = Renderer(cfg, P, occ_cfg)
+    counted = {}
+    torch.cuda.empty_cache()
+
+    # (a) routed frames: one warm, two timed, one downloaded
+    rects = renderer.routed_rects(boxes, cam["c2w"], cam["intrinsics"], H, W, 32)
+    plan = renderer.routed_dispatch(rects, W, True)
+    routed = lambda **kw: renderer.render_image_routed(model, occ, H=H, W=W, **cam, **kw)
+    _zero_scan_counts(segscan)
+    torch.cuda.synchronize()
+    warm = _timed(torch, lambda: routed(download=False), 1)
+    frame_ms = _timed(torch, lambda: routed(download=False), 2)
+    t0 = time.perf_counter()
+    rgb, depth, acc = routed()
+    e2e_ms = 1e3 * (time.perf_counter() - t0)
+    counted["routed_frames"] = _scan_counts(segscan)
+    check(counted["routed_frames"] == (4 * len(plan), 0),
+          f"4 routed frames launched the scan {counted['routed_frames']}, want "
+          f"{len(plan)} chunks × 4 forward and 0 reverse")
+    check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
+          and np.isfinite(acc).all(), "the routed frame is not finite or misshapen")
+    if profile_dir:
+        _profile_frame(torch, lambda: routed(download=False), profile_dir, "serving_routed")
+    # identical experts: the routed frame reproduces the dense one
+    tied, tied_occ = toy.identical_experts(model), toy.identical_occ(occ)
+    dense = renderer.render_image(tied, tied_occ, H=H, W=W, **cam)
+    rt = renderer.render_image_routed(tied, tied_occ, H=H, W=W, expert_aabbs=boxes, **cam)
+    tie_err = {k: float(np.abs(a - b).max()) for k, a, b in
+               zip(("rgb", "depth", "acc"), rt, dense)}
+    check(tie_err["rgb"] <= ROUTED_ATOL and tie_err["acc"] <= ROUTED_ATOL,
+          f"routed vs dense with identical experts: {tie_err}")
+    del tied, tied_occ, dense, rt
+    h, w = SERVE_SMALL
+    cam_s = toy.overhead_camera(h, w)
+    # the CPU twin of the model as phase 4 left it (σ-head bias +2)
+    model_cpu = toy.serving_model(cfg, seed=0, device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    occ_cpu = {k: v.cpu() for k, v in occ.items()}
+    small = _frames_vs_cpu(
+        renderer.render_image_routed(model, occ, H=h, W=w, **cam_s),
+        Renderer(cfg, P, occ_cfg, device="cpu").render_image_routed(
+            model_cpu, occ_cpu, H=h, W=w, **cam_s), "routed 64×96")
+    emit({"phase": "serving_routed", "H": H, "W": W,
+          "rects": [[int(v) for v in r] for r in rects],
+          "chunks_per_frame": len(plan),
+          "rays_per_chunk": [p[4] * p[5] for p in plan[:1]][0],
+          "warm_frame_ms": warm[0], "frame_ms": frame_ms,
+          "mean_frame_ms": statistics.mean(frame_ms), "frame_ms_with_download": e2e_ms,
+          "dense_frame_ms_phase3": dense_ms,
+          "routed_over_dense": statistics.mean(frame_ms) / statistics.mean(dense_ms),
+          "scan_launches": {"forward": counted["routed_frames"][0],
+                            "reverse": counted["routed_frames"][1]},
+          "identical_experts_vs_dense_max_err": tie_err, "atol": ROUTED_ATOL,
+          "card_vs_cpu_64x96_max_err": small, "mean_acc": float(acc.mean())})
+
+    # (b) single-expert frames: budget 32, budget 0, and the range pre-pass
+    rows = max(renderer.chunk_rays // W, 1)
+    P0 = types.SimpleNamespace(**{**vars(P), "occ_budget_per_ray": 0})
+    Pc = types.SimpleNamespace(**{**vars(P), "occ_render_s_coarse": 32})
+    single = {}
+    for name, Pk in (("budget", P), ("budget0", P0), ("coarse32", Pc)):
+        r = Renderer(cfg, Pk, occ_cfg)
+        chunks = -(-H // max(r.chunk_rays // W, 1))
+        _zero_scan_counts(segscan)
+        ms = [_timed(torch, lambda k=k: r.render_image(model, occ, H=H, W=W, active_module=k,
+                                                      download=False, **cam), 1)[0]
+              for k in range(cfg.num_submodules)]
+        counted[f"single_expert_{name}"] = got = _scan_counts(segscan)
+        want = (0 if name == "budget0" else chunks * cfg.num_submodules, 0)
+        check(got == want, f"single-expert {name} frames launched the scan {got}, want {want}")
+        single[name] = {"frame_ms_by_expert": ms, "chunks_per_frame": chunks,
+                        "scan_launches": {"forward": got[0], "reverse": got[1]}}
+    rays = _pinhole_block_rays(H, W, *(torch.as_tensor(np.asarray(cam[k], np.float32),
+                                                       device="cuda")
+                                       for k in ("c2w", "intrinsics", "aabb")),
+                               torch.tensor([-np.inf, np.inf], device="cuda"), 0.0, 0.0)
+    near, far = occ_grid.clamped_near_far(rays, occ_cfg)
+    ok = far > near
+    tight = []
+    for k in range(cfg.num_submodules):
+        n2, f2 = occ_grid.coarse_ray_range({n: v[k] for n, v in occ.items()}, rays[:, :3],
+                                           rays[:, 3:6], near, far, 32)
+        tight.append(float(((f2 - n2)[ok] / (far - near)[ok]).mean()))
+    emit({"phase": "serving_single_expert", **single,
+          "coarse_range_mean_kept_fraction_by_expert": tight})
+
+    # (c) the bake of phase 8's last through the runner, timed
+    saved, save_s = [], []
+    save_baked = baking.save_baked
+
+    def recording_save(path, baked):
+        saved.append(baked)
+        t0 = time.perf_counter()
+        save_baked(path, baked)
+        save_s.append(time.perf_counter() - t0)
+
+    baking.save_baked = recording_save
+    try:
+        t0 = time.perf_counter()
+        path = runner.main(_run_flags(
+            "eval.json", "--op", "bake", "--checkpoint_path", str(run), "--prefix", "last",
+            "--bake_resolution", str(BAKE_RES), "--fname", str(RUNNER_DIR / "bake")))
+        bake_s = time.perf_counter() - t0
+    finally:
+        baking.save_baked = save_baked
+    asset = baking.load_baked(path)
+    for name in ("table", "aabb"):
+        check(torch.equal(asset[name], saved[0][name]), f"load_baked's {name} differs")
+    check(torch.equal(asset["occ_state"]["binaries"], saved[0]["occ_state"]["binaries"]),
+          "load_baked's grid differs")
+    occupied = float(asset["occ_state"]["binaries"].float().mean())
+    del saved
+    from acn_tpu_torch.utils import checkpoint as tck
+
+    bake_err = {}
+    models = {dev: tck.restore_model(tck.load_checkpoint(run, "last"),
+                                     runner.build_model_configs(
+                                         *_runner_cfg_args(runner)), dev)[0]
+              for dev in ("cuda", "cpu")}
+    for sh in (0, 1):
+        a, b = (baking.bake_container(models[dev], resolution=BAKE_CHECK_RES,
+                                      chunk=BAKE_CHECK_RES ** 3, sh_degree=sh)["table"].cpu()
+                for dev in ("cuda", "cpu"))
+        bake_err[f"sh{sh}"] = float((a - b).abs().max())
+        check(torch.allclose(a, b, atol=1e-5, rtol=1e-5),
+              f"bake_field SH {sh} at {BAKE_CHECK_RES}³: card vs CPU max |diff| "
+              f"{bake_err[f'sh{sh}']}")
+    del models
+    emit({"phase": "serving_bake", "resolution": BAKE_RES,
+          "cut": "--bake_resolution 512 (the flag's default) cut to 256 for the smoke's time",
+          "bake_s": bake_s, "save_baked_s": save_s[0],
+          "table_mb": asset["table"].numel() * 4 / 2**20,
+          "occupied": occupied, "occ_resolution": asset["occ_cfg"].resolution,
+          "load_baked_bit_equal": True,
+          f"card_vs_cpu_{BAKE_CHECK_RES}^3_max_abs_err": bake_err, "atol": 1e-5, "rtol": 1e-5})
+
+    # (d) baked 1080p frames: budget 24 (the video's), with the pre-pass, budget 0
+    baked = {}
+    for name, kw in (("budget24", dict(budget_per_ray=24)),
+                     ("budget24_coarse32", dict(budget_per_ray=24, s_coarse=32)),
+                     ("budget0", dict(budget_per_ray=0))):
+        br = baking.BakedRenderer(asset, chunk_points=int(P.chunk_points), **kw)
+        chunks = -(-H // br.rows(W))
+        frame = lambda br=br, **k: br.render_image(H=H, W=W, intrinsics=cam["intrinsics"],
+                                                   c2w=cam["c2w"], **k)
+        _zero_scan_counts(segscan)
+        warm = _timed(torch, lambda: frame(download=False), 1)
+        ms = _timed(torch, lambda: frame(download=False), 1 if name == "budget0" else 2)
+        counted[f"baked_{name}"] = got = _scan_counts(segscan)
+        n = 1 + len(ms)
+        want = (0 if name == "budget0" else chunks * n, 0)
+        check(got == want, f"baked {name} frames launched the scan {got}, want {want}")
+        rgb, _, acc = frame()
+        check(np.isfinite(rgb).all() and np.isfinite(acc).all(), f"baked {name} frame")
+        baked[name] = {"warm_frame_ms": warm[0], "frame_ms": ms, "chunks_per_frame": chunks,
+                       "rays_per_chunk": br.rows(W) * W,
+                       "scan_launches": {"forward": got[0], "reverse": got[1]},
+                       "mean_acc": float(acc.mean())}
+    if profile_dir:
+        br = baking.BakedRenderer(asset, chunk_points=int(P.chunk_points), budget_per_ray=24)
+        _profile_frame(torch, lambda: br.render_image(
+            H=H, W=W, intrinsics=cam["intrinsics"], c2w=cam["c2w"], download=False),
+            profile_dir, "serving_baked")
+    asset_cpu = baking.load_baked(path, device="cpu")
+    view = dict(H=h, W=w, intrinsics=cam_s["intrinsics"], c2w=cam_s["c2w"])
+    baked["card_vs_cpu_64x96_max_err"] = _frames_vs_cpu(
+        baking.BakedRenderer(asset, budget_per_ray=24).render_image(**view),
+        baking.BakedRenderer(asset_cpu, budget_per_ray=24).render_image(**view), "baked 64×96")
+    del asset_cpu
+    emit({"phase": "serving_baked_frames", "H": H, "W": W, **baked,
+          "dense_frame_ms_phase3": dense_ms})
+
+    # (e) --op eval --baked_asset, TTO 0 and 2
+    _zero_scan_counts(segscan)
+    res = runner.main(_run_flags("eval.json", "--checkpoint_path", str(run), "--prefix", "last",
+                                 "--baked_asset", path, "--tto", "0,2",
+                                 "--fname", str(RUNNER_DIR / "eval_baked")))
+    counted["runner_eval_baked"] = got = _scan_counts(segscan)
+    Pe = runner.parse_args(_run_flags("eval.json", "--checkpoint_path", str(run),
+                                      "--prefix", "last"))
+    budget = int(getattr(Pe, "occ_budget_per_ray", 0) or 0)
+    br = baking.BakedRenderer(asset, budget_per_ray=budget, chunk_points=int(Pe.chunk_points))
+    n_val = RUNNER_CAMERAS[1]
+    chunks = -(-RUNNER_IMAGE[0] // br.rows(RUNNER_IMAGE[1]))
+    want = (chunks * n_val * 2 if budget else 0, 0)
+    check(got == want, f"the baked eval launched the scan {got}, want {want} (budget {budget})")
+    for r in res:
+        check(np.isfinite(r["psnr"]) and np.isfinite(r["ssim"]), f"baked eval tto={r['tto']}")
+    # the tto=2 leg is the tto=0 leg rendered again: on the card the packed
+    # composite's index_add_ adds with atomics, so a frame may differ in its
+    # last bits (and a pixel on a u8 rounding edge by one step) between renders
+    d_psnr, d_ssim = (max(abs(a[key] - b[key]) for a, b in zip(res[0]["views"], res[1]["views"]))
+                      for key in ("psnr", "ssim"))
+    check(res[1]["tto_losses"] == [] and d_psnr <= 1e-3 and d_ssim <= 1e-4,
+          f"the baked tto=2 leg adapted, or scored other than tto=0 (PSNR by {d_psnr} dB, "
+          f"SSIM by {d_ssim})")
+    log = (RUNNER_DIR / "eval_baked" / "log.txt").read_text()
+    line = "TTO does not apply to a baked table; rendering tto=2 leg without adaptation"
+    check(line in log, "the baked eval did not log that TTO does not apply")
+    emit({"phase": "serving_eval_baked", "tto": [0, 2], "views": n_val,
+          "occ_budget_per_ray": budget,
+          "march": "packed budget" if budget else "strided (budget 0)",
+          "psnr": [r["psnr"] for r in res], "ssim": [r["ssim"] for r in res],
+          "frame_ms": [v["frame_ms"] for r in res for v in r["views"]],
+          "scan_launches": {"forward": got[0], "reverse": got[1]},
+          "tto2_minus_tto0_max_abs": {"psnr": d_psnr, "ssim": d_ssim},
+          "tto2_adapted": False, "logged": line})
+
+    # (f) --op video, live and baked
+    video = {}
+    for name, extra in (("live", []), ("baked", ["--baked_asset", path])):
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        out = runner.main(_run_flags("eval.json", "--op", "video", "--checkpoint_path",
+                                     str(run), "--prefix", "last", "--video_frames",
+                                     str(VIDEO_FRAMES), *extra,
+                                     "--fname", str(RUNNER_DIR / f"video_{name}")))
+        wall = time.perf_counter() - t0
+        counted[f"runner_video_{name}"] = got = _scan_counts(segscan)
+        n = _gif_or_mp4_frames(out)
+        check(Path(out).exists() and n == VIDEO_FRAMES,
+              f"--op video ({name}) wrote {out} with {n} frames, want {VIDEO_FRAMES}")
+        hw = RUNNER_IMAGE[0] * RUNNER_IMAGE[1]
+        if name == "live":
+            chunks = -(-hw // Renderer(runner.build_model_configs(*_runner_cfg_args(runner)),
+                                       Pe, runner.build_occ_config(Pe, 1.0)).chunk_rays)
+        else:
+            chunks = -(-RUNNER_IMAGE[0] // baking.BakedRenderer(
+                asset, budget_per_ray=budget or 24,
+                chunk_points=int(Pe.chunk_points)).rows(RUNNER_IMAGE[1]))
+        want = (chunks * VIDEO_FRAMES if budget or name == "baked" else 0, 0)
+        check(got == want, f"--op video ({name}) launched the scan {got}, want {want}")
+        video[name] = {"path": Path(out).name, "frames": n, "wall_s": wall,
+                       "encoder": "imageio libx264 (MP4)" if out.endswith(".mp4")
+                       else "Pillow (GIF)", "chunks_per_frame": chunks,
+                       "scan_launches": {"forward": got[0], "reverse": got[1]}}
+    emit({"phase": "serving_video", **video, "phase9_s": time.perf_counter() - t_phase})
+    del asset
     shutil.rmtree(RUNNER_DIR, ignore_errors=True)
-    return {"train": train_launches, "eval": eval_launches}
+    return counted
+
+
+def _runner_cfg_args(runner):
+    """(P, clustering meta) of phase 8's run for ``build_model_configs``."""
+    from acn_tpu_torch.data import dataset
+
+    P = runner.parse_args(_run_flags("eval.json", "--checkpoint_path",
+                                     str(RUNNER_DIR / "train"), "--prefix", "last"))
+    masks = RUNNER_DIR / "data" / "out" / "example" / "masks" / P.mask_dirname
+    return P, dataset.load_clustering_meta(masks)
 
 
 # ---------------------------------------------------------------- main
@@ -1678,10 +2037,9 @@ def main() -> int:
           "ptxas": cuda_lib.build_log()})
 
     k = phase_kernel(torch, segscan, bench_segscan)
-    model, occ, cam, (fwd_render, rev_render) = phase_main_path(
+    model, occ, cam, (fwd_render, rev_render), dense_ms = phase_main_path(
         torch, segscan, toy, Renderer, args.profile)
     occ_cpu = phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
-    del model, occ
     cfg = toy.train_occ_config()[0]
     model_cpu = toy.serving_model(cfg, seed=0, device="cpu")
     train = phase_train_step(torch, segscan, bench_segscan, toy, model_cpu,
@@ -1691,38 +2049,46 @@ def main() -> int:
     del model_cpu, occ_cpu
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
     run8 = phase_runner(torch, segscan, toy)
+    serve = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"], args.profile)
+    del model, occ
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
     # frames, where only the budget step after the switch launches; the sum
     # over phase 7's two loop runs, where the budget steps launch; phase 8's
-    # --op train and --op eval), each counted from 0 just before its path
-    # was driven. ms, plain_ms and
+    # --op train and --op eval; phase 9's routed, single-expert and baked
+    # frames, baked eval and videos), each counted from 0 just before its
+    # path was driven. ms, plain_ms and
     # bound_ms at the serving chunk (B = 983,040); "train_shapes" holds the
     # same at the training step's B = 32,768 and 16,384.
     fwd_train, rev_train = train["launches"]
     fwd_reg, rev_reg = regimes["fwd"], regimes["rev"]
     fwd_loop, rev_loop = loop["fwd"], loop["rev"]
     (fwd_rtrain, rev_rtrain), (fwd_reval, rev_reval) = run8["train"], run8["eval"]
+    by_path = lambda i: {name: c[i] for name, c in serve.items()}
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
     emit({"kernels": [
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
-         "launches": fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval,
+         "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
+                      + sum(c[0] for c in serve.values())),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
-                              "runner_train": fwd_rtrain, "runner_eval": fwd_reval},
+                              "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
+                              **by_path(0)},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
          "train_shapes": [{key: sh[key] for key in (
              "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for sh in train["shapes"]], **common},
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
-         "launches": rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval,
+         "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
+                      + sum(c[1] for c in serve.values())),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
-                              "runner_train": rev_rtrain, "runner_eval": rev_reval},
+                              "runner_train": rev_rtrain, "runner_eval": rev_reval,
+                              **by_path(1)},
          "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
          "plain_ms": k["reverse_plain_ms"],
          "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],

@@ -256,7 +256,8 @@ def test_composite_packed_stats_do_not_change_the_rest(scene):
 
 
 def test_random_background_policy_is_named_as_not_ported():
-    with pytest.raises(NotImplementedError, match="random"):
+    # the policy is ported; without a generator or draws it says what it needs
+    with pytest.raises(ValueError, match="random"):
         trender.bg_default_color(2, "random")
     with pytest.raises(ValueError):
         trender.bg_default_color(2, "plaid")

@@ -145,12 +145,21 @@ def test_render_rays_on_card_matches_plain(scene, path):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
+# modules and scripts whose acn_tpu namesakes are ported whole or in part
+PORTED = ("nerfs/render_occ.py", "occupancy/grid.py", "pipelines/renderer.py",
+          "pipelines/baking.py", "pipelines/video_gen.py", "runner.py",
+          "scripts/bench_render.py", "scripts/measure_coarse_range.py")
+
+
 def _port_files():
     return sorted((REPO / "acn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def test_port_sources_import_no_jax():
-    for path in _port_files():
+    files = _port_files()
+    for rel in PORTED:
+        assert REPO / "acn_tpu_torch" / rel in files, rel
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -175,13 +184,16 @@ def test_port_imports_with_jax_and_acn_tpu_blocked():
         "    importlib.import_module(m)\n"
         "assert not any(k.split('.')[0] in ('jax', 'acn_tpu') and sys.modules[k]"
         " for k in list(sys.modules))\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    mods = set(out.stdout.split())
+    assert len(mods) >= 14
+    for rel in PORTED:
+        assert "acn_tpu_torch." + rel[:-3].replace("/", ".") in mods, rel
 
 
 def test_chip_smoke_fails_without_a_card():
