@@ -6,8 +6,9 @@ The inputs are what the JAX package holds, as plain Python: the
 of numpy arrays (what ``jax.device_get`` returns), and configs as nested
 dicts of their fields (what ``dataclasses.asdict`` returns). Nothing here
 imports ``jax`` or ``acn_tpu``. Layouts carry over unchanged: Linear weights
-``(in, out)``, per-level cell-layout hash tables, a leading K axis on every
-expert leaf.
+``(in, out)``, per-level cell-layout hash tables or the one corner-layout
+table, a vanilla expert's ``trunk`` list, a leading K axis on every expert
+leaf.
 
 The optimizer state crosses in its state-dict form, the layout that
 ``utils/checkpoint.py`` keeps (``optim_state_dict`` / ``opt_state_from_dict``;
@@ -25,6 +26,7 @@ import torch
 from acn_tpu_torch.models.container import Container, ContainerConfig
 from acn_tpu_torch.models.encodings import HashGridConfig
 from acn_tpu_torch.models.ngp import NGPConfig
+from acn_tpu_torch.models.vanilla import VanillaConfig
 from acn_tpu_torch.models.nn import tree_map
 from acn_tpu_torch.occupancy.grid import OccConfig
 
@@ -47,11 +49,17 @@ def _known(cls, d: Mapping[str, Any]) -> Dict[str, Any]:
 
 def config_from_dict(d: Mapping[str, Any]) -> ContainerConfig:
     """A ``ContainerConfig`` from the field dict of ``acn_tpu``'s (nested:
-    ``expert`` holds the NGP fields, ``expert["hash"]`` the hash grid's)."""
-    expert = _known(NGPConfig, d["expert"])
-    expert["hash"] = HashGridConfig(**_known(HashGridConfig, expert["hash"]))
-    return ContainerConfig(**{**_known(ContainerConfig, d),
-                              "expert": NGPConfig(**expert)})
+    ``expert`` holds the NGP fields, ``expert["hash"]`` the hash grid's, or
+    the vanilla expert's fields when ``nerf_variant`` is ``vanilla``)."""
+    if d.get("nerf_variant", "instant") == "vanilla":
+        expert = _known(VanillaConfig, d["expert"])
+        expert["skips"] = tuple(expert.get("skips", VanillaConfig.skips))
+        expert_cfg = VanillaConfig(**expert)
+    else:
+        expert = _known(NGPConfig, d["expert"])
+        expert["hash"] = HashGridConfig(**_known(HashGridConfig, expert["hash"]))
+        expert_cfg = NGPConfig(**expert)
+    return ContainerConfig(**{**_known(ContainerConfig, d), "expert": expert_cfg})
 
 
 def occ_config_from_dict(d: Mapping[str, Any]) -> OccConfig:

@@ -6,62 +6,89 @@ their leading K axis (``experts``, a module tree with the JAX tree's keys),
 the background head is ``bg_mlp``, and centroids / expert AABBs / the global
 AABB are buffers. All-expert evaluation is a loop over K (the JAX package
 vmaps it); ``Container.expert(k)`` hands one expert's parameters to the
-functional ``ngp`` forward as views. Training works on ``Container.params()``,
+functional forward of the config's variant (``instant``: ``ngp``,
+``vanilla``: ``vanilla``) as views. Training works on ``Container.params()``,
 the parameters as a plain tree ``{"experts", "bg_mlp"}``, and runs an expert
-on any tree of that structure (fast weights) through ``ngp.ngp_forward``.
+on any tree of that structure (fast weights) through
+``ContainerConfig.expert_forward``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn as tnn
 
 from acn_tpu_torch.models import ngp as ngp_mod
 from acn_tpu_torch.models import nn
-from acn_tpu_torch.models.encodings import sh_encode, sh_out_dim
+from acn_tpu_torch.models import vanilla as van_mod
+from acn_tpu_torch.models.encodings import (
+    frequency_encode,
+    frequency_out_dim,
+    sh_encode,
+    sh_out_dim,
+)
 from acn_tpu_torch.models.ngp import NGPConfig
+from acn_tpu_torch.models.vanilla import VanillaConfig
 
 
 @dataclass(frozen=True)
 class ContainerConfig:
-    """``acn_tpu``'s ``ContainerConfig`` fields that the port reads; the
-    ``instant`` (NGP) experts and the ``spherical`` background encoding are
-    ported."""
+    """``acn_tpu``'s ``ContainerConfig``: ``instant`` (NGP) or ``vanilla``
+    (frequency-encoded MLP) experts, and a ``spherical`` or ``frequency``
+    background encoding."""
 
     num_submodules: int = 4
-    nerf_variant: str = "instant"
+    nerf_variant: str = "instant"  # "instant" | "vanilla"
     boundary_margin: float = 1.0
     cluster_2d: bool = True
     use_bg_nerf: bool = True
     bg_hidden: int = 32
-    bg_encoding: str = "spherical"
+    bg_encoding: str = "spherical"  # "spherical" | "frequency"
     bg_sh_levels: int = 4
-    expert: NGPConfig = field(default_factory=NGPConfig)
-
-    def __post_init__(self):
-        if self.nerf_variant != "instant":
-            raise NotImplementedError(
-                f"nerf_variant {self.nerf_variant!r}: only 'instant' is ported")
-        if self.bg_encoding != "spherical":
-            raise NotImplementedError(
-                f"bg_encoding {self.bg_encoding!r}: only 'spherical' is ported")
+    bg_freq_pe_dim: int = 4
+    expert: Union[NGPConfig, VanillaConfig] = field(default_factory=NGPConfig)
 
     @property
     def bg_enc_dim(self) -> int:
-        return sh_out_dim(self.bg_sh_levels)
+        if self.bg_encoding == "spherical":
+            return sh_out_dim(self.bg_sh_levels)
+        return frequency_out_dim(3, self.bg_freq_pe_dim, include_input=True)
+
+    @property
+    def expert_forward(self):
+        """(params, expert cfg, aabb, x_d (..., 6)) → (..., 4) [rgb, σ]."""
+        return (ngp_mod.ngp_forward if self.nerf_variant == "instant"
+                else van_mod.vanilla_forward)
 
     @property
     def expert_density(self):
-        """The experts' density query, ``ngp.ngp_density``."""
-        return ngp_mod.ngp_density
+        """The experts' density query."""
+        return (ngp_mod.ngp_density if self.nerf_variant == "instant"
+                else van_mod.vanilla_density)
+
+    @property
+    def expert_init(self):
+        return ngp_mod.init_ngp if self.nerf_variant == "instant" else van_mod.init_vanilla
+
+
+class _Leaf(tnn.Module):
+    """One parameter where a tree holds a tensor beside subtrees (the
+    corner layout's single ``hash_table``)."""
+
+    def __init__(self, value: torch.Tensor):
+        super().__init__()
+        self.value = tnn.Parameter(value)
 
 
 def _to_module(tree) -> tnn.Module:
     """Nested dicts / lists of tensors → ParameterDict / ParameterList leaves
-    under ModuleDict / ModuleList, keeping the keys and order."""
+    under ModuleDict / ModuleList, keeping the keys and order; a tensor
+    beside subtrees becomes a ``_Leaf``."""
+    if isinstance(tree, torch.Tensor):
+        return _Leaf(tree)
     if isinstance(tree, dict):
         if all(isinstance(v, torch.Tensor) for v in tree.values()):
             return tnn.ParameterDict({k: tnn.Parameter(v) for k, v in tree.items()})
@@ -74,6 +101,8 @@ def _to_module(tree) -> tnn.Module:
 def _to_tree(m: tnn.Module, k: Optional[int] = None):
     """Inverse of ``_to_module``; with ``k``, every leaf is indexed [k]."""
     pick = (lambda t: t) if k is None else (lambda t: t[k])
+    if isinstance(m, _Leaf):
+        return pick(m.value)
     if isinstance(m, tnn.ParameterDict):
         return {n: pick(t) for n, t in m.items()}
     if isinstance(m, tnn.ModuleDict):
@@ -84,7 +113,7 @@ def _to_tree(m: tnn.Module, k: Optional[int] = None):
 
 
 class Container(tnn.Module):
-    """K stacked NGP experts + background head + routing buffers."""
+    """K stacked experts + background head + routing buffers."""
 
     def __init__(self, cfg: ContainerConfig, experts: dict,
                  bg_mlp: Optional[list], centroids: torch.Tensor,
@@ -124,10 +153,10 @@ def init_container(
     generator: Optional[torch.Generator] = None,
     device=None,
 ) -> Container:
-    """Random experts (each from ``ngp.init_ngp``, then stacked) and
+    """Random experts (each from the variant's init, then stacked) and
     background head on ``device``."""
     kw = dict(generator=generator, device=device)
-    per_k = [ngp_mod.init_ngp(cfg.expert, **kw) for _ in range(cfg.num_submodules)]
+    per_k = [cfg.expert_init(cfg.expert, **kw) for _ in range(cfg.num_submodules)]
 
     def stack(*leaves):
         if isinstance(leaves[0], dict):
@@ -185,8 +214,11 @@ def expert_slice(experts: dict, k: int) -> dict:
 def param_group_labels(params: dict) -> dict:
     """Optimizer-group labels for ``Container.params()``: a tree of strings
     in {encoding, sigma, color, background} of the parameters' structure
-    (``acn_tpu/models/container.py:270-281``)."""
-    labels = {"experts": ngp_mod.param_group_labels(params["experts"])}
+    (``acn_tpu/models/container.py:270-281``), by the experts' variant as
+    the tree shows it (a vanilla expert has a ``trunk``)."""
+    labels_of = (van_mod.param_group_labels if "trunk" in params["experts"]
+                 else ngp_mod.param_group_labels)
+    labels = {"experts": labels_of(params["experts"])}
     if "bg_mlp" in params:
         labels["bg_mlp"] = nn.tree_map(lambda _: "background", params["bg_mlp"])
     return labels
@@ -204,7 +236,7 @@ def container_forward(
     set, else all K experts blended with the dense routing weights,
     y = Σ_k w_k · y_k. Returns (N, 4) [rgb, σ]."""
     cfg = model.cfg
-    fwd = ngp_mod.ngp_forward
+    fwd = cfg.expert_forward
     if active_module is not None:
         return fwd(model.expert(active_module), cfg.expert,
                    model.expert_aabbs[active_module], x[..., :6])
@@ -241,9 +273,12 @@ def container_density(
 def bg_mlp_color(layers: list, cfg: ContainerConfig,
                  d: torch.Tensor) -> torch.Tensor:
     """Background RGB from ray directions with the head's two layers given
-    as a list of ``{w, b}``: SH encoding → 2-layer sigmoid MLP."""
+    as a list of ``{w, b}``: SH or frequency encoding → 2-layer sigmoid MLP."""
     dn = d / torch.clamp(nn.norm3(d), min=1e-9)
-    enc = sh_encode(dn, cfg.bg_sh_levels)
+    if cfg.bg_encoding == "spherical":
+        enc = sh_encode(dn, cfg.bg_sh_levels)
+    else:
+        enc = frequency_encode(dn, cfg.bg_freq_pe_dim, include_input=True)
     h = torch.relu(nn.apply_linear(layers[0], enc.to(torch.float32)))
     return torch.sigmoid(nn.apply_linear(layers[1], h))
 

@@ -1,16 +1,19 @@
-"""Input encodings: spherical harmonics and the cell-layout multiresolution
-hash grid.
+"""Input encodings: spherical harmonics, frequency (NeRF PE), and the
+multiresolution hash grid in its two layouts.
 
-Port of ``acn_tpu/models/encodings.py``: SH, ``HashGridConfig``,
-``init_hash_table`` (cell layout), the cell-layout forward
-(``_hash_encode_cell_impl`` / ``_cell_level_lookup``, with dense levels) and
-its hand-written backward (``_HashEncodeCellSaved``, the counterpart of
-``_hash_encode_cell_saved`` / ``_saved_bwd``): the gathered rows, their
-indices and the raw intra-cell fractions are kept, so the backward is a
-scatter-add per level plus elementwise work and gathers nothing again.
-The hash encode is plain PyTorch here, as it is plain XLA in the JAX package;
-a hand-written gather kernel is a candidate for a later change. The corner
-layout is not ported.
+Port of ``acn_tpu/models/encodings.py``: SH, ``frequency_encode``,
+``HashGridConfig``, ``init_hash_table`` (both layouts), the corner-layout
+encode (``_hash_encode_jnp_impl``: 8 hashed corner rows per point and
+level, its backward left to autograd, as JAX's ``hash_encode_jnp`` leaves it
+to ``jax.grad``), the cell-layout forward (``_hash_encode_cell_impl`` /
+``_cell_level_lookup``, with dense levels) and its hand-written backward
+(``_HashEncodeCellSaved``, the counterpart of ``_hash_encode_cell_saved`` /
+``_saved_bwd``): the gathered rows, their indices and the raw intra-cell
+fractions are kept, so the backward is a scatter-add per level plus
+elementwise work and gathers nothing again. ``hash_encode`` dispatches on
+the layout as ``acn_tpu``'s does. The hash encode is plain PyTorch here, as
+it is plain XLA in the JAX package; a hand-written gather kernel is a
+candidate for a later change.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -93,6 +96,25 @@ def sh_out_dim(levels: int) -> int:
     return levels**2
 
 
+# ============================ frequency encoding ============================
+
+
+def frequency_encode(x: torch.Tensor, pe_dim: int, include_input: bool = True,
+                     use_pi: bool = False) -> torch.Tensor:
+    """NeRF positional encoding: concat([x?], cos(2^k x), sin(2^k x)) over
+    k < pe_dim, per input dim, cos before sin (``acn_tpu``'s order)."""
+    bands = 2.0 ** torch.arange(pe_dim, dtype=x.dtype, device=x.device)
+    xin = x * (math.pi if use_pi else 1.0)
+    x_exp = xin[..., None] * bands  # (..., D, L)
+    pe = torch.cat([torch.cos(x_exp), torch.sin(x_exp)], dim=-1)
+    pe = pe.reshape(*x.shape[:-1], -1)
+    return torch.cat([x, pe], dim=-1) if include_input else pe
+
+
+def frequency_out_dim(in_dim: int, pe_dim: int, include_input: bool = True) -> int:
+    return in_dim * (2 * pe_dim + (1 if include_input else 0))
+
+
 # ============================ hash grid encoding ============================
 
 # Instant-NGP 3D spatial hash primes.
@@ -103,7 +125,11 @@ HASH_PRIMES = (1, 2654435761, 805459861)
 class HashGridConfig:
     """``acn_tpu``'s ``HashGridConfig`` fields that the port reads, forward
     and backward (a JAX config carries across by field name,
-    ``convert.config_from_dict``). Only the ``cell`` layout is ported.
+    ``convert.config_from_dict``).
+
+    ``layout``: ``"corner"``, one (F,) row per hashed corner in one
+    (levels · table_size, F) table, 8 gathers per (point, level); or
+    ``"cell"``, one (8·F,) row per hashed cell in a table per level.
 
     ``cell_backward``: ``"save_rows"`` keeps the gathered rows and fractions
     for a backward that is scatter-add plus elementwise; ``"remat"`` leaves
@@ -151,26 +177,21 @@ class HashGridConfig:
         return np.floor(self.min_res * (self.growth_factor**ls)).astype(np.int32)
 
 
-def _require_cell(cfg: HashGridConfig) -> None:
-    if cfg.layout != "cell":
-        raise NotImplementedError(
-            f"hash layout {cfg.layout!r}: only the cell layout is ported")
-
-
 def init_hash_table(cfg: HashGridConfig, *,
-                    generator: Optional[torch.Generator] = None,
-                    device=None) -> List[torch.Tensor]:
-    """Cell layout: a list of per-level tables (level_rows(l), 8·F), each
-    U(−s, s) with s = hash_init_scale."""
-    _require_cell(cfg)
+                    generator: Optional[torch.Generator] = None, device=None):
+    """U(−s, s) tables, s = hash_init_scale. Cell layout: a list of per-level
+    tables (level_rows(l), 8·F). Corner layout: one table
+    (levels · table_size, F)."""
     gen_dev = generator.device if generator is not None else "cpu"
-    w = 8 * cfg.features_per_level
-    return [
-        ((torch.rand((cfg.level_rows(l), w), generator=generator,
-                     device=gen_dev) * 2.0 - 1.0)
-         * cfg.hash_init_scale).to(device)
-        for l in range(cfg.levels)
-    ]
+
+    def uniform(shape):
+        return ((torch.rand(shape, generator=generator, device=gen_dev) * 2.0 - 1.0)
+                * cfg.hash_init_scale).to(device)
+
+    if cfg.layout == "cell":
+        w = 8 * cfg.features_per_level
+        return [uniform((cfg.level_rows(l), w)) for l in range(cfg.levels)]
+    return uniform((cfg.table_size * cfg.levels, cfg.features_per_level))
 
 
 def _spatial_hash(ixyz: torch.Tensor, log2_size: int) -> torch.Tensor:
@@ -250,6 +271,49 @@ def _hash_encode_cell_impl(tables, x01: torch.Tensor,
     return _encode_levels(tables, x01, cfg)[0]
 
 
+def _hash_encode_jnp_impl(table: torch.Tensor, x01: torch.Tensor,
+                         cfg: HashGridConfig) -> torch.Tensor:
+    """Corner-layout encoding (``acn_tpu``'s ``_hash_encode_jnp_impl``):
+    per level, scale by the level's resolution (rounded to x01's dtype, as
+    ``jnp.asarray(res, x01.dtype)`` rounds it), gather the 8 corner rows by
+    spatial hash and blend them one corner at a time with the trilinear
+    weights (smoothstepped for Smoothstep), or take the rounded corner's
+    row (Nearest). x01 (..., 3) in [0, 1] → (..., levels · F). The backward
+    is autograd's: a scatter-add into the table per corner."""
+    L, F = cfg.levels, cfg.features_per_level
+    res = torch.as_tensor(cfg.level_resolutions(), dtype=x01.dtype, device=x01.device)
+    scaled = x01[..., None, :] * res[:, None]  # (..., L, 3)
+    offs = torch.arange(L, device=x01.device) * cfg.table_size  # (L,)
+    batch_shape = x01.shape[:-1]
+    if cfg.interpolation == "Nearest":
+        h = _spatial_hash(torch.round(scaled).to(torch.int64), cfg.log2_hashmap_size)
+        return table[h + offs].reshape(*batch_shape, L * F)
+    floor = torch.floor(scaled)
+    frac = scaled - floor
+    floor_i = floor.to(torch.int64)
+    if cfg.interpolation == "Smoothstep":
+        frac = frac * frac * (3 - 2 * frac)
+    feats = torch.zeros((*batch_shape, L * F), dtype=table.dtype, device=table.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                c = floor_i + torch.tensor([dx, dy, dz], device=x01.device)
+                h = _spatial_hash(c, cfg.log2_hashmap_size)  # (..., L)
+                f = table[h + offs].reshape(*batch_shape, L * F)
+                w = ((frac[..., 0] if dx else 1.0 - frac[..., 0])
+                     * (frac[..., 1] if dy else 1.0 - frac[..., 1])
+                     * (frac[..., 2] if dz else 1.0 - frac[..., 2]))  # (..., L)
+                w = torch.repeat_interleave(w, F, dim=-1)  # (..., L·F)
+                feats = feats + f * w.to(table.dtype)
+    return feats
+
+
+# JAX rematerializes the corner encode (its 16-lane corner temporaries pad
+# 8× in TPU tiles); here autograd keeps the indices and weights, a few bytes
+# per (point, level, corner)
+hash_encode_jnp = _hash_encode_jnp_impl
+
+
 # corner sign per axis in packing order (dz fastest): +1 where the corner
 # takes the fraction f, −1 where it takes 1 − f
 _CORNER_SIGNS = tuple((1.0 if dx else -1.0, 1.0 if dy else -1.0,
@@ -268,14 +332,23 @@ class _HashEncodeCellSaved(torch.autograd.Function):
     bf16, as in the JAX package), and the x cotangent, only when x01 needs
     one (in training it never does), comes from dw/df on the kept rows.
     On the card ``index_add_`` adds with atomics: the order, and so the last
-    bits, are free."""
+    bits, are free.
+
+    Twice differentiable, as JAX's derivative of ``_saved_bwd`` is: the
+    table cotangent is linear in g, so under ``create_graph`` it stays on
+    the graph and its own backward is a gather of the cotangent's cotangent
+    at h. The x path, when x01 needs a gradient under ``create_graph``,
+    recomputes the rows and fractions from the saved tables and x01 with
+    differentiable ops, so that its derivative reaches both."""
 
     @staticmethod
     def forward(ctx, x01, cfg, *tables):
         out, kept = _encode_levels(tables, x01, cfg)
         ctx.cfg, ctx.x_dtype = cfg, x01.dtype
         ctx.nrows = tuple(int(t.shape[0]) for t in tables)
-        ctx.save_for_backward(*kept)
+        # the inputs themselves only for the x path's second derivative
+        ctx.save_for_backward(*kept, *((x01, *tables) if ctx.needs_input_grad[0]
+                                       else ()))
         return out
 
     @staticmethod
@@ -284,10 +357,15 @@ class _HashEncodeCellSaved(torch.autograd.Function):
         F = cfg.features_per_level
         need_x = ctx.needs_input_grad[0]
         resolutions = cfg.level_resolutions()
+        if need_x and torch.is_grad_enabled():
+            x01, tables = saved[3 * cfg.levels], saved[3 * cfg.levels + 1:]
+            redo = [_cell_level_lookup(tables, x01, cfg, l) for l in range(cfg.levels)]
         tab_grads = []
         gx = None
         for l in range(cfg.levels):
             rows, h, frac_raw = saved[3 * l:3 * l + 3]
+            if need_x and torch.is_grad_enabled():
+                rows, h, frac_raw = redo[l]
             g_l = g[..., l * F:(l + 1) * F]
             f = _interp_frac(frac_raw, cfg.interpolation)
             if ctx.needs_input_grad[2 + l]:
@@ -320,12 +398,11 @@ class _HashEncodeCellSaved(torch.autograd.Function):
         return (gx.to(ctx.x_dtype) if need_x else None, None, *tab_grads)
 
 
-def hash_encode(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     """Cell-layout encoding. Checks the tables against the config's row
     ladder, as ``acn_tpu`` does. Backward per ``cfg.cell_backward``:
     ``"save_rows"`` is the hand-written one; ``"remat"``, and ``"Nearest"``
     interpolation, leave it to autograd over ``_hash_encode_cell_impl``."""
-    _require_cell(cfg)
     got = tuple(int(t.shape[0]) for t in tables)
     want = tuple(cfg.level_rows(l) for l in range(cfg.levels))
     if got != want:
@@ -337,3 +414,13 @@ def hash_encode(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     if cfg.cell_backward == "save_rows" and cfg.interpolation != "Nearest":
         return _HashEncodeCellSaved.apply(x01, cfg, *tables)
     return _hash_encode_cell_impl(tables, x01, cfg)
+
+
+def hash_encode(table, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+    """Dispatch on the layout: ``cell`` → ``hash_encode_cell``, ``corner`` →
+    ``hash_encode_jnp``."""
+    if cfg.layout == "cell":
+        return hash_encode_cell(table, x01, cfg)
+    if cfg.layout == "corner":
+        return hash_encode_jnp(table, x01, cfg)
+    raise ValueError(f"Unknown hash layout {cfg.layout!r}")

@@ -1,10 +1,11 @@
 """Instant-NGP-style NeRF expert as functions over a parameter dict.
 
 Port of ``acn_tpu/models/ngp.py``: hash-encoded σ-trunk → {σ head (bias −1,
-trunc_exp), geo-feature head} and a color MLP over [geo_feat, SH(dir)] with
-sigmoid RGB. World coords are normalized into the expert's own AABB and
+trunc_exp), geo-feature head} and a color MLP over [geo_feat, dir
+encoding (SH or frequency)] with sigmoid RGB. World coords are normalized into the expert's own AABB and
 clamped to [eps, 1−eps] before hash encoding. The parameter dict has the
-JAX tree's keys and layouts (``hash_table`` list, ``sigma_trunk`` list of
+JAX tree's keys and layouts (``hash_table``: a list of per-level tables in
+the cell layout, one table in the corner layout; ``sigma_trunk`` list of
 ``{w, b}``, ``sigma_head``, ``geo_head``, ``color_mlp``).
 """
 
@@ -18,6 +19,8 @@ import torch
 from acn_tpu_torch.models import nn
 from acn_tpu_torch.models.encodings import (
     HashGridConfig,
+    frequency_encode,
+    frequency_out_dim,
     hash_encode,
     init_hash_table,
     sh_encode,
@@ -32,8 +35,8 @@ ENC_EPS = 1e-6  # hash-input clamp
 
 @dataclass(frozen=True)
 class NGPConfig:
-    """``acn_tpu``'s ``NGPConfig`` fields that the port reads; only the
-    ``spherical`` direction encoding is ported."""
+    """``acn_tpu``'s ``NGPConfig``: the direction encoding is
+    ``spherical`` (SH) or ``frequency`` (PE with ``freq_pe_dim`` bands)."""
 
     hidden: int = 64
     sigma_depth: int = 2
@@ -43,16 +46,16 @@ class NGPConfig:
     use_sigmoid_rgb: bool = True
     dir_encoding: str = "spherical"
     sh_levels: int = 4
+    freq_pe_dim: int = 4
     hash: HashGridConfig = field(default_factory=HashGridConfig)
-
-    def __post_init__(self):
-        if self.dir_encoding != "spherical":
-            raise NotImplementedError(
-                f"dir_encoding {self.dir_encoding!r}: only 'spherical' is ported")
 
     @property
     def dir_enc_dim(self) -> int:
-        return sh_out_dim(self.sh_levels)
+        if self.dir_encoding == "spherical":
+            return sh_out_dim(self.sh_levels)
+        if self.dir_encoding == "frequency":
+            return frequency_out_dim(3, self.freq_pe_dim, include_input=True)
+        raise ValueError(f"Unsupported dir_encoding: {self.dir_encoding}")
 
 
 def init_ngp(cfg: NGPConfig, *, generator: Optional[torch.Generator] = None,
@@ -88,7 +91,9 @@ def world_to_unit(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
 
 def _enc_dir(cfg: NGPConfig, d: torch.Tensor) -> torch.Tensor:
     d = d / torch.clamp(nn.norm3(d), min=1e-9)
-    return sh_encode(d, cfg.sh_levels)
+    if cfg.dir_encoding == "spherical":
+        return sh_encode(d, cfg.sh_levels)
+    return frequency_encode(d, cfg.freq_pe_dim, include_input=True, use_pi=False)
 
 
 def ngp_density(

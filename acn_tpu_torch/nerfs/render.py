@@ -11,7 +11,11 @@ samples the bin edges themselves (JAX's ``randomized=False``).
 Every ``jnp.clip`` / ``jnp.maximum`` on a differentiable value is
 ``nn.clip_half_ties``: JAX passes half the gradient at a tie. The
 fixed-layout transmittance is a ``torch.cumprod`` (JAX's ``jnp.cumprod``
-multiplies in another order: float32 rounding differs in the last bits).
+multiplies in another order: float32 rounding differs in the last bits)
+with a backward of its own (``_ExclusiveCumprod``): torch's divides by the
+input, and its second derivative at an opaque sample (1 − α + 1e-10 =
+1e-10) is 0 where JAX's is not; this one divides by nothing and is twice
+differentiable, as second-order MAML needs.
 
 JAX's dropping scatter-add / scatter-max
 (``.at[rid].add(..., mode="drop")``) becomes ``index_add_`` /
@@ -30,6 +34,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from acn_tpu_torch.models.nn import clip_half_ties
 from acn_tpu_torch.models.trunc_exp import trunc_exp
@@ -152,10 +157,48 @@ def composite_packed(
 # ============================ fixed-layout compositing ============================
 
 
+def _suffix_affine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """R_k = a_k + b_k · R_{k+1} along dim 1, from the end (b's last column
+    0): a log-depth Hillis–Steele scan of the affine maps, composed
+    (a_k, b_k) ∘ (a_{k+d}, b_{k+d}) = (a_k + b_k·a_{k+d}, b_k·b_{k+d}), of
+    differentiable ops."""
+    n, d = a.shape[1], 1
+    while d < n:
+        a = torch.cat([a[:, :-d] + b[:, :-d] * a[:, d:], a[:, -d:]], dim=1)
+        b = torch.cat([b[:, :-d] * b[:, d:], b[:, -d:]], dim=1)
+        d *= 2
+    return a
+
+
+class _ExclusiveCumprod(torch.autograd.Function):
+    """T_i = Π_{j<i} y_j along dim 1 (T_0 = 1), forward by ``torch.cumprod``.
+    Backward without a division: ∂L/∂y_k = T_k · R_k with
+    R_k = Σ_{i>k} g_i Π_{k<j<i} y_j = g_{k+1} + y_{k+1} · R_{k+1}
+    (``_suffix_affine``), so that an opaque sample's tiny y divides nothing,
+    and the backward, made of differentiable ops on the saved y and T, is
+    itself differentiable. A backward that builds no graph (first order)
+    takes ``torch.cumprod``'s own gradient: the same value in its own few
+    launches, where the scan takes about 30."""
+
+    @staticmethod
+    def forward(ctx, y):
+        trans = torch.cumprod(y, dim=1)
+        out = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
+        ctx.save_for_backward(y, out, trans)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, out, trans = ctx.saved_tensors
+        g_next = F.pad(g[:, 1:], (0, 1))
+        if not torch.is_grad_enabled():
+            return torch.ops.aten.cumprod_backward(g_next, y, 1, trans)
+        return out * _suffix_affine(g_next, F.pad(y[:, 1:], (0, 1)))
+
+
 def _exclusive_trans(alpha: torch.Tensor) -> torch.Tensor:
     """Π_{j<i} (1 − α_j + 1e-10) along each ray, (N, S)."""
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=1)
-    return torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
+    return _ExclusiveCumprod.apply(1.0 - alpha + 1e-10)
 
 
 def volume_render(

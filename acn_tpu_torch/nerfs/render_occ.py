@@ -21,7 +21,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from acn_tpu_torch.models import container as cont
-from acn_tpu_torch.models import ngp as ngp_mod
 from acn_tpu_torch.models.container import Container
 from acn_tpu_torch.nerfs import scene_box as sbox
 from acn_tpu_torch.nerfs.render import (
@@ -128,7 +127,7 @@ def _soft_moe_eval(model: Container,
     w = cont.routing_weights(model.centroids, xd[:, :3], cfg.cluster_2d,
                              cfg.boundary_margin)  # (M, K)
     outs = torch.stack([
-        ngp_mod.ngp_forward(model.expert(k), cfg.expert, model.expert_aabbs[k], xd)
+        cfg.expert_forward(model.expert(k), cfg.expert, model.expert_aabbs[k], xd)
         for k in range(cfg.num_submodules)
     ], dim=1)  # (M, K, 4)
     SIG = outs[..., 3]  # (M, K)

@@ -51,7 +51,9 @@ two buffers.
 
 Dispatch is by device and by nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``seg_excl_sum`` is
-differentiable in x.
+differentiable in x to any order: its backward is ``SegExclRSum`` (the
+reverse kernel), whose backward is ``SegExclSum`` again (the forward
+kernel).
 """
 
 from __future__ import annotations
@@ -80,8 +82,9 @@ def seg_excl_sum_plain(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor
     Partial sums never cross a boundary, so the error stays at the scale of
     one segment's sum wherever the segment lies in the buffer (a global
     cumsum minus a per-segment base would not). Returns inclusive − x, as
-    ``acn_tpu``'s ``_seg_excl_sum_xla`` does."""
-    x = x.to(torch.float32)
+    ``acn_tpu``'s ``_seg_excl_sum_xla`` does, in float32 (float64 stays
+    float64, for the CPU's gradient checks)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     v, f = x, seg_start.to(torch.bool)
     n = x.shape[0]
     d = 1
@@ -212,7 +215,9 @@ seg_excl_rsum_kernel.launches = 0
 class SegExclSum(torch.autograd.Function):
     """Gradient: grad_j = Σ_{i>j, same segment} g_i — the segment-exclusive
     REVERSE sum (``acn_tpu/ops/segscan.py:251-261``): one launch of the
-    reverse kernel on the cotangent as it lies."""
+    reverse kernel on the cotangent as it lies, through ``SegExclRSum`` so
+    that the backward is itself differentiable (second-order MAML
+    differentiates through it)."""
 
     @staticmethod
     def forward(ctx, x, seg_start):
@@ -224,21 +229,40 @@ class SegExclSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (seg_start,) = ctx.saved_tensors
-        return seg_excl_rsum(g, seg_start), None
+        return SegExclRSum.apply(g, seg_start), None
+
+
+class SegExclRSum(torch.autograd.Function):
+    """The reverse sum, rsum_j = Σ_{i>j, same segment} g_i, as a function
+    with a gradient: it is linear and its transpose is the forward sum, so
+    its backward is ``SegExclSum`` on the cotangent. The second derivative
+    of ``seg_excl_sum`` is therefore forward scan → reverse scan → forward
+    scan, as JAX's ``_bwd`` calling ``seg_excl_sum`` makes it; on the card
+    each of the three is a launch of the kernel."""
+
+    @staticmethod
+    def forward(ctx, g, seg_start):
+        ctx.save_for_backward(seg_start)
+        if g.device.type == "cpu":
+            return seg_excl_rsum_plain(g, seg_start)
+        return seg_excl_rsum_kernel(g.contiguous(), seg_start)
+
+    @staticmethod
+    def backward(ctx, h):
+        (seg_start,) = ctx.saved_tensors
+        return SegExclSum.apply(h.contiguous(), seg_start), None
 
 
 def seg_excl_sum(x: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     """excl_i = Σ_{j<i, same segment} x_j (resets where seg_start).
 
-    ``seg_start`` must be True at index 0. Differentiable in ``x``. CPU
-    tensors take the plain version; CUDA tensors the kernel."""
+    ``seg_start`` must be True at index 0. Differentiable in ``x``, to any
+    order. CPU tensors take the plain version; CUDA tensors the kernel."""
     return SegExclSum.apply(x, seg_start)
 
 
 def seg_excl_rsum(g: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
-    """rsum_j = Σ_{i>j, same segment} g_i, the transpose of ``seg_excl_sum``
-    (not differentiable itself). CPU tensors take the plain version; CUDA
-    tensors the reverse kernel, which needs ``g`` contiguous."""
-    if g.device.type == "cpu":
-        return seg_excl_rsum_plain(g, seg_start)
-    return seg_excl_rsum_kernel(g.contiguous(), seg_start)
+    """rsum_j = Σ_{i>j, same segment} g_i, the transpose of ``seg_excl_sum``,
+    differentiable in ``g``. CPU tensors take the plain version; CUDA
+    tensors the reverse kernel."""
+    return SegExclRSum.apply(g, seg_start)

@@ -1,11 +1,12 @@
-"""One FoMAML meta-training step in each marching regime, and the eval step.
+"""One meta-training step of each algorithm in each marching regime, and the
+eval step.
 
 Port of ``acn_tpu/pipelines/offline_stage/train_step.py``: ``make_bg_fn``,
-``make_episode_loss`` (all three regimes, ``use_amp``, the unchunked loss),
-the ``fomaml`` branch of ``_meta_grads_gradbased``, ``make_meta_train_step``
-with its seven metrics, ``make_eval_step``, and the episodic sampler on the
-card, ``make_device_batch_fn``. The regime is picked as ``acn_tpu`` picks
-it:
+``make_episode_loss`` (all three regimes, ``use_amp``, the chunked loss),
+``_meta_grads_gradbased`` (``fomaml``, with or without the Fisher inner loop,
+and second-order ``maml``), the Reptile step, ``make_meta_train_step`` with
+its seven metrics, ``make_eval_step``, and the episodic sampler on the card,
+``make_device_batch_fn``. The regime is picked as ``acn_tpu`` picks it:
 
 * ``occ_cfg=None``: **stratified**, ``P.ray_samples`` jittered samples per
   ray (the occupancy warm-up);
@@ -16,27 +17,30 @@ it:
 * budget > 0: the **packed-budget** march and packed compositing, whose
   segmented scan runs the CUDA kernel's forward and reverse modes.
 
+With ``P.train_chunk_rays`` > 0 an episode of more rays than that renders in
+chunks of that many (pad rays have far = −1), each chunk under
+``torch.utils.checkpoint`` as under ``jax.checkpoint`` there; as in
+``acn_tpu``, a chunk marches anew with the **strided** ``march_rays``
+whatever the budget, so a chunked packed-budget config launches no scan.
+
 Where the JAX step is one XLA program that vmaps the K experts and scans the
 T tasks, **the K and T axes are Python loops here**, one episode at a time
 (the torch reference this system was modelled on did the same): one expert's
-fast weights are in flight at a time, and each loss's graph is freed by
-``torch.autograd.grad`` before the next loss is built. Per step that is
-K·T·(inner_iter + 1) episode losses, each with one backward.
+fast weights are in flight at a time, and each episode's graph is freed by
+``torch.autograd.grad`` before the next is built.
 
 Randomness: ``acn_tpu`` splits a key per episode, march and loss; here a
 step takes ``draws`` (see ``EpisodeDraws``): None (bin midpoints, stride
 phase 0, no stratified jitter), a ``torch.Generator`` on the step's device,
 or a function that returns each draw (the tests replay JAX's draws with
-one).
+one; the gradient-based algorithms and Reptile split their keys in other
+orders, which only such a function needs to know).
 
 bf16 (``P.use_amp``): parameters and network inputs are cast to bf16 by hand
 before ``world_to_unit`` (so the hash cell and fraction are bf16 decisions
 and the table gradient is summed in bf16), sampling, compositing and the loss
 stay float32, and gradients come back through the casts onto the float32
 parameters. ``torch.autocast`` does none of this and is not used.
-
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-chunked loss (``train_chunk_rays``), ``maml``, ``reptile`` and ``fim``.
 """
 
 from __future__ import annotations
@@ -45,10 +49,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from acn_tpu_torch.data.tasks import EpisodeConstraints
 from acn_tpu_torch.models import container as cont
-from acn_tpu_torch.models import ngp as ngp_mod
+from acn_tpu_torch.models import fim as fim_mod
 from acn_tpu_torch.models.container import ContainerConfig
 from acn_tpu_torch.models.nn import tree_cast, tree_leaves, tree_map
 from acn_tpu_torch.nerfs.losses import aligned_mse_loss, psnr_from_mse
@@ -71,9 +76,14 @@ def _budget(P, budget_override: Optional[int]) -> int:
             else int(getattr(P, "occ_budget_per_ray", 0) or 0))
 
 
+def _chunk(P) -> int:
+    return int(getattr(P, "train_chunk_rays", 0) or 0)
+
+
 def regime_of(occ_cfg: Optional[OccConfig], P,
               budget_override: Optional[int] = None) -> str:
-    """"stratified", "strided" or "budget", as ``make_episode_loss`` picks."""
+    """"stratified", "strided" or "budget", as ``make_episode_loss`` picks
+    (an episode that the chunked loss splits marches strided in any case)."""
     if occ_cfg is None:
         return "stratified"
     return "budget" if _budget(P, budget_override) > 0 else "strided"
@@ -85,16 +95,21 @@ class EpisodeDraws:
     * ``march(k, t, j, n)``: march j's draws (j = 0 support, 1 query rays,
       n of them): the budget march's salt, the strided march's (u (n, s_max),
       phase_bits (n,)), or None;
-    * ``strat(k, t, i, n)``: the stratified loss's jitter (n, ray_samples)
-      for inner iteration i, the query loss at i = inner_iter; or None;
+    * ``strat(k, t, i, n)``: the draws of the loss of inner iteration i (the
+      query loss at i = inner_iter) that are its own: the stratified
+      jitter (n, ray_samples), or None; with the chunked loss (n above
+      ``P.train_chunk_rays``) a list with one entry per chunk c: the
+      stratified jitter (chunk, ray_samples) or the chunk's strided march
+      draws (u (chunk, s_max), phase_bits (chunk,)) or None;
     * ``bg(k, t, i, n)``: that loss's ``random`` background colors (n, 3),
       None under another policy or with the background MLP.
 
     ``draws``: None (no draws), a ``torch.Generator`` (on the step's
     device), or a function ``fn(what, k, t, j, shape)`` with ``what`` one
     of "salt" (budget march j), "u", "phase" (strided march j),
-    "strat_u" (stratified loss j) and "bg" (loss j's ``random``
-    background), returning the draw (a salt in
+    "strat_u" (stratified loss j), "bg" (loss j's ``random`` background),
+    and, with j = (i, c) for chunk c of loss i, "chunk_strat_u",
+    "chunk_u" and "chunk_phase", returning the draw (a salt in
     [0, 2³¹ − 1) as an int or a 0-dim tensor, u in [0, 1), phase bits in
     [0, 2³⁰)) or None."""
 
@@ -104,6 +119,7 @@ class EpisodeDraws:
                           and not (cfg is not None and cfg.use_bg_nerf))
         self.s_max = int(getattr(P, "occ_s_max", 0) or 0)
         self.ray_samples = int(P.ray_samples)
+        self.chunk = _chunk(P)
         if isinstance(draws, torch.Generator):
             if draws.device.type != device.type:
                 raise ValueError(f"the generator lies on {draws.device}, the "
@@ -120,7 +136,7 @@ class EpisodeDraws:
         def fn(what, k, t, j, shape):
             if what == "salt":
                 return torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device)
-            if what == "phase":
+            if what in ("phase", "chunk_phase"):
                 return torch.randint(0, 1 << 30, shape, generator=gen, device=gen.device)
             return torch.rand(shape, generator=gen, device=gen.device)
         return fn
@@ -131,7 +147,12 @@ class EpisodeDraws:
         x = self.fn(what, k, t, j, shape)
         return x if x is None or isinstance(x, int) else torch.as_tensor(x).to(self.device)
 
+    def chunked(self, n: int) -> bool:
+        return 0 < self.chunk < n
+
     def march(self, k: int, t: int, j: int, n: int):
+        if self.chunked(n):  # the chunks march in the loss
+            return None
         if self.regime == "budget":
             return self._get("salt", k, t, j, ())
         if self.regime == "strided":
@@ -141,6 +162,17 @@ class EpisodeDraws:
         return None
 
     def strat(self, k: int, t: int, i: int, n: int):
+        if self.chunked(n):
+            c, m = -(-n // self.chunk), self.chunk
+            if self.regime == "stratified":
+                return [self._get("chunk_strat_u", k, t, (i, ci), (m, self.ray_samples))
+                        for ci in range(c)]
+            out = []
+            for ci in range(c):
+                u = self._get("chunk_u", k, t, (i, ci), (m, self.s_max))
+                ph = self._get("chunk_phase", k, t, (i, ci), (m,))
+                out.append(None if u is None and ph is None else (u, ph))
+            return out
         if self.regime != "stratified":
             return None
         return self._get("strat_u", k, t, i, (n, self.ray_samples))
@@ -177,33 +209,57 @@ def make_episode_loss(
       marched samples, or stratified with jitter ``u`` (N, ray_samples) when
       there is no occupancy, over the background MLP or the default policy
       (``bg``: the ``random`` policy's (N, 3) colors), and align and MSE
-      against the ground truth.
+      against the ground truth. With the chunked loss (N above
+      ``P.train_chunk_rays``), ``u`` is ``EpisodeDraws.strat``'s list of
+      per-chunk draws and ``samples`` what ``prepare_samples`` returned.
     * ``prepare_samples(occ_state, rays, rand)``: the march of one episode's
       rays over that expert's grid, with ``rand`` the budget march's salt or
       the strided march's (u, phase_bits), None for midpoints and phase 0;
-      None in the stratified regime. Marching has no trainable input, so the
-      step marches once per episode and reuses the samples in every inner
-      iteration.
+      None in the stratified regime; ``{"chunked": occ_state}`` when the
+      chunked loss renders these rays (its chunks march). Marching has no
+      trainable input, so the step marches once per episode and reuses the
+      samples in every inner iteration.
     """
-    if int(getattr(P, "train_chunk_rays", 0) or 0) > 0:
-        raise NotImplementedError(
-            "the chunked episode loss (train_chunk_rays > 0) is not ported: "
-            "ROADMAP.md M2")
     regime = regime_of(occ_cfg, P, budget_override)
     budget = _budget(P, budget_override)
+    chunk = _chunk(P)
     bg_fn = make_bg_fn(cfg, P)
     use_amp = bool(getattr(P, "use_amp", False))
+    expert_forward = cfg.expert_forward
 
     def prepare_samples(occ_state, rays, rand):
+        if regime == "stratified":
+            return None
+        if 0 < chunk < rays.shape[0]:
+            return {"chunked": occ_state}
         if regime == "budget":
             return occ_grid.march_rays_budget(occ_state, rays, occ_cfg,
                                               int(P.occ_s_max), budget, salt=rand)
-        if regime == "strided":
-            u, phase_bits = rand if rand is not None else (None, None)
-            return occ_grid.march_rays(
-                occ_state, rays, occ_cfg, int(P.occ_s_max), int(P.occ_s_kept),
-                u=u, phase_bits=phase_bits, report_budget=int(report_budget))
-        return None
+        u, phase_bits = rand if rand is not None else (None, None)
+        return occ_grid.march_rays(
+            occ_state, rays, occ_cfg, int(P.occ_s_max), int(P.occ_s_kept),
+            u=u, phase_bits=phase_bits, report_budget=int(report_budget))
+
+    def strided_rgb(fwd, rays, samples, bg):
+        x = samples["positions"]
+        xd = torch.cat([x, rays[:, None, 3:6].expand_as(x)], dim=-1)
+        out = fwd(xd.reshape(-1, 6)).reshape(x.shape[0], x.shape[1], 4)
+        weights, _ = render_weights_from_density(
+            samples["t_starts"], samples["t_ends"], out[..., 3],
+            sample_mask=samples["mask"], dts=samples["dts"])
+        t_mid = 0.5 * (samples["t_starts"] + samples["t_ends"])
+        return composite(weights, out[..., :3], t_mid, bg_rgb=bg)[0]
+
+    def render_chunk(fwd, occ_state, rays, bg, rand):
+        """One chunk of the chunked loss: stratified, or marched anew with
+        the strided march (whatever the budget) and composited."""
+        if regime == "stratified":
+            return render_rays_stratified(fwd, rays, int(P.ray_samples), u=rand,
+                                          bg_rgb=bg)[0]
+        u, phase_bits = rand if rand is not None else (None, None)
+        samples = occ_grid.march_rays(occ_state, rays, occ_cfg, int(P.occ_s_max),
+                                      int(P.occ_s_kept), u=u, phase_bits=phase_bits)
+        return strided_rgb(fwd, rays, samples, bg)
 
     def loss_fn(expert_params, bg_params, aabb, rays, rgbs, samples, u=None, bg=None):
         bg = bg_fn(bg_params, rays[:, 3:6], bg)
@@ -213,11 +269,23 @@ def make_episode_loss(
         def fwd(xd):
             if use_amp:
                 xd = xd.to(torch.bfloat16)
-            return ngp_mod.ngp_forward(expert_params, cfg.expert, aabb,
-                                       xd).to(torch.float32)
+            return expert_forward(expert_params, cfg.expert, aabb, xd).to(torch.float32)
 
         n = rays.shape[0]
-        if regime == "stratified":
+        if 0 < chunk < n:
+            c = -(-n // chunk)
+            pad = c * chunk - n
+            rays_p = torch.cat([rays, rays.new_zeros((pad, 8))])
+            rays_p[n:, 7] = -1.0  # inert pad rays
+            bg_p = (torch.cat([bg, bg.new_zeros((pad, 3))]) if bg is not None
+                    else rays.new_zeros((c * chunk, 3)))
+            occ_state = samples["chunked"] if samples is not None else None
+            rands = u if u is not None else [None] * c
+            rgb_map = torch.cat([
+                checkpoint(render_chunk, fwd, occ_state, rays_p[i * chunk:(i + 1) * chunk],
+                           bg_p[i * chunk:(i + 1) * chunk], rands[i], use_reentrant=False)
+                for i in range(c)])[:n]
+        elif regime == "stratified":
             rgb_map = render_rays_stratified(fwd, rays, int(P.ray_samples), u=u,
                                              bg_rgb=bg)[0]
         elif regime == "budget":
@@ -225,14 +293,7 @@ def make_episode_loss(
             rgb_map = composite_packed(out[..., 3], out[..., :3], samples, n,
                                        bg_rgb=bg, with_stats=False)[0]
         else:
-            x = samples["positions"]
-            xd = torch.cat([x, rays[:, None, 3:6].expand_as(x)], dim=-1)
-            out = fwd(xd.reshape(-1, 6)).reshape(x.shape[0], x.shape[1], 4)
-            weights, _ = render_weights_from_density(
-                samples["t_starts"], samples["t_ends"], out[..., 3],
-                sample_mask=samples["mask"], dts=samples["dts"])
-            t_mid = 0.5 * (samples["t_starts"] + samples["t_ends"])
-            rgb_map = composite(weights, out[..., :3], t_mid, bg_rgb=bg)[0]
+            rgb_map = strided_rgb(fwd, rays, samples, bg)
         return aligned_mse_loss(rgb_map, rgbs, P.color_space)
 
     return loss_fn, prepare_samples
@@ -255,33 +316,14 @@ def _check_devices(device, params, batch, occ_states) -> None:
                          f"batch or occupancy states lie on {sorted(on)}")
 
 
-def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
-                       rnd: EpisodeDraws, inner_lr: float, inner_iter: int):
-    """FoMAML meta-gradients, one episode at a time.
-
-    Per expert k and task t: march the support and the query rays once;
-    adapt a detached copy of the expert on the support loss (first order: no
-    graph through the inner steps); one forward and backward of the query
-    loss at the adapted weights gives the gradient for the expert's
-    parameters and the shared background head. Task gradients are summed
-    and divided by T; the background gradient is summed over the K experts.
-
-    Returns (q_losses (K, T), inner_losses (K, T, I), expert grads stacked
-    (K, ...), background grad or None, mean overflow).
-    """
-    experts, bg = params["experts"], params.get("bg_mlp")
-    has_bg = bg is not None
+def _episodes(prep, aabbs, occ_states, batch, rnd: "EpisodeDraws"):
+    """Per expert k and task t, in the step's order: (k, t, aabb, support
+    rays, colors and samples, query rays, colors and samples, the episode's
+    overflow), the support and query rays marched once each."""
     K, T = batch["support_rays"].shape[:2]
     dev = batch["support_rays"].device
-    g_experts = tree_map(torch.zeros_like, experts)
-    g_bg = tree_map(torch.zeros_like, bg) if has_bg else None
-    bg_const = tree_map(lambda p: p.detach(), bg) if has_bg else None
-    q_losses, inner_losses, ovfs = [], [], []
     for k in range(K):
-        expert_p = cont.expert_slice(experts, k)
-        aabb = aabbs[k]
         occ_state = _expert_occ(occ_states, k)
-        g_bg_k = tree_map(torch.zeros_like, bg) if has_bg else None
         for t in range(T):
             sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
             qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
@@ -292,33 +334,86 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
             for smp in (smp_s, smp_q):
                 if smp is not None and "overflow" in smp:
                     ovf = ovf + smp["overflow"]
-            ovfs.append(ovf * 0.5)
+            yield k, t, aabbs[k], sr, sg, smp_s, qr, qg, smp_q, ovf * 0.5
 
-            fast, inner = meta_core.task_adapt(
-                lambda p, b, i: episode_loss(p, bg_const, aabb, b[0], b[1], smp_s,
-                                             u=rnd.strat(k, t, i, b[0].shape[0]),
-                                             bg=rnd.bg(k, t, i, b[0].shape[0])),
-                expert_p, (sr, sg), inner_lr, inner_iter, first_order=True)
-            q_loss = episode_loss(fast, bg, aabb, qr, qg, smp_q,
-                                  u=rnd.strat(k, t, inner_iter, qr.shape[0]),
-                                  bg=rnd.bg(k, t, inner_iter, qr.shape[0]))
-            fast_leaves = tree_leaves(fast)
-            wrt = fast_leaves + (tree_leaves(bg) if has_bg else [])
-            grads = torch.autograd.grad(q_loss, wrt)
-            with torch.no_grad():
-                for acc, g in zip(tree_leaves(g_experts), grads):
-                    acc[k].add_(g)
-                if has_bg:
-                    for acc, g in zip(tree_leaves(g_bg_k),
-                                      grads[len(fast_leaves):]):
-                        acc.add_(g)
-            q_losses.append(q_loss.detach())
-            inner_losses.append(inner)
-            del fast, grads
-        if has_bg:
-            with torch.no_grad():
-                for acc, g in zip(tree_leaves(g_bg), tree_leaves(g_bg_k)):
-                    acc.add_(g * (1.0 / T))
+
+def _meta_grads_gradbased(algo, episode_loss, prep, params, aabbs, occ_states, batch,
+                          rnd: EpisodeDraws, inner_lr: float, inner_iter: int,
+                          fim_cfg: Optional[dict] = None):
+    """FoMAML or MAML meta-gradients, one episode at a time.
+
+    Per expert k and task t: march the support and the query rays once;
+    then
+
+    * ``fomaml``: adapt a detached copy of the expert on the support loss
+      over the constant background (first order: no graph through the inner
+      steps; ``fim_cfg`` selects the Fisher-preconditioned inner loop), and
+      one forward and backward of the query loss at the adapted weights
+      gives the gradient for the expert and the background head;
+    * ``maml``: ``meta_core.maml_outer_loss`` from the expert itself, the
+      support loss over the *differentiated* background head, and the
+      gradient of the query loss through every inner step and its
+      gradient (so the background's gradient has second-order terms too).
+
+    Task gradients are summed and divided by T; the background gradient is
+    summed over the K experts.
+
+    Returns (q_losses (K, T), inner_losses (K, T, I), expert grads stacked
+    (K, ...), background grad or None, mean overflow).
+    """
+    experts, bg = params["experts"], params.get("bg_mlp")
+    has_bg = bg is not None
+    K, T = batch["support_rays"].shape[:2]
+    g_experts = tree_map(torch.zeros_like, experts)
+    g_bg = tree_map(torch.zeros_like, bg) if has_bg else None
+    bg_const = tree_map(lambda p: p.detach(), bg) if has_bg else None
+    g_bg_k = None
+    q_losses, inner_losses, ovfs = [], [], []
+    for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _episodes(
+            prep, aabbs, occ_states, batch, rnd):
+        if t == 0:
+            expert_p = cont.expert_slice(experts, k)
+            if has_bg:
+                g_bg_k = tree_map(torch.zeros_like, bg)
+        ovfs.append(ovf)
+
+        def loss_at(b_params, rays, rgbs, smp, i):
+            return lambda p: episode_loss(p, b_params, aabb, rays, rgbs, smp,
+                                          u=rnd.strat(k, t, i, rays.shape[0]),
+                                          bg=rnd.bg(k, t, i, rays.shape[0]))
+
+        if algo == "maml":
+            q_loss, inner = meta_core.maml_outer_loss(
+                lambda p, b, i: loss_at(bg, b[0], b[1], smp_s, i)(p),
+                lambda p, b, i: loss_at(bg, b[0], b[1], smp_q, i)(p),
+                expert_p, (sr, sg), (qr, qg), inner_lr, inner_iter)
+            wrt = tree_leaves(expert_p)
+        else:
+            sup = lambda p, b, i: loss_at(bg_const, b[0], b[1], smp_s, i)(p)
+            if fim_cfg is not None:
+                fast, _, inner = fim_mod.fim_task_adapt(
+                    sup, expert_p, fim_mod.fisher_init(expert_p), (sr, sg),
+                    inner_lr, inner_iter, **fim_cfg)
+            else:
+                fast, inner = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr,
+                                                   inner_iter, first_order=True)
+            q_loss = loss_at(bg, qr, qg, smp_q, inner_iter)(fast)
+            wrt = tree_leaves(fast)
+            del fast
+        n_e = len(wrt)
+        grads = torch.autograd.grad(q_loss, wrt + (tree_leaves(bg) if has_bg else []))
+        with torch.no_grad():
+            for acc, g in zip(tree_leaves(g_experts), grads):
+                acc[k].add_(g)
+            if has_bg:
+                for acc, g in zip(tree_leaves(g_bg_k), grads[n_e:]):
+                    acc.add_(g)
+                if t == T - 1:
+                    for acc, g in zip(tree_leaves(g_bg), tree_leaves(g_bg_k)):
+                        acc.add_(g * (1.0 / T))
+        q_losses.append(q_loss.detach())
+        inner_losses.append(inner)
+        del grads, q_loss, wrt
     with torch.no_grad():
         for g in tree_leaves(g_experts):
             g.mul_(1.0 / T)
@@ -327,17 +422,54 @@ def _meta_grads_fomaml(episode_loss, prep, params, aabbs, occ_states, batch,
             g_experts, g_bg, torch.mean(torch.stack(ovfs)))
 
 
-def _refuse_unported(P) -> None:
-    algo = str(P.algo).lower()
-    if algo in ("maml", "reptile"):
-        raise NotImplementedError(
-            f"algo {algo!r} is not ported: ROADMAP.md M9 (only 'fomaml' is)")
-    if algo != "fomaml":
-        raise ValueError(f"Unsupported algo {algo!r}")
-    if bool(getattr(P, "fim", False)):
-        raise NotImplementedError(
-            "the Fisher-preconditioned inner loop (fim) is not ported: "
-            "ROADMAP.md M9")
+def _reptile(episode_loss, prep, params, aabbs, occ_states, batch, rnd: EpisodeDraws,
+             inner_lr: float, inner_iter: int, outer_lr: float):
+    """Reptile, one episode at a time (``acn_tpu``'s Reptile step,
+    ``train_step.py:577-664``): per expert, adapt a detached copy on each
+    task's support loss, evaluate the query loss at the adapted weights
+    (not differentiated), and accumulate Σ_t (fast − θ); then, in place,
+    θ ← θ + outer_lr · where(finite, Σ, 0) / T. The background head is not
+    trained. Returns (q_losses (K, T), inner_losses (K, T, I), mean
+    overflow)."""
+    experts, bg = params["experts"], params.get("bg_mlp")
+    bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
+    K, T = batch["support_rays"].shape[:2]
+    q_losses, inner_losses, ovfs = [], [], []
+    d_acc = None
+    for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _episodes(
+            prep, aabbs, occ_states, batch, rnd):
+        ovfs.append(ovf)
+        if t == 0:
+            expert_p = cont.expert_slice(experts, k)
+            d_acc = tree_map(lambda p: torch.zeros_like(p.detach()), expert_p)
+        fast, inner = meta_core.reptile_adapt(
+            lambda p, b, i: episode_loss(p, bg, aabb, b[0], b[1], smp_s,
+                                         u=rnd.strat(k, t, i, b[0].shape[0]),
+                                         bg=rnd.bg(k, t, i, b[0].shape[0])),
+            expert_p, (sr, sg), inner_lr, inner_iter)
+        with torch.no_grad():
+            q_losses.append(episode_loss(fast, bg, aabb, qr, qg, smp_q,
+                                         u=rnd.strat(k, t, inner_iter, qr.shape[0]),
+                                         bg=rnd.bg(k, t, inner_iter, qr.shape[0])))
+            tree_map(lambda a, f, w: a.add_(f - w), d_acc, fast, expert_p)
+            if t == T - 1:
+                tree_map(lambda w, d: w.add_(
+                    outer_lr * (torch.where(torch.isfinite(d), d, 0.0) / T)),
+                    expert_p, d_acc)
+        inner_losses.append(inner)
+        del fast
+    return (torch.stack(q_losses).reshape(K, T),
+            torch.stack(inner_losses).reshape(K, T, -1),
+            torch.mean(torch.stack(ovfs)))
+
+
+def _fim_cfg_from(P) -> Optional[dict]:
+    """``fim_task_adapt``'s keyword arguments with ``--fim``, else None."""
+    if not bool(getattr(P, "fim", False)):
+        return None
+    return dict(beta=float(getattr(P, "fim_beta", 0.95)),
+                lam=float(getattr(P, "fim_lambda", 0.1)),
+                epsilon=float(getattr(P, "fim_epsilon", 1e-6)))
 
 
 def make_meta_train_step(
@@ -349,7 +481,9 @@ def make_meta_train_step(
     report_budget: int = 0,
     device=None,
 ):
-    """Build the meta-train step of the regime that ``regime_of`` names.
+    """Build the meta-train step of ``P.algo`` (``fomaml``, ``maml`` or
+    ``reptile``; ``P.fim`` with ``fomaml``) in the regime that
+    ``regime_of`` names.
 
     ``train_step(state, batch, occ_states, draws=None)`` → (state, metrics).
     ``state`` = {"model": ``Container``, "opt_state": ``optimizer.init``'s,
@@ -361,12 +495,21 @@ def make_meta_train_step(
     ``EpisodeDraws`` takes them. Everything lies on ``device``: ``None``
     means the card, and raises without one.
 
+    Reptile moves the experts by ``P.lr`` · mean(fast − θ) and leaves the
+    background head, the optimizer state and its count as they are; its
+    ``grad_norm`` is 0.
+
     ``metrics`` = {loss_out, loss_in, psnr_out, psnr_in (K,), loss_total,
     grad_norm, occ_overflow (0-dim)}, tensors on the device: the step does
     not wait for the card, reading a metric does.
     """
     device = resolve_device(device)
-    _refuse_unported(P)
+    algo = str(P.algo).lower()
+    if algo not in meta_core.ALGOS:
+        raise ValueError(f"Unsupported algo {algo!r}")
+    fim_cfg = _fim_cfg_from(P)
+    if fim_cfg is not None and algo == "maml":
+        raise ValueError("--fim is a first-order preconditioner; use --algo fomaml")
     regime = regime_of(occ_cfg, P, budget_override)
     episode_loss, prep = make_episode_loss(
         cfg, P, occ_cfg, budget_override=budget_override,
@@ -374,36 +517,44 @@ def make_meta_train_step(
     inner_lr = float(P.inner_lr)
     inner_iter = int(P.inner_iter)
 
-    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                   occ_states, draws=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        model = state["model"]
-        params = model.params()
-        _check_devices(device, params, batch, occ_states)
-        q_losses, inner_losses, g_experts, g_bg, occ_overflow = _meta_grads_fomaml(
-            episode_loss, prep, params, model.expert_aabbs, occ_states, batch,
-            EpisodeDraws(draws, device, regime, P, cfg), inner_lr, inner_iter)
-        grads = {"experts": g_experts}
-        if g_bg is not None:
-            grads["bg_mlp"] = g_bg
-
-        updates, opt_state = optimizer.update(grads, state["opt_state"])
-        apply_updates(params, updates)
-
+    def metrics_of(q_losses, inner_losses, grad_norm, occ_overflow):
         loss_out = torch.mean(q_losses, dim=1)  # (K,)
         loss_in = torch.mean(inner_losses[..., -1], dim=1)  # (K,)
-        metrics = {
+        return {
             "loss_out": loss_out,
             "loss_in": loss_in,
             "psnr_out": psnr_from_mse(loss_out),
             "psnr_in": psnr_from_mse(loss_in),
             # Σ_regions mean_tasks: the fed-avg ×K scaling of the reference
             "loss_total": torch.sum(loss_out),
-            "grad_norm": meta_core.global_grad_norm(grads),
+            "grad_norm": grad_norm,
             "occ_overflow": occ_overflow,
         }
-        new_state = {"model": model, "opt_state": opt_state,
-                     "step": state["step"] + 1}
-        return new_state, metrics
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                   occ_states, draws=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        model = state["model"]
+        params = model.params()
+        _check_devices(device, params, batch, occ_states)
+        rnd = EpisodeDraws(draws, device, regime, P, cfg)
+        opt_state = state["opt_state"]
+        if algo == "reptile":
+            q_losses, inner_losses, occ_overflow = _reptile(
+                episode_loss, prep, params, model.expert_aabbs, occ_states, batch, rnd,
+                inner_lr, inner_iter, float(P.lr))
+            grad_norm = torch.zeros((), device=device)
+        else:
+            q_losses, inner_losses, g_experts, g_bg, occ_overflow = _meta_grads_gradbased(
+                algo, episode_loss, prep, params, model.expert_aabbs, occ_states, batch,
+                rnd, inner_lr, inner_iter, fim_cfg)
+            grads = {"experts": g_experts}
+            if g_bg is not None:
+                grads["bg_mlp"] = g_bg
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            apply_updates(params, updates)
+            grad_norm = meta_core.global_grad_norm(grads)
+        new_state = {"model": model, "opt_state": opt_state, "step": state["step"] + 1}
+        return new_state, metrics_of(q_losses, inner_losses, grad_norm, occ_overflow)
 
     return train_step
 
@@ -416,20 +567,18 @@ def make_eval_step(
     device=None,
 ):
     """Mid-training eval: adapt each test task's expert with ``tto`` inner
-    steps (``P.inner_iter`` when None) on its support rays, then the query
-    loss at the adapted weights. The batch is the train step's.
+    steps (``P.inner_iter`` when None) on its support rays, first order or
+    with the Fisher inner loop under ``P.fim``, then the query loss at the
+    adapted weights. The batch is the train step's.
 
     ``eval_step(model, batch, occ_states, draws=None)`` → {loss_out,
     psnr_out (K,), psnr (0-dim)}; the model is not changed."""
     device = resolve_device(device)
-    if bool(getattr(P, "fim", False)):
-        raise NotImplementedError(
-            "the Fisher-preconditioned inner loop (fim) is not ported: "
-            "ROADMAP.md M9")
     regime = regime_of(occ_cfg, P)
     episode_loss, prep = make_episode_loss(cfg, P, occ_cfg)
     inner_lr = float(P.inner_lr)
     iterations = int(P.inner_iter if tto is None else tto)
+    fim_cfg = _fim_cfg_from(P)
 
     def eval_step(model, batch: Dict[str, torch.Tensor], occ_states,
                   draws=None) -> Dict[str, torch.Tensor]:
@@ -440,29 +589,25 @@ def make_eval_step(
         bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
         K, T = batch["support_rays"].shape[:2]
         q_losses = []
-        for k in range(K):
+        for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, _ in _episodes(
+                prep, model.expert_aabbs, occ_states, batch, rnd):
             expert_p = cont.expert_slice(params["experts"], k)
-            aabb = model.expert_aabbs[k]
-            occ_state = _expert_occ(occ_states, k)
-            for t in range(T):
-                sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
-                qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
-                smp_s = prep(occ_state, sr, rnd.march(k, t, 0, sr.shape[0]))
-                smp_q = prep(occ_state, qr, rnd.march(k, t, 1, qr.shape[0]))
-                fast = expert_p
-                if iterations > 0:
-                    fast, _ = meta_core.task_adapt(
-                        lambda p, b, i: episode_loss(
-                            p, bg, aabb, b[0], b[1], smp_s,
-                            u=rnd.strat(k, t, i, b[0].shape[0]),
-                            bg=rnd.bg(k, t, i, b[0].shape[0])),
-                        expert_p, (sr, sg), inner_lr, iterations, first_order=True)
-                with torch.no_grad():
-                    q_losses.append(episode_loss(
-                        fast, bg, aabb, qr, qg, smp_q,
-                        u=rnd.strat(k, t, iterations, qr.shape[0]),
-                        bg=rnd.bg(k, t, iterations, qr.shape[0])))
-                del fast
+            sup = lambda p, b, i: episode_loss(
+                p, bg, aabb, b[0], b[1], smp_s, u=rnd.strat(k, t, i, b[0].shape[0]),
+                bg=rnd.bg(k, t, i, b[0].shape[0]))
+            fast = expert_p
+            if iterations > 0 and fim_cfg is not None:
+                fast = fim_mod.fim_task_adapt(sup, expert_p, fim_mod.fisher_init(expert_p),
+                                              (sr, sg), inner_lr, iterations, **fim_cfg)[0]
+            elif iterations > 0:
+                fast = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr, iterations,
+                                            first_order=True)[0]
+            with torch.no_grad():
+                q_losses.append(episode_loss(
+                    fast, bg, aabb, qr, qg, smp_q,
+                    u=rnd.strat(k, t, iterations, qr.shape[0]),
+                    bg=rnd.bg(k, t, iterations, qr.shape[0])))
+            del fast
         q = torch.stack(q_losses).reshape(K, T)
         loss_out = torch.mean(q, dim=1)
         return {"loss_out": loss_out, "psnr_out": psnr_from_mse(loss_out),

@@ -139,7 +139,7 @@ def make_tto_step(
         loss = loss_fn(model, occ_states, rays, rgbs, rand, bg)
         grads = iter(torch.autograd.grad(loss, leaves))
         updates, opt_state = optimizer.update(tree_map(lambda _: next(grads), params),
-                                              opt_state)
+                                              opt_state, params)
         apply_updates(params, updates)
         return opt_state, loss.detach()
 

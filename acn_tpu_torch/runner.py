@@ -43,6 +43,7 @@ from acn_tpu_torch.models import container as cont
 from acn_tpu_torch.models.container import ContainerConfig
 from acn_tpu_torch.models.encodings import HashGridConfig
 from acn_tpu_torch.models.ngp import NGPConfig
+from acn_tpu_torch.models.vanilla import VanillaConfig
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
 from acn_tpu_torch.pipelines.offline_stage.trainer import init_occ_states
@@ -78,18 +79,23 @@ def build_model_configs(P, clustering_params) -> ContainerConfig:
         layout=layout,
         dense_levels=bool(getattr(P, "hash_dense_levels", False)),
     )
-    if P.nerf_variant != "instant":
-        raise NotImplementedError(
-            f"nerf_variant {P.nerf_variant!r}: the vanilla expert is not ported "
-            "(ROADMAP.md M9)")
-    expert_cfg = NGPConfig(
-        hidden=P.dim_hidden,
-        sigma_depth=P.sigma_depth,
-        color_hidden=P.color_hidden,
-        color_depth=P.color_depth,
-        dir_encoding=P.dir_encoding,
-        hash=hash_cfg,
-    )
+    if P.nerf_variant == "instant":
+        expert_cfg = NGPConfig(
+            hidden=P.dim_hidden,
+            sigma_depth=P.sigma_depth,
+            color_hidden=P.color_hidden,
+            color_depth=P.color_depth,
+            dir_encoding=P.dir_encoding,
+            hash=hash_cfg,
+        )
+    else:
+        expert_cfg = VanillaConfig(
+            hidden=P.dim_hidden if P.dim_hidden > 64 else 256,
+            sigma_depth=max(P.sigma_depth, 8),
+            color_hidden=P.color_hidden,
+            color_depth=max(P.color_depth, 2),
+            dir_encoding=P.dir_encoding,
+        )
     boundary_margin = min(max(1.0, P.bm), float(clustering_params["boundary_margin"]))
     return ContainerConfig(
         num_submodules=P.num_submodules,

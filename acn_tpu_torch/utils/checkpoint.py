@@ -32,7 +32,10 @@ package reads the other's. What that takes:
 
   where ``mu_g`` is the parameter tree with the leaves of group g and {}
   elsewhere; without the guard the map starts at ``inner_state``'s value,
-  without the clip at the per-group map. Counts are int32 and 0-dim.
+  without the clip at the per-group map. Counts are int32 and 0-dim. The
+  per-group chain of AdamW (``optax.adamw``) is {"0": adam, "1": {}
+  (add_decayed_weights), "2": {count}}; of SGD (``optax.sgd`` without
+  momentum) {"0": {} (identity), "1": {count}}.
 
 ``AsyncCheckpointer`` takes a snapshot on the card (clones, queued on the
 training stream before the next step is issued: the step updates the
@@ -104,10 +107,16 @@ def optim_state_dict(opt_state: Dict[str, Any], optimizer) -> Dict[str, Any]:
     count = np.asarray(int(opt_state["count"]), np.int32)
     groups = {}
     for g in sorted(optimizer.schedules):
-        adam = {"count": count,
-                "mu": _group_state_dict(opt_state["mu"], optimizer.labels, g),
-                "nu": _group_state_dict(opt_state["nu"], optimizer.labels, g)}
-        groups[g] = {"inner_state": {"0": adam, "1": {"count": count}}}
+        if optimizer.name == "sgd":
+            chain = [{}]
+        else:
+            chain = [{"count": count,
+                      "mu": _group_state_dict(opt_state["mu"], optimizer.labels, g),
+                      "nu": _group_state_dict(opt_state["nu"], optimizer.labels, g)}]
+            if optimizer.name == "adamw":
+                chain.append({})
+        chain.append({"count": count})
+        groups[g] = {"inner_state": {str(i): c for i, c in enumerate(chain)}}
     sd: Dict[str, Any] = {"inner_states": groups}
     if optimizer.grad_clip is not None:
         sd = {"0": {}, "1": sd}
@@ -134,11 +143,18 @@ def opt_state_from_dict(sd: Dict[str, Any], optimizer, device=None) -> Dict[str,
     part = sd["inner_state"] if guard else sd
     if optimizer.grad_clip is not None:
         part = part["1"]
-    adam = {g: s["inner_state"]["0"] for g, s in part["inner_states"].items()}
-    counts = {int(a["count"]) for a in adam.values()}
-    if len(counts) != 1 or set(adam) != set(optimizer.schedules):
-        raise ValueError(f"not this optimizer's state: groups {sorted(adam)}, "
-                         f"counts {sorted(counts)}")
+    chains = {g: s["inner_state"] for g, s in part["inner_states"].items()}
+    n_chain = {"adam": 2, "adamw": 3, "sgd": 2}[optimizer.name]
+
+    def fits(c):  # the chain's length, its schedule count, its moments
+        return (len(c) == n_chain and "count" in c[str(n_chain - 1)]
+                and ("mu" in c["0"]) == (optimizer.name != "sgd"))
+
+    counts = ({int(c[str(n_chain - 1)]["count"]) for c in chains.values()}
+              if all(fits(c) for c in chains.values()) else set())
+    if len(counts) != 1 or set(chains) != set(optimizer.schedules):
+        raise ValueError(f"not this optimizer's state ({optimizer.name}): groups "
+                         f"{sorted(chains)}, counts {sorted(counts)}")
 
     def pick(labels, trees):
         if isinstance(labels, dict):
@@ -149,9 +165,11 @@ def opt_state_from_dict(sd: Dict[str, Any], optimizer, device=None) -> Dict[str,
                     for i, l in enumerate(labels)]
         return _tensor(trees[labels], device)
 
-    state = {"count": torch.tensor(counts.pop(), dtype=torch.int32, device=device),
-             "mu": pick(optimizer.labels, {g: a["mu"] for g, a in adam.items()}),
-             "nu": pick(optimizer.labels, {g: a["nu"] for g, a in adam.items()})}
+    state = {"count": torch.tensor(counts.pop(), dtype=torch.int32, device=device)}
+    if optimizer.name != "sgd":
+        adam = {g: c["0"] for g, c in chains.items()}
+        state.update(mu=pick(optimizer.labels, {g: a["mu"] for g, a in adam.items()}),
+                     nu=pick(optimizer.labels, {g: a["nu"] for g, a in adam.items()}))
     if guard:
         state.update(
             notfinite_count=_tensor(np.asarray(sd["notfinite_count"], np.int32), device),

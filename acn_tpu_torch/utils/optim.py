@@ -1,9 +1,10 @@
 """Optimizer and LR schedules, as plain functions over a parameter tree.
 
 Port of ``acn_tpu/utils/optim.py``, which builds an optax chain: the guard
-``apply_if_finite`` around ``clip_by_global_norm`` around per-group Adam
-(``multi_transform`` over the labels encoding / sigma / color / background),
-each group with its own exponentially decayed rate. Here that chain is
+``apply_if_finite`` around ``clip_by_global_norm`` around a per-group
+optimizer — Adam, AdamW or SGD — (``multi_transform`` over the labels
+encoding / sigma / color / background), each group with its own
+exponentially decayed rate. Here that chain is
 written out, so that every step equals optax's and the state carries across
 to and from optax's through the state-dict form of
 ``utils/checkpoint.py`` (``optim_state_dict`` / ``opt_state_from_dict``):
@@ -15,15 +16,19 @@ to and from optax's through the state-dict form of
   −lr · m̂ / (√v̂ + 1e-8) with both moments bias-corrected by the count
   **after** the increment, and the rate read at the count **before** it
   (step 0 uses lr₀);
+* **AdamW** (``optax.adamw``'s defaults): Adam's step plus ``1e-4 · p``
+  (the decayed weight, added before the rate scales it): update
+  −lr · (m̂ / (√v̂ + 1e-8) + 1e-4 · p);
+* **SGD** (``optax.sgd``, no momentum): update −lr · g;
 * **guard**: a gradient with a NaN or Inf leaves parameters, moments and
   count untouched and is counted (until more than ``MAX_CONSECUTIVE_ERRORS``
   in a row, when optax gives up and applies).
 
-The state is explicit: ``{"count", "mu", "nu"}`` plus, with the guard,
-``{"notfinite_count", "last_finite", "total_notfinite"}``. Counts are 0-dim
-tensors on the parameters' device and every decision is a ``torch.where``, so
-an update never waits for the card. Only ``adam`` is ported (``adamw`` and
-``sgd`` raise).
+The state is explicit: ``{"count", "mu", "nu"}`` (SGD keeps only the
+schedule's ``count``) plus, with the guard, ``{"notfinite_count",
+"last_finite", "total_notfinite"}``. Counts are 0-dim tensors on the
+parameters' device and every decision is a ``torch.where``, so an update
+never waits for the card.
 """
 
 from __future__ import annotations
@@ -38,9 +43,12 @@ from acn_tpu_torch.models.nn import tree_leaves, tree_map
 
 Schedule = Callable[[Any], Any]
 
-# optax.adam's defaults, and the patience build_optimizer gives apply_if_finite
+# optax.adam's defaults, optax.adamw's weight decay, and the patience
+# build_optimizer gives apply_if_finite
 B1, B2, EPS = 0.9, 0.999, 1e-8
+WEIGHT_DECAY = 1e-4
 MAX_CONSECUTIVE_ERRORS = 1000
+OPTIMIZERS = ("adam", "adamw", "sgd")
 
 
 def exponential_schedule(base_lr: float, outer_steps: int, decay_factor: float,
@@ -68,13 +76,19 @@ class Optimizer:
     schedules: Dict[str, Schedule]
     grad_clip: Optional[float] = 1.0
     guard_nonfinite: bool = False
+    name: str = "adam"  # "adam" | "adamw" | "sgd"
+
+    @property
+    def has_moments(self) -> bool:
+        return self.name != "sgd"
 
     def init(self, params: Any) -> Dict[str, Any]:
         dev = tree_leaves(params)[0].device
         zero = lambda dtype: torch.zeros((), dtype=dtype, device=dev)
-        state = {"count": zero(torch.int32),
-                 "mu": tree_map(torch.zeros_like, params),
-                 "nu": tree_map(torch.zeros_like, params)}
+        state = {"count": zero(torch.int32)}
+        if self.has_moments:
+            state.update(mu=tree_map(torch.zeros_like, params),
+                         nu=tree_map(torch.zeros_like, params))
         if self.guard_nonfinite:
             state.update(notfinite_count=zero(torch.int32),
                          last_finite=~zero(torch.bool),
@@ -82,9 +96,12 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Any, state: Dict[str, Any]) -> Tuple[Any, Dict[str, Any]]:
-        """(updates to add to the parameters, new state). Neither input is
-        changed."""
+    def update(self, grads: Any, state: Dict[str, Any],
+               params: Any = None) -> Tuple[Any, Dict[str, Any]]:
+        """(updates to add to the parameters, new state). No input is
+        changed. AdamW needs ``params`` (its decayed weights)."""
+        if self.name == "adamw" and params is None:
+            raise ValueError("adamw's update needs the parameters")
         new = {}
         apply = None
         if self.guard_nonfinite:
@@ -104,24 +121,30 @@ class Optimizer:
 
         count = state["count"]
         count_inc = count + 1
-        bc1 = 1.0 - torch.pow(B1, count_inc.to(torch.float32))
-        bc2 = 1.0 - torch.pow(B2, count_inc.to(torch.float32))
         lrs = {g: s(count) for g, s in self.schedules.items()}
-
-        mu = tree_map(lambda g, m: (1.0 - B1) * g + B1 * m,
-                      grads, state["mu"])
-        nu = tree_map(lambda g, v: (1.0 - B2) * (g * g) + B2 * v,
-                      grads, state["nu"])
-        updates = tree_map(
-            lambda m, v, label: -lrs[label] * ((m / bc1)
-                                               / (torch.sqrt(v / bc2) + EPS)),
-            mu, nu, self.labels)
+        if self.has_moments:
+            bc1 = 1.0 - torch.pow(B1, count_inc.to(torch.float32))
+            bc2 = 1.0 - torch.pow(B2, count_inc.to(torch.float32))
+            mu = tree_map(lambda g, m: (1.0 - B1) * g + B1 * m,
+                          grads, state["mu"])
+            nu = tree_map(lambda g, v: (1.0 - B2) * (g * g) + B2 * v,
+                          grads, state["nu"])
+            steps = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + EPS),
+                             mu, nu)
+            if self.name == "adamw":
+                steps = tree_map(lambda u, p: u + WEIGHT_DECAY * p, steps, params)
+        else:
+            steps = grads
+        updates = tree_map(lambda u, label: -lrs[label] * u, steps, self.labels)
         if apply is not None:
             updates = tree_map(lambda u: torch.where(apply, u, 0.0), updates)
-            mu = tree_map(lambda a, b: torch.where(apply, a, b), mu, state["mu"])
-            nu = tree_map(lambda a, b: torch.where(apply, a, b), nu, state["nu"])
+            if self.has_moments:
+                mu = tree_map(lambda a, b: torch.where(apply, a, b), mu, state["mu"])
+                nu = tree_map(lambda a, b: torch.where(apply, a, b), nu, state["nu"])
             count_inc = torch.where(apply, count_inc, count)
-        new.update(count=count_inc, mu=mu, nu=nu)
+        new["count"] = count_inc
+        if self.has_moments:
+            new.update(mu=mu, nu=nu)
         return updates, new
 
 
@@ -134,12 +157,12 @@ def apply_updates(params: Any, updates: Any) -> Any:
 
 def build_optimizer(P, group_labels: Any,
                     grad_clip: Optional[float] = 1.0) -> Optimizer:
-    """Per-group Adam with global-norm clipping and, with
-    ``P.guard_nonfinite``, the non-finite guard. ``group_labels`` is
-    ``container.param_group_labels(params)``."""
-    if str(P.optimizer).lower() != "adam":
-        raise NotImplementedError(
-            f"optimizer {P.optimizer!r}: only 'adam' is ported")
+    """Per-group Adam, AdamW or SGD (``P.optimizer``) with global-norm
+    clipping and, with ``P.guard_nonfinite``, the non-finite guard.
+    ``group_labels`` is ``container.param_group_labels(params)``."""
+    name = str(P.optimizer).lower()
+    if name not in OPTIMIZERS:
+        raise ValueError(f"Unsupported optimizer {P.optimizer!r}")
     lrs = {"encoding": P.encoding_lr, "sigma": P.sigma_lr,
            "color": P.color_lr, "background": P.bg_lr}
     enabled = not getattr(P, "no_scheduler", False)
@@ -149,6 +172,7 @@ def build_optimizer(P, group_labels: Any,
                                            enabled) for g, lr in lrs.items()},
         grad_clip=None if grad_clip is None else float(grad_clip),
         guard_nonfinite=bool(getattr(P, "guard_nonfinite", False)),
+        name=name,
     )
 
 

@@ -15,7 +15,10 @@ Phases, each printing one JSON line and each fatal on failure:
    edge cases and at the serving shape, forward, backward through autograd
    and the reverse kernel directly, on an unaligned view, on two streams at
    once and across the wrap of its launch epoch, with times (CUDA events)
-   beside the least time the card could take, and a sweep of sizes;
+   beside the least time the card could take, and a sweep of sizes; and
+   the scan's second derivative (second-order MAML) at B = 32,768: forward
+   kernel, reverse kernel as its backward, forward kernel as the reverse
+   one's backward, 2 + 1 launches, against the plain versions;
 3. main path: full 1080×1920 frames of the ``configs/train_occ.json`` model
    (random weights from a seed) through ``Renderer.render_image``, with the
    kernel's launch count held to chunks × frames and the host's waits for
@@ -119,7 +122,25 @@ Phases, each printing one JSON line and each fatal on failure:
    ``occ_budget_per_ray`` says; (f) ``--op
    video --video_frames 8``, live and baked: a file of 8 frames, the
    encoder named, a scan per chunk per frame on budget paths;
-10. the kernels line, then the card's ``nvidia-smi`` line, then the result
+10. M9 at ``configs/train_occ.json``'s width (K 4, T 3, S 1,024, Q 512, 8
+   inner steps, bf16, budget 32) on phase 3's model and grids, draws from a
+   seeded generator: (a) second-order MAML, a warm and two timed steps,
+   each launching the scan K·T·(2·inner_iter + 1) = 204 times forward and
+   204 reverse (108 would mean the double backward never ran), every group
+   moved, the peak memory; one float32 episode (inner 2, 256 rays) on the
+   card against the CPU, and its gradient farther from FoMAML's than from
+   the CPU's; (b) Reptile: 108 + 96 launches, the optimizer untouched,
+   expert 0 moved by P.lr·mean(fast − θ) against a recomputation with the
+   same salts, within a limit that two planted faults (Σ not divided by T,
+   the last task alone) exceed; (c) FoMAML with ``--fim``: 108 + 108, the Fisher state of an
+   episode finite; (d) ``train_chunk_rays`` 256 on the budget config: no
+   scan (each chunk marches strided, as in ``acn_tpu``); (e) AdamW and SGD,
+   a step each, the checkpoint reloaded bit for bit; (f) the vanilla expert
+   at the runner's width (hidden 256, depth 8): a budget step,
+   ``render_rays`` on the card against the CPU, one occupancy update pass;
+   (g) the corner layout at L16 F2: a budget step, the encode and its
+   table gradient on the card against the CPU;
+11. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -321,6 +342,47 @@ def check_epoch_wrap(torch, segscan, short, long) -> dict:
     return {"epochs_after_each_launch": epochs, "ok": ok}
 
 
+DOUBLE_B = 32_768  # packed samples of one support episode (1,024 rays × 32)
+
+
+def double_backward_on_card(torch, segscan, bench) -> dict:
+    """The scan's second derivative, as second-order MAML takes it, at
+    B = ``DOUBLE_B``: y = seg_excl_sum(x), g_x = ∂⟨y, g⟩/∂x (the reverse
+    kernel, ``SegExclRSum``) with its graph, then ∂⟨g_x, v⟩/∂g (the forward
+    kernel again, ``SegExclRSum``'s backward): one forward, one reverse and
+    one more forward launch, each result held against the plain version on
+    the card; timed against the same chain through the plain versions."""
+    x, s = bench.random_case(DOUBLE_B, 32, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    gy = torch.randn(DOUBLE_B, generator=gen, device="cuda")
+    v = torch.randn(DOUBLE_B, generator=gen, device="cuda")
+
+    def chain(fwd):
+        xx, gg = x.clone().requires_grad_(True), gy.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(fwd(xx, s), xx, gg, create_graph=True)
+        (hv,) = torch.autograd.grad(gx, gg, v)
+        return gx.detach(), hv
+
+    before = _scan_counts(segscan)
+    gx, hv = chain(segscan.seg_excl_sum)
+    after = _scan_counts(segscan)
+    counts = (after[0] - before[0], after[1] - before[1])
+    check(counts == (2, 1), f"the scan's second derivative launched (forward, "
+          f"reverse) {counts}, want (2, 1)")
+    res = {"gx": compare(gx, segscan.seg_excl_rsum_plain(gy, s), gy, s),
+           "hv": compare(hv, segscan.seg_excl_sum_plain(v, s), v, s)}
+    pgx, phv = chain(segscan.seg_excl_sum_plain)
+    res["gx_vs_plain_autograd"] = compare(gx, pgx, gy, s)
+    res["hv_vs_plain_autograd"] = compare(hv, phv, v, s)
+    check(all(r["ok"] for r in res.values()),
+          f"the scan's second derivative disagrees with the plain version: {res}")
+    return {"B": DOUBLE_B, "launches_fwd_rev": counts, **res,
+            "max_abs_err": max(r["err"] for r in res.values()),
+            "ms": bench.time_ms(lambda: chain(segscan.seg_excl_sum), 50),
+            "plain_ms": bench.time_ms(lambda: chain(segscan.seg_excl_sum_plain), 20),
+            "bound_ms": 1e3 * 3 * 9 * DOUBLE_B / HBM_BYTES_PER_S}
+
+
 def phase_kernel(torch, segscan, bench):
     time_ms = bench.time_ms
     errs, worst = {}, 0.0
@@ -413,8 +475,11 @@ def phase_kernel(torch, segscan, bench):
     emit({"sweep": sweep, "bytes_per_element": 9,
           "one_element_scan_ms": time_ms(
               lambda: segscan.seg_excl_sum_kernel(x[:1], s[:1]), 100)})
+    dbl = double_backward_on_card(torch, segscan, bench)
+    emit({"phase": "kernel_double_backward", **dbl})
     rev_worst = max(c["rev"]["err"] for c in errs.values())
-    return {"max_abs_err": worst, "reverse_max_abs_err": rev_worst, "ms": ms,
+    return {"double_backward": dbl, "max_abs_err": worst, "reverse_max_abs_err": rev_worst,
+            "ms": ms,
             "reverse_ms": reverse_ms, "plain_ms": plain_ms,
             "reverse_plain_ms": reverse_plain_ms, "bound_ms": bound_ms}
 
@@ -858,7 +923,8 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
               "scan_share_of_busy": 1e-3 * sum(
                   v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
     return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
-            "steps": len(launches), "shapes": shapes, "syncs": syncs}
+            "steps": len(launches), "shapes": shapes, "syncs": syncs,
+            "mean_step_ms": statistics.mean(step_ms)}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2004,6 +2070,407 @@ def _runner_cfg_args(runner):
     return P, dataset.load_clustering_meta(masks)
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+M9_EPISODE_RAYS = 256  # the float32 episodes of (a): support rays, query half
+M9_EPISODE_INNER = 2
+M9_CHUNK = 256  # train_chunk_rays of (d): a support episode is 4 chunks
+M9_DIR = Path("logs") / "chip_smoke_m9"
+# the Reptile step against its recomputation: the distance of the step's
+# parameters from the recomputed ones, against the step's own move (the
+# bf16 table gradient's scatter-add adds in another order on every run).
+# The phase also computes what a step with a planted fault would read (the
+# sum over tasks not divided by T, 2/3; the last task's move alone) and
+# fails unless both lie above the limit. PERF.md §6 gives the readings the
+# limit was set between.
+REPTILE_RECOMPUTE_RTOL = 1e-3
+# Reptile's outer step (P.lr) in (b): θ moves all the way to the tasks' mean
+# fast weights. At the config's lr of 1e-4 the move (≈ 1.6e-8 over expert
+# 0) sits at float32's resolution of θ, and rounding, not the step's
+# arithmetic, decides what the check reads.
+REPTILE_OUTER_LR = 1.0
+
+
+def replay_salts(what, k, t, j, shape):
+    """Draws that a recomputation can replay: the budget march's salt of
+    episode (k, t), march j (with the background MLP the budget regime
+    draws nothing else)."""
+    check(what == "salt", f"the budget step asked for a {what!r} draw")
+    return 7919 * (97 * k + t) + j + 1
+
+
+def m9_episode(torch, ts, nn, meta_core, cfg, P, occ_cfg, model_cpu, occ_cpu, batch_np,
+               dev, algo):
+    """One float32 episode of expert 0, task 0 on ``dev``: ``M9_EPISODE_RAYS``
+    support and half as many query rays, ``M9_EPISODE_INNER`` inner steps,
+    the σ-head bias at +2, one salt per march, through ``algo``'s outer
+    loss (``maml``: second order, the scan's double backward on the card).
+    Returns (query loss, the gradient's leaves as float64 on the CPU: the
+    expert's, then the background head's)."""
+    P_e = types.SimpleNamespace(**{**vars(P), "use_amp": False,
+                                   "inner_iter": M9_EPISODE_INNER, "algo": algo})
+    loss_fn, prep = ts.make_episode_loss(cfg, P_e, occ_cfg)
+    params = model_cpu.params()
+    expert = nn.tree_map(lambda a: a[0].detach().clone().to(dev).requires_grad_(True),
+                         params["experts"])
+    with torch.no_grad():
+        expert["sigma_head"]["b"].fill_(2.0)
+    bg = nn.tree_map(lambda a: a.detach().clone().to(dev).requires_grad_(True),
+                     params["bg_mlp"])
+    aabb = model_cpu.expert_aabbs[0].to(dev)
+    occ0 = {k: v[0].to(dev) for k, v in occ_cpu.items()}
+    n = M9_EPISODE_RAYS
+    sr, sg = (torch.from_numpy(batch_np[k][0, 0, :n]).to(dev)
+              for k in ("support_rays", "support_rgbs"))
+    qr, qg = (torch.from_numpy(batch_np[k][0, 0, :n // 2]).to(dev)
+              for k in ("query_rays", "query_rgbs"))
+    smp_s, smp_q = prep(occ0, sr, 12345), prep(occ0, qr, 54321)
+    q_loss, _ = meta_core.outer_loss_fn_for(algo)(
+        lambda p, b, i: loss_fn(p, bg, aabb, b[0], b[1], smp_s),
+        lambda p, b, i: loss_fn(p, bg, aabb, b[0], b[1], smp_q),
+        expert, (sr, sg), (qr, qg), float(P.inner_lr), M9_EPISODE_INNER)
+    grads = torch.autograd.grad(q_loss, nn.tree_leaves(expert) + nn.tree_leaves(bg))
+    return float(q_loss.detach()), [g.double().cpu() for g in grads]
+
+
+def _vec(leaves):
+    return np.concatenate([np.asarray(g).reshape(-1) for g in leaves])
+
+
+def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
+    """M9 at full width (module docstring, phase 10): MAML, Reptile, FIM,
+    the chunked loss, AdamW and SGD with their checkpoints, the vanilla
+    expert and the corner layout. Returns the scan's launch counts by
+    sub-phase, summed over its steps."""
+    import shutil
+
+    from acn_tpu_torch import runner as trunner
+    from acn_tpu_torch.models import encodings as enc
+    from acn_tpu_torch.models import fim as fim_mod
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.pipelines.offline_stage import meta_core
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+    from acn_tpu_torch.pipelines.offline_stage import trainer as tr
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    from acn_tpu_torch.utils import checkpoint as tck
+    from acn_tpu_torch.utils.config import parse_args
+
+    cfg, P, occ_cfg = toy.train_occ_config()
+    K, T, I = cfg.num_submodules, int(P.batch_size), int(P.inner_iter)
+    S, Q = int(P.support_rays), int(P.query_rays)
+    first_order = K * T * (I + 1)
+    t_phase = time.perf_counter()
+    batch_np = toy.training_batch(K, T, S, Q, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    occ = {k: v.cuda() for k, v in occ_cpu.items()}
+    launches = {}
+
+    def with_(**over):
+        return types.SimpleNamespace(**{**vars(P), **over})
+
+    def run_steps(cfg_, P_, n, draws=None, name=None):
+        """A fresh model (seed 0) and ``n`` steps of ``P_``'s training step:
+        (model, optimizer, state, ms per step, launches per step, the last
+        metrics as numpy, the parameters before the first step, the peak
+        memory in MB)."""
+        torch.cuda.empty_cache()
+        model = toy.serving_model(cfg_, seed=0, device="cuda")
+        opt, state = toy.init_train_state(model, P_)
+        step = ts.make_meta_train_step(cfg_, P_, opt, occ_cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        start = nn.tree_map(lambda p: p.detach().clone(), model.params())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, counts, metrics = [], [], None
+        for _ in range(n):
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, occ, draws if draws is not None else gen)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts.append(_scan_counts(segscan))
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        launches[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
+        m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+        check(all(np.isfinite(v).all() for v in m.values()),
+              f"{name}: a metric is not finite: {m}")
+        return model, opt, state, ms, counts, m, start, peak
+
+    def moved_groups(start, model, labels):
+        moved = {}
+
+        def note(a, b, label):
+            changed = bool((a != b).any()) and bool(torch.isfinite(b).all())
+            moved[label] = moved.get(label, False) or changed
+
+        nn.tree_map(note, start, model.params(), labels)
+        return moved
+
+    # (a) second-order MAML, budget regime
+    want = K * T * (2 * I + 1)
+    P_m = with_(algo="maml")
+    model, opt, state, ms, counts, m, start, peak = run_steps(cfg, P_m, 3, name="maml")
+    check(all(c == (want, want) for c in counts),
+          f"MAML scan launches per step (forward, reverse) {counts}, want {want} of "
+          f"each; {first_order} forward would mean the double backward never ran")
+    moved = moved_groups(start, model, opt.labels)
+    check(set(moved) == {"encoding", "sigma", "color", "background"} and all(moved.values()),
+          f"MAML: parameter groups that moved: {moved}")
+    # one full-width episode's own memory (the step's peak is the optimizer's
+    # update): expert 0, task 0, bf16, through each algorithm's outer loss
+    loss_fn, prep = ts.make_episode_loss(cfg, P, occ_cfg)
+    occ0 = {k: v[0] for k, v in occ.items()}
+    smp = [prep(occ0, batch[n][0, 0], 12345) for n in ("support_rays", "query_rays")]
+    bg = model.params()["bg_mlp"]
+    episode_mb = {}
+    for algo in ("fomaml", "maml"):
+        expert0 = nn.tree_map(lambda a: a[0], model.params()["experts"])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        q_loss, _ = meta_core.outer_loss_fn_for(algo)(
+            lambda p, b, i: loss_fn(p, bg, model.expert_aabbs[0], b[0], b[1], smp[0]),
+            lambda p, b, i: loss_fn(p, bg, model.expert_aabbs[0], b[0], b[1], smp[1]),
+            expert0, (batch["support_rays"][0, 0], batch["support_rgbs"][0, 0]),
+            (batch["query_rays"][0, 0], batch["query_rgbs"][0, 0]), float(P.inner_lr), I)
+        torch.autograd.grad(q_loss, nn.tree_leaves(expert0))
+        torch.cuda.synchronize()
+        episode_mb[algo] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        del q_loss, expert0
+    del model, opt, state, start, smp, bg
+    model_cpu = toy.serving_model(cfg, seed=0, device="cpu")
+    n_tables = len(model_cpu.params()["experts"]["hash_table"])
+    ep = {}
+    for label, dev, algo in (("card", "cuda", "maml"), ("cpu", "cpu", "maml"),
+                             ("card_fomaml", "cuda", "fomaml")):
+        ep[label] = m9_episode(torch, ts, nn, meta_core, cfg, P, occ_cfg, model_cpu,
+                               occ_cpu, batch_np, dev, algo)
+    vs_cpu = check_card_vs_cpu_f32(torch, ep["card"], ep["cpu"], n_tables, "MAML episode")
+    g_m, g_c, g_f = (_vec(ep[k][1]) for k in ("card", "cpu", "card_fomaml"))
+    second = float(np.linalg.norm(g_m - g_f) / np.linalg.norm(g_f))
+    noise = float(np.linalg.norm(g_m - g_c) / np.linalg.norm(g_c))
+    check(second > 10.0 * noise,
+          f"MAML's gradient is FoMAML's within the card/CPU noise: relative "
+          f"distance {second}, card against CPU {noise}")
+    emit({"phase": "m9_maml", "K": K, "T": T, "inner_iter": I, "support_rays": S,
+          "query_rays": Q, "use_amp": bool(P.use_amp), "step_ms": ms[1:],
+          "warm_step_ms": ms[0], "mean_step_ms": statistics.mean(ms[1:]),
+          "fomaml_step_ms_phase5": fomaml_ms,
+          "vs_fomaml": statistics.mean(ms[1:]) / fomaml_ms,
+          "fwd_launches_per_step": counts[-1][0], "rev_launches_per_step": counts[-1][1],
+          "first_order_launches_per_step": first_order, "peak_mem_mb": peak,
+          "episode_peak_above_start_mb": episode_mb,
+          "loss_total": float(m["loss_total"]), "grad_norm": float(m["grad_norm"]),
+          "episode_card_vs_cpu": {"rays": M9_EPISODE_RAYS, "inner_iter": M9_EPISODE_INNER,
+                                  **vs_cpu, "second_order_rel": second,
+                                  "card_vs_cpu_rel": noise}})
+
+    # (b) Reptile, budget regime: θ ← θ + P.lr · mean_t(fast_t − θ)
+    P_r = with_(algo="reptile", lr=REPTILE_OUTER_LR)
+    model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_r, 1, draws=replay_salts,
+                                                           name="reptile")
+    check(counts == [(first_order, K * T * I)],
+          f"Reptile scan launches {counts}, want ({first_order}, {K * T * I})")
+    check(int(state["opt_state"]["count"]) == 0 and float(m["grad_norm"]) == 0.0,
+          f"Reptile moved the optimizer: count {int(state['opt_state']['count'])}")
+    loss_fn, prep = ts.make_episode_loss(cfg, P_r, occ_cfg)
+    theta = nn.tree_map(lambda a: a[0].clone(), start["experts"])
+    bg = start["bg_mlp"]
+    d = nn.tree_map(torch.zeros_like, theta)
+    occ0 = {k: v[0] for k, v in occ.items()}
+    for t in range(T):
+        sr, sg = batch["support_rays"][0, t], batch["support_rgbs"][0, t]
+        smp = prep(occ0, sr, replay_salts("salt", 0, t, 0, ()))
+        fast, _ = meta_core.reptile_adapt(
+            lambda p, b, i: loss_fn(p, bg, model.expert_aabbs[0], b[0], b[1], smp),
+            theta, (sr, sg), float(P_r.inner_lr), I)
+        last = nn.tree_map(lambda f, w: f.detach() - w, fast, theta)
+        nn.tree_map(lambda a, dd: a.add_(dd), d, last)
+    lr = float(P_r.lr)
+    finite = lambda dd: torch.where(torch.isfinite(dd), dd, 0.0)
+    expect = nn.tree_map(lambda w, dd: w + lr * (finite(dd) / T), theta, d)
+    got = nn.tree_map(lambda a: a[0].detach(), model.params()["experts"])
+
+    def dist(a, b):
+        return math.sqrt(sum(float(((x - y).double() ** 2).sum()) for x, y in
+                             zip(nn.tree_leaves(a), nn.tree_leaves(b))))
+
+    move = dist(got, theta)
+    ratio = dist(got, expect) / move if move > 0.0 else math.inf
+    # what the check reads for a step with a planted fault: its distance from
+    # the recomputation over its own move
+    planted = {}
+    for fault, delta in (("sum_not_mean", d), ("last_task_only", last)):
+        wrong = nn.tree_map(lambda w, dd: w + lr * finite(dd), theta, delta)
+        planted[fault] = dist(wrong, expect) / dist(wrong, theta)
+    check(move > 0.0 and ratio <= REPTILE_RECOMPUTE_RTOL,
+          f"Reptile: expert 0 lies {ratio} of its move {move} from θ + lr·mean(fast − θ)")
+    check(min(planted.values()) > REPTILE_RECOMPUTE_RTOL,
+          f"Reptile: a planted fault reads {planted}, within the limit")
+    bg_same = all(torch.equal(a, b) for a, b in zip(nn.tree_leaves(model.params()["bg_mlp"]),
+                                                     nn.tree_leaves(bg)))
+    check(bg_same, "Reptile moved the background head")
+    del model, opt, state, start, theta, d, last, fast, expect, got
+    _, _, _, ms_r, counts_r, m_r, _, _ = run_steps(cfg, P_r, 2, name="reptile_timed")
+    launches["reptile"] = tuple(a + b for a, b in zip(launches["reptile"],
+                                                       launches.pop("reptile_timed")))
+    emit({"phase": "m9_reptile", "step_ms": ms_r[1:], "warm_step_ms": ms_r[0],
+          "vs_fomaml": ms_r[1] / fomaml_ms, "launches_per_step": counts_r[-1],
+          "outer_lr": REPTILE_OUTER_LR, "expert0_move": move,
+          "expert0_distance_over_move": ratio,
+          "planted_fault_distance_over_move": planted, "rtol": REPTILE_RECOMPUTE_RTOL,
+          "loss_total": float(m_r["loss_total"])})
+
+    # (c) FoMAML with the Fisher-preconditioned inner loop
+    P_f = with_(fim=True)
+    model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_f, 2, name="fim")
+    check(all(c == (first_order, first_order) for c in counts),
+          f"FIM scan launches per step {counts}, want {first_order} of each")
+    fim_cfg = ts._fim_cfg_from(P_f)
+    loss_fn, prep = ts.make_episode_loss(cfg, P_f, occ_cfg)
+    expert0 = nn.tree_map(lambda a: a[0], model.params()["experts"])
+    sr, sg = batch["support_rays"][0, 0], batch["support_rgbs"][0, 0]
+    smp = prep(occ0, sr, 12345)
+    bg = nn.tree_map(lambda a: a.detach(), model.params()["bg_mlp"])
+    _, fisher, inner = fim_mod.fim_task_adapt(
+        lambda p, b, i: loss_fn(p, bg, model.expert_aabbs[0], b[0], b[1], smp),
+        expert0, fim_mod.fisher_init(expert0), (sr, sg), float(P.inner_lr), I, **fim_cfg)
+    fisher_ok = all(bool(torch.isfinite(f).all()) for f in nn.tree_leaves(fisher))
+    check(fisher_ok and bool(torch.isfinite(inner).all()),
+          "FIM: the Fisher state or the inner losses are not finite")
+    emit({"phase": "m9_fim", **fim_cfg, "step_ms": ms[1:], "warm_step_ms": ms[0],
+          "vs_fomaml": ms[1] / fomaml_ms, "launches_per_step": counts[-1],
+          "fisher_max": max(float(f.max()) for f in nn.tree_leaves(fisher)),
+          "inner_losses": inner.cpu().tolist(), "loss_total": float(m["loss_total"])})
+    del model, opt, state, start, expert0, fisher
+
+    # (d) the chunked loss on the budget config: every chunk marches strided
+    P_c = with_(train_chunk_rays=M9_CHUNK)
+    model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_c, 1, name="chunked")
+    check(counts == [(0, 0)], f"the chunked budget step launched scans {counts}")
+    emit({"phase": "m9_chunked", "train_chunk_rays": M9_CHUNK, "step_ms": ms,
+          "launches_per_step": counts[-1], "loss_total": float(m["loss_total"])})
+    del model, opt, state, start
+
+    # (e) AdamW and SGD: a step each, a checkpoint, reloaded bit for bit
+    opt_out = {}
+    for name in ("adamw", "sgd"):
+        P_o = with_(optimizer=name)
+        model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_o, 1, name=name)
+        check(counts == [(first_order, first_order)], f"{name}: scan launches {counts}")
+        run = M9_DIR / name
+        t0 = time.perf_counter()
+        tck.save_checkpoint(run, "last", model, opt_state=state["opt_state"],
+                            occ_states=occ, P=P_o, step=1, optimizer=opt)
+        save_s = time.perf_counter() - t0
+        model2, occ2 = tck.restore_model(tck.load_checkpoint(run, "last"), cfg)
+        opt2 = tck.load_opt_state(run, "last", opt.init(model2.params()), opt)
+        # trees paired by key: a restored tree lists its keys sorted
+        equal = lambda a, b: all(nn.tree_leaves(nn.tree_map(
+            lambda x, y: x.dtype == y.dtype and torch.equal(x, y), a, b)))
+        same = (equal(model2.params(), model.params())
+                and set(opt2) == set(state["opt_state"])
+                and equal(opt2, state["opt_state"]) and equal(occ2, occ))
+        check(same, f"{name}: the checkpoint does not reload bit for bit")
+        check(("mu" in state["opt_state"]) == (name == "adamw"),
+              f"{name}: optimizer state keys {sorted(state['opt_state'])}")
+        opt_out[name] = {"step_ms": ms[0], "save_s": save_s,
+                         "optim_bytes": (run / "last.optim").stat().st_size,
+                         "count": int(state["opt_state"]["count"]),
+                         "loss_total": float(m["loss_total"])}
+        del model, model2, opt, opt2, state, start, occ2
+    shutil.rmtree(M9_DIR, ignore_errors=True)
+    emit({"phase": "m9_optimizers", **opt_out})
+
+    # (f) the vanilla expert at the runner's width
+    meta = {"boundary_margin": cfg.boundary_margin, "cluster_2d": cfg.cluster_2d}
+    args = ["--op", "train", "--configPath", "configs/train_occ.json"]
+    built = trunner.build_model_configs(parse_args(args + ["--nerf_variant", "vanilla"]), meta)
+    cfg_v = dataclasses.replace(cfg, nerf_variant="vanilla", expert=built.expert)
+    check(cfg_v.expert.hidden == 256 and cfg_v.expert.sigma_depth == 8,
+          f"the runner's vanilla expert: {cfg_v.expert}")
+    model, opt, state, ms, counts, m, start, _ = run_steps(cfg_v, P, 1, name="vanilla")
+    check(counts == [(first_order, first_order)], f"vanilla: scan launches {counts}")
+    cam = toy.overhead_camera(H, W)
+    from acn_tpu_torch.pipelines.renderer import _pinhole_block_rays
+    rays = _pinhole_block_rays(H, W, *[torch.from_numpy(np.asarray(a, np.float32)) for a in
+                                       (cam["c2w"], cam["intrinsics"], cam["aabb"])],
+                               torch.tensor([-np.inf, np.inf]), 0.0, 0.0).numpy()
+    rays = rays[np.random.default_rng(1).choice(len(rays), 512, replace=False)]
+    model_cpu_v = toy.serving_model(cfg_v, seed=0, device="cpu")
+    model_v = toy.serving_model(cfg_v, seed=0, device="cuda")
+    before = {k: v.clone() for k, v in occ.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after = tr.make_occ_update_fn(cfg_v, occ_cfg)(
+        model_v, before, generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - t0)
+    share = check_update_pass(torch, occ_cfg, before, after)
+    # at random init σ ≈ 1 and a sample's α ≈ σ·δ stays under the alpha
+    # threshold: the σ-head bias at +4 and threshold 0 (as phase 4's second
+    # case) make the rays composite something
+    for mdl in (model_cpu_v, model_v):
+        with torch.no_grad():
+            mdl.experts["sigma_head"]["b"].fill_(4.0)
+    oc0 = dataclasses.replace(occ_cfg, alpha_thre=0.0)
+    gpu = Renderer(cfg_v, P, oc0, chunk_rays=512).render_rays(model_v, occ, rays)
+    cpu = Renderer(cfg_v, P, oc0, chunk_rays=512, device="cpu").render_rays(
+        model_cpu_v, occ_cpu, rays)
+    errs = {k: float(np.abs(g - c).max()) for k, g, c in zip(("rgb", "depth", "acc"), gpu, cpu)}
+    check(all(np.allclose(g, c, atol=1e-4, rtol=1e-4) for g, c in zip(gpu, cpu))
+          and float(cpu[2].mean()) > 0.1,
+          f"vanilla render_rays, card against CPU: {errs}, mean acc {float(cpu[2].mean())}")
+    emit({"phase": "m9_vanilla", "hidden": cfg_v.expert.hidden,
+          "sigma_depth": cfg_v.expert.sigma_depth, "step_ms": ms[0],
+          "launches_per_step": counts[-1], "loss_total": float(m["loss_total"]),
+          "render_rays_vs_cpu": {"rays": 512, "sigma_bias": 4.0, "alpha_thre": 0.0,
+                                 "max_abs_err": errs, "atol": 1e-4, "rtol": 1e-4,
+                                 "mean_acc": float(cpu[2].mean())},
+          "occ_update_ms": update_ms, "occupied_share": share})
+    del model, model_v, model_cpu_v, opt, state, start, before, after
+
+    # (g) the corner layout at the oracle's L16 F2
+    built = trunner.build_model_configs(parse_args(
+        args + ["--hash_layout", "corner", "--hash_levels", "16", "--hash_features", "2"]), meta)
+    cfg_c = dataclasses.replace(cfg, expert=built.expert)
+    hcfg = cfg_c.expert.hash
+    check(hcfg.layout == "corner" and hcfg.levels == 16 and hcfg.features_per_level == 2,
+          f"the runner's corner grid: {hcfg}")
+    model, opt, state, ms, counts, m, start, _ = run_steps(cfg_c, P, 1, name="corner")
+    check(counts == [(first_order, first_order)], f"corner: scan launches {counts}")
+    table = model.params()["experts"]["hash_table"][0].detach()
+    x = torch.rand((4096, 3), generator=torch.Generator().manual_seed(6))
+    gout = torch.randn((4096, hcfg.out_dim), generator=torch.Generator().manual_seed(7))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tab = table.to(dev).clone().requires_grad_(True)
+        out = enc.hash_encode(tab, x.to(dev), hcfg)
+        (g,) = torch.autograd.grad(out, tab, gout.to(dev))
+        res[dev] = (out.detach().cpu(), g.cpu())
+    fwd_err = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+    grad_err = float((res["cuda"][1] - res["cpu"][1]).abs().max())
+    # the forward is the same gathers and products in the same order; the
+    # table gradient is a float32 scatter-add with atomics on the card, so
+    # a row that many points hit sums in another order
+    check(torch.allclose(res["cuda"][0], res["cpu"][0], rtol=1e-6, atol=1e-9)
+          and torch.allclose(res["cuda"][1], res["cpu"][1], rtol=1e-5, atol=1e-6),
+          f"corner encode, card against CPU: forward {fwd_err}, gradient {grad_err}")
+    emit({"phase": "m9_corner", "levels": hcfg.levels, "features": hcfg.features_per_level,
+          "log2_hashmap_size": hcfg.log2_hashmap_size,
+          "table_rows": int(table.shape[0]), "step_ms": ms[0],
+          "launches_per_step": counts[-1], "loss_total": float(m["loss_total"]),
+          "encode_vs_cpu": {"points": 4096, "max_abs_err": fwd_err,
+                            "grad_max_abs_err": grad_err,
+                            "grad_max_abs": float(res["cpu"][1].abs().max())}})
+    del model, opt, state, start, table
+    torch.cuda.empty_cache()
+    emit({"phase": "m9_done", "phase10_s": time.perf_counter() - t_phase})
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2046,45 +2513,53 @@ def main() -> int:
                              occ_cpu, args.profile)
     regimes = phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu,
                             args.profile)
-    del model_cpu, occ_cpu
+    del model_cpu
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
     run8 = phase_runner(torch, segscan, toy)
     serve = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"], args.profile)
     del model, occ
+    m9 = phase_m9(torch, segscan, toy, occ_cpu, train["mean_step_ms"])
+    del occ_cpu
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
     # frames, where only the budget step after the switch launches; the sum
     # over phase 7's two loop runs, where the budget steps launch; phase 8's
     # --op train and --op eval; phase 9's routed, single-expert and baked
-    # frames, baked eval and videos), each counted from 0 just before its
-    # path was driven. ms, plain_ms and
-    # bound_ms at the serving chunk (B = 983,040); "train_shapes" holds the
-    # same at the training step's B = 32,768 and 16,384.
+    # frames, baked eval and videos; phase 10's steps, summed by
+    # sub-phase), each counted from 0 just before its path was driven. ms,
+    # plain_ms and bound_ms at the serving chunk (B = 983,040);
+    # "train_shapes" holds the same at the training step's B = 32,768 and
+    # 16,384, "double_backward" phase 2's second derivative at 32,768.
     fwd_train, rev_train = train["launches"]
     fwd_reg, rev_reg = regimes["fwd"], regimes["rev"]
     fwd_loop, rev_loop = loop["fwd"], loop["rev"]
     (fwd_rtrain, rev_rtrain), (fwd_reval, rev_reval) = run8["train"], run8["eval"]
-    by_path = lambda i: {name: c[i] for name, c in serve.items()}
+    by_path = lambda i: {**{name: c[i] for name, c in serve.items()},
+                         **{f"m9_{name}": c[i] for name, c in m9.items()}}
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
     emit({"kernels": [
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
          "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
-                      + sum(c[0] for c in serve.values())),
+                      + sum(c[0] for c in serve.values())
+                      + sum(c[0] for c in m9.values())),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
                               "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
                               **by_path(0)},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
+         "double_backward": {key: k["double_backward"][key] for key in (
+             "B", "launches_fwd_rev", "ms", "plain_ms", "bound_ms", "max_abs_err")},
          "train_shapes": [{key: sh[key] for key in (
              "B", "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for sh in train["shapes"]], **common},
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
          "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
-                      + sum(c[1] for c in serve.values())),
+                      + sum(c[1] for c in serve.values())
+                      + sum(c[1] for c in m9.values())),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
                               "runner_train": rev_rtrain, "runner_eval": rev_reval,

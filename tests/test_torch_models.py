@@ -56,18 +56,21 @@ def _jax_init(jcfg):
 
 
 def small_scene(K=4, sigma_bias=None, alpha_thre=0.0, budget=8, s_max=64,
-                fill=0.3, seed=0, hash_kw=None, use_bg_nerf=True):
+                fill=0.3, seed=0, hash_kw=None, use_bg_nerf=True, expert=None,
+                nerf_variant="instant", bg_encoding="spherical"):
     """A small K-expert scene in both packages (hash grid ``SMALL_HASH``
-    unless ``hash_kw`` gives another).
+    unless ``hash_kw`` gives another; ``expert``, a JAX expert config,
+    replaces the NGP expert, with ``nerf_variant`` naming its kind).
 
     Returns a namespace with the JAX side (jcfg, jvars, jocc_cfg, jocc) and
     the port's (tcfg, model, tocc_cfg, tocc) on the CPU, holding the same
     weights and occupancy, plus the render params P."""
     jcfg = JContainerConfig(
         num_submodules=K, boundary_margin=1.05, cluster_2d=True,
-        use_bg_nerf=use_bg_nerf, bg_hidden=8,
-        expert=JNGPConfig(hidden=16, color_hidden=16, color_depth=2,
-                          hash=JHashGridConfig(**(hash_kw or SMALL_HASH))),
+        use_bg_nerf=use_bg_nerf, bg_hidden=8, nerf_variant=nerf_variant,
+        bg_encoding=bg_encoding,
+        expert=expert or JNGPConfig(hidden=16, color_hidden=16, color_depth=2,
+                                    hash=JHashGridConfig(**(hash_kw or SMALL_HASH))),
     )
     rng = np.random.default_rng(seed)
     quad = []

@@ -51,6 +51,7 @@ import pytest
 import torch
 
 from acn_tpu.models import container as jcont
+from acn_tpu.models import encodings as jenc
 from acn_tpu.nerfs import color as jcolor
 from acn_tpu.nerfs import losses as jlosses
 from acn_tpu.pipelines.offline_stage import meta_core as jmeta
@@ -58,6 +59,7 @@ from acn_tpu.pipelines.offline_stage import train_step as jts
 from acn_tpu.utils import optim as joptim
 from acn_tpu_torch import convert, toy
 from acn_tpu_torch.models import container as tcont
+from acn_tpu_torch.models import encodings as tenc
 from acn_tpu_torch.models.nn import tree_leaves, tree_map
 from acn_tpu_torch.nerfs import color as tcolor
 from acn_tpu_torch.nerfs import losses as tlosses
@@ -645,30 +647,13 @@ def test_schedule_and_group_lrs(step):
     assert toptim.exponential_schedule(1e-2, 10, 10.0, enabled=False)(step) == 1e-2
 
 
-# ------------------------------------------------- what is not ported raises
-
-
-@pytest.mark.parametrize("what,kwargs,P_over,item", [
-    ("maml", {}, {"algo": "maml"}, "M9"),
-    ("reptile", {}, {"algo": "reptile"}, "M9"),
-    ("fim", {}, {"fim": True}, "M9"),
-    ("chunked_loss", {}, {"train_chunk_rays": 16}, "M2"),
-])
-def test_unported_branches_raise_naming_the_roadmap(what, kwargs, P_over, item):
-    sc = micro_scene()
-    P = make_P(**P_over)
-    topt = toptim.build_optimizer(P, tcont.param_group_labels(fresh_model(sc).params()))
-    kw = {"occ_cfg": sc.tocc_cfg, "device": "cpu", **kwargs}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tts.make_meta_train_step(sc.tcfg, P, topt, **kw)
-
-
 @pytest.mark.parametrize("kwargs,P_over,regime", [
     ({"occ_cfg": None}, {}, "stratified"),
     ({}, {"occ_budget_per_ray": 0}, "strided"),
     ({"budget_override": 0}, {}, "strided"),
     ({"report_budget": 8}, {}, "budget"),
     ({"budget_override": 3, "report_budget": 8}, {"occ_budget_per_ray": 0}, "budget"),
+    ({}, {"train_chunk_rays": 4}, "budget"),
 ])
 def test_regimes_are_picked_as_acn_tpu_picks_them(kwargs, P_over, regime):
     sc = micro_scene()
@@ -680,16 +665,55 @@ def test_regimes_are_picked_as_acn_tpu_picks_them(kwargs, P_over, regime):
     tts.make_eval_step(sc.tcfg, P, kw["occ_cfg"], device="cpu")
 
 
-def test_unported_meta_core_entry_points_raise():
-    for fn in (tmeta.maml_outer_loss, tmeta.reptile_adapt):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
-            fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
-        tmeta.task_adapt(None, {}, None, 0.1, 1, first_order=False)
-    with pytest.raises(NotImplementedError, match="adam"):
-        toptim.build_optimizer(make_P(optimizer="sgd"), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
-        tts.make_eval_step(micro_scene().tcfg, make_P(fim=True), device="cpu")
+# ------------------------------------- the errors acn_tpu raises, raised
+
+
+def _error_case(what):
+    """(the port's call, acn_tpu's call, the exception, its message) of an
+    error that both packages raise."""
+    sc = micro_scene()
+    labels = tcont.param_group_labels(fresh_model(sc).params())
+    jlabels = jcont.param_group_labels(sc.jvars, sc.jcfg)
+
+    def step(**P_over):
+        P = make_P(**P_over)
+        return (lambda: tts.make_meta_train_step(
+            sc.tcfg, P, toptim.build_optimizer(P, labels), sc.tocc_cfg, device="cpu"),
+            lambda: jts.make_meta_train_step(
+                sc.jcfg, P, joptim.build_optimizer(P, jlabels), sc.jocc_cfg))
+
+    def bad_table(pkg):
+        cfg = sc.tcfg.expert.hash if pkg is tenc else sc.jcfg.expert.hash
+        tables = [a[0] for a in sc.jvars["params"]["experts"]["hash_table"]]
+        if pkg is tenc:
+            tables = [torch.from_numpy(np.array(a)) for a in tables]
+        x01 = np.full((4, 3), 0.5, np.float32)
+        x01 = torch.from_numpy(x01) if pkg is tenc else jnp.asarray(x01)
+        return lambda: pkg.hash_encode(tables, x01,
+                                       dataclasses.replace(cfg, log2_hashmap_size=11))
+
+    P_bad = make_P(optimizer="lamb")
+    return {
+        "fim_with_maml": (*step(algo="maml", fim=True), ValueError, "first-order"),
+        "unknown_algo": (*step(algo="sgd_maml"), ValueError, "Unsupported algo"),
+        "unknown_optimizer": (lambda: toptim.build_optimizer(P_bad, labels),
+                              lambda: joptim.build_optimizer(P_bad, jlabels),
+                              ValueError, "Unsupported optimizer"),
+        "no_outer_loss_for_reptile": (lambda: tmeta.outer_loss_fn_for("reptile"),
+                                      lambda: jmeta.outer_loss_fn_for("reptile"),
+                                      ValueError, "reptile has no outer loss"),
+        "table_off_the_ladder": (bad_table(tenc), bad_table(jenc), ValueError,
+                                 "config ladder"),
+    }[what]
+
+
+@pytest.mark.parametrize("what", ["fim_with_maml", "unknown_algo", "unknown_optimizer",
+                                  "no_outer_loss_for_reptile", "table_off_the_ladder"])
+def test_errors_that_acn_tpu_raises_too(what):
+    port, ref, exc, msg = _error_case(what)
+    for call in (port, ref):
+        with pytest.raises(exc, match=msg):
+            call()
 
 
 def test_step_needs_a_card_unless_asked_for_the_cpu():

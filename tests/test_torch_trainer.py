@@ -420,3 +420,22 @@ def test_bench_train_prints_one_line_with_bench_keys(capsys):
     assert rec["occ_budget_rays_per_sec"] > 0 and rec["stratified_rays_per_sec"] is None
     with pytest.raises(ValueError, match="unknown regimes"):
         bench_train.run((2, 1, 64, 32, 1, 1), ("fast",), device="cpu")
+
+
+def test_profile_step_counts_what_the_step_dispatches(capsys):
+    """One JSON line of profiled ATen ops per step by regime (no launches or
+    card time on the CPU); a step with one more inner iteration dispatches
+    more."""
+    from acn_tpu_torch.scripts import profile_step
+
+    assert profile_step.main(["--scale", "2,1,16,8,1", "--device", "cpu",
+                              "--regimes", "stratified,occ"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip())
+    ops = rec["aten_events"]
+    assert set(ops) == {"stratified", "occ"} and rec["device"] == "cpu"
+    assert all(n > 1000 for n in ops.values()), ops
+    assert rec["kernel_launches"] == {"stratified": None, "occ": None}
+    assert profile_step.run((2, 1, 16, 8, 2), ("occ",), "cpu")["aten_events"][
+        "occ"] > ops["occ"]
+    with pytest.raises(ValueError, match="unknown regimes"):
+        profile_step.run((2, 1, 16, 8, 1), ("fast",), "cpu")
