@@ -20,7 +20,9 @@ entry point ``python -m acn_tpu_torch --op {train,eval,bake,video}``
 (``runner``): the
 flag parser (``utils.config``), the loaders of a prepared dataset directory
 (``data``), and the eval with test-time optimization
-(``pipelines.online_stage.runtime_adapt``). The one TPU kernel, the segmented
+(``pipelines.online_stage.runtime_adapt``), and the (expert × data) mesh
+(``parallel``): sharded training and the frames' row-block fan-out over
+processes on ``torch.distributed``. The one TPU kernel, the segmented
 exclusive scan of the packed-budget paths, is a hand-written CUDA kernel for
 ``sm_90a`` (``csrc/segscan.cu``, bound in ``ops/segscan.py``), built with
 ``nvcc`` at first use into ``acn_tpu_torch/_build/``; serving launches its

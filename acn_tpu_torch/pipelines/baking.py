@@ -1,8 +1,7 @@
 """The baked serving path: the trained field distilled into a dense voxel
 table, rendered with no hash lookup or MLP per sample.
 
-Port of ``acn_tpu/pipelines/baking.py`` (all but the mesh fan-out of
-``BakedRenderer``, ROADMAP.md M11):
+Port of ``acn_tpu/pipelines/baking.py``:
 
 * ``bake_field`` evaluates a field over the R³ lattice of a box, in chunks
   of ``chunk`` points (the last padded), averaging σ over ``bake_dirs``
@@ -48,7 +47,12 @@ from acn_tpu_torch.nerfs.render import (
 )
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
-from acn_tpu_torch.pipelines.renderer import _pinhole_block_rays, refuse_mesh, resolve_device
+from acn_tpu_torch.pipelines.renderer import (
+    _pinhole_block_rays,
+    _slot,
+    frame_outputs,
+    resolve_device,
+)
 
 
 # ============================ baking ============================
@@ -411,10 +415,11 @@ class BakedRenderer:
                      download: bool = True, mesh=None):
         """The frame → (rgb (H, W, 3) in [0, 1] from u8, depth (H·W,), acc
         (H·W,)), or ``(None, None, None)`` with ``download=False`` once the
-        card is done."""
-        refuse_mesh(mesh)
+        card is done. ``mesh``: the row-block fan-out of
+        ``Renderer.render_image`` over its ranks."""
         dev = self.device
         rows = self.rows(W)
+        slot, n_dev = _slot(mesh)
         n_o, f_o = (near_far_override or (None, None))
         cam = (torch.as_tensor(np.asarray(c2w, np.float32), device=dev),
                torch.as_tensor(np.asarray(intrinsics[:4], np.float32), device=dev),
@@ -422,12 +427,13 @@ class BakedRenderer:
                torch.tensor([n_o if n_o is not None else -np.inf,
                              f_o if f_o is not None else np.inf],
                             dtype=torch.float32, device=dev))
-        pending = [self._block(rows, W, cam, float(r0)) for r0 in range(0, H, rows)]
+        pending = [self._block(rows, W, cam, float(r0 + slot * rows))
+                   for r0 in range(0, H, rows * n_dev)]
         if not download:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             return None, None, None
-        rgb_u8, depth, acc = (torch.cat(parts)[: H * W].cpu() for parts in zip(*pending))
+        rgb_u8, depth, acc = frame_outputs(mesh, pending, H * W)
         rgb = rgb_u8.numpy().astype(np.float32) / 255.0
         return (np.clip(rgb, 0, 1).reshape(H, W, 3), depth.numpy().astype(np.float32),
                 acc.numpy().astype(np.float32))

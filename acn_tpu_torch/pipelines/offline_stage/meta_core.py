@@ -129,9 +129,12 @@ def reptile_meta_delta(params: Params, fast_batch: Params) -> Params:
     return tree_map(leaf_delta, params, fast_batch)
 
 
-def global_grad_norm(grads: Params) -> torch.Tensor:
-    """√Σ g² over every leaf, a 0-dim tensor (no host sync)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in tree_leaves(grads)))
+def global_grad_norm(grads: Params, mesh=None) -> torch.Tensor:
+    """√Σ g² over every leaf, a 0-dim tensor (no host sync); over a
+    ``mesh`` (the experts sharded) the norm of the whole mesh's gradient."""
+    from acn_tpu_torch.parallel.mesh import tree_sq_norm
+
+    return torch.sqrt(tree_sq_norm(grads, mesh))
 
 
 def outer_loss_fn_for(algo: str):

@@ -31,10 +31,23 @@ fast weights are in flight at a time, and each episode's graph is freed by
 
 Randomness: ``acn_tpu`` splits a key per episode, march and loss; here a
 step takes ``draws`` (see ``EpisodeDraws``): None (bin midpoints, stride
-phase 0, no stratified jitter), a ``torch.Generator`` on the step's device,
-or a function that returns each draw (the tests replay JAX's draws with
-one; the gradient-based algorithms and Reptile split their keys in other
-orders, which only such a function needs to know).
+phase 0, no stratified jitter), a ``torch.Generator`` on the step's device
+(from which each episode (k, t) gets a generator of its own), or a function
+that returns each draw (the tests replay JAX's draws with one; the
+gradient-based algorithms and Reptile split their keys in other orders,
+which only such a function needs to know). Draws are keyed by the global
+(k, t), so a rank of a mesh draws for its episodes what one device draws.
+
+Over a mesh (``parallel.mesh.Mesh``, ``mesh=``): the model, optimizer
+state, occupancy states and batch hold this rank's experts [k0, k1)
+(``shard_by_expert_axis``), and of each expert's T tasks the rank runs
+``task_range(T)`` (the batch keeps all T: a few hundred kB). Each rank runs
+its episodes; the expert gradients (and Reptile's Σ(fast − θ)) are
+summed over the data group, then × 1/T; the background gradient is summed
+over all ranks; the per-episode losses and overflows are gathered into the
+full (K, T) arrays on every rank (an ``all_reduce`` of zero-filled arrays),
+so that every rank computes the single device's metrics; the clip's norm and
+the non-finite guard are reduced over the mesh. Nothing else crosses ranks.
 
 bf16 (``P.use_amp``): parameters and network inputs are cast to bf16 by hand
 before ``world_to_unit`` (so the hash cell and fraction are bf16 decisions
@@ -69,6 +82,7 @@ from acn_tpu_torch.occupancy.grid import OccConfig
 from acn_tpu_torch.pipelines.offline_stage import meta_core
 from acn_tpu_torch.pipelines.renderer import resolve_device
 from acn_tpu_torch.utils.optim import Optimizer, apply_updates
+from acn_tpu_torch.utils.seeding import keyed_generator, step_seed
 
 
 def _budget(P, budget_override: Optional[int]) -> int:
@@ -113,8 +127,10 @@ class EpisodeDraws:
     [0, 2³¹ − 1) as an int or a 0-dim tensor, u in [0, 1), phase bits in
     [0, 2³⁰)) or None."""
 
-    def __init__(self, draws, device: torch.device, regime: str, P, cfg=None):
+    def __init__(self, draws, device: torch.device, regime: str, P, cfg=None,
+                 offset: Tuple[int, int] = (0, 0)):
         self.device, self.regime = device, regime
+        self.k0, self.t0 = offset  # local episode (k, t) is global (k0 + k, t0 + t)
         self.random_bg = (P.bg_color_default == "random"
                           and not (cfg is not None and cfg.use_bg_nerf))
         self.s_max = int(getattr(P, "occ_s_max", 0) or 0)
@@ -133,18 +149,26 @@ class EpisodeDraws:
 
     @staticmethod
     def _from_generator(gen: torch.Generator) -> Callable:
+        """Episode (k, t) draws from a generator of its own, seeded from
+        ``gen``'s state (``seeding.step_seed``) and (k, t), in the order the
+        episode asks."""
+        seed, gens = step_seed(gen), {}
+
         def fn(what, k, t, j, shape):
+            g = gens.get((k, t))
+            if g is None:
+                g = gens[(k, t)] = keyed_generator(seed, k, t, device=gen.device)
             if what == "salt":
-                return torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device)
+                return torch.randint(0, 2**31 - 1, (), generator=g, device=g.device)
             if what in ("phase", "chunk_phase"):
-                return torch.randint(0, 1 << 30, shape, generator=gen, device=gen.device)
-            return torch.rand(shape, generator=gen, device=gen.device)
+                return torch.randint(0, 1 << 30, shape, generator=g, device=g.device)
+            return torch.rand(shape, generator=g, device=g.device)
         return fn
 
     def _get(self, what, k, t, j, shape):
         if self.fn is None:
             return None
-        x = self.fn(what, k, t, j, shape)
+        x = self.fn(what, self.k0 + k, self.t0 + t, j, shape)
         return x if x is None or isinstance(x, int) else torch.as_tensor(x).to(self.device)
 
     def chunked(self, n: int) -> bool:
@@ -316,30 +340,67 @@ def _check_devices(device, params, batch, occ_states) -> None:
                          f"batch or occupancy states lie on {sorted(on)}")
 
 
-def _episodes(prep, aabbs, occ_states, batch, rnd: "EpisodeDraws"):
-    """Per expert k and task t, in the step's order: (k, t, aabb, support
+def _expert_episodes(prep, aabbs, occ_states, batch, rnd: "EpisodeDraws", k: int,
+                     tasks: range):
+    """Expert k's episodes of ``tasks``, task by task: (t, aabb, support
     rays, colors and samples, query rays, colors and samples, the episode's
-    overflow), the support and query rays marched once each."""
-    K, T = batch["support_rays"].shape[:2]
+    overflow), the support and query rays marched once each. ``k`` indexes
+    this rank's experts (``rnd`` maps it to the global expert), ``t`` the
+    batch's tasks."""
     dev = batch["support_rays"].device
-    for k in range(K):
-        occ_state = _expert_occ(occ_states, k)
-        for t in range(T):
-            sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
-            qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
-            smp_s = prep(occ_state, sr, rnd.march(k, t, 0, sr.shape[0]))
-            smp_q = prep(occ_state, qr, rnd.march(k, t, 1, qr.shape[0]))
-            # the budget march's drop, or the strided march's would-be drop
-            ovf = torch.zeros((), device=dev)
-            for smp in (smp_s, smp_q):
-                if smp is not None and "overflow" in smp:
-                    ovf = ovf + smp["overflow"]
-            yield k, t, aabbs[k], sr, sg, smp_s, qr, qg, smp_q, ovf * 0.5
+    occ_state = _expert_occ(occ_states, k)
+    for t in tasks:
+        sr, sg = batch["support_rays"][k, t], batch["support_rgbs"][k, t]
+        qr, qg = batch["query_rays"][k, t], batch["query_rgbs"][k, t]
+        smp_s = prep(occ_state, sr, rnd.march(k, t, 0, sr.shape[0]))
+        smp_q = prep(occ_state, qr, rnd.march(k, t, 1, qr.shape[0]))
+        # the budget march's drop, or the strided march's would-be drop
+        ovf = torch.zeros((), device=dev)
+        for smp in (smp_s, smp_q):
+            if smp is not None and "overflow" in smp:
+                ovf = ovf + smp["overflow"]
+        yield t, aabbs[k], sr, sg, smp_s, qr, qg, smp_q, ovf * 0.5
+
+
+def _stack(xs: list, K: int, T: int, tail: tuple, device) -> torch.Tensor:
+    """This rank's per-episode values as a (K, T, *tail) tensor (zeros when
+    the rank has no task)."""
+    if not xs:
+        return torch.zeros((K, T, *tail), device=device)
+    return torch.stack(xs).reshape(K, T, *tail)
+
+
+def _whole_episodes(mesh, K: int, T: int, tasks: range, dev, inner_iter: int,
+                    q_losses: list, inner_losses: list, ovfs: list):
+    """The step's (K, T) query losses, (K, T, I) inner losses and (K, T)
+    overflows, from this rank's lists over its K experts and ``tasks``
+    (every rank's, over a mesh)."""
+    n = len(tasks)
+    return gather_episodes(
+        mesh, K if mesh is None else mesh.num_experts, T, _stack(q_losses, K, n, (), dev),
+        _stack(inner_losses, K, n, (inner_iter,), dev), _stack(ovfs, K, n, (), dev))
+
+
+def gather_episodes(mesh, K: int, T: int, *local: torch.Tensor):
+    """The full (K, T, ...) arrays from each rank's block (its experts, its
+    ``task_range(T)``),
+    on every rank: one ``all_reduce`` of zero-filled arrays over the world
+    (each entry is written by one rank, so the sums are exact)."""
+    if mesh is None:
+        return local
+    t0, t1 = mesh.task_range(T)
+    full = []
+    for x in local:
+        f = x.new_zeros((K, T, *x.shape[2:]))
+        f[mesh.k0:mesh.k1, t0:t1] = x
+        full.append(f)
+    mesh.all_reduce(full, mesh.world_group)
+    return tuple(full)
 
 
 def _meta_grads_gradbased(algo, episode_loss, prep, params, aabbs, occ_states, batch,
                           rnd: EpisodeDraws, inner_lr: float, inner_iter: int,
-                          fim_cfg: Optional[dict] = None):
+                          fim_cfg: Optional[dict] = None, mesh=None):
     """FoMAML or MAML meta-gradients, one episode at a time.
 
     Per expert k and task t: march the support and the query rays once;
@@ -356,111 +417,136 @@ def _meta_grads_gradbased(algo, episode_loss, prep, params, aabbs, occ_states, b
       gradient (so the background's gradient has second-order terms too).
 
     Task gradients are summed and divided by T; the background gradient is
-    summed over the K experts.
+    summed over the K experts. Over a ``mesh`` the model and batch hold
+    this rank's experts, of whose T tasks it runs ``task_range(T)``: the
+    sums run over the data group (experts) and the world (background)
+    first.
 
     Returns (q_losses (K, T), inner_losses (K, T, I), expert grads stacked
-    (K, ...), background grad or None, mean overflow).
+    (K, ...), background grad or None, mean overflow), the per-episode
+    arrays of the whole step (over a mesh, gathered from every rank).
     """
     experts, bg = params["experts"], params.get("bg_mlp")
     has_bg = bg is not None
     K, T = batch["support_rays"].shape[:2]
+    tasks = _tasks(mesh, T)
+    dev = batch["support_rays"].device
     g_experts = tree_map(torch.zeros_like, experts)
     g_bg = tree_map(torch.zeros_like, bg) if has_bg else None
     bg_const = tree_map(lambda p: p.detach(), bg) if has_bg else None
-    g_bg_k = None
     q_losses, inner_losses, ovfs = [], [], []
-    for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _episodes(
-            prep, aabbs, occ_states, batch, rnd):
-        if t == 0:
-            expert_p = cont.expert_slice(experts, k)
-            if has_bg:
-                g_bg_k = tree_map(torch.zeros_like, bg)
-        ovfs.append(ovf)
+    for k in range(K):
+        expert_p = cont.expert_slice(experts, k)
+        g_bg_k = tree_map(torch.zeros_like, bg) if has_bg else None
+        for t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _expert_episodes(
+                prep, aabbs, occ_states, batch, rnd, k, tasks):
+            ovfs.append(ovf)
 
-        def loss_at(b_params, rays, rgbs, smp, i):
-            return lambda p: episode_loss(p, b_params, aabb, rays, rgbs, smp,
-                                          u=rnd.strat(k, t, i, rays.shape[0]),
-                                          bg=rnd.bg(k, t, i, rays.shape[0]))
+            def loss_at(b_params, rays, rgbs, smp, i):
+                return lambda p: episode_loss(p, b_params, aabb, rays, rgbs, smp,
+                                              u=rnd.strat(k, t, i, rays.shape[0]),
+                                              bg=rnd.bg(k, t, i, rays.shape[0]))
 
-        if algo == "maml":
-            q_loss, inner = meta_core.maml_outer_loss(
-                lambda p, b, i: loss_at(bg, b[0], b[1], smp_s, i)(p),
-                lambda p, b, i: loss_at(bg, b[0], b[1], smp_q, i)(p),
-                expert_p, (sr, sg), (qr, qg), inner_lr, inner_iter)
-            wrt = tree_leaves(expert_p)
-        else:
-            sup = lambda p, b, i: loss_at(bg_const, b[0], b[1], smp_s, i)(p)
-            if fim_cfg is not None:
-                fast, _, inner = fim_mod.fim_task_adapt(
-                    sup, expert_p, fim_mod.fisher_init(expert_p), (sr, sg),
-                    inner_lr, inner_iter, **fim_cfg)
+            if algo == "maml":
+                q_loss, inner = meta_core.maml_outer_loss(
+                    lambda p, b, i: loss_at(bg, b[0], b[1], smp_s, i)(p),
+                    lambda p, b, i: loss_at(bg, b[0], b[1], smp_q, i)(p),
+                    expert_p, (sr, sg), (qr, qg), inner_lr, inner_iter)
+                wrt = tree_leaves(expert_p)
             else:
-                fast, inner = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr,
-                                                   inner_iter, first_order=True)
-            q_loss = loss_at(bg, qr, qg, smp_q, inner_iter)(fast)
-            wrt = tree_leaves(fast)
-            del fast
-        n_e = len(wrt)
-        grads = torch.autograd.grad(q_loss, wrt + (tree_leaves(bg) if has_bg else []))
-        with torch.no_grad():
-            for acc, g in zip(tree_leaves(g_experts), grads):
-                acc[k].add_(g)
-            if has_bg:
-                for acc, g in zip(tree_leaves(g_bg_k), grads[n_e:]):
-                    acc.add_(g)
-                if t == T - 1:
-                    for acc, g in zip(tree_leaves(g_bg), tree_leaves(g_bg_k)):
-                        acc.add_(g * (1.0 / T))
-        q_losses.append(q_loss.detach())
-        inner_losses.append(inner)
-        del grads, q_loss, wrt
+                sup = lambda p, b, i: loss_at(bg_const, b[0], b[1], smp_s, i)(p)
+                if fim_cfg is not None:
+                    fast, _, inner = fim_mod.fim_task_adapt(
+                        sup, expert_p, fim_mod.fisher_init(expert_p), (sr, sg),
+                        inner_lr, inner_iter, **fim_cfg)
+                else:
+                    fast, inner = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr,
+                                                       inner_iter, first_order=True)
+                q_loss = loss_at(bg, qr, qg, smp_q, inner_iter)(fast)
+                wrt = tree_leaves(fast)
+                del fast
+            n_e = len(wrt)
+            grads = torch.autograd.grad(q_loss, wrt + (tree_leaves(bg) if has_bg else []))
+            with torch.no_grad():
+                for acc, g in zip(tree_leaves(g_experts), grads):
+                    acc[k].add_(g)
+                if has_bg:
+                    for acc, g in zip(tree_leaves(g_bg_k), grads[n_e:]):
+                        acc.add_(g)
+            q_losses.append(q_loss.detach())
+            inner_losses.append(inner)
+            del grads, q_loss, wrt
+        if has_bg and len(tasks):
+            with torch.no_grad():
+                for acc, g in zip(tree_leaves(g_bg), tree_leaves(g_bg_k)):
+                    acc.add_(g * (1.0 / T))
     with torch.no_grad():
+        if mesh is not None:
+            mesh.all_reduce(tree_leaves(g_experts), mesh.data_group)
+            if has_bg:
+                mesh.all_reduce(tree_leaves(g_bg), mesh.world_group)
         for g in tree_leaves(g_experts):
             g.mul_(1.0 / T)
-    return (torch.stack(q_losses).reshape(K, T),
-            torch.stack(inner_losses).reshape(K, T, -1),
-            g_experts, g_bg, torch.mean(torch.stack(ovfs)))
+    q, inner, ovf = _whole_episodes(mesh, K, T, tasks, dev, inner_iter, q_losses,
+                                    inner_losses, ovfs)
+    return q, inner, g_experts, g_bg, torch.mean(ovf.reshape(-1))
 
 
 def _reptile(episode_loss, prep, params, aabbs, occ_states, batch, rnd: EpisodeDraws,
-             inner_lr: float, inner_iter: int, outer_lr: float):
+             inner_lr: float, inner_iter: int, outer_lr: float, mesh=None):
     """Reptile, one episode at a time (``acn_tpu``'s Reptile step,
     ``train_step.py:577-664``): per expert, adapt a detached copy on each
     task's support loss, evaluate the query loss at the adapted weights
-    (not differentiated), and accumulate Σ_t (fast − θ); then, in place,
-    θ ← θ + outer_lr · where(finite, Σ, 0) / T. The background head is not
-    trained. Returns (q_losses (K, T), inner_losses (K, T, I), mean
-    overflow)."""
+    (not differentiated), and accumulate Σ_t (fast − θ) (over a ``mesh``,
+    this rank's tasks, then summed over the data group); then, in place, θ ← θ + outer_lr ·
+    where(finite, Σ, 0) / T. The background head is not trained. Returns
+    (q_losses (K, T), inner_losses (K, T, I), mean overflow), of the whole
+    step."""
     experts, bg = params["experts"], params.get("bg_mlp")
     bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
     K, T = batch["support_rays"].shape[:2]
+    tasks = _tasks(mesh, T)
+    dev = batch["support_rays"].device
     q_losses, inner_losses, ovfs = [], [], []
-    d_acc = None
-    for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _episodes(
-            prep, aabbs, occ_states, batch, rnd):
-        ovfs.append(ovf)
-        if t == 0:
-            expert_p = cont.expert_slice(experts, k)
-            d_acc = tree_map(lambda p: torch.zeros_like(p.detach()), expert_p)
-        fast, inner = meta_core.reptile_adapt(
-            lambda p, b, i: episode_loss(p, bg, aabb, b[0], b[1], smp_s,
-                                         u=rnd.strat(k, t, i, b[0].shape[0]),
-                                         bg=rnd.bg(k, t, i, b[0].shape[0])),
-            expert_p, (sr, sg), inner_lr, inner_iter)
+    for k in range(K):
+        expert_p = cont.expert_slice(experts, k)
+        d_acc = tree_map(lambda p: torch.zeros_like(p.detach()), expert_p)
+        for t, aabb, sr, sg, smp_s, qr, qg, smp_q, ovf in _expert_episodes(
+                prep, aabbs, occ_states, batch, rnd, k, tasks):
+            ovfs.append(ovf)
+            fast, inner = meta_core.reptile_adapt(
+                lambda p, b, i: episode_loss(p, bg, aabb, b[0], b[1], smp_s,
+                                             u=rnd.strat(k, t, i, b[0].shape[0]),
+                                             bg=rnd.bg(k, t, i, b[0].shape[0])),
+                expert_p, (sr, sg), inner_lr, inner_iter)
+            with torch.no_grad():
+                q_losses.append(episode_loss(fast, bg, aabb, qr, qg, smp_q,
+                                             u=rnd.strat(k, t, inner_iter, qr.shape[0]),
+                                             bg=rnd.bg(k, t, inner_iter, qr.shape[0])))
+                tree_map(lambda a, f, w: a.add_(f - w), d_acc, fast, expert_p)
+            inner_losses.append(inner)
+            del fast
         with torch.no_grad():
-            q_losses.append(episode_loss(fast, bg, aabb, qr, qg, smp_q,
-                                         u=rnd.strat(k, t, inner_iter, qr.shape[0]),
-                                         bg=rnd.bg(k, t, inner_iter, qr.shape[0])))
-            tree_map(lambda a, f, w: a.add_(f - w), d_acc, fast, expert_p)
-            if t == T - 1:
-                tree_map(lambda w, d: w.add_(
-                    outer_lr * (torch.where(torch.isfinite(d), d, 0.0) / T)),
-                    expert_p, d_acc)
-        inner_losses.append(inner)
-        del fast
-    return (torch.stack(q_losses).reshape(K, T),
-            torch.stack(inner_losses).reshape(K, T, -1),
-            torch.mean(torch.stack(ovfs)))
+            if mesh is not None:
+                mesh.all_reduce(tree_leaves(d_acc), mesh.data_group)
+            tree_map(lambda w, d: w.add_(
+                outer_lr * (torch.where(torch.isfinite(d), d, 0.0) / T)),
+                expert_p, d_acc)
+    q, inner, ovf = _whole_episodes(mesh, K, T, tasks, dev, inner_iter, q_losses,
+                                    inner_losses, ovfs)
+    return q, inner, torch.mean(ovf.reshape(-1))
+
+
+def _global_shape(batch, mesh) -> Tuple[int, int]:
+    """(K, T) of the whole step: over a mesh the batch holds this rank's
+    experts and every task of them."""
+    K, T = batch["support_rays"].shape[:2]
+    return (K if mesh is None else mesh.num_experts), T
+
+
+def _tasks(mesh, T: int) -> range:
+    """The tasks this rank runs of each of its experts."""
+    return range(T) if mesh is None else range(*mesh.task_range(T))
 
 
 def _fim_cfg_from(P) -> Optional[dict]:
@@ -480,6 +566,7 @@ def make_meta_train_step(
     budget_override: Optional[int] = None,
     report_budget: int = 0,
     device=None,
+    mesh=None,
 ):
     """Build the meta-train step of ``P.algo`` (``fomaml``, ``maml`` or
     ``reptile``; ``P.fim`` with ``fomaml``) in the regime that
@@ -493,7 +580,9 @@ def make_meta_train_step(
     ``occ_states`` the stacked (K, ...) occupancy states (in the stratified
     regime ``trainer.dummy_occ_states`` or None), ``draws`` as
     ``EpisodeDraws`` takes them. Everything lies on ``device``: ``None``
-    means the card, and raises without one.
+    means the card, and raises without one. Over a ``mesh`` the state,
+    batch and occupancy states are this rank's shard (module docstring) and
+    every rank returns the same metrics.
 
     Reptile moves the experts by ``P.lr`` · mean(fast − θ) and leaves the
     background head, the optimizer state and its count as they are; its
@@ -536,23 +625,24 @@ def make_meta_train_step(
         model = state["model"]
         params = model.params()
         _check_devices(device, params, batch, occ_states)
-        rnd = EpisodeDraws(draws, device, regime, P, cfg)
+        rnd = EpisodeDraws(draws, device, regime, P, cfg,
+                           offset=(0 if mesh is None else mesh.k0, 0))
         opt_state = state["opt_state"]
         if algo == "reptile":
             q_losses, inner_losses, occ_overflow = _reptile(
                 episode_loss, prep, params, model.expert_aabbs, occ_states, batch, rnd,
-                inner_lr, inner_iter, float(P.lr))
+                inner_lr, inner_iter, float(P.lr), mesh=mesh)
             grad_norm = torch.zeros((), device=device)
         else:
             q_losses, inner_losses, g_experts, g_bg, occ_overflow = _meta_grads_gradbased(
                 algo, episode_loss, prep, params, model.expert_aabbs, occ_states, batch,
-                rnd, inner_lr, inner_iter, fim_cfg)
+                rnd, inner_lr, inner_iter, fim_cfg, mesh=mesh)
             grads = {"experts": g_experts}
             if g_bg is not None:
                 grads["bg_mlp"] = g_bg
-            updates, opt_state = optimizer.update(grads, opt_state, params)
+            updates, opt_state = optimizer.update(grads, opt_state, params, mesh=mesh)
             apply_updates(params, updates)
-            grad_norm = meta_core.global_grad_norm(grads)
+            grad_norm = meta_core.global_grad_norm(grads, mesh)
         new_state = {"model": model, "opt_state": opt_state, "step": state["step"] + 1}
         return new_state, metrics_of(q_losses, inner_losses, grad_norm, occ_overflow)
 
@@ -565,6 +655,7 @@ def make_eval_step(
     occ_cfg: Optional[OccConfig] = None,
     tto: Optional[int] = None,
     device=None,
+    mesh=None,
 ):
     """Mid-training eval: adapt each test task's expert with ``tto`` inner
     steps (``P.inner_iter`` when None) on its support rays, first order or
@@ -572,7 +663,9 @@ def make_eval_step(
     adapted weights. The batch is the train step's.
 
     ``eval_step(model, batch, occ_states, draws=None)`` → {loss_out,
-    psnr_out (K,), psnr (0-dim)}; the model is not changed."""
+    psnr_out (K,), psnr (0-dim)}; the model is not changed. Over a ``mesh``
+    the model and batch are this rank's shard and the query losses are
+    gathered, so every rank returns the whole eval's metrics."""
     device = resolve_device(device)
     regime = regime_of(occ_cfg, P)
     episode_loss, prep = make_episode_loss(cfg, P, occ_cfg)
@@ -584,31 +677,36 @@ def make_eval_step(
                   draws=None) -> Dict[str, torch.Tensor]:
         params = model.params()
         _check_devices(device, params, batch, occ_states)
-        rnd = EpisodeDraws(draws, device, regime, P, cfg)
+        K, T = _global_shape(batch, mesh)
+        rnd = EpisodeDraws(draws, device, regime, P, cfg,
+                           offset=(0 if mesh is None else mesh.k0, 0))
         bg = params.get("bg_mlp")
         bg = tree_map(lambda p: p.detach(), bg) if bg is not None else None
-        K, T = batch["support_rays"].shape[:2]
+        K_l = batch["support_rays"].shape[0]
+        tasks = _tasks(mesh, T)
         q_losses = []
-        for k, t, aabb, sr, sg, smp_s, qr, qg, smp_q, _ in _episodes(
-                prep, model.expert_aabbs, occ_states, batch, rnd):
+        for k in range(K_l):
             expert_p = cont.expert_slice(params["experts"], k)
-            sup = lambda p, b, i: episode_loss(
-                p, bg, aabb, b[0], b[1], smp_s, u=rnd.strat(k, t, i, b[0].shape[0]),
-                bg=rnd.bg(k, t, i, b[0].shape[0]))
-            fast = expert_p
-            if iterations > 0 and fim_cfg is not None:
-                fast = fim_mod.fim_task_adapt(sup, expert_p, fim_mod.fisher_init(expert_p),
-                                              (sr, sg), inner_lr, iterations, **fim_cfg)[0]
-            elif iterations > 0:
-                fast = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr, iterations,
-                                            first_order=True)[0]
-            with torch.no_grad():
-                q_losses.append(episode_loss(
-                    fast, bg, aabb, qr, qg, smp_q,
-                    u=rnd.strat(k, t, iterations, qr.shape[0]),
-                    bg=rnd.bg(k, t, iterations, qr.shape[0])))
-            del fast
-        q = torch.stack(q_losses).reshape(K, T)
+            for t, aabb, sr, sg, smp_s, qr, qg, smp_q, _ in _expert_episodes(
+                    prep, model.expert_aabbs, occ_states, batch, rnd, k, tasks):
+                sup = lambda p, b, i: episode_loss(
+                    p, bg, aabb, b[0], b[1], smp_s, u=rnd.strat(k, t, i, b[0].shape[0]),
+                    bg=rnd.bg(k, t, i, b[0].shape[0]))
+                fast = expert_p
+                if iterations > 0 and fim_cfg is not None:
+                    fast = fim_mod.fim_task_adapt(sup, expert_p,
+                                                  fim_mod.fisher_init(expert_p), (sr, sg),
+                                                  inner_lr, iterations, **fim_cfg)[0]
+                elif iterations > 0:
+                    fast = meta_core.task_adapt(sup, expert_p, (sr, sg), inner_lr,
+                                                iterations, first_order=True)[0]
+                with torch.no_grad():
+                    q_losses.append(episode_loss(
+                        fast, bg, aabb, qr, qg, smp_q,
+                        u=rnd.strat(k, t, iterations, qr.shape[0]),
+                        bg=rnd.bg(k, t, iterations, qr.shape[0])))
+                del fast
+        q, = gather_episodes(mesh, K, T, _stack(q_losses, K_l, len(tasks), (), device))
         loss_out = torch.mean(q, dim=1)
         return {"loss_out": loss_out, "psnr_out": psnr_from_mse(loss_out),
                 "psnr": psnr_from_mse(torch.mean(q))}
@@ -627,23 +725,29 @@ def pools_to_device(pools, device=None) -> Dict[str, torch.Tensor]:
 
 
 def draw_episodes(pools: Dict[str, torch.Tensor], T: int,
-                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                  generator: torch.Generator, mesh=None) -> Dict[str, torch.Tensor]:
     """The four draws of each of the K·T episodes, from ``generator`` (on
     the pools' device): ``cell`` (K, T) uniform over each expert's eligible
     cells (the largest of C uniforms, the others masked), ``u`` (K, T, I)
     uniforms that order the cell's images, and ``offs_s`` / ``offs_q``
     (K, T, I) integers in [0, 2³⁰) that start each image's support and
-    fresh query window."""
+    fresh query window. Over a ``mesh`` the pools hold this rank's experts:
+    the whole mesh's draws are made (every rank's generator in one state)
+    and this rank's rows kept."""
     elig = pools["eligible"]
     K, C = elig.shape
     I = pools["img_start"].shape[2]
     dev = elig.device
-    score = torch.rand((K, T, C), generator=generator, device=dev)
+    k0, K_all = (0, K) if mesh is None else (mesh.k0, mesh.num_experts)
+    rows = lambda x: x[k0:k0 + K]
+    score = rows(torch.rand((K_all, T, C), generator=generator, device=dev))
     cell = torch.argmax(torch.where(elig[:, None, :], score, -1.0), dim=-1)
     return {"cell": cell,
-            "u": torch.rand((K, T, I), generator=generator, device=dev),
-            "offs_s": torch.randint(0, 1 << 30, (K, T, I), generator=generator, device=dev),
-            "offs_q": torch.randint(0, 1 << 30, (K, T, I), generator=generator, device=dev)}
+            "u": rows(torch.rand((K_all, T, I), generator=generator, device=dev)),
+            "offs_s": rows(torch.randint(0, 1 << 30, (K_all, T, I), generator=generator,
+                                         device=dev)),
+            "offs_q": rows(torch.randint(0, 1 << 30, (K_all, T, I), generator=generator,
+                                         device=dev))}
 
 
 def _split_take(lens, n_use, target: int, cap: int):
@@ -729,17 +833,19 @@ def episode_ray_ids(pools: Dict[str, torch.Tensor], draws: Dict[str, torch.Tenso
 
 
 def make_device_batch_fn(T: int, S: int, Q: int,
-                         constraints: Optional[EpisodeConstraints] = None):
+                         constraints: Optional[EpisodeConstraints] = None, mesh=None):
     """Episodic sampling on the pools' device: ``sample_batch(pools,
     draws)`` → the stacked (K, T, ·, ·) batch of ``make_meta_train_step``
     ({support_rays, support_rgbs, query_rays, query_rgbs}), the layout of
     ``data.tasks.MultiTaskSampler.sample_batch``. ``pools`` from
     ``pools_to_device``; ``draws`` a ``torch.Generator`` on their device or
-    ``draw_episodes``'s dict (the tests inject JAX's draws). No host wait."""
+    ``draw_episodes``'s dict (the tests inject JAX's draws). No host wait.
+    Over a ``mesh`` the pools hold this rank's experts, and so does the
+    batch (every task of them)."""
 
     def sample_batch(pools: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
         if isinstance(draws, torch.Generator):
-            draws = draw_episodes(pools, T, draws)
+            draws = draw_episodes(pools, T, draws, mesh)
         s_ids, q_ids = episode_ray_ids(pools, draws, S, Q, constraints)
         k3 = torch.arange(s_ids.shape[0], device=s_ids.device)[:, None, None]
         return {"support_rays": pools["rays"][k3, s_ids],

@@ -10,7 +10,17 @@ every ``occ_cfg.update_interval`` steps.
 
 Randomness: the loop draws from one ``torch.Generator`` on its device,
 seeded from ``P.seed``, through ``LoopDraws``; a test passes a ``LoopDraws``
-of its own that replays ``acn_tpu``'s keys in the loop's order.
+of its own that replays ``acn_tpu``'s keys in the loop's order. The step
+and the occupancy update key their draws by expert (and task), so a rank of
+a mesh draws what one device draws for its experts.
+
+Over a mesh (``meta_trainer(mesh=...)``): each rank keeps its experts'
+parameters, optimizer moments, grids and pools (``shard_by_expert_axis``),
+trains and updates them, and reads the same metrics (the step gathers
+them), so ``AutoRegime`` switches every rank at the same step. Rank 0 alone
+logs and writes checkpoints, each gathered from the shards into the single
+device's layout. A SIGTERM on any rank stops every rank after the same
+step.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 from acn_tpu_torch.models.container import Container, ContainerConfig
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
+from acn_tpu_torch.parallel.mesh import check_mesh, gather_tree, shard_by_expert_axis
 from acn_tpu_torch.pipelines.offline_stage.train_step import (
     make_device_batch_fn,
     make_eval_step,
@@ -37,6 +48,7 @@ from acn_tpu_torch.pipelines.renderer import resolve_device
 from acn_tpu_torch.utils import startup
 from acn_tpu_torch.utils.checkpoint import AsyncCheckpointer, save_checkpoint
 from acn_tpu_torch.utils.logging import Logger, MetricLogger, PhaseTimer
+from acn_tpu_torch.utils.seeding import keyed_generator, step_seed
 
 
 class AutoRegime:
@@ -68,21 +80,25 @@ class AutoRegime:
         return False
 
 
-def make_occ_update_fn(cfg: ContainerConfig, occ_cfg: OccConfig):
+def make_occ_update_fn(cfg: ContainerConfig, occ_cfg: OccConfig, mesh=None):
     """The all-expert occupancy EMA update:
     ``update_all(model, occ_states, jitter=None, generator=None)`` → new
-    stacked (K, ...) states.
+    stacked states, one per expert of the model (over a ``mesh``, this
+    rank's).
 
     The experts are updated one after another (the all-cells density sweep
     is the largest computation of a run), each in float32 on its own
     parameters over its own grid, with step size diag(expert AABB)/1000.
-    ``jitter`` (K, L, R³, 3) in [−0.5, 0.5) is injected (JAX draws one per
-    expert from a split key), or drawn from ``generator``; one of the two is
-    required."""
+    ``jitter`` (K, L, R³, 3) in [−0.5, 0.5), every expert's, is injected
+    (JAX draws one per expert from a split key), or drawn from a generator
+    of expert k's own, keyed by k and seeded from ``generator``'s state; one
+    of the two is required."""
+    k0 = 0 if mesh is None else mesh.k0
 
     def update_all(model: Container, occ_states: Dict[str, torch.Tensor],
                    jitter: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        seed = step_seed(generator) if generator is not None else None
         states = []
         for k in range(model.expert_aabbs.shape[0]):
             params, aabb = model.expert(k), model.expert_aabbs[k]
@@ -90,7 +106,9 @@ def make_occ_update_fn(cfg: ContainerConfig, occ_cfg: OccConfig):
                 {name: v[k] for name, v in occ_states.items()},
                 lambda x: cfg.expert_density(params, cfg.expert, aabb, x)[..., 0],
                 occ_cfg, occ_cfg.step_size_for_traced(aabb),
-                jitter=None if jitter is None else jitter[k], generator=generator))
+                jitter=None if jitter is None else jitter[k0 + k],
+                generator=None if seed is None else keyed_generator(
+                    seed, k0 + k, device=generator.device)))
         return {name: torch.stack([s[name] for s in states]) for name in states[0]}
 
     return update_all
@@ -204,25 +222,47 @@ def meta_trainer(
     current step and saves ``last``. ``P.watchdog_timeout`` > 0 exits with
     code 42 after that long without a step. ``P.profile_at`` = N traces
     steps N … N + ``profile_steps`` − 1 with ``torch.profiler`` into
-    ``<logdir>/profile``. ``device=None`` is the card."""
-    if mesh is not None:
-        raise NotImplementedError("expert and data sharding over a mesh is not "
-                                  "ported: ROADMAP.md M11")
+    ``<logdir>/profile``. ``device=None`` is the card.
+
+    ``mesh`` (``parallel.mesh.make_mesh``'s): the whole model, optimizer
+    state, grids and pools are given on every rank; each keeps its experts'
+    shard, and the returned state holds this rank's shard of the model
+    (``loop`` and ``occ_states`` likewise); the checkpoints hold the whole
+    state, written by rank 0."""
+    check_mesh(mesh)
     device = resolve_device(device)
     K = cfg.num_submodules
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        state = {**state, **shard_by_expert_axis(
+            {"model": state["model"], "opt_state": state["opt_state"]}, mesh, K)}
+        occ_states, device_pools = (shard_by_expert_axis(
+            {"occ_states": occ_states, "device_pools": device_pools}, mesh, K)[key]
+            for key in ("occ_states", "device_pools"))
     model = state["model"]
     use_occ = occ_cfg is not None
     occ_ready = use_occ and start_step >= occ_cfg.warmup_steps
     if occ_states is None:
         occ_states = (init_occ_states(model.expert_aabbs, occ_cfg) if use_occ
-                      else dummy_occ_states(K, device))
+                      else dummy_occ_states(model.expert_aabbs.shape[0], device))
     draws = draws if draws is not None else LoopDraws(int(P.seed), device)
+
+    def whole(**tree):
+        """The state's pieces gathered from the shards (every rank takes
+        part; rank 0 writes them)."""
+        return gather_tree(tree, mesh, K)
+
+    def host_batch(sampler, n):
+        b = sampler.sample_batch(n)
+        b = {k: torch.from_numpy(b[k]).to(device) for k in
+             ("support_rays", "support_rgbs", "query_rays", "query_rgbs")}
+        return shard_by_expert_axis({"batch": b}, mesh, K)["batch"]
 
     sample_fn = None
     if device_pools is not None:
         device_pools = pools_to_device(device_pools, device)
         sample_fn = make_device_batch_fn(int(P.batch_size), int(P.support_rays),
-                                         int(P.query_rays))
+                                         int(P.query_rays), mesh=mesh)
 
     # the marching regime (AutoRegime): with a budget, occ_regime "auto"
     # trains strided and measures the would-be overflow until the switch;
@@ -239,7 +279,8 @@ def meta_trainer(
         oc = occ_cfg if with_occ_render else None
         step_fn = make_meta_train_step(
             cfg, P, optimizer, oc, budget_override=budget_cfg if with_budget else 0,
-            report_budget=budget_cfg if (auto and not with_budget) else 0, device=device)
+            report_budget=budget_cfg if (auto and not with_budget) else 0, device=device,
+            mesh=mesh)
         return step_fn, regime_of(oc, P, budget_cfg if with_budget else 0)
 
     def build_eval_step(with_occ_render: bool):
@@ -247,11 +288,11 @@ def meta_trainer(
         # one instrument across the switch
         oc = occ_cfg if with_occ_render else None
         eval_oc = oc if getattr(P, "eval_render", "dispatch") == "dispatch" else None
-        return make_eval_step(cfg, P, eval_oc, device=device)
+        return make_eval_step(cfg, P, eval_oc, device=device, mesh=mesh)
 
     train_step, regime = build_train_step(occ_ready, budget_active)
     eval_step = build_eval_step(occ_ready)
-    occ_update = make_occ_update_fn(cfg, occ_cfg) if use_occ else None
+    occ_update = make_occ_update_fn(cfg, occ_cfg, mesh) if use_occ else None
     if occ_ready:
         # a resumed run past the warm-up refreshes its grids from the
         # restored densities before the first step
@@ -299,9 +340,7 @@ def meta_trainer(
             if sample_fn is not None:
                 batch = sample_fn(device_pools, sample_draws)
             else:
-                batch_np = train_sampler.sample_batch(int(P.batch_size))
-                batch = {k: torch.from_numpy(batch_np[k]).to(device) for k in
-                         ("support_rays", "support_rgbs", "query_rays", "query_rgbs")}
+                batch = host_batch(train_sampler, int(P.batch_size))
             timer.toc("data")
 
             if profile_at and step + 1 == profile_at:
@@ -313,6 +352,8 @@ def meta_trainer(
             timer.tic("step")
             state, metrics = train_step(state, batch, occ_states, step_draws)
             step += 1
+            if mesh is not None and mesh.any_host(stop["flag"]):
+                stop["flag"] = True  # a signal on any rank stops every rank here
             progress["t"], progress["step"] = time.monotonic(), step
             # the host reads the metrics on log steps only: a read waits for
             # the whole step
@@ -380,9 +421,7 @@ def meta_trainer(
                 n_tasks = int(P.max_test_tasks)
                 psnrs = []
                 for task_draws in draws.eval(n_tasks):
-                    tb = test_sampler.sample_batch(int(P.test_batch_size))
-                    tb = {k: torch.from_numpy(tb[k]).to(device) for k in
-                          ("support_rays", "support_rgbs", "query_rays", "query_rgbs")}
+                    tb = host_batch(test_sampler, int(P.test_batch_size))
                     psnrs.append(float(eval_step(model, tb, occ_states, task_draws)["psnr"]))
                 psnr = float(np.mean(psnrs))
                 record["eval_psnr"].append((step, psnr))
@@ -393,8 +432,10 @@ def meta_trainer(
                     # params only: best checkpoints serve eval and serving;
                     # a resume takes the step saves, which carry the rest
                     t0 = time.perf_counter()
-                    ckpt.save(logger.logdir, "best", model, P=P, step=step, best=best,
-                              is_best=True)
+                    w = whole(model=model)
+                    if main_rank:
+                        ckpt.save(logger.logdir, "best", w["model"], P=P, step=step,
+                                  best=best, is_best=True)
                     record["save_ms"].append(1e3 * (time.perf_counter() - t0))
                     logger.log(f"[ckpt] new best ({best:.3f}) save queued")
 
@@ -403,17 +444,22 @@ def meta_trainer(
                 # "step" key keeps at most one such snapshot pending
                 save_opt = bool(getattr(P, "save_optimizer", True))
                 t0 = time.perf_counter()
-                ckpt.save(logger.logdir, f"step{step}", model,
-                          opt_state=state["opt_state"] if save_opt else None,
-                          occ_states=occ_states if use_occ else None,
-                          P=P, step=step, best=best, coalesce_key="step",
-                          optimizer=optimizer)
+                w = whole(model=model, opt_state=state["opt_state"] if save_opt else None,
+                          occ_states=occ_states if use_occ else None)
+                if main_rank:
+                    ckpt.save(logger.logdir, f"step{step}", w["model"],
+                              opt_state=w["opt_state"], occ_states=w["occ_states"],
+                              P=P, step=step, best=best, coalesce_key="step",
+                              optimizer=optimizer)
                 record["save_ms"].append(1e3 * (time.perf_counter() - t0))
 
         ckpt.wait()  # the queued saves land before the final one
-        save_checkpoint(logger.logdir, "last", model, opt_state=state["opt_state"],
-                        occ_states=occ_states if use_occ else None, P=P, step=step,
-                        best=best, optimizer=optimizer)
+        w = whole(model=model, opt_state=state["opt_state"],
+                  occ_states=occ_states if use_occ else None)
+        if main_rank:
+            save_checkpoint(logger.logdir, "last", w["model"], opt_state=w["opt_state"],
+                            occ_states=w["occ_states"], P=P, step=step, best=best,
+                            optimizer=optimizer)
     finally:
         loop_done.set()
         if profiler is not None:

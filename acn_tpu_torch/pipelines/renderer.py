@@ -1,7 +1,7 @@
 """Full-frame and ray-batch rendering of the routed container, stratified
 or occupancy-guided, dense or per expert rectangle.
 
-Port of ``acn_tpu/pipelines/renderer.py`` (all but the mesh fan-out). A
+Port of ``acn_tpu/pipelines/renderer.py``. A
 chunk is dispatched by (occupancy?, expert, budget) as in JAX: without
 occupancy, stratified over ``container_forward`` (one expert's when
 ``active_module`` is set); with it, the soft-MoE packed-budget march
@@ -17,8 +17,15 @@ done: no chunk synchronizes with the host.
 Randomness (the ``random`` background, ``randomized`` sampling) comes from
 ``RenderDraws``: a ``torch.Generator`` on the device (a seed-0 one when none
 is given, as JAX's default ``PRNGKey(0)``), or a function through which a
-test replays JAX's per-chunk keys. ``mesh=`` raises: the row-block fan-out
-over several cards is ROADMAP.md M11.
+test replays JAX's per-chunk keys.
+
+The row-block fan-out (``mesh=``, a ``parallel.mesh.Mesh`` of n ranks, each
+with the whole model): a dispatch covers n × rows rows, rank s renders rows
+``row0 + s·rows``, and the blocks (u8 rgb, f16 depth and acc, packed into
+7 bytes a pixel) are gathered on the host over the world's gloo group in
+one ``all_gather`` per frame; every rank returns the frame. As in
+``acn_tpu``, the last dispatch renders past the bottom edge and the rows
+beyond H are dropped, and the dispatch's draws are split per slot.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from acn_tpu_torch.nerfs.render_occ import (
     render_rays_occ_budget,
 )
 from acn_tpu_torch.occupancy.grid import OccConfig
+from acn_tpu_torch.parallel.mesh import check_mesh
 
 
 def resolve_device(device=None) -> torch.device:
@@ -78,11 +86,43 @@ def _pinhole_block_rays(rows: int, W: int, c2w, intr, aabb, nf, row0: float,
     return rays
 
 
-def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "rendering over a device mesh (the row-block fan-out) is not ported: "
-            "ROADMAP.md M11")
+def gather_blocks(mesh, outs) -> list:
+    """Each dispatch's (u8 rgb, f16 depth, f16 acc) on the host: this
+    rank's alone without a mesh, else every slot's block of it, slot after
+    slot, from one ``all_gather`` of each rank's blocks packed as bytes
+    (every slot's block of a dispatch has one size)."""
+    host = [tuple(o.cpu() for o in out) for out in outs]
+    if mesh is None or not host:
+        return host
+    as_bytes = lambda t: t.contiguous().view(torch.uint8).reshape(-1)
+    parts = mesh.all_gather_host(torch.cat([as_bytes(o) for out in host for o in out]))
+    gathered, off = [], 0
+    for rgb, depth, acc in host:
+        n = acc.numel()
+        blocks = []
+        for p in parts:
+            q = p[off:off + 7 * n]
+            blocks.append((q[:3 * n].reshape(n, 3), q[3 * n:5 * n].view(torch.float16),
+                           q[5 * n:].view(torch.float16)))
+        gathered.append(tuple(torch.cat(b) for b in zip(*blocks)))
+        off += 7 * n
+    return gathered
+
+
+def frame_outputs(mesh, outs, n: int) -> tuple:
+    """A dense frame's (u8 rgb, depth, acc) on the host, its first ``n``
+    pixels, from its dispatches' outputs: without a mesh one device ``cat``
+    and one copy per output, under a mesh every slot's blocks
+    (``gather_blocks``)."""
+    if mesh is None:
+        return tuple(torch.cat(parts)[:n].cpu() for parts in zip(*outs))
+    return tuple(torch.cat(parts)[:n] for parts in zip(*gather_blocks(mesh, outs)))
+
+
+def _slot(mesh) -> Tuple[int, int]:
+    """(this rank's slot, slots) of a frame's dispatch."""
+    check_mesh(mesh)
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
 
 
 class RenderDraws:
@@ -97,10 +137,17 @@ class RenderDraws:
     with 0), or a function ``fn(what, c, shape)`` returning the draw.
     ``acn_tpu`` splits its key once per chunk (``key, k = split(key)``), the
     chunk's key into (background, render), and the strided march's render
-    key into (jitter, phase)."""
+    key into (jitter, phase).
 
-    def __init__(self, draws, device: torch.device):
+    ``slot`` = (s, n): the draws of slot s of a mesh's n-slot dispatch c
+    (``acn_tpu`` splits the dispatch's key into n); a function is asked for
+    ``fn(what, (c, s), shape)``, a generator draws all n slots' and keeps
+    slot s's."""
+
+    def __init__(self, draws, device: torch.device, slot: Tuple[int, int] = (0, 1)):
         self.device = device
+        self.slot = slot
+        self.keyed = callable(draws) and not isinstance(draws, torch.Generator)
         if draws is None:
             draws = torch.Generator(device=device).manual_seed(0)
         if isinstance(draws, torch.Generator):
@@ -118,7 +165,13 @@ class RenderDraws:
         self.fn: Callable = draws
 
     def get(self, what: str, c: int, shape):
-        x = self.fn(what, c, tuple(shape))
+        s, n = self.slot
+        if n == 1:
+            x = self.fn(what, c, tuple(shape))
+        elif self.keyed:
+            x = self.fn(what, (c, s), tuple(shape))
+        else:
+            x = [self.fn(what, c, tuple(shape)) for _ in range(n)][s]
         return x if isinstance(x, int) else torch.as_tensor(x).to(self.device)
 
 
@@ -333,24 +386,25 @@ class Renderer:
         (rgb (H,W,3) in [0,1] from the u8 frame, depth (H·W,), acc (H·W,));
         with ``download=False`` the frame stays on the device, the call waits
         for it to be computed and returns ``(None, None, None)``. ``draws``
-        (``RenderDraws``) gives a ``random`` background its colors."""
-        refuse_mesh(mesh)
+        (``RenderDraws``) gives a ``random`` background its colors.
+        ``mesh``: the row-block fan-out (module docstring) over its ranks,
+        every one of which calls this with the same arguments."""
         use_occ = self._use_occ(use_occ)
         rows = max(self._chunk_size(use_occ) // W, 1)
+        slot, n_dev = _slot(mesh)
         cam = self._camera(c2w, intrinsics, aabb, near_far_override)
-        rnd = RenderDraws(draws, self.device)
+        rnd = RenderDraws(draws, self.device, (slot, n_dev))
         pending = [
-            self._frame_chunk(model, occ_states, W, rows, cam, float(r0), 0.0,
+            self._frame_chunk(model, occ_states, W, rows, cam, float(r0 + slot * rows), 0.0,
                               use_occ=use_occ, active_module=active_module,
                               ray_samples=ray_samples, rnd=rnd, c=c)
-            for c, r0 in enumerate(range(0, H, rows))
+            for c, r0 in enumerate(range(0, H, rows * n_dev))
         ]
         if not download:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return None, None, None
-        rgb_u8, depth, acc = (torch.cat(parts)[: H * W].cpu() for parts in
-                              zip(*pending))
+        rgb_u8, depth, acc = frame_outputs(mesh, pending, H * W)
         rgb = (rgb_u8.numpy().astype(np.float32) / 255.0).reshape(H, W, 3)
         return (np.clip(rgb, 0.0, 1.0), depth.numpy().astype(np.float32),
                 acc.numpy().astype(np.float32))
@@ -407,12 +461,14 @@ class Renderer:
         wc_hi = one_c if c1 >= W else np.clip((c1 - cc) / b, 0.0, 1.0)
         return np.minimum(wr_lo, wr_hi)[:, None] * np.minimum(wc_lo, wc_hi)[None, :]
 
-    def routed_dispatch(self, rects: np.ndarray, W: int, use_occ: bool):
-        """The routed frame's chunks in dispatch order: (k, row0, rows of the
-        chunk inside the rect, col0, crop width, chunk rows). Single-expert
-        chunks carry K× the rays of a dense one; the crop width is quantized
-        to 128 px and re-anchored inside the frame; a chunk's rows are capped
-        by the rect's height quantized to 64."""
+    def routed_dispatch(self, rects: np.ndarray, W: int, use_occ: bool, n_dev: int = 1):
+        """The routed frame's dispatches in order: (k, row0, rows of the
+        dispatch inside the rect, col0, crop width, rows per slot).
+        Single-expert chunks carry K× the rays of a dense one; the crop width
+        is quantized to 128 px and re-anchored inside the frame; a chunk's
+        rows are capped by the rect's height quantized to 64, and over
+        ``n_dev`` slots by the rect's share of each, quantized to 64 (a
+        dispatch covers n_dev × rows rows)."""
         chunk = self._chunk_size(use_occ) * max(self.cfg.num_submodules, 1)
         out = []
         for k in range(rects.shape[0]):
@@ -423,8 +479,10 @@ class Renderer:
             c0k = max(0, min(c0k, W - W_crop))
             rows = max(chunk // W_crop, 1)
             rows = min(rows, int(np.ceil((r1k - r0k) / 64.0)) * 64)
-            for r0 in range(r0k, r1k, rows):
-                out.append((k, r0, min(rows, r1k - r0), c0k, W_crop, rows))
+            if n_dev > 1:
+                rows = min(rows, max(int(np.ceil((r1k - r0k) / n_dev / 64.0)) * 64, 64))
+            for r0 in range(r0k, r1k, rows * n_dev):
+                out.append((k, r0, min(rows * n_dev, r1k - r0), c0k, W_crop, rows))
         return out
 
     def routed_rects(self, expert_aabbs: np.ndarray, c2w, intrinsics, H: int, W: int,
@@ -471,18 +529,20 @@ class Renderer:
         renders pixels outside its region, where its grid is empty, sees
         acc ≈ 0 there and contributes next to nothing where another expert
         has content. Returns what ``render_image`` returns. With identical
-        experts it reproduces the dense frame up to the u8 quantization."""
-        refuse_mesh(mesh)
+        experts it reproduces the dense frame up to the u8 quantization.
+        ``mesh``: each dispatch's rows fan out over its ranks as in
+        ``render_image``."""
         use_occ = self._use_occ(use_occ)
         if expert_aabbs is None:
             expert_aabbs = model.expert_aabbs.detach().cpu().numpy()
         K = expert_aabbs.shape[0]
         rects = self.routed_rects(expert_aabbs, c2w, intrinsics, H, W, blend_px)
         cam = self._camera(c2w, intrinsics, aabb, near_far_override)
-        rnd = RenderDraws(draws, self.device)
-        plan = self.routed_dispatch(rects, W, use_occ)
+        slot, n_dev = _slot(mesh)
+        rnd = RenderDraws(draws, self.device, (slot, n_dev))
+        plan = self.routed_dispatch(rects, W, use_occ, n_dev)
         pending = [
-            self._frame_chunk(model, occ_states, W_crop, rows, cam, float(r0),
+            self._frame_chunk(model, occ_states, W_crop, rows, cam, float(r0 + slot * rows),
                               float(c0), use_occ=use_occ, active_module=k,
                               ray_samples=ray_samples, rnd=rnd, c=c)
             for c, (k, r0, _, c0, W_crop, rows) in enumerate(plan)
@@ -498,8 +558,8 @@ class Renderer:
         w_acc = np.zeros((H, W), np.float32)
         feathers = {k: self._feather_weights(rects[k], H, W, blend_px)
                     for k in range(K)}
-        for (k, r0, rows_this, c0, W_crop, _), outs in zip(plan, pending):
-            rgb_u8, depth, acc = (o.cpu().numpy() for o in outs)
+        for (k, r0, rows_this, c0, W_crop, _), outs in zip(plan, gather_blocks(mesh, pending)):
+            rgb_u8, depth, acc = (o.numpy() for o in outs)
             rgb = rgb_u8.astype(np.float32) / 255.0
             rgb = rgb.reshape(-1, W_crop, 3)[:rows_this]
             dep = depth.astype(np.float32).reshape(-1, W_crop)[:rows_this]

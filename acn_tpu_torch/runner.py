@@ -13,8 +13,20 @@ and runs the op: ``train`` (``meta_trainer``), ``eval`` (TTO and scoring,
 or with ``--baked_asset`` the baked table's frames, strided by default),
 ``video`` (``render_video`` along ``--camera_path``, live or baked) and
 ``bake`` (``baked_<R>.npz`` in the run's log directory). ``view`` raises,
-naming ROADMAP.md M12. There is no device mesh: ``--mesh_experts`` or
-``--mesh_data`` above 1, and a multi-process run, raise (M11).
+naming ROADMAP.md M12.
+
+Several processes (``--num_processes N --process_id i --coordinator_address
+host:port``, or the ``COORDINATOR_ADDRESS`` / ``PROCESS_ID`` /
+``NUM_PROCESSES`` environment): ``main`` starts the process group before
+any use of the card (``parallel.mesh.maybe_init_distributed``: NCCL when
+each rank has a card, gloo when they share one or run on the CPU), puts
+rank i on ``cuda:{local rank}`` and sets ``P.rank``. ``--op train`` builds
+the (expert, data) mesh of ``make_mesh(K, --mesh_experts, --mesh_data)``
+and trains sharded; rank 0 alone logs and writes. For the other ops every
+rank leaves the process group at once, and rank 0 goes on alone. In one
+process the mesh flags are ignored, as in ``acn_tpu`` (a sharded run's
+checkpoint, whose flags name its mesh, resumes there); over several, a
+mesh that does not cover every process is refused.
 
 Entry points run on the card; ``build_context(..., device="cpu")`` and
 ``main(argv, device="cpu")`` run on the CPU, as the tests do.
@@ -46,6 +58,7 @@ from acn_tpu_torch.models.ngp import NGPConfig
 from acn_tpu_torch.models.vanilla import VanillaConfig
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
+from acn_tpu_torch.parallel import mesh as pmesh
 from acn_tpu_torch.pipelines.offline_stage.trainer import init_occ_states
 from acn_tpu_torch.pipelines.renderer import resolve_device
 from acn_tpu_torch.utils import startup
@@ -130,16 +143,6 @@ def build_occ_config(P, pose_scale_factor: float) -> Optional[OccConfig]:
     )
 
 
-def _refuse_mesh(P) -> None:
-    mesh = [int(v) for v in (getattr(P, "mesh_experts", None), getattr(P, "mesh_data", 1))
-            if v is not None]
-    if any(v > 1 for v in mesh) or int(getattr(P, "num_processes", None) or 1) > 1 \
-            or getattr(P, "coordinator_address", None):
-        raise NotImplementedError(
-            "expert and data sharding over a device mesh, and multi-process runs, "
-            "are not ported: ROADMAP.md M11")
-
-
 def _check_restored(model, template) -> None:
     """A restored model must have the built model's structure and shapes
     (the flags pin the architecture from the checkpoint)."""
@@ -154,7 +157,6 @@ def build_context(P, op: str, device=None) -> Dict[str, Any]:
     """The context of ``op`` on ``device`` (``None``: the card)."""
     if op not in ("train", "eval", "video", "view", "bake", "bench"):
         raise ValueError(f"Unsupported op {op!r}")
-    _refuse_mesh(P)
     device = resolve_device(device)
     ctx: Dict[str, Any] = {"P": P, "op": op, "device": device}
 
@@ -212,10 +214,13 @@ def build_context(P, op: str, device=None) -> Dict[str, Any]:
             ctx["occ_states"] = occ
     del model
 
-    logger = Logger(P.fname)
+    logger = Logger(P.fname, rank=int(getattr(P, "rank", 0) or 0))
     ctx["logger"] = logger
 
     if op == "train":
+        world, rank = pmesh.world_rank()
+        if world > 1 and rank > 0:  # rank 0 fills the ray and route caches first
+            pmesh.host_barrier()
         t0 = time.perf_counter()
         train_sets, val_sets = get_dataset(P, expert_aabbs=expert_aabbs,
                                            global_aabb=global_aabb,
@@ -237,6 +242,8 @@ def build_context(P, op: str, device=None) -> Dict[str, Any]:
                           "train_rays": [len(ds) for ds in train_sets]}
         logger.log(f"[data] ray stores in {t1 - t0:.1f}s, routed to micro-cells in "
                    f"{t2 - t1:.1f}s")
+        if world > 1 and rank == 0:
+            pmesh.host_barrier()
         ctx["train_sampler"] = MultiTaskSampler(train_samplers)
         ctx["test_sampler"] = MultiTaskSampler(test_samplers) if test_samplers else None
         ctx["device_pools"] = (None if getattr(P, "no_device_sampling", False)
@@ -255,7 +262,7 @@ def build_context(P, op: str, device=None) -> Dict[str, Any]:
                 [m.c2w for m in mds], mds[0].W if mds else 0, mds[0].H if mds else 0,
                 near_plane=P.near if P.near is not None else 1e-3, device=device)
             logger.log("[OCC] premarked invisible cells for all experts")
-        ctx["mesh"] = None
+        ctx["mesh"] = pmesh.make_mesh(P.num_submodules, P.mesh_experts, P.mesh_data)
 
     elif op in ("eval", "video"):
         if not getattr(P, "checkpoint_path", None):
@@ -414,7 +421,9 @@ def op_bake(ctx) -> str:
 
 def main(argv=None, device=None):
     """Parse the flags (``argv``, else the command line) and run the op on
-    ``device`` (``None``: the card). Returns the op's result."""
+    ``device`` (``None``: the card; over several processes this rank's
+    card). Returns the op's result (None on a rank above 0 of an op other
+    than ``train``)."""
     import faulthandler
     import signal
 
@@ -428,19 +437,34 @@ def main(argv=None, device=None):
     if P.op in UNPORTED_OPS:
         raise NotImplementedError(
             f"--op {P.op} is not ported: ROADMAP.md {UNPORTED_OPS[P.op]}")
-    _refuse_mesh(P)
-    # the whole set-up (restore, ray building, routing, pools) is bounded;
-    # training hands over to the loop's own watchdog
-    startup.arm(float(getattr(P, "startup_timeout", 2400) or 0),
-                what=f"op={P.op} startup (restore/data)")
-    ctx = build_context(P, P.op, device=device)
-    if P.op == "train":
-        return op_train(ctx)
-    startup.mark_ready()
-    if P.op == "eval":
-        return op_eval(ctx)
-    if P.op == "video":
-        return op_video(ctx)
-    if P.op == "bake":
-        return op_bake(ctx)
-    raise ValueError(P.op)
+    # the process group before any use of the card
+    started = pmesh.maybe_init_distributed(
+        P, device, timeout_s=max(pmesh.DEFAULT_TIMEOUT_S,
+                                 float(getattr(P, "startup_timeout", 2400) or 0)))
+    try:
+        if started:
+            P.rank = pmesh.world_rank()[1]
+            device = pmesh.rank_device(device)
+            if P.op != "train":  # rank 0 serves alone: every rank leaves the group
+                pmesh.shutdown()
+                started = False
+                if P.rank > 0:
+                    return None
+        # the whole set-up (restore, ray building, routing, pools) is
+        # bounded; training hands over to the loop's own watchdog
+        startup.arm(float(getattr(P, "startup_timeout", 2400) or 0),
+                    what=f"op={P.op} startup (restore/data)")
+        ctx = build_context(P, P.op, device=device)
+        if P.op == "train":
+            return op_train(ctx)
+        startup.mark_ready()
+        if P.op == "eval":
+            return op_eval(ctx)
+        if P.op == "video":
+            return op_video(ctx)
+        if P.op == "bake":
+            return op_bake(ctx)
+        raise ValueError(P.op)
+    finally:
+        if started:
+            pmesh.shutdown()

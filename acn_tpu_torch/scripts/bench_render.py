@@ -3,7 +3,7 @@
 
     python -m acn_tpu_torch.scripts.bench_render [--hw 1080 1920] [--frames 5]
         [--skip occ,stratified] [--baked RES [--baked_coarse 32]]
-        [--checkpoint_path RUN --prefix last] [--device cuda]
+        [--checkpoint_path RUN --prefix last] [--device cuda] [--mesh N]
 
 The scene is ``toy``'s (``configs/train_occ.json``'s model with random
 weights over the 4 quadrant experts, 10 % random 128³ grids, the overhead
@@ -28,8 +28,16 @@ one JSON line: ms per frame, FPS, ms with the download, the segmented
 scan's forward launches per frame, and the card's ``nvidia-smi`` name and
 power limit. The JAX script's segscan backend A/B (``--segscan_ab``) has
 no counterpart: the port has one scan per device (the CUDA kernel on the
-card, the plain scan on the CPU). The mesh fan-out (``--mesh``) is
-ROADMAP.md M11.
+card, the plain scan on the CPU).
+
+``--mesh N`` renders every frame by row blocks over N ranks
+(``render_image(mesh=...)``): start N processes with ``--num_processes N
+--process_id i --coordinator_address host:port`` (or the
+``COORDINATOR_ADDRESS`` / ``PROCESS_ID`` / ``NUM_PROCESSES`` environment);
+rank 0 prints. ``--mesh 1`` in one process runs a one-rank mesh (its
+gather a copy), which measures the fan-out's own cost against the plain
+path. Two ranks that share one card check the fan-out; their times are not
+a scaling number.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from acn_tpu_torch import toy
 from acn_tpu_torch.ops import segscan
+from acn_tpu_torch.parallel import mesh as pmesh
 from acn_tpu_torch.pipelines.renderer import Renderer, resolve_device
 from acn_tpu_torch.scripts.bench_train import _card
 
@@ -53,15 +62,19 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_frames(render, frames: int, device) -> dict:
+def time_frames(render, frames: int, device, mesh=None) -> dict:
     """One warm frame, ``frames`` timed frames on the device, one with the
-    download: {ms_per_frame, fps, ms_e2e, scan_launches_per_frame}."""
+    download: {ms_per_frame, fps, ms_e2e, scan_launches_per_frame}. Over a
+    mesh a frame ends when every rank has rendered its blocks."""
+    done = (lambda: pmesh.host_barrier()) if mesh is not None else (lambda: None)
     render(download=False)
     _sync(device)
+    done()
     launches = segscan.seg_excl_sum_kernel.launches
     t0 = time.perf_counter()
     for _ in range(frames):
         render(download=False)
+        done()
     dt = (time.perf_counter() - t0) / frames
     launches = (segscan.seg_excl_sum_kernel.launches - launches) / frames
     t0 = time.perf_counter()
@@ -116,7 +129,31 @@ def main(argv=None) -> dict:
     ap.add_argument("--baked_smax", type=int, default=128)
     ap.add_argument("--save_baked", type=str, default="")
     ap.add_argument("--device", default=None, help="default: the card")
+    ap.add_argument("--mesh", type=int, default=-1, metavar="N",
+                    help="row blocks over N ranks (1: a one-rank mesh, in one process)")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--coordinator_address", type=str, default=None)
     args = ap.parse_args(argv)
+    mesh, started = None, False
+    if args.mesh >= 0:
+        started = pmesh.maybe_init_distributed(args, args.device)
+        if not started:
+            pmesh.init_one_rank(torch.device(args.device or "cuda").type)
+        world, rank = pmesh.world_rank()
+        if args.mesh not in (0, world):
+            raise ValueError(f"--mesh {args.mesh}: this run has {world} processes")
+        mesh = pmesh.make_render_mesh() or pmesh.Mesh(
+            num_experts=0, shape=(1,), rank=0, axis_names=("px",))
+        args.device = str(pmesh.rank_device(args.device))
+    try:
+        return _bench(args, mesh)
+    finally:
+        if mesh is not None:
+            pmesh.shutdown()
+
+
+def _bench(args, mesh) -> dict:
     device = resolve_device(args.device)
     card = _card(device)
     H, W = args.hw
@@ -126,10 +163,16 @@ def main(argv=None) -> dict:
     cam["aabb"] = np.asarray(aabb, np.float32)
     skip = {s for s in args.skip.split(",") if s}
     out = {"H": H, "W": W, "device": card}
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        out.update(mesh_ranks=mesh.size, backend=pmesh.backend())
 
     def emit(name, res):
         out[name] = res
-        print(json.dumps({"regime": name, **res, "device": card}), flush=True)
+        if main_rank:
+            print(json.dumps({"regime": name, **res, "device": card,
+                              **({"mesh_ranks": mesh.size} if mesh is not None else {})}),
+                  flush=True)
 
     # (name, use_occ, budget per ray, (h, w), routed, render-time bins)
     regimes = [
@@ -153,8 +196,8 @@ def main(argv=None) -> dict:
         fn = r.render_image_routed if routed else r.render_image
         view = dict(H=h, W=w, intrinsics=cam["intrinsics"] * (h / H), c2w=cam["c2w"],
                     aabb=cam["aabb"], use_occ=use_occ)
-        emit(name, time_frames(lambda **kw: fn(model, occ, **view, **kw), args.frames,
-                               device))
+        emit(name, time_frames(lambda **kw: fn(model, occ, mesh=mesh, **view, **kw),
+                               args.frames, device, mesh))
 
     if args.baked > 0:
         from acn_tpu_torch.pipelines.baking import BakedRenderer, bake_container, save_baked
@@ -181,9 +224,11 @@ def main(argv=None) -> dict:
             if name in skip:
                 continue
             view = dict(H=h, W=w, intrinsics=cam["intrinsics"] * (h / H), c2w=cam["c2w"])
-            emit(name, time_frames(lambda rb=rb, view=view, **kw: rb.render_image(**view, **kw),
-                                   args.frames, device))
-    print(json.dumps(out), flush=True)
+            emit(name, time_frames(
+                lambda rb=rb, view=view, **kw: rb.render_image(mesh=mesh, **view, **kw),
+                args.frames, device, mesh))
+    if main_rank:
+        print(json.dumps(out), flush=True)
     return out
 
 

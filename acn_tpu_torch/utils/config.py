@@ -448,6 +448,10 @@ def resolve_ckpt_cfg_path(checkpoint_path: str, prefix: str) -> Optional[str]:
     return None
 
 
+# the multi-process launch: never taken from a checkpoint's P.json
+LAUNCH_KEYS = frozenset({"coordinator_address", "process_id", "num_processes", "rank"})
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """Resolve the config namespace from its four layers.
 
@@ -475,6 +479,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.configPath is not None:
         with open(args.configPath) as f:
             json_cfg = json.load(f)
+
+    # a checkpoint's launch settings name the processes that wrote it, not
+    # this run's: a sharded run's checkpoint resumes or evaluates anywhere
+    ckpt_cfg = {k: v for k, v in ckpt_cfg.items() if k not in LAUNCH_KEYS}
 
     # apply layers low→high; CLI-pinned dests and unknown keys pass through
     # (the reference also silently drops unknown JSON keys, common/args.py:261-266)

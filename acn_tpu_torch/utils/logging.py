@@ -16,17 +16,45 @@ from pathlib import Path
 from typing import Dict
 
 
+def _rank0s(logdir: Path) -> Path:
+    """Rank 0's choice of the run directory, on every rank of a process
+    group (every rank builds its logger; only rank 0 writes)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return logdir
+    from acn_tpu_torch.parallel.mesh import host_group
+
+    box = [str(logdir)]
+    dist.broadcast_object_list(box, src=0, group=host_group())
+    return Path(box[0])
+
+
 class Logger:
-    def __init__(self, fname: str, logs_root: str = "logs"):
+    """The run's log; a process of rank above 0 (a mesh's) neither prints
+    nor writes; all ranks of a process group build it together and share
+    rank 0's run directory. ``tensorboard=False`` keeps the log file-only (where
+    TensorFlow is installed, TensorBoard's import loads it, and with it
+    whatever it loads)."""
+
+    def __init__(self, fname: str, logs_root: str = "logs", rank: int = 0,
+                 tensorboard: bool = True):
+        self.rank = int(rank)
         logdir = Path(logs_root) / fname
         if logdir.exists() and any(logdir.iterdir()):
             v = 1
             while (Path(logs_root) / f"{fname}_v{v}").exists():
                 v += 1
             logdir = Path(logs_root) / f"{fname}_v{v}"
-        self.logdir = logdir
+        self.logdir = _rank0s(logdir)
+        logdir = self.logdir
+        self._logfile = self._writer = None
+        if self.rank != 0:
+            return
         logdir.mkdir(parents=True, exist_ok=True)
         self._logfile = open(logdir / "log.txt", "a")
+        if not tensorboard:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -35,6 +63,8 @@ class Logger:
             self._writer = None
 
     def log(self, msg: str) -> None:
+        if self.rank != 0:
+            return
         line = f"[{datetime.now().strftime('%y-%m-%d %H:%M:%S')}] {msg}"
         print(line, flush=True)
         if self._logfile:
@@ -117,8 +147,21 @@ class MetricLogger:
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())
 
     def synchronize_between_processes(self) -> None:
-        raise NotImplementedError(
-            "summing metrics across processes is not ported: ROADMAP.md M11")
+        """Sum each meter's count and total over the processes, so that
+        ``global_avg`` is the mean over all of them (a host ``all_reduce``
+        over the world's gloo group; nothing without a process group)."""
+        import torch
+        import torch.distributed as dist
+
+        from acn_tpu_torch.parallel.mesh import host_group
+
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return
+        for m in self.meters.values():
+            t = torch.tensor([float(m.count), float(m.total)], dtype=torch.float64)
+            dist.all_reduce(t, group=host_group())
+            m.count = int(t[0])
+            m.total = float(t[1])
 
 
 class PhaseTimer:

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from acn_tpu_torch.models.nn import tree_leaves, tree_map
+from acn_tpu_torch.parallel.mesh import all_finite, tree_sq_norm
 
 Schedule = Callable[[Any], Any]
 
@@ -97,16 +98,18 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Any, state: Dict[str, Any],
-               params: Any = None) -> Tuple[Any, Dict[str, Any]]:
+               params: Any = None, mesh=None) -> Tuple[Any, Dict[str, Any]]:
         """(updates to add to the parameters, new state). No input is
-        changed. AdamW needs ``params`` (its decayed weights)."""
+        changed. AdamW needs ``params`` (its decayed weights). Over a
+        ``mesh`` (``grads["experts"]`` this rank's shard) the clip's norm and
+        the finite flag are the whole mesh's, so every rank clips, skips and
+        counts alike."""
         if self.name == "adamw" and params is None:
             raise ValueError("adamw's update needs the parameters")
         new = {}
         apply = None
         if self.guard_nonfinite:
-            finite = torch.stack(
-                [torch.isfinite(g).all() for g in tree_leaves(grads)]).all()
+            finite = all_finite(grads, mesh)
             nf = torch.where(finite, 0, state["notfinite_count"] + 1)
             apply = finite | (nf > MAX_CONSECUTIVE_ERRORS)
             new.update(notfinite_count=nf.to(torch.int32), last_finite=finite,
@@ -114,7 +117,7 @@ class Optimizer:
                                         + (~finite).to(torch.int32)))
         if self.grad_clip is not None:
             max_norm = float(self.grad_clip)
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+            norm = torch.sqrt(tree_sq_norm(grads, mesh))
             keep = norm < max_norm
             grads = tree_map(
                 lambda g: torch.where(keep, g, (g / norm) * max_norm), grads)

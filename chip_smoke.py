@@ -140,7 +140,32 @@ Phases, each printing one JSON line and each fatal on failure:
    ``render_rays`` on the card against the CPU, one occupancy update pass;
    (g) the corner layout at L16 F2: a budget step, the encode and its
    table gradient on the card against the CPU;
-11. the kernels line, then the card's ``nvidia-smi`` line, then the result
+11. the (expert × data) mesh (``acn_tpu_torch.parallel``) at
+   ``configs/train_occ.json``'s width on phase 5's step and phase 3's model
+   and frame: (a) one rank over NCCL through a one-rank ``Mesh``: two plain
+   budget steps from one state (their distance is what the card's atomic
+   sums give), then a warm and two timed sharded steps, 108 + 108 scans
+   each; the first lies no farther from the first plain step than
+   ``MESH_FACTOR`` × the two plain steps' distance (floors ``MESH_FLOOR``,
+   ``MESH_LOSS_FLOOR``), per parameter group, in loss and in gradient
+   norm, and two planted faults (draws keyed one expert off, the task
+   mean's 1/T lost) must fail that bound; a 1080p frame through the
+   fan-out against the plain frame within one u8 step, both timed in
+   turns; (b) two spawned ranks sharing the card over gloo, E = 2: a warm
+   and two timed sharded steps, each rank launching 54 + 54 scans a step
+   (summed over the ranks: 108 + 108); the first step against (a)'s first
+   within the same bound around it, and two planted faults (the world's
+   all-reduces skipped; rank 1's draws keyed by its local expert) must fail
+   it; a 1080p frame by row blocks against (a)'s plain frame within one u8
+   step, and a 64 × 96 baked frame against one rank's; two ranks on one
+   card show correctness, not a scaling number; (c) ``python -m
+   acn_tpu_torch --op train --mesh_experts 2 --num_processes 2`` as two
+   processes (a TCP rendezvous on localhost) on a small dataset from
+   ``toy.write_dataset_dir``, 4 steps through the regime switch: step lines
+   from rank 0 only, one ``last``, which the single-process port restores
+   with every key and shape; ms per step and per frame, collectives and
+   their bytes per step, and the card's name and power limit, printed;
+12. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -154,6 +179,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2474,6 +2500,533 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+MESH_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_mesh"
+MESH_BAKED_HW = (64, 96)
+MESH_STEPS = 3  # one warm, two timed
+# a mesh step against its reference step (the plain one for (a), (a)'s for
+# (b)): each parameter group's update, the loss and the gradient norm lie no
+# farther from the reference's than MESH_FACTOR × two plain steps' distance
+# (the table scatter's atomic order), above a floor of relative distance.
+# Two plain steps' σ and color updates have differed by 1.7e-7–1.0e-5 (one
+# sample of that spread can sit far below another), the encoding's by
+# 2.0e-3–2.2e-3; the loss has agreed to the bit. The planted faults (a draw
+# keyed by the wrong expert, a gradient mean that loses its 1/T, an
+# all-reduce skipped) are read beside the floor and must fail it; the
+# gradient norm reads a lost 1/T whatever the optimizer makes of it.
+MESH_FACTOR, MESH_FLOOR, MESH_LOSS_FLOOR = 2.0, 1e-4, 1e-6
+U8_STEP = 1.0 / 255 + 1e-6
+
+
+def _step_setup(torch, toy, device):
+    """Phase 5's step: the config, a fresh model (seed 0), phase 3's grids,
+    phase 5's batch, all on ``device``."""
+    cfg, P, occ_cfg = toy.train_occ_config()
+    K, T = cfg.num_submodules, int(P.batch_size)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in toy.training_batch(
+        K, T, int(P.support_rays), int(P.query_rays), seed=0).items()}
+    boxes, _ = toy.quadrant_layout(K)
+    occ = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device=device)
+    return cfg, P, occ_cfg, batch, occ
+
+
+def _group_vectors(torch, nn, params, labels) -> dict:
+    """Each parameter group's leaves as one float32 vector."""
+    parts = collections.defaultdict(list)
+    nn.tree_map(lambda p, g: parts[g].append(p.detach().reshape(-1).float()), params, labels)
+    return {g: torch.cat(v) for g, v in parts.items()}
+
+
+def _update_cmp(torch, got: dict, want: dict) -> dict:
+    """Per group: relative distance, cosine and length ratio of two
+    updates."""
+    out = {}
+    for g in want:
+        a, b = got[g].to(want[g].device), want[g]
+        nb = float(torch.linalg.vector_norm(b))
+        out[g] = {"rel_dist": float(torch.linalg.vector_norm(a - b)) / max(nb, 1e-30),
+                  "cos": float(torch.dot(a, b)) / max(float(torch.linalg.vector_norm(a)) * nb,
+                                                     1e-30),
+                  "len_ratio": float(torch.linalg.vector_norm(a)) / max(nb, 1e-30)}
+    return out
+
+
+def _mesh_misses(got: dict, ref: dict, pair: dict) -> list:
+    """What of a step (``got``: "cmp", each group's ``_update_cmp`` against
+    the reference's update; "loss"; "grad_norm") lies outside the mesh bound
+    around the reference (``ref``: "loss", "grad_norm"), given two plain
+    steps' distances (``pair``: "groups", their ``_update_cmp``; "loss" and
+    "grad_norm", |Δ|)."""
+    out = []
+    for g, c in got["cmp"].items():
+        lim = max(MESH_FACTOR * pair["groups"][g]["rel_dist"], MESH_FLOOR)
+        if not c["rel_dist"] <= lim:
+            out.append(f"group {g}: {c['rel_dist']:.3g} from the reference (limit {lim:.3g})")
+    for key, floor in (("loss", MESH_LOSS_FLOOR), ("grad_norm", MESH_FLOOR)):
+        lim = max(MESH_FACTOR * pair[key], floor * abs(ref[key]))
+        d = abs(got[key] - ref[key])
+        if not d <= lim:
+            out.append(f"{key} {got[key]!r} against {ref[key]!r} (|Δ| {d:.3g}, limit {lim:.3g})")
+    return out
+
+
+class _draws_keyed:
+    """A planted fault for a ``with`` block: the step's draws keyed from
+    expert ``first(k0)`` where the rank's first expert is k0
+    (``train_step.EpisodeDraws``' offset)."""
+
+    def __init__(self, ts, first):
+        self.ts, self.first, self.cls = ts, first, ts.EpisodeDraws
+
+    def __enter__(self):
+        cls, first = self.cls, self.first
+
+        class Faulty(cls):
+            def __init__(self, *a, offset=(0, 0), **kw):
+                super().__init__(*a, offset=(first(offset[0]), offset[1]), **kw)
+
+        self.ts.EpisodeDraws = Faulty
+
+    def __exit__(self, *exc):
+        self.ts.EpisodeDraws = self.cls
+
+
+def _lose_the_mean(mesh, T: int) -> None:
+    """A planted fault: the expert gradients' sum over the data group comes
+    back T× (the 1/T of the task mean lost)."""
+    reduce = mesh.all_reduce
+
+    def faulty(ts_, group, op=None):
+        reduce(ts_, group, op)
+        if group is mesh.data_group:
+            for t in ts_:
+                t.mul_(T)
+
+    mesh.all_reduce = faulty
+
+
+def frame_bg_draws(torch, rows: int, device):
+    """``RenderDraws``' function form for the frame's ``random`` sky with a
+    color per pixel (seed 0): dispatch c's block (slot s of n) covers rows
+    (c·n + s)·rows onwards, so a frame over any number of ranks gets the
+    single rank's sky."""
+    n_max = 2
+    rows_all = -(-H // (rows * n_max)) * rows * n_max
+    sky = torch.rand((rows_all * W, 3), device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+
+    def fn(what, c, shape):
+        assert what == "bg", what
+        c, s, n = (*c, n_max) if isinstance(c, tuple) else (c, 0, 1)
+        blk = c * n + s
+        return sky[blk * rows * W:(blk + 1) * rows * W]
+
+    return fn
+
+
+def _baked_to(torch, nn, baked: dict, device) -> dict:
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) else
+                nn.tree_map(lambda t: t.to(device), v) if isinstance(v, dict) else v)
+            for k, v in baked.items()}
+
+
+def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
+    """Phase 11 (b), on each of the ranks that share the card over gloo:
+    the sharded budget step (E = 2) from the fresh model, MESH_STEPS times,
+    the update of the first gathered on rank 0; the same first step with a
+    planted fault: the world's all-reduces skipped ("world"), or rank 1's
+    draws keyed by its local expert, not the global one ("draws"); a 1080p
+    dense frame and a baked frame by row blocks over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from acn_tpu_torch import toy
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.ops import segscan
+    from acn_tpu_torch.parallel import mesh as pmesh
+    from acn_tpu_torch.pipelines.baking import BakedRenderer
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+    from acn_tpu_torch.pipelines.renderer import Renderer
+
+    dev = pmesh.rank_device()
+    cfg, P, occ_cfg, batch, occ = _step_setup(torch, toy, dev)
+    K = cfg.num_submodules
+    out = {"device": str(dev), "backend": pmesh.backend()}
+
+    def run(fault=None):
+        mesh = pmesh.Mesh.build(K, 2, 1)
+        if fault == "world":
+            reduce = mesh.all_reduce
+            mesh.all_reduce = lambda ts_, group, op=None: (
+                None if group is mesh.world_group else reduce(ts_, group, op))
+        model = toy.serving_model(cfg, seed=0, device=dev)
+        opt, state = toy.init_train_state(model, P)
+        start = _group_vectors(torch, nn, model.params(), opt.labels) if rank == 0 else None
+        sh = pmesh.shard_by_expert_axis({"model": model, "opt_state": state["opt_state"],
+                                         "occ_states": occ, "batch": batch}, mesh, K)
+        del model
+        state = {**state, "model": sh["model"], "opt_state": sh["opt_state"]}
+        step = ts.make_meta_train_step(cfg, P, opt, occ_cfg, device=dev, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ms, launches, update, metrics = [], [], None, None
+        for i in range(1 if fault else MESH_STEPS):
+            _zero_scan_counts(segscan)
+            c0 = dict(mesh.stats)
+            torch.cuda.synchronize()
+            pmesh.host_barrier()
+            t0 = time.perf_counter()
+            if fault == "draws" and rank == 1:
+                with _draws_keyed(ts, lambda k0: 0):
+                    state, m = step(state, sh["batch"], sh["occ_states"], gen)
+            else:
+                state, m = step(state, sh["batch"], sh["occ_states"], gen)
+            torch.cuda.synchronize()
+            pmesh.host_barrier()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = torch.tensor(_scan_counts(segscan))
+            dist.all_reduce(counts, group=pmesh.host_group())  # summed over the ranks
+            launches.append({"this_rank": list(_scan_counts(segscan)),
+                             "summed": counts.tolist(),
+                             "collectives": mesh.stats["collectives"] - c0["collectives"],
+                             "bytes": mesh.stats["bytes"] - c0["bytes"]})
+            if i == 0:
+                metrics = {k: v.detach().cpu().numpy() for k, v in m.items()}
+                w = pmesh.gather_tree({"model": state["model"]}, mesh, K)["model"]
+                if rank == 0:
+                    after = _group_vectors(torch, nn, w["params"], opt.labels)
+                    update = {g: (after[g] - start[g]).cpu() for g in after}
+                del w
+        del state, step
+        torch.cuda.empty_cache()
+        return {"ms": ms, "launches": launches, "update": update, "metrics": metrics}
+
+    out["step"] = run()
+    out["faults"] = {f: run(f) for f in ("world", "draws")}
+
+    # the frames: phase 3's model (σ-head bias +2, as phase 4 leaves it)
+    model = toy.serving_model(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        model.experts["sigma_head"]["b"].fill_(2.0)
+    rmesh = pmesh.make_render_mesh()
+    renderer = Renderer(cfg, P, occ_cfg, device=dev)
+    cam = toy.overhead_camera(H, W)
+    sky = frame_bg_draws(torch, renderer.chunk_rays // W, dev)
+    frame = lambda **kw: renderer.render_image(model, occ, H=H, W=W, mesh=rmesh, draws=sky,
+                                               **cam, **kw)
+    frame(download=False)
+    pmesh.host_barrier()
+    _zero_scan_counts(segscan)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        pmesh.host_barrier()
+        t0 = time.perf_counter()
+        rgb, depth, acc = frame()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out["frame"] = {"ms": ms, "rgb": rgb if rank == 0 else None,
+                    "launches": list(_scan_counts(segscan))}
+    baked = _baked_to(torch, nn, a["baked"], dev)
+    bh, bw = MESH_BAKED_HW
+    bcam = toy.overhead_camera(bh, bw)
+    got = BakedRenderer(baked, **a["baked_kw"]).render_image(
+        H=bh, W=bw, intrinsics=bcam["intrinsics"], c2w=bcam["c2w"], mesh=rmesh)
+    out["baked"] = got if rank == 0 else None
+    out["host_stats"] = dict(rmesh.stats)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(torch, segscan, toy, model, occ) -> dict:
+    """The (expert × data) mesh at full width (module docstring, phase 11):
+    (a) one rank over NCCL, (b) two ranks sharing the card over gloo, (c)
+    ``--op train`` as two processes. Returns the scan's launch counts."""
+    import shutil
+
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.models import nn
+    from acn_tpu_torch.parallel import launch
+    from acn_tpu_torch.parallel import mesh as pmesh
+    from acn_tpu_torch.pipelines.baking import BakedRenderer, pack_baked
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    from acn_tpu_torch.utils.config import parse_args
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg, P, occ_cfg, batch, occ_t = _step_setup(torch, toy, dev)
+    K, T, I = cfg.num_submodules, int(P.batch_size), int(P.inner_iter)
+    per_step = K * T * (I + 1)
+    launches = {}
+    torch.cuda.empty_cache()
+
+    # (a) one rank over NCCL
+    backend = pmesh.init_one_rank("cuda")
+    check(backend == "nccl", f"one rank with a card of its own runs {backend}, want nccl")
+    try:
+        def fresh():
+            m = toy.serving_model(cfg, seed=0, device=dev)
+            return (m, *toy.init_train_state(m, P))
+
+        def timed_step(step, state, b, o, gen):
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b, o, gen)
+            torch.cuda.synchronize()
+            return state, m, 1e3 * (time.perf_counter() - t0), _scan_counts(segscan)
+
+        start = None
+        plain = []  # two plain steps from one state, one generator seed
+        for i in range(2):
+            model_p, opt, state = fresh()
+            if start is None:
+                start = _group_vectors(torch, nn, model_p.params(), opt.labels)
+            step = ts.make_meta_train_step(cfg, P, opt, occ_cfg)
+            state, m, ms, c = timed_step(step, state, batch, occ_t,
+                                         torch.Generator(device=dev).manual_seed(0))
+            check(c == (per_step, per_step), f"plain step launches {c}")
+            after = _group_vectors(torch, nn, model_p.params(), opt.labels)
+            plain.append({"ms": ms, "loss": float(m["loss_total"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "update": {g: after[g] - start[g] for g in after}})
+            del model_p, state, step, after
+        pair = {"groups": _update_cmp(torch, plain[1]["update"], plain[0]["update"]),
+                **{k: abs(plain[1][k] - plain[0][k]) for k in ("loss", "grad_norm")}}
+
+        def mesh_run(n_steps, fault=None):
+            """The one-rank mesh step from the fresh model, n_steps times:
+            (ms, launches, (collectives, bytes)) of each, and the first
+            step's update, loss and gradient norm."""
+            mesh = pmesh.Mesh.build(K, 1, 1)
+            if fault == "mean":
+                _lose_the_mean(mesh, T)
+            model_m, opt, state = fresh()
+            sh = pmesh.shard_by_expert_axis({"model": model_m, "opt_state": state["opt_state"],
+                                             "occ_states": occ_t, "batch": batch}, mesh, K)
+            del model_m
+            state = {**state, "model": sh["model"], "opt_state": sh["opt_state"]}
+            step = ts.make_meta_train_step(cfg, P, opt, occ_cfg, mesh=mesh)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            out = {"ms": [], "launches": [], "collectives": []}
+            for i in range(n_steps):
+                c0 = dict(mesh.stats)
+                if fault == "draws":  # keyed one expert off
+                    with _draws_keyed(ts, lambda k0: k0 + 1):
+                        state, m, ms, c = timed_step(step, state, sh["batch"],
+                                                     sh["occ_states"], gen)
+                else:
+                    state, m, ms, c = timed_step(step, state, sh["batch"], sh["occ_states"],
+                                                 gen)
+                out["ms"].append(ms)
+                out["launches"].append(c)
+                out["collectives"].append((mesh.stats["collectives"] - c0["collectives"],
+                                           mesh.stats["bytes"] - c0["bytes"]))
+                if i == 0:
+                    after = _group_vectors(torch, nn, state["model"].params(), opt.labels)
+                    out.update(loss=float(m["loss_total"]), grad_norm=float(m["grad_norm"]),
+                               update={g: after[g] - start[g] for g in after})
+                    del after
+            del state, step, sh
+            torch.cuda.empty_cache()
+            return out
+
+        run_a = mesh_run(MESH_STEPS)
+        check(all(c == (per_step, per_step) for c in run_a["launches"]),
+              f"one-rank mesh step launches {run_a['launches']}, want {per_step} + {per_step}")
+        launches["mesh_one_rank_step"] = tuple(sum(c[i] for c in run_a["launches"])
+                                               for i in (0, 1))
+        ref_a = {k: plain[0][k] for k in ("loss", "grad_norm")}
+        got_a = {**run_a, "cmp": _update_cmp(torch, run_a["update"], plain[0]["update"])}
+        misses = _mesh_misses(got_a, ref_a, pair)
+        check(not misses, f"(a) the one-rank step against the plain step: {misses}")
+        faults_a = {}
+        for fault in ("draws", "mean"):
+            f = mesh_run(1, fault)
+            f["cmp"] = _update_cmp(torch, f["update"], plain[0]["update"])
+            faults_a[fault] = {"misses": _mesh_misses(f, ref_a, pair), "loss": f["loss"],
+                               "grad_norm": f["grad_norm"], "update_vs_plain": f["cmp"]}
+            check(faults_a[fault]["misses"],
+                  f"(a) planted fault {fault!r} passed the bound: {faults_a[fault]}")
+        plain_ms = [{k: x[k] for k in ("ms", "loss", "grad_norm")} for x in plain]
+        del plain
+        torch.cuda.empty_cache()
+
+        # (a) the 1080p frame through the fan-out against the plain frame
+        renderer = Renderer(cfg, P, occ_cfg)
+        cam = toy.overhead_camera(H, W)
+        rmesh = pmesh.Mesh(num_experts=0, shape=(1,), rank=0, axis_names=("px",))
+        sky = frame_bg_draws(torch, renderer.chunk_rays // W, dev)
+        frame = lambda mesh=None: renderer.render_image(model, occ, H=H, W=W, mesh=mesh,
+                                                        draws=sky, **cam)
+        frame(), frame(rmesh)  # warm
+        frame_ms = {"plain": [], "mesh": []}
+        mesh_counts_f = [0, 0]
+        for name in ("plain", "mesh", "mesh", "plain"):
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = frame(rmesh if name == "mesh" else None)
+            frame_ms[name].append(1e3 * (time.perf_counter() - t0))
+            if name == "plain":
+                plain_frame = out
+            else:
+                mesh_frame = out
+                mesh_counts_f = [a + b for a, b in zip(mesh_counts_f, _scan_counts(segscan))]
+        chunks = -(-H // (renderer.chunk_rays // W))
+        check(mesh_counts_f == [2 * chunks, 0],
+              f"(a) fan-out frames launched {mesh_counts_f}, want {chunks} a frame")
+        launches["mesh_one_rank_frame"] = tuple(mesh_counts_f)
+        err = float(np.abs(mesh_frame[0] - plain_frame[0]).max())
+        check(err <= U8_STEP, f"(a) fan-out frame vs plain frame: max |Δrgb| {err}")
+        emit({"phase": "mesh_one_rank", "backend": backend, "mesh": [1, 1],
+              "step_ms": run_a["ms"], "plain_step_ms": [x["ms"] for x in plain_ms],
+              "loss": run_a["loss"], "plain_loss": [x["loss"] for x in plain_ms],
+              "grad_norm": run_a["grad_norm"],
+              "plain_grad_norm": [x["grad_norm"] for x in plain_ms],
+              "launches_per_step": run_a["launches"],
+              "collectives_per_step": run_a["collectives"][-1][0],
+              "collective_bytes_per_step": run_a["collectives"][-1][1],
+              "update_vs_plain": got_a["cmp"], "plain_vs_plain": pair["groups"],
+              "planted_faults": faults_a, "frame_ms": frame_ms["mesh"],
+              "plain_frame_ms": frame_ms["plain"], "frame_max_abs_rgb": err,
+              "frame_host_gathers": rmesh.stats.get("host_collectives"),
+              "frame_host_bytes": rmesh.stats.get("host_bytes"), "nvidia_smi": smi})
+    finally:
+        pmesh.shutdown()
+    # (b) is held against (a)'s first step: the one-rank step of its draws
+    ref_update = run_a.pop("update")
+    ref_b = {k: run_a[k] for k in ("loss", "grad_norm")}
+    del start
+
+    # (b) two ranks sharing the card over gloo
+    bh, bw = MESH_BAKED_HW
+    rng = np.random.default_rng(0)
+    table = rng.random((33 ** 3, 4)).astype(np.float32)
+    table[:, -1] = np.where(rng.random(33 ** 3) < 0.4, 4.0 * rng.random(33 ** 3), 0.0)
+    baked = pack_baked(table, toy.SCENE_AABB, 33, occ_resolution=33, device="cpu")
+    baked_kw = dict(s_max=64, budget_per_ray=16, chunk_points=16 * bw * 8)
+    bcam = toy.overhead_camera(bh, bw)
+    baked_1 = BakedRenderer(_baked_to(torch, nn, baked, dev), **baked_kw).render_image(
+        H=bh, W=bw, intrinsics=bcam["intrinsics"], c2w=bcam["c2w"])
+    t0 = time.perf_counter()
+    ranks = launch.spawn("chip_smoke:mesh_rank_11b", 2, {"baked": baked,
+                                                          "baked_kw": baked_kw},
+                         MESH_DIR / "ranks", device_type="cuda", timeout_s=300,
+                         init_timeout_s=120)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    check(all(r["backend"] == "gloo" for r in ranks), "two ranks on one card must run gloo")
+    for r in ranks:
+        for l in r["step"]["launches"]:
+            check(l["this_rank"] == [per_step // 2] * 2 and l["summed"] == [per_step] * 2,
+                  f"(b) launches per step {l}, want {per_step // 2} + {per_step // 2} a rank")
+    launches["mesh_two_rank_step"] = tuple(
+        sum(l["summed"][i] for l in r0["step"]["launches"]) for i in (0, 1))
+    def got_b(run):
+        m = run["metrics"]
+        return {"cmp": _update_cmp(torch, run["update"], ref_update),
+                "loss": float(m["loss_total"]), "grad_norm": float(m["grad_norm"])}
+
+    sound = got_b(r0["step"])
+    misses = _mesh_misses(sound, ref_b, pair)
+    check(not misses, f"(b) the two-rank step against the one-rank step: {misses}")
+    faults_b = {}
+    for fault, run in r0["faults"].items():
+        f = got_b(run)
+        faults_b[fault] = {"misses": _mesh_misses(f, ref_b, pair), "loss": f["loss"],
+                           "grad_norm": f["grad_norm"], "update_vs_one_rank": f["cmp"]}
+        check(faults_b[fault]["misses"],
+              f"(b) planted fault {fault!r} passed the bound: {faults_b[fault]}")
+    err_frame = float(np.abs(r0["frame"]["rgb"] - plain_frame[0]).max())
+    check(err_frame <= U8_STEP, f"(b) row-block frame vs plain: max |Δrgb| {err_frame}")
+    err_baked = float(np.abs(r0["baked"][0] - baked_1[0]).max())
+    check(err_baked <= U8_STEP and float(baked_1[2].max()) > 0.5,
+          f"(b) baked frame over 2 ranks vs one: max |Δrgb| {err_baked}")
+    launches["mesh_two_rank_frame"] = tuple(
+        sum(r["frame"]["launches"][i] for r in ranks) for i in (0, 1))
+    n_disp = -(-H // (2 * (renderer.chunk_rays // W)))  # dispatches of 2 × rows
+    check(launches["mesh_two_rank_frame"] == (2 * 2 * n_disp, 0),
+          f"(b) two timed frames over 2 ranks launched {launches['mesh_two_rank_frame']}, "
+          f"want {2 * n_disp} a frame over both")
+    emit({"phase": "mesh_two_ranks", "backend": "gloo", "mesh": [2, 1],
+          "note": "two ranks share one card: correctness, not a scaling number",
+          "step_ms": [r["step"]["ms"] for r in ranks], "loss": sound["loss"],
+          "one_rank_loss": ref_b["loss"], "grad_norm": sound["grad_norm"],
+          "one_rank_grad_norm": ref_b["grad_norm"],
+          "launches_per_step": r0["step"]["launches"], "update_vs_one_rank": sound["cmp"],
+          "planted_faults": faults_b,
+          "frame_ms": [r["frame"]["ms"] for r in ranks], "frame_max_abs_rgb": err_frame,
+          "baked_max_abs_rgb": err_baked, "frame_host": r0["host_stats"],
+          "spawn_wall_s": spawn_s, "nvidia_smi": smi})
+    del ref_update, ranks
+    torch.cuda.empty_cache()
+
+    # (c) --op train as two processes
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    toy.write_dataset_dir(MESH_DIR / "data", K=4, train_cams=8, val_cams=2, H=96, W=128)
+    run = MESH_DIR / "train"
+    port = _free_port()
+    argv = lambda i: [sys.executable, "-m", "acn_tpu_torch", "--op", "train",
+                      "--configPath", str(Path(__file__).resolve().parent / "configs" /
+                                          "train_occ.json"),
+                      "--data_path", str(MESH_DIR / "data"), "--fname", str(run),
+                      "--outer_steps", "4", "--occ_warmup", "2", "--occ_auto_patience", "1",
+                      "--eval_step", "4", "--save_step", "4", "--print_step", "1",
+                      "--mesh_experts", "2", "--num_processes", "2", "--process_id", str(i),
+                      "--coordinator_address", f"127.0.0.1:{port}"]
+    logs = [open(MESH_DIR / f"runner{i}.log", "w") for i in range(2)]
+    procs = [subprocess.Popen(argv(i), cwd=str(Path(__file__).resolve().parent),
+                              stdout=logs[i], stderr=subprocess.STDOUT) for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=400) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    runner_s = time.perf_counter() - t0
+    out = [(MESH_DIR / f"runner{i}.log").read_text() for i in range(2)]
+    check(codes == [0, 0], f"(c) two-process --op train exited {codes}:\n"
+          + "\n".join(o[-3000:] for o in out))
+    step_lines = [len(re.findall(r"\] step \d+/\d+ ", o)) for o in out]
+    check(step_lines[0] == 4 and step_lines[1] == 0,
+          f"(c) step lines per rank {step_lines}, want 4 from rank 0 and none from rank 1")
+    check("backend gloo" in out[0] and "switching to the global-budget marcher" in out[0],
+          "(c) the run did not name its gloo backend or did not switch regime")
+    check(sorted(p.name for p in MESH_DIR.iterdir() if p.name.startswith("train")) == ["train"]
+          and (run / "last.model").exists(), "(c) `last` was not written once")
+    ctx = runner.build_context(parse_args([
+        "--op", "eval", "--configPath", str(Path(__file__).resolve().parent / "configs" /
+                                             "eval.json"),
+        "--data_path", str(MESH_DIR / "data"), "--checkpoint_path", str(run), "--prefix",
+        "last", "--fname", str(MESH_DIR / "reload")]), "bench")
+    n_keys = len(ctx["model"].state_dict())
+    check(ctx["step"] == 4 and ctx["occ_states"] is not None,
+          f"(c) `last` reloads at step {ctx['step']}")
+    del ctx
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    emit({"phase": "mesh_runner", "processes": 2, "mesh": [2, 1], "steps": 4,
+          "step_lines_per_rank": step_lines, "wall_s": runner_s,
+          "last_reloaded_keys": n_keys, "phase_wall_s": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR")
@@ -2517,9 +3070,10 @@ def main() -> int:
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
     run8 = phase_runner(torch, segscan, toy)
     serve = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"], args.profile)
-    del model, occ
     m9 = phase_m9(torch, segscan, toy, occ_cpu, train["mean_step_ms"])
     del occ_cpu
+    mesh = phase_mesh(torch, segscan, toy, model, occ)
+    del model, occ
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -2527,7 +3081,8 @@ def main() -> int:
     # over phase 7's two loop runs, where the budget steps launch; phase 8's
     # --op train and --op eval; phase 9's routed, single-expert and baked
     # frames, baked eval and videos; phase 10's steps, summed by
-    # sub-phase), each counted from 0 just before its path was driven. ms,
+    # sub-phase; phase 11's sharded steps and fan-out frames, summed over the
+    # ranks), each counted from 0 just before its path was driven. ms,
     # plain_ms and bound_ms at the serving chunk (B = 983,040);
     # "train_shapes" holds the same at the training step's B = 32,768 and
     # 16,384, "double_backward" phase 2's second derivative at 32,768.
@@ -2536,7 +3091,8 @@ def main() -> int:
     fwd_loop, rev_loop = loop["fwd"], loop["rev"]
     (fwd_rtrain, rev_rtrain), (fwd_reval, rev_reval) = run8["train"], run8["eval"]
     by_path = lambda i: {**{name: c[i] for name, c in serve.items()},
-                         **{f"m9_{name}": c[i] for name, c in m9.items()}}
+                         **{f"m9_{name}": c[i] for name, c in m9.items()},
+                         **{name: c[i] for name, c in mesh.items()}}
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
@@ -2544,7 +3100,7 @@ def main() -> int:
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
          "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
                       + sum(c[0] for c in serve.values())
-                      + sum(c[0] for c in m9.values())),
+                      + sum(c[0] for c in m9.values()) + sum(c[0] for c in mesh.values())),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
                               "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
@@ -2559,7 +3115,7 @@ def main() -> int:
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
          "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
                       + sum(c[1] for c in serve.values())
-                      + sum(c[1] for c in m9.values())),
+                      + sum(c[1] for c in m9.values()) + sum(c[1] for c in mesh.values())),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
                               "runner_train": rev_rtrain, "runner_eval": rev_reval,

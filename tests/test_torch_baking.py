@@ -158,7 +158,7 @@ def test_baked_renderer_frames_match_jax(budget, s_coarse, zpair):
 def test_baked_renderer_serves_random_backgrounds_white():
     _, tb = _random_asset()
     assert tbake.BakedRenderer(tb, bg_color="random").bg_color == "white"
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tbake.BakedRenderer(tb).render_image(H=4, W=4, intrinsics=np.ones(4),
                                              c2w=np.eye(4)[:3], mesh=object())
 

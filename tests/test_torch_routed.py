@@ -326,5 +326,5 @@ def test_routed_equals_dense_with_identical_experts(scene, budget):
 def test_mesh_is_refused(scene):
     tr = TRenderer(scene.tcfg, _P(scene), scene.tocc_cfg, device="cpu")
     for fn in (tr.render_image, tr.render_image_routed):
-        with pytest.raises(NotImplementedError, match="M11"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             fn(scene.model, scene.tocc, H=H, W=W, mesh=object(), **toy.overhead_camera(H, W))

@@ -10,7 +10,7 @@ dataset directory that ``toy.write_dataset_dir`` writes in ``tmp_path``
 * The two entry points: a short ``--op train`` of each package writes a
   checkpoint that the other's ``build_context(…, "eval")`` restores to the
   same arrays, grids and step; the port resumes its own run's optimizer.
-* The refusals: the mesh and multi-process flags, the unported ops, and
+* The refusals: an incomplete multi-process set-up, the unported ops, and
   ``python -m acn_tpu_torch`` without a card, which exits before any work.
 
 Both packages' ray and route caches point into ``tmp_path``; runs write
@@ -174,10 +174,15 @@ def test_acn_tpu_train_run_restores_in_the_port(data_root):
     assert int(state["count"]) == 2
 
 
-@pytest.mark.parametrize("flags", [["--mesh_experts", "2"], ["--mesh_data", "2"],
+@pytest.mark.parametrize("flags", [["--coordinator_address", "localhost:1"],
+                                   ["--num_processes", "2", "--process_id", "0"],
                                    ["--num_processes", "2"]])
 def test_mesh_and_multiprocess_runs_are_refused(data_root, flags):
-    with pytest.raises(NotImplementedError, match="M11"):
+    """A multi-process run without all three of the coordinator, the
+    process count and this process's id is refused (``acn_tpu``'s error)
+    before any work; the mesh flags alone are ignored in one process, as
+    there."""
+    with pytest.raises(ValueError, match="coordinator_address"):
         trunner.main(_argv(data_root, "train", *flags), device="cpu")
 
 

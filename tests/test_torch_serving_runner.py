@@ -9,6 +9,8 @@ the CPU.
   says so) and scores as ``tto=0``, bit for bit on the CPU.
 * ``scripts/bench_render.py`` and ``scripts/measure_coarse_range.py`` on
   that run: their lines and results, finite.
+* ``--op eval`` launched as 2 processes (CPU gloo ranks): every rank leaves
+  the process group, rank 0 scores alone and rank 1 returns; both exit.
 """
 
 import json
@@ -91,3 +93,17 @@ def test_measure_coarse_range_script(eval_run, isolated):
     assert len(res["occupied"]) == 2 and len(res["median_fraction"]) == 3 * 2
     assert all(0.0 <= f <= 1.0 for f in res["median_fraction"])
     assert 0.0 < res["mean_hit_rate"] <= 1.0
+
+
+def test_eval_as_two_processes_runs_on_rank_0_alone(eval_run, tmp_path):
+    from acn_tpu_torch.parallel import launch
+
+    ranks = launch.spawn("acn_tpu_torch.parallel.dryrun:runner_rank", 2, {
+        "cwd": str(tmp_path), "argv": _eval_argv(eval_run, "--tto", "0", "--fname", "ev2")},
+        tmp_path / "ranks", timeout_s=240)
+    assert [r["in_group"] for r in ranks] == [False, False]
+    assert ranks[1]["out"] is None
+    res = ranks[0]["out"]
+    assert [r["tto"] for r in res] == [0] and np.isfinite(res[0]["psnr"])
+    log = (tmp_path / "logs" / "ev2" / "log.txt").read_text()
+    assert log.count("[eval tto=0]") == 1
