@@ -1,8 +1,10 @@
 """Axis-aligned scene boxes as functions over ``(2, 3)`` tensors.
 
-Port of ``acn_tpu/nerfs/scene_box.py`` (the parts the serving path uses):
-an AABB is a ``(2, 3)`` float32 tensor ``[min, max]`` in the world DRB
-convention, stackable to ``(K, 2, 3)``.
+Port of ``acn_tpu/nerfs/scene_box.py`` (the parts the serving path and the
+viewer use): an AABB is a ``(2, 3)`` float32 tensor ``[min, max]`` in the
+world DRB convention, stackable to ``(K, 2, 3)``; an oriented box (the
+viewer's crop) is the tuple (R (3, 3), T (3,), S (3,)): rotation, center and
+full sizes.
 """
 
 from __future__ import annotations
@@ -56,3 +58,37 @@ def within(aabb: torch.Tensor, pts: torch.Tensor,
     if inclusive:
         return torch.all(pts >= aabb[0], dim=-1) & torch.all(pts <= aabb[1], dim=-1)
     return torch.all(pts > aabb[0], dim=-1) & torch.all(pts < aabb[1], dim=-1)
+
+
+# ============================ oriented boxes ============================
+
+
+def obb_from_params(pos, rpy, scale) -> tuple:
+    """(R, T, S) from a position, roll / pitch / yaw in radians and full
+    sizes, all float32: R = Rz(yaw) · Ry(pitch) · Rx(roll)."""
+    r, p, y = (torch.as_tensor(v, dtype=torch.float32) for v in rpy)
+    one, zero = torch.ones(()), torch.zeros(())
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    mat = lambda rows: torch.stack([torch.stack(row) for row in rows])
+    Rz = mat([[cy, -sy, zero], [sy, cy, zero], [zero, zero, one]])
+    Ry = mat([[cp, zero, sp], [zero, one, zero], [-sp, zero, cp]])
+    Rx = mat([[one, zero, zero], [zero, cr, -sr], [zero, sr, cr]])
+    return (Rz @ Ry @ Rx, torch.as_tensor(pos, dtype=torch.float32),
+            torch.as_tensor(scale, dtype=torch.float32))
+
+
+def obb_within(obb: tuple, pts: torch.Tensor) -> torch.Tensor:
+    """Mask of the points (N, 3) strictly inside the oriented box."""
+    R, T, S = (torch.as_tensor(v, dtype=torch.float32) for v in obb)
+    local = (pts - T[None, :]) @ R  # Rᵀ x, row-wise
+    half = S / 2.0
+    return torch.all((local > -half[None, :]) & (local < half[None, :]), dim=-1)
+
+
+def obb_to_aabb(obb: tuple) -> torch.Tensor:
+    """The tight world-aligned (2, 3) box around the oriented box."""
+    R, T, S = (torch.as_tensor(v, dtype=torch.float32) for v in obb)
+    ext = torch.abs(R) @ (S / 2.0)
+    return torch.stack([T - ext, T + ext])

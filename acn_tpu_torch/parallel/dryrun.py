@@ -241,6 +241,7 @@ def runner_rank(rank: int, n: int, a: Dict[str, Any]) -> Dict[str, Any]:
     from acn_tpu_torch.data import dataset, tasks
     from acn_tpu_torch.parallel import mesh as pmesh
 
+    pmesh.host_barrier()  # every rank has joined before one leaves
     pmesh.shutdown()
     # file-only logs: TensorBoard's import of TensorFlow loads JAX where both
     # are installed

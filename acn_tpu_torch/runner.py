@@ -11,9 +11,10 @@ the sampler on the card, the optimizer and the camera-premarked grids; for
 ``view``, ``bake`` and ``bench`` only the model. ``main`` parses the flags
 and runs the op: ``train`` (``meta_trainer``), ``eval`` (TTO and scoring,
 or with ``--baked_asset`` the baked table's frames, strided by default),
-``video`` (``render_video`` along ``--camera_path``, live or baked) and
-``bake`` (``baked_<R>.npz`` in the run's log directory). ``view`` raises,
-naming ROADMAP.md M12.
+``video`` (``render_video`` along ``--camera_path``, live or baked),
+``bake`` (``baked_<R>.npz`` in the run's log directory) and ``view``
+(``viewer.launch_viewer``: the viser GUI over the live-adaptation engine;
+without viser it raises ``acn_tpu``'s ImportError).
 
 Several processes (``--num_processes N --process_id i --coordinator_address
 host:port``, or the ``COORDINATOR_ADDRESS`` / ``PROCESS_ID`` /
@@ -71,10 +72,6 @@ from acn_tpu_torch.utils.checkpoint import (
 from acn_tpu_torch.utils.config import parse_args
 from acn_tpu_torch.utils.logging import Logger
 from acn_tpu_torch.utils.optim import build_optimizer
-
-# the ops of acn_tpu's runner that are not ported, with the ROADMAP item
-UNPORTED_OPS = {"view": "M12"}
-
 
 def build_model_configs(P, clustering_params) -> ContainerConfig:
     """The flags → the container's config. ``--log2_hashmap_size`` is log2
@@ -397,6 +394,13 @@ def op_video(ctx) -> str:
     return render_video(ctx, n_poses=n)
 
 
+def op_view(ctx):
+    """The interactive viewer (needs viser) until ``--viewer_timeout``."""
+    from acn_tpu_torch.viewer.viewer import launch_viewer
+
+    return launch_viewer(ctx)
+
+
 def op_bake(ctx) -> str:
     """Distill the restored field into a baked serving asset,
     ``baked_<R>.npz`` in the run's log directory, for ``--op video
@@ -434,9 +438,6 @@ def main(argv=None, device=None):
         pass
 
     P = parse_args(argv)
-    if P.op in UNPORTED_OPS:
-        raise NotImplementedError(
-            f"--op {P.op} is not ported: ROADMAP.md {UNPORTED_OPS[P.op]}")
     # the process group before any use of the card
     started = pmesh.maybe_init_distributed(
         P, device, timeout_s=max(pmesh.DEFAULT_TIMEOUT_S,
@@ -446,6 +447,9 @@ def main(argv=None, device=None):
             P.rank = pmesh.world_rank()[1]
             device = pmesh.rank_device(device)
             if P.op != "train":  # rank 0 serves alone: every rank leaves the group
+                # once all have joined: a rank that leaves while another is
+                # still connecting to it fails that one's join
+                pmesh.host_barrier()
                 pmesh.shutdown()
                 started = False
                 if P.rank > 0:
@@ -462,6 +466,8 @@ def main(argv=None, device=None):
             return op_eval(ctx)
         if P.op == "video":
             return op_video(ctx)
+        if P.op == "view":
+            return op_view(ctx)
         if P.op == "bake":
             return op_bake(ctx)
         raise ValueError(P.op)

@@ -332,6 +332,43 @@ def _zip_mask(path, mask_hw: np.ndarray) -> None:
         zf.writestr(info, buf.getvalue())
 
 
+def _write_view(split_dir: Path, name: str, rng: np.random.Generator, box: np.ndarray,
+                H: int, W: int, downscale: float,
+                meta_extra: Optional[Dict[str, Any]] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """One overhead view over ``box``'s region: ``rgbs/<name>.png`` and
+    ``metadata/<name>.pt`` (with ``meta_extra``'s keys) under ``split_dir``
+    (``write_dataset_dir``'s cameras and scales). Returns the (y, z) where
+    each pixel's ray leaves the scene box."""
+    from acn_tpu_torch.data.png import write_png
+    from acn_tpu_torch.data.ray_prep import get_ray_directions_np, get_rays_np
+
+    f = float(W)
+    dirs = get_ray_directions_np(H, W, f, f, W / 2, H / 2)
+    reach = 0.5 * float(np.hypot(W / 2, H / 2)) / f  # footprint radius on the top face
+    scale = 1.0 / downscale
+    lo, hi = box
+    a = rng.uniform(0, 2 * np.pi)
+    right = np.array([0.0, np.sin(a), np.cos(a)])
+    up = np.array([0.0, np.cos(a), -np.sin(a)])
+    pos = [SCENE_AABB[0, 0] - 0.5, rng.uniform(lo[1] + reach, hi[1] - reach),
+           rng.uniform(lo[2] + reach, hi[2] - reach)]
+    c2w = np.stack([right, up, np.cross(right, up), pos], 1).astype(np.float32)
+    rays = get_rays_np(dirs, c2w, aabb=SCENE_AABB).reshape(-1, 8)
+    exit_pt = rays[:, :3] + rays[:, 7:8] * rays[:, 3:6]
+    y, z = exit_pt[:, 1], exit_pt[:, 2]
+    rgb = 0.5 + 0.5 * np.stack([np.sin(7 * y), np.sin(5 * z + 1),
+                                np.sin(3 * (y + z) + 2)], 1)
+    write_png(split_dir / "rgbs" / f"{name}.png",
+              np.round(rgb * 255).astype(np.uint8).reshape(H, W, 3),
+              filter_type=np.arange(H) % 5)
+    torch.save({"c2w": torch.from_numpy(c2w), "W": int(round(W * scale)),
+                "H": int(round(H * scale)),
+                "intrinsics": torch.tensor([f * scale, f * scale, W / 2 * scale,
+                                            H / 2 * scale]), **(meta_extra or {})},
+               split_dir / "metadata" / f"{name}.pt")
+    return y, z
+
+
 def write_dataset_dir(root, K: int = 4, train_cams: int = 32, val_cams: int = 8,
                       H: int = 192, W: int = 256, downscale: float = 0.25, seed: int = 0,
                       dirname: str = "example",
@@ -358,9 +395,6 @@ def write_dataset_dir(root, K: int = 4, train_cams: int = 32, val_cams: int = 8,
     the vertical and placed at random over one expert's region (image i
     over expert i mod K); a pixel's colour is a pattern of the point where
     its ray leaves the scene box. Everything is drawn from ``seed``."""
-    from acn_tpu_torch.data.png import write_png
-    from acn_tpu_torch.data.ray_prep import get_ray_directions_np, get_rays_np
-
     root = Path(root)
     data = root / "out" / dirname
     masks = data / "masks" / mask_dirname
@@ -378,35 +412,51 @@ def write_dataset_dir(root, K: int = 4, train_cams: int = 32, val_cams: int = 8,
                 "maxs": torch.from_numpy(boxes[:, 1].copy())}, masks / "scene_boxes.pt")
 
     rng = np.random.default_rng(seed)
-    f = float(W)
-    dirs = get_ray_directions_np(H, W, f, f, W / 2, H / 2)
-    reach = 0.5 * float(np.hypot(W / 2, H / 2)) / f  # footprint radius on the top face
-    scale = 1.0 / downscale
     for i in range(train_cams + val_cams):
         split = "train" if i < train_cams else "val"
-        lo, hi = boxes[i % K]
-        a = rng.uniform(0, 2 * np.pi)
-        right = np.array([0.0, np.sin(a), np.cos(a)])
-        up = np.array([0.0, np.cos(a), -np.sin(a)])
-        pos = [SCENE_AABB[0, 0] - 0.5, rng.uniform(lo[1] + reach, hi[1] - reach),
-               rng.uniform(lo[2] + reach, hi[2] - reach)]
-        c2w = np.stack([right, up, np.cross(right, up), pos], 1).astype(np.float32)
-        rays = get_rays_np(dirs, c2w, aabb=SCENE_AABB).reshape(-1, 8)
-        exit_pt = rays[:, :3] + rays[:, 7:8] * rays[:, 3:6]
-        y, z = exit_pt[:, 1], exit_pt[:, 2]
-        rgb = 0.5 + 0.5 * np.stack([np.sin(7 * y), np.sin(5 * z + 1),
-                                    np.sin(3 * (y + z) + 2)], 1)
         name = f"{i:06d}"
-        write_png(data / split / "rgbs" / f"{name}.png",
-                  np.round(rgb * 255).astype(np.uint8).reshape(H, W, 3),
-                  filter_type=np.arange(H) % 5)
-        torch.save({"c2w": torch.from_numpy(c2w), "W": int(round(W * scale)),
-                    "H": int(round(H * scale)),
-                    "intrinsics": torch.tensor([f * scale, f * scale, W / 2 * scale,
-                                                H / 2 * scale])},
-                   data / split / "metadata" / f"{name}.pt")
+        y, z = _write_view(data / split, name, rng, boxes[i % K], H, W, downscale)
         for k in range(K):
             inside = ((y >= boxes[k, 0, 1]) & (y <= boxes[k, 1, 1])
                       & (z >= boxes[k, 0, 2]) & (z <= boxes[k, 1, 2]))
             _zip_mask(masks / str(k) / f"{name}.pt", inside.reshape(H, W))
     return data
+
+
+def write_continual_batch(data, tag: str = "b000", views: int = 8, K: int = 4,
+                          H: int = 192, W: int = 256, downscale: float = 0.25,
+                          seed: int = 1) -> Path:
+    """Append a continual batch of ``views`` new views of the layout scene
+    to the prepared dataset ``data`` (``write_dataset_dir``'s return) in the
+    layout ``scripts/update_dataset.py`` writes, with PNG images: the
+    ``<data>/continual/<tag>/{rgbs,metadata}`` pair, ids continuing after
+    the largest of ``mappings.txt`` and the dataset's own metadata, one line
+    per view appended to ``mappings.txt``, and ``manifest.json``. View i
+    looks at expert i mod K's region, with ``write_dataset_dir``'s cameras,
+    drawn from ``seed``. Returns the batch's directory."""
+    import json
+
+    data = Path(data)
+    batch = data / "continual" / tag
+    for sub in ("rgbs", "metadata"):
+        (batch / sub).mkdir(parents=True, exist_ok=True)
+    mappings = data / "mappings.txt"
+    ids = [int(p.stem) for p in data.glob("*/metadata/*.pt") if p.stem.isdigit()]
+    if mappings.exists():
+        ids += [int(Path(line.split(",")[1]).stem)
+                for line in mappings.read_text().splitlines() if line.strip()]
+    next_id = max(ids) + 1 if ids else 0
+    boxes, _ = expert_layout(K)
+    rng = np.random.default_rng(seed)
+    items = []
+    with open(mappings, "a") as f:
+        for i in range(views):
+            name = f"{next_id + i:06d}"
+            _write_view(batch, name, rng, boxes[i % K], H, W, downscale,
+                        {"distortion": torch.zeros(4)})
+            f.write(f"{tag}_{i:03d}.png,{name}.pt\n")
+            items.append({"image_name": f"{tag}_{i:03d}.png", "id": name, "camera_id": 1,
+                          "undistort": "opencv", "pose_rev": 0})
+    with open(batch / "manifest.json", "w") as f:
+        json.dump({"batch_tag": tag, "count": views, "items": items}, f, indent=2)
+    return batch

@@ -13,9 +13,8 @@ rebuilds its own architecture. A run's namespace is saved beside each
 checkpoint as ``{tag}.P.json`` (``namespace_to_jsonable``) and read back
 (``load_checkpoint_cfg``, ``resolve_ckpt_cfg_path``).
 
-Flags of parts the port does not have yet (baking, video, the viewer, the
-mesh, other algorithms) are parsed all the same; the runner refuses them
-where they would take effect.
+Every flag of ``acn_tpu``'s parser takes effect in the port: the viewer's
+(``--viewer_timeout``, ``--viewer_public_host``) through ``--op view``.
 """
 
 from __future__ import annotations

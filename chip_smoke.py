@@ -165,7 +165,31 @@ Phases, each printing one JSON line and each fatal on failure:
    from rank 0 only, one ``last``, which the single-process port restores
    with every key and shape; ms per step and per frame, collectives and
    their bytes per step, and the card's name and power limit, printed;
-12. the kernels line, then the card's ``nvidia-smi`` line, then the result
+12. live runtime adaptation (``acn_tpu_torch.viewer``) at
+   ``configs/train_occ.json``'s width (K 4, budget 32) from phase 8's
+   ``last`` and phase 9's baked table: (a) ``build_context(P, "view")`` of
+   ``configs/view.json`` and a ``Controller``; 480 × 853 previews (the size
+   the viewer renders) through ``render_frame`` at preview and at full
+   samples in rgb, depth and opacity, each launching the forward scan once
+   per chunk, and one from the baked table; (b) a continual batch of 8 views
+   of 192 × 256 (``toy.write_continual_batch``, PNG, ``update_dataset.py``'s
+   layout) that ``verify_continual_batch_dir`` accepts; (c)
+   ``set_mode("runtime_adapt")`` and ``start(target_steps=16)``, previews
+   rendered from the main thread while the loop thread steps (at least 4:
+   the loop pauses itself 4 steps ahead of the frames, each frame resumes
+   it),
+   each frame's leased snapshot checksummed before and after it (bit-equal:
+   no torn frame), more than one snapshot seen; the 16 losses finite, PSNR
+   over 8,192 of the batch's rays higher after the 16 steps than before; a
+   second, sequential run of 16 steps from the same seed with no frames
+   within ``LIVE_PSNR_ATOL`` dB per step, its steps launching no scan; (d)
+   ``reset_fast`` gives back the checkpoint's bits, and a runtime checkpoint
+   saved and loaded gives back the saved bits; (e) ``MetaTrainRunner`` on
+   a train context's sampler, 2 steps, stratified as ``acn_tpu``'s runner
+   builds its step (no scan); (f) preview ms idle and during training, TTO
+   step ms alone and during frames, snapshot publish ms, the phase's
+   seconds, with the card's name and power limit;
+13. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -1621,7 +1645,8 @@ def metrics_card_vs_cpu(torch, tlosses, LPIPS, pred, gt) -> dict:
 def phase_runner(torch, segscan, toy) -> dict:
     """The runner at full width on a dataset on disk (module docstring,
     phase 8). Returns the scan's launch counts of the train and eval runs,
-    and the train run's directory, which phase 9 reads and then removes."""
+    and the train run's directory, which phases 9 and 12 read; phase 12
+    removes it."""
     import shutil
 
     from acn_tpu_torch import runner
@@ -2082,8 +2107,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
                        "scan_launches": {"forward": got[0], "reverse": got[1]}}
     emit({"phase": "serving_video", **video, "phase9_s": time.perf_counter() - t_phase})
     del asset
-    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
-    return counted
+    return counted, path
 
 
 def _runner_cfg_args(runner):
@@ -3027,6 +3051,311 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+LIVE_PREVIEW = (480, 853)  # the viewer's preview: 480 rows at a 16:9 aspect
+LIVE_STEPS = 16
+LIVE_MIN_FRAMES = 4
+# the loop pauses itself once it is this many steps ahead of the frames
+# (each frame resumes it), so 16 steps span at least 4 frames whatever the
+# relative speed of steps and frames on the shared stream
+LIVE_STEPS_PER_FRAME = 4
+LIVE_BATCH_VIEWS = 8
+LIVE_EVAL_RAYS = 8192
+# the live run against the sequential one, per step, in PSNR: the card's
+# atomic sums (``index_add_``) leave their last bits free, as phase 9 holds
+# its two renders of one table to 1e-3 dB
+LIVE_PSNR_ATOL = 1e-3
+
+
+def _checksum(torch, model):
+    """Each state tensor's bits summed as integers (int64, exact): equal
+    sums before and after a frame show that nothing wrote the snapshot."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    return torch.stack([v.detach().contiguous().view(-1).view(ints[v.element_size()]).sum()
+                        for v in model.state_dict().values()]).cpu()
+
+
+def _state_equal(torch, a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_live(torch, segscan, toy, run, baked_path) -> dict:
+    """Live runtime adaptation at full width (module docstring, phase 12),
+    on phase 8's run and phase 9's baked table; removes phase 8's directory
+    at its end. Returns the scan's launch counts by path."""
+    import shutil
+
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.data import dataset, tasks
+    from acn_tpu_torch.pipelines.baking import BakedRenderer, load_baked
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    from acn_tpu_torch.utils.config import parse_args
+    from acn_tpu_torch.viewer import viewer as tviewer
+    from acn_tpu_torch.viewer.engine.controller import Controller
+    from acn_tpu_torch.viewer.engine.runners.meta_train import MetaTrainRunner
+    from acn_tpu_torch.viewer.engine.runners.runtime_adapt import RuntimeAdaptRunner
+    from acn_tpu_torch.viewer.utils import RUB_TO_DRB, verify_continual_batch_dir
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    torch.cuda.empty_cache()
+    counted = {}
+    saved = (dataset.RAY_CACHE, tasks.ROUTE_CACHE)
+    dataset.RAY_CACHE, tasks.ROUTE_CACHE = RUNNER_DIR / "rays", RUNNER_DIR / "routes"
+    try:
+        # (a) the view context and previews at the viewer's size
+        ctx = runner.build_context(parse_args(_run_flags(
+            "view.json", "--checkpoint_path", str(run), "--prefix", "last",
+            "--fname", str(RUNNER_DIR / "view"))), "view")
+        P = ctx["P"]
+        check(ctx["occ_states"] is not None and int(P.occ_budget_per_ray) == 32,
+              "the view context must restore the grids and the packed budget 32")
+        ckpt = {k: v.detach().clone() for k, v in ctx["model"].state_dict().items()}
+        controller = Controller(ctx)
+        renderer = Renderer(ctx["cfg"], P, ctx["occ_cfg"], device=ctx["device"])
+        state = tviewer.ViewerState(P)
+        # turbo needs matplotlib, which the viewer imports only for it
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            state.depth_colormap = "gray"
+        H, W = LIVE_PREVIEW
+        md = dataset.get_image_metadata(ctx["data_path"], P.downscale)[1][0]
+        c2w = np.asarray(md.c2w, np.float32)  # origin 0, pose scale 1: the viewer's world
+        cam = dict(c2w_rub_world=np.concatenate(
+            [RUB_TO_DRB.T @ c2w[:, :3], (RUB_TO_DRB.T @ c2w[:, 3])[:, None]], 1),
+            H=H, W=W, fx=float(md.intrinsics[1]) * H / md.H,
+            fy=float(md.intrinsics[1]) * H / md.H, cx=W / 2, cy=H / 2)
+        chunks = -(-H // max(renderer.chunk_rays // W, 1))
+
+        def frame(preview=True):
+            return tviewer.render_frame(ctx, controller, renderer, state, preview=preview, **cam)
+
+        frame()  # warm
+        view_counts, view_ms, frame_std = [0, 0], {}, {}
+        for preview in (True, False):
+            for display in ("rgb", "depth", "opacity"):
+                state.display = display
+                _zero_scan_counts(segscan)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = frame(preview)
+                name = f"{'preview' if preview else 'full'}_{display}"
+                view_ms[name] = 1e3 * (time.perf_counter() - t0)
+                got = _scan_counts(segscan)
+                check(got == (chunks, 0), f"(a) a {name} frame launched {got}, want "
+                      f"({chunks}, 0): one forward scan per chunk")
+                view_counts = [view_counts[0] + got[0], view_counts[1] + got[1]]
+                # depth and opacity may be flat where the field is faint
+                check(img.dtype == np.uint8 and img.shape == (H, W, 3)
+                      and (display != "rgb" or img.std() > 0),
+                      f"(a) the {name} frame is {img.dtype} {img.shape}, std {img.std()}")
+                frame_std[name] = float(img.std())
+        state.display = "rgb"
+        idle_ms = [view_ms["preview_rgb"]]
+        for _ in range(2):
+            idle_ms.append(_timed(torch, frame, 1)[0])
+        counted["view_frames"] = tuple(view_counts)
+        ctx["baked_renderer"] = BakedRenderer(
+            load_baked(baked_path, device=ctx["device"]),
+            budget_per_ray=int(P.occ_budget_per_ray or 24), chunk_points=int(P.chunk_points),
+            bg_color=P.bg_color_default)
+        state.use_baked = True
+        frame()  # warm
+        baked_ms = _timed(torch, frame, 2)
+        baked_img = frame()
+        check(baked_img.shape == (H, W, 3) and baked_img.std() > 0, "(a) the baked preview")
+        del ctx["baked_renderer"]
+        state.use_baked = False
+        emit({"phase": "live_view", "H": H, "W": W, "chunks_per_frame": chunks,
+              "scan_launches_per_frame": chunks, "frame_ms": view_ms, "frame_std": frame_std,
+              "preview_idle_ms": idle_ms, "baked_preview_ms": baked_ms,
+              "depth_colormap": state.depth_colormap, "nvidia_smi": smi})
+
+        # (b) a continual batch in update_dataset.py's layout
+        t0 = time.perf_counter()
+        batch = toy.write_continual_batch(ctx["data_path"], "b000", views=LIVE_BATCH_VIEWS,
+                                          K=4, H=RUNNER_IMAGE[0], W=RUNNER_IMAGE[1])
+        ok, msgs = verify_continual_batch_dir(batch)
+        check(ok, f"(b) verify_continual_batch_dir refused the batch: {msgs}")
+        ingest_s = time.perf_counter() - t0
+
+        # (c) adapt live: the loop thread steps, the main thread renders
+        controller.set_mode("runtime_adapt")
+        live = controller.runner
+        check(live.advance_batch(), "(c) the continual batch gave no rays")
+        eval_idx = np.random.default_rng(0).choice(len(live.support), LIVE_EVAL_RAYS,
+                                                   replace=False)
+        eval_rays, eval_rgbs = live.support.rays[eval_idx], live.support.rgbs[eval_idx]
+
+        def batch_psnr(model):
+            rgb = renderer.render_rays(model, ctx["occ_states"], eval_rays)[0]
+            return float(-10.0 * np.log10(np.mean((rgb - eval_rgbs) ** 2)))
+
+        psnr_before = batch_psnr(ctx["model"])
+        metrics, step_live_ms, frames_started = [], [], [0]
+
+        def on_update(m):  # on the loop thread, after each step
+            metrics.append(m)
+            if (len(metrics) >= LIVE_STEPS_PER_FRAME * frames_started[0]
+                    and len(metrics) < LIVE_STEPS):
+                controller.pause()
+
+        def timed_step(step=live.step):
+            t0 = time.perf_counter()
+            m = step()  # ends with the loss on the host
+            step_live_ms.append(1e3 * (time.perf_counter() - t0))
+            return m
+
+        controller.on_update = on_update
+        live.step = timed_step
+        reads = []
+        real_render = renderer.render_image
+
+        def render_checked(model, occ_states, **kw):
+            before = _checksum(torch, model)
+            out = real_render(model, occ_states, **kw)
+            reads.append((before, _checksum(torch, model)))
+            return out
+
+        renderer.render_image = render_checked
+        _zero_scan_counts(segscan)
+        live_ms = []
+        t_start = time.perf_counter()
+        controller.start(target_steps=LIVE_STEPS)
+        while controller.is_running:
+            frames_started[0] += 1
+            controller.resume()
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            live_ms.append(1e3 * (time.perf_counter() - t0))
+            check(time.perf_counter() - t_start < 300, "(c) the live run took over 300 s")
+        controller._thread.join(timeout=60)
+        check(not controller._thread.is_alive(), "(c) the loop thread did not end")
+        renderer.render_image = real_render
+        live_counts = _scan_counts(segscan)
+        check(controller.last_error is None, f"(c) the loop failed:\n{controller.last_error}")
+        check(live.steps == LIVE_STEPS and len(metrics) == LIVE_STEPS,
+              f"(c) {live.steps} steps, {len(metrics)} metrics, want {LIVE_STEPS}")
+        losses = [m["loss"] for m in metrics]
+        check(np.isfinite(losses).all(), f"(c) losses {losses}")
+        check(len(live_ms) >= LIVE_MIN_FRAMES,
+              f"(c) {len(live_ms)} frames during the run, want {LIVE_MIN_FRAMES}")
+        check(len(step_live_ms) == LIVE_STEPS, f"(c) {len(step_live_ms)} timed steps")
+        torn = [i for i, (a, b) in enumerate(reads) if not torch.equal(a, b)]
+        check(not torn, f"(c) frames {torn} of {len(reads)} read a snapshot that changed")
+        seen = len({tuple(a.tolist()) for a, _ in reads})
+        check(seen >= 2, f"(c) every frame read the same snapshot ({seen})")
+        check(live_counts == (chunks * len(reads), 0),
+              f"(c) the live run launched {live_counts}, want {chunks} per frame and none "
+              f"for the {LIVE_STEPS} TTO steps")
+        counted["live_frames"] = live_counts
+        with live.get_render_params() as (published, _):
+            check(_state_equal(torch, published, live.model),
+                  "(c) the last snapshot is not the trained model")
+            psnr_after = batch_psnr(published)
+        check(psnr_after > psnr_before, f"(c) PSNR over {LIVE_EVAL_RAYS} rays of the batch "
+              f"went from {psnr_before} to {psnr_after} dB")
+
+        # the same 16 steps in sequence, no frames: the same draws and rays
+        seq = RuntimeAdaptRunner(ctx)
+        seq.advance_batch()  # the support store, as the live run's, before the timed steps
+        _zero_scan_counts(segscan)
+        seq_metrics, step_alone_ms = [], []
+        for _ in range(LIVE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq_metrics.append(seq.step())
+            torch.cuda.synchronize()
+            step_alone_ms.append(1e3 * (time.perf_counter() - t0))
+        seq_counts = _scan_counts(segscan)
+        check(seq_counts == (0, 0), f"(c) 16 TTO steps launched {seq_counts}, want none")
+        counted["tto_steps"] = seq_counts
+        psnr_diff = [abs(a["psnr"] - b["psnr"]) for a, b in zip(metrics, seq_metrics)]
+        check(max(psnr_diff) <= LIVE_PSNR_ATOL,
+              f"(c) live against sequential steps: PSNR apart by {max(psnr_diff)} dB")
+        param_diff = max(float((a - b).abs().max()) for a, b in zip(
+            live.model.state_dict().values(), seq.model.state_dict().values()))
+        publish_ms = []
+        for _ in range(10):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            seq._publish()
+            end.record()
+            torch.cuda.synchronize()
+            publish_ms.append(start.elapsed_time(end))
+        state_mb = sum(v.numel() * v.element_size() for v in seq.model.state_dict().values()) / 1e6
+        emit({"phase": "live_adapt", "steps": LIVE_STEPS, "batch_views": LIVE_BATCH_VIEWS,
+              "ingest_s": ingest_s, "losses": losses,
+              "psnr_batch_before_after": [psnr_before, psnr_after],
+              "frames_during_run": len(live_ms), "frames_checked": len(reads),
+              "snapshots_seen": seen, "torn_frames": len(torn),
+              "preview_during_training_ms": live_ms, "tto_step_during_frames_ms": step_live_ms,
+              "tto_step_alone_ms": step_alone_ms, "snapshot_publish_ms": publish_ms,
+              "snapshot_mb": state_mb, "live_vs_sequential_psnr_max_abs": max(psnr_diff),
+              "live_vs_sequential_param_max_abs": param_diff,
+              "scan_launches_live": live_counts, "scan_launches_16_tto_steps": seq_counts,
+              "nvidia_smi": smi})
+
+        # (d) reset, and the runtime checkpoint's round trip
+        live.reset_fast()
+        check(live.steps == 0 and all(torch.equal(v, ckpt[k])
+                                      for k, v in live.model.state_dict().items()),
+              "(d) reset_fast did not give back the checkpoint's bits")
+        with live.get_render_params() as (published, _):
+            check(_state_equal(torch, published, live.model), "(d) the reset was not published")
+        rt = RUNNER_DIR / "runtime_ckpt"
+        t0 = time.perf_counter()
+        seq.save_runtime_checkpoint(rt)
+        save_s = time.perf_counter() - t0
+        del controller, live
+        back = RuntimeAdaptRunner(ctx)
+        t0 = time.perf_counter()
+        back.load_runtime_checkpoint(rt)
+        load_s = time.perf_counter() - t0
+        check(back.steps == LIVE_STEPS and _state_equal(torch, back.model, seq.model),
+              "(d) the runtime checkpoint did not give back the saved bits")
+        check(all(torch.equal(ctx["model"].state_dict()[k], v) for k, v in ckpt.items()),
+              "(d) the context's model was written")
+        emit({"phase": "live_reset_checkpoint", "reset_bit_equal": True,
+              "runtime_checkpoint_bit_equal": True, "save_s": save_s, "load_s": load_s})
+        del back, seq, ctx, ckpt
+        torch.cuda.empty_cache()
+
+        # (e) the meta-train mode on a train context's sampler
+        tctx = runner.build_context(parse_args(_run_flags(
+            "train_occ.json", "--checkpoint_path", str(run), "--prefix", "last",
+            "--fname", str(RUNNER_DIR / "meta_view"))), "train")
+        meta = MetaTrainRunner(tctx)
+        meta_ms, meta_counts, meta_m = [], [0, 0], []
+        for _ in range(2):
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meta_m.append(meta.step())
+            torch.cuda.synchronize()
+            meta_ms.append(1e3 * (time.perf_counter() - t0))
+            got = _scan_counts(segscan)
+            check(got == (0, 0), f"(e) a meta-train runner step launched {got}, want none: "
+                  "acn_tpu's runner builds its step without the occupancy config")
+            meta_counts = [meta_counts[0] + got[0], meta_counts[1] + got[1]]
+        check(all(np.isfinite([m["loss"], m["psnr"]]).all() for m in meta_m),
+              f"(e) meta-train metrics {meta_m}")
+        counted["meta_train_runner"] = tuple(meta_counts)
+        emit({"phase": "live_meta_train", "steps": 2, "regime": "stratified",
+              "step_ms": meta_ms, "metrics": meta_m, "scan_launches": meta_counts,
+              "phase12_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+        del meta, tctx
+    finally:
+        dataset.RAY_CACHE, tasks.ROUTE_CACHE = saved
+        shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counted
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR")
@@ -3069,11 +3398,13 @@ def main() -> int:
     del model_cpu
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
     run8 = phase_runner(torch, segscan, toy)
-    serve = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"], args.profile)
+    serve, baked_path = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"],
+                                      args.profile)
     m9 = phase_m9(torch, segscan, toy, occ_cpu, train["mean_step_ms"])
     del occ_cpu
     mesh = phase_mesh(torch, segscan, toy, model, occ)
     del model, occ
+    live = phase_live(torch, segscan, toy, run8["run"], baked_path)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -3082,7 +3413,8 @@ def main() -> int:
     # --op train and --op eval; phase 9's routed, single-expert and baked
     # frames, baked eval and videos; phase 10's steps, summed by
     # sub-phase; phase 11's sharded steps and fan-out frames, summed over the
-    # ranks), each counted from 0 just before its path was driven. ms,
+    # ranks; phase 12's viewer frames, live frames, TTO steps and meta-train
+    # runner steps), each counted from 0 just before its path was driven. ms,
     # plain_ms and bound_ms at the serving chunk (B = 983,040);
     # "train_shapes" holds the same at the training step's B = 32,768 and
     # 16,384, "double_backward" phase 2's second derivative at 32,768.
@@ -3092,7 +3424,8 @@ def main() -> int:
     (fwd_rtrain, rev_rtrain), (fwd_reval, rev_reval) = run8["train"], run8["eval"]
     by_path = lambda i: {**{name: c[i] for name, c in serve.items()},
                          **{f"m9_{name}": c[i] for name, c in m9.items()},
-                         **{name: c[i] for name, c in mesh.items()}}
+                         **{name: c[i] for name, c in mesh.items()},
+                         **{f"viewer_{name}": c[i] for name, c in live.items()}}
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
@@ -3100,7 +3433,8 @@ def main() -> int:
         {"name": "seg_excl_sum", "replaces": "acn_tpu/ops/segscan.py:180",
          "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
                       + sum(c[0] for c in serve.values())
-                      + sum(c[0] for c in m9.values()) + sum(c[0] for c in mesh.values())),
+                      + sum(c[0] for c in m9.values()) + sum(c[0] for c in mesh.values())
+                      + sum(c[0] for c in live.values())),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
                               "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
@@ -3115,7 +3449,8 @@ def main() -> int:
         {"name": "seg_excl_rsum", "replaces": "acn_tpu/ops/segscan.py:251",
          "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
                       + sum(c[1] for c in serve.values())
-                      + sum(c[1] for c in m9.values()) + sum(c[1] for c in mesh.values())),
+                      + sum(c[1] for c in m9.values()) + sum(c[1] for c in mesh.values())
+                      + sum(c[1] for c in live.values())),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
                               "runner_train": rev_rtrain, "runner_eval": rev_reval,

@@ -10,8 +10,10 @@ dataset directory that ``toy.write_dataset_dir`` writes in ``tmp_path``
 * The two entry points: a short ``--op train`` of each package writes a
   checkpoint that the other's ``build_context(…, "eval")`` restores to the
   same arrays, grids and step; the port resumes its own run's optimizer.
-* The refusals: an incomplete multi-process set-up, the unported ops, and
-  ``python -m acn_tpu_torch`` without a card, which exits before any work.
+* The refusals: an incomplete multi-process set-up, and ``python -m
+  acn_tpu_torch`` without a card, which exits before any work; ``--op
+  view`` reaches the viewer, which without viser raises ``acn_tpu``'s
+  ImportError.
 
 Both packages' ray and route caches point into ``tmp_path``; runs write
 under ``tmp_path/logs``.
@@ -187,9 +189,27 @@ def test_mesh_and_multiprocess_runs_are_refused(data_root, flags):
 
 
 @pytest.mark.parametrize("op,item", [("view", "M12")])
-def test_unported_ops_are_refused(data_root, op, item):
-    with pytest.raises(NotImplementedError, match=item):
-        trunner.main(_argv(data_root, "train", "--op", op), device="cpu")
+def test_unported_ops_are_refused(data_root, op, item, tmp_path, monkeypatch):
+    """No op of ``acn_tpu``'s runner is refused any more: ``view`` (ROADMAP
+    item M12) builds the view context, with the checkpoint restored, and
+    reaches ``launch_viewer``, which without viser raises ``acn_tpu``'s
+    ImportError, word for word."""
+    from test_torch_eval_card import _model_with_content
+
+    P, model, occ = _model_with_content(_argv(data_root, "train_occ"), data_root)
+    tck.save_checkpoint(tmp_path / "run", "last", model, occ_states=occ, P=P, step=3)
+    argv = _argv(data_root, "view", "--op", op, "--checkpoint_path", str(tmp_path / "run"),
+                 "--prefix", "last", "--fname", "view")
+    ctx = trunner.build_context(tparse(argv), op, device="cpu")
+    assert ctx["step"] == 3 and ctx["occ_states"] is not None
+    tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+             ctx["model"].params(), model.params())
+    monkeypatch.setitem(sys.modules, "viser", None)  # absent, whatever the host has
+    with pytest.raises(ImportError) as want:
+        jrunner.main(argv)
+    with pytest.raises(ImportError) as got:
+        trunner.main(argv, device="cpu")
+    assert str(got.value) == str(want.value) and "viser" in str(got.value)
 
 
 def test_module_entry_point_without_a_card_exits_before_any_work(data_root, tmp_path):
