@@ -57,6 +57,7 @@ from acn_tpu_torch.models.ngp import NGPConfig
 from acn_tpu_torch.models.nn import norm3, tree_map
 from acn_tpu_torch.nerfs import rays as raylib
 from acn_tpu_torch.occupancy.grid import OccConfig, init_occ_state
+from acn_tpu_torch.scripts.create_clusters import save_zip_mask
 from acn_tpu_torch.utils.optim import Optimizer, build_optimizer
 
 SCENE_AABB = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], np.float32)
@@ -318,20 +319,6 @@ def expert_layout(K: int) -> Tuple[np.ndarray, np.ndarray]:
     return boxes, np.asarray([[0.0, -0.55, 0.0], [0.0, 0.55, 0.0]], np.float32)
 
 
-def _zip_mask(path, mask_hw: np.ndarray) -> None:
-    """A zipped ``torch.save`` of a boolean (H, W) mask, the prepared
-    datasets' format (``acn_tpu/scripts/create_clusters.py``)."""
-    import io
-    import zipfile
-
-    buf = io.BytesIO()
-    torch.save(torch.from_numpy(np.ascontiguousarray(mask_hw)), buf)
-    info = zipfile.ZipInfo(path.stem + ".inner.pt", date_time=(1980, 1, 1, 0, 0, 0))
-    info.compress_type = zipfile.ZIP_DEFLATED
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
-        zf.writestr(info, buf.getvalue())
-
-
 def _write_view(split_dir: Path, name: str, rng: np.random.Generator, box: np.ndarray,
                 H: int, W: int, downscale: float,
                 meta_extra: Optional[Dict[str, Any]] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -419,7 +406,7 @@ def write_dataset_dir(root, K: int = 4, train_cams: int = 32, val_cams: int = 8,
         for k in range(K):
             inside = ((y >= boxes[k, 0, 1]) & (y <= boxes[k, 1, 1])
                       & (z >= boxes[k, 0, 2]) & (z <= boxes[k, 1, 2]))
-            _zip_mask(masks / str(k) / f"{name}.pt", inside.reshape(H, W))
+            save_zip_mask(masks / str(k) / f"{name}.pt", inside.reshape(H, W))
     return data
 
 

@@ -189,7 +189,38 @@ Phases, each printing one JSON line and each fatal on failure:
    builds its step (no scan); (f) preview ms idle and during training, TTO
    step ms alone and during frames, snapshot publish ms, the phase's
    seconds, with the card's name and power limit;
-13. the kernels line, then the card's ``nvidia-smi`` line, then the result
+13. the host tooling (``acn_tpu_torch/scripts``, ``acn_tpu_torch/ops``) at
+   the reference scene's width (the drz set: 2048 × 1536 views, 4 experts in a
+   2 × 2 grid, boundary margin 1.1): (a) ``create_clusters`` (256 samples
+   per ray, ``--center_pixels --scene_scale 1.1``) routes 16 + 4 views of
+   2048 × 1536 over the 4 quadrants (``toy.write_dataset_dir``'s cameras,
+   metadata at that size beside 64 × 48 PNGs) on the card: every image has a
+   mask per expert, every expert a sample and a box inside the global box;
+   ms per image, its host share (ray generation, zipping) and the time
+   projected for drz's 249 images; the router with those centroids on 2 of
+   the views at downscale 0.125, card against CPU: a differing ray only
+   where a sample lies within 1e-5 (relative) of a boundary, counts apart by
+   no more than such samples, boxes within 4 ulps of 2; (b) the same run as
+   two processes sharing the card (``--rank 1`` and ``--rank 0`` of
+   ``--world_size 2``), run beside (c)-(e) and read before (f): masks byte
+   for byte and ``scene_boxes.pt`` equal to (a)'s; (c) ``log_mask_info`` (overlap above 0), ``log_dataset_info``
+   (16 + 4 views) and ``visualize_clustering``'s arrays (the region map's 4
+   cells and overlap band, one overlay), no figure drawn; (d) a ``toy`` set
+   of 8 + 2 views of 96 × 128 whose masks ``create_clusters`` rewrites, then
+   ``runner.main`` ``--op train`` of ``configs/train_occ.json`` for 4 steps
+   through the regime switch (K·T·(inner_iter + 1) = 108 + 108 scans per
+   budget step, none otherwise) and ``summarize_run --json`` on its
+   ``log.txt``: every step and eval line parsed; (e) ``convert_reference_ckpt``
+   on a reference-style state dict of a full-width corner-layout model (4
+   experts, L16 F2, 2^20 rows per level): every converted leaf equal to the
+   source's, and ``render_rays`` of 2,048 rays of both on the card within
+   one u8 step in rgb and 1e-5 in acc; (f) ``bench_gather_scatter`` (every
+   figure with the card's name and power limit), ``bench_step_breakdown
+   --iters 1 --profile`` (``bench.py``'s scale, strided: no scan) and
+   ``analyze_trace`` on its trace: the categories sum to the device's busy
+   time within 1 %. Its directory ``logs/chip_smoke_tools/`` is removed at
+   the end;
+14. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -3356,6 +3387,334 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
     return counted
 
 
+# ---------------------------------------------------------------- phase 13
+
+TOOLS_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_tools"
+DRZ_VIEWS, DRZ_IMAGE, DRZ_IMAGES = (16, 4), (1536, 2048), 187 + 62
+CLUSTER_SAMPLES = 256
+CLUSTER_FLAGS = ["--grid_dim", "2", "2", "--cluster_2d", "--boundary_margin", "1.1",
+                 "--ray_samples", str(CLUSTER_SAMPLES), "--center_pixels", "--scene_scale",
+                 "1.1", "--altitude_range", "-1", "1"]  # toy data: X (Down) in [-1, 1]
+ROUTE_CHECK = (2, 0.125)  # images and downscale of the card-against-CPU routing
+TIE_RTOL = 1e-5  # tests/test_torch_create_clusters.py: a sample this near a boundary
+BOX_ATOL = 4 * float(np.spacing(np.float32(2.0)))  # 4 ulps of the operands' scale
+TOOLS_STEPS = 4
+CONVERT_RAYS = 2048
+# the reference's pinned architecture (its {tag}.P): 4 experts, 64-wide MLPs,
+# the corner grid's 2^20 rows per level (L16 F2 by the parser's defaults)
+CONVERT_REF = {"num_submodules": 4, "sigma_depth": 2, "color_depth": 2, "dim_hidden": 64,
+               "color_hidden": 64, "log2_hashmap_size": 20}
+
+
+def route_ties(rays, cents, margin: float, S: int, block: int = 8192) -> np.ndarray:
+    """Per ray (cluster_2d, valid rays), the number of its (sample, cell)
+    pairs within ``TIE_RTOL`` of the cell's boundary at ``margin``: where
+    the card's and the CPU's roundings may decide otherwise (float64)."""
+    out = []
+    for s in range(0, len(rays), block):
+        r = rays[s:s + block].astype(np.float64)
+        z = np.linspace(0.0, 1.0, S)
+        t = r[:, 6:7] * (1 - z) + r[:, 7:8] * z
+        x = r[:, None, 1:3] + r[:, None, 4:6] * t[..., None]
+        d2 = ((x[..., None, :] - cents[:, 1:].astype(np.float64)) ** 2).sum(-1)
+        d2min = d2.min(-1, keepdims=True)
+        gap = np.abs(d2 - margin ** 2 * d2min) / np.maximum(d2min, 1e-30)
+        if margin == 1.0:  # the nearest cell itself is no tie
+            np.put_along_axis(gap, d2.argmin(-1)[..., None], np.inf, -1)
+        valid = np.isfinite(r[:, 6]) & np.isfinite(r[:, 7]) & (r[:, 7] > r[:, 6])
+        out.append(np.where(valid, (gap < TIE_RTOL).sum(axis=(1, 2)), 0))
+    return np.concatenate(out)
+
+
+def _mask_files(d: Path) -> list:
+    return sorted(p.relative_to(d) for p in d.rglob("*.pt") if p.parent.name.isdigit())
+
+
+def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
+    """The host tooling at the reference scene's width (module docstring,
+    phase 13). Returns the scan's launch counts of (d) and (f)."""
+    import contextlib
+    import io
+    import shutil
+
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.data import dataset, tasks
+    from acn_tpu_torch.data.ray_prep import get_ray_directions_np, get_rays_np
+    from acn_tpu_torch.ops import analyze_trace, bench_gather_scatter, bench_step_breakdown
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    from acn_tpu_torch.scripts import convert_reference_ckpt as conv
+    from acn_tpu_torch.scripts import create_clusters as cc
+    from acn_tpu_torch.scripts import log_dataset_info, log_mask_info, summarize_run
+    from acn_tpu_torch.scripts import visualize_clustering as viz
+    from acn_tpu_torch.utils import checkpoint as tck
+    from acn_tpu_torch.utils.config import parse_args
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    saved = (dataset.RAY_CACHE, tasks.ROUTE_CACHE)
+    dataset.RAY_CACHE, tasks.ROUTE_CACHE = TOOLS_DIR / "rays", TOOLS_DIR / "routes"
+    counted = [0, 0]
+    procs, logs = [], []
+
+    def quiet(fn, *a):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = fn(*a)
+        return res, out.getvalue()
+
+    try:
+        # (a) create_clusters on the card over 16 + 4 metadata views of
+        # 2048 × 1536 (toy PNGs of 64 × 48 beside them; the tool reads none)
+        _zero_scan_counts(segscan)
+        n_tr, n_va = DRZ_VIEWS
+        scale = 48 / DRZ_IMAGE[0]
+        data = toy.write_dataset_dir(TOOLS_DIR / "drz", K=4, train_cams=n_tr, val_cams=n_va,
+                                     H=48, W=64, downscale=scale)
+        argv = ["--data_path", str(data), *CLUSTER_FLAGS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing, _ = quiet(cc.main, cc.build_parser().parse_args(
+            argv + ["--output", "g22", "--device", DEV]))
+        wall_s = time.perf_counter() - t0
+        out_a = data / "masks" / "g22"
+        files = _mask_files(out_a)
+        check(timing["images"] == n_tr + n_va and len(files) == 4 * (n_tr + n_va),
+              f"(a) {timing['images']} images routed, {len(files)} mask files")
+        boxes = torch.load(out_a / "scene_boxes.pt", weights_only=False)
+        params = torch.load(out_a / "params.pt", weights_only=False)
+        g = boxes["aabb_global"].numpy()
+        mins, maxs, counts = boxes["mins"].numpy(), boxes["maxs"].numpy(), boxes["counts"]
+        check(counts.dtype == torch.int64 and bool((counts > 0).all()),
+              f"(a) per-expert sample counts {counts.tolist()}")
+        check(bool((mins >= g[0]).all() and (maxs <= g[1]).all() and (mins < maxs).all()),
+              f"(a) expert boxes {mins.tolist()} .. {maxs.tolist()} outside {g.tolist()}")
+        per_image = (timing["host_rays"] + timing["route"] + timing["write"]) / timing["images"]
+        host_share = (timing["host_rays"] + timing["write"]) / (
+            timing["host_rays"] + timing["route"] + timing["write"])
+        # the router on the card against the CPU, on 2 images at downscale 0.125
+        cents = params["centroids"].numpy()
+        metas = sorted((data / "train" / "metadata").glob("*.pt"))[:ROUTE_CHECK[0]]
+        check_stats = []
+        for mp in metas:
+            md = torch.load(mp, weights_only=False)
+            ds = ROUTE_CHECK[1]
+            fx, fy, cx, cy = [float(v) * ds for v in md["intrinsics"][:4]]
+            dirs = get_ray_directions_np(int(round(int(md["H"]) * ds)),
+                                         int(round(int(md["W"]) * ds)), fx, fy, cx, cy, True)
+            rays = get_rays_np(dirs, np.asarray(md["c2w"], np.float32), aabb=g).reshape(-1, 8)
+            got = cc.make_voronoi_kernel(cents, True, 1.1, CLUSTER_SAMPLES, device=DEV)(rays)
+            want = cc.make_voronoi_kernel(cents, True, 1.1, CLUSTER_SAMPLES,
+                                          device="cpu")(rays)
+            ties = route_ties(rays, cents, 1.1, CLUSTER_SAMPLES)
+            differ = (got[0] != want[0]).any(1)
+            check(not (differ & (ties == 0)).any(), "(a) card against CPU: "
+                  f"{int((differ & (ties == 0)).sum())} differing rays are no tie")
+            box_err = max(float(np.abs(got[i].astype(np.float64) - want[i]).max())
+                          for i in (1, 2))
+            check(box_err <= BOX_ATOL, f"(a) card against CPU boxes differ by {box_err}")
+            count_diff = int(np.abs(got[3] - want[3]).sum())
+            check(count_diff <= int(ties.sum()), f"(a) card against CPU counts "
+                  f"{got[3].tolist()} / {want[3].tolist()}, {int(ties.sum())} tie samples")
+            check_stats.append({"rays": len(rays), "differing_rays": int(differ.sum()),
+                                "tie_samples": int(ties.sum()), "box_max_abs_err": box_err,
+                                "counts_abs_diff": count_diff})
+        emit({"phase": "tools_create_clusters", "images": timing["images"],
+              "image_hw": list(DRZ_IMAGE), "rays_per_image": DRZ_IMAGE[0] * DRZ_IMAGE[1],
+              "ray_samples": CLUSTER_SAMPLES, "wall_s": wall_s, "ms_per_image": 1e3 * per_image,
+              "host_share": host_share, "host_rays_s": timing["host_rays"],
+              "route_s": timing["route"], "write_s": timing["write"],
+              "projected_drz_s": DRZ_IMAGES * per_image, "counts": counts.tolist(),
+              "card_vs_cpu": check_stats, "nvidia_smi": smi})
+
+        # (b) two processes sharing the card, rank 1 started first; they run
+        # while (c)-(e) do, and are read before (f) measures
+        repo = Path(__file__).resolve().parent
+        base = [sys.executable, "-m", "acn_tpu_torch.scripts.create_clusters", *argv,
+                "--output", "g22_mp", "--world_size", "2", "--merge_timeout", "300",
+                "--device", DEV]
+        logs = [open(TOOLS_DIR / f"rank{r}.log", "w") for r in (1, 0)]
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen(base + ["--rank", str(r)], cwd=str(repo), stdout=f,
+                                  stderr=subprocess.STDOUT) for r, f in zip((1, 0), logs)]
+
+        # (c) the audits on (a)'s outputs, and the clustering figures' arrays
+        _, text = quiet(log_mask_info.main, log_mask_info.build_parser().parse_args(
+            ["--mask_dir", str(out_a)]))
+        overlap = float(re.search(r"overlap ([\d.]+)% of assigned", text)[1])
+        assigned = float(re.search(r"assigned ([\d.]+)% of pixels", text)[1])
+        check(overlap > 0 and assigned > 0, f"(c) log_mask_info:\n{text}")
+        info = log_dataset_info.dataset_info(data)
+        check(f"split train: {n_tr} images" in info and f"split val: {n_va} images" in info,
+              f"(c) log_dataset_info:\n{info}")
+        img, owner, _, _ = viz.region_image(cents, g, 1.1)
+        plain = (img.reshape(-1, 1, 3) == viz.CELL_COLORS[None]).all(-1).any(-1)
+        check(set(np.unique(owner)) == {0, 1, 2, 3} and not plain.all(),
+              "(c) region map: not 4 cells, or no overlap band")
+        md = dataset.get_image_metadata(data, scale)[1][0]
+        masks = viz.image_masks(out_a, md, 4)
+        over = viz.color_overlay(md.load_image().astype(np.float32) / 255.0, masks)
+        check(over.shape == (48, 64, 3) and 0.0 <= over.min() and over.max() <= 1.0
+              and masks.any(0).mean() > 0.5, "(c) the overlay")
+        emit({"phase": "tools_audits", "overlap_pct": overlap, "assigned_pct": assigned,
+              "info_lines": len(info.splitlines()), "region_cells": 4,
+              "band_share": float(1 - plain.mean()), "overlay_hw": list(over.shape[:2]),
+              "launches": _scan_counts(segscan)})
+        check(_scan_counts(segscan) == (0, 0), "(a)-(c) launched the scan")
+
+        # (d) create_clusters rewrites a toy set's masks, then --op train and
+        # summarize_run on its log
+        toy_root = TOOLS_DIR / "toy"
+        tdata = toy.write_dataset_dir(toy_root, K=4, train_cams=8, val_cams=2, H=96, W=128)
+        quiet(cc.main, cc.build_parser().parse_args(
+            ["--data_path", str(tdata), *CLUSTER_FLAGS, "--downscale", "0.25",
+             "--output", "g22_grid_bm110_ss11", "--device", DEV]))
+        run = TOOLS_DIR / "train"
+        train_argv = [
+            "--op", "train", "--configPath", str(repo / "configs" / "train_occ.json"),
+            "--data_path", str(toy_root), "--fname", str(run),
+            "--outer_steps", str(TOOLS_STEPS), "--occ_warmup", "2", "--occ_auto_patience", "1",
+            "--eval_step", "2", "--save_step", str(TOOLS_STEPS), "--print_step", "1"]
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        out = runner.main(train_argv, device=DEV)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        fwd, rev = _scan_counts(segscan)
+        P = parse_args(train_argv)
+        per_step = P.num_submodules * P.batch_size * (P.inner_iter + 1)  # 108
+        regimes = [s["regime"] for s in out["loop"]["steps"]]
+        n_budget = regimes.count("budget")
+        check(n_budget >= 1 and (fwd, rev) == (per_step * n_budget, per_step * n_budget),
+              f"(d) regimes {regimes}, scan launches {(fwd, rev)}, {per_step} per budget step")
+        counted = [fwd, rev]
+        del out
+        code, text = quiet(summarize_run.main, ["--json", str(run)])
+        s = json.loads(text)[str(run)]
+        lines = (run / "log.txt").read_text().splitlines()
+        n_steps = sum(" loss: " in ln and "s/it" in ln for ln in lines)
+        n_evals = sum("[eval] step" in ln for ln in lines)
+        check(code == 0 and [x["step"] for x in s["steps"]] == list(
+            range(1, TOOLS_STEPS + 1)) and len(s["steps"]) == n_steps
+              and len(s["evals"]) == n_evals >= 1,
+              f"(d) summarize_run parsed {len(s['steps'])} of {n_steps} step lines and "
+              f"{len(s['evals'])} of {n_evals} eval lines")
+        emit({"phase": "tools_train_summary", "steps": TOOLS_STEPS, "regimes": regimes,
+              "train_s": train_s, "beside": "(b)'s ranks", "scan_launches": [fwd, rev], "step_lines": n_steps,
+              "eval_lines": n_evals, "last_eval": s.get("last_eval"),
+              "median_s_per_it": s.get("median_s_per_it"), "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+
+        # (e) the converter on a reference-style state dict of a full-width
+        # corner-layout model (L16 F2, 2^20 rows per level), over (a)'s boxes
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        ref = dict(CONVERT_REF)
+        ours = conv.ours_from_reference_P(types.SimpleNamespace(**ref), TOOLS_DIR / "drz",
+                                          "example", "g22")
+        cfg, source = conv.template_model(ours, seed=1)
+        hcfg = cfg.expert.hash
+        check(hcfg.layout == "corner" and hcfg.levels == 16 and hcfg.features_per_level == 2
+              and hcfg.log2_hashmap_size == ref["log2_hashmap_size"],
+              f"(e) the converter's grid {hcfg}")
+        src = TOOLS_DIR / "reference"
+        src.mkdir()
+        torch.save(conv.to_reference_state_dict(source), src / "best.model")
+        torch.save(ref, src / "best.P")
+        quiet(conv.main, ["--src", str(src), "--dst", str(TOOLS_DIR / "converted"),
+                          "--data_path", str(TOOLS_DIR / "drz"), "--mask_dirname", "g22"])
+        convert_s = time.perf_counter() - t0
+        model, _ = tck.restore_model(tck.load_checkpoint(TOOLS_DIR / "converted", "best"),
+                                     cfg, device=DEV)
+        got_sd, want_sd = model.state_dict(), source.state_dict()
+        check(sorted(got_sd) == sorted(want_sd) and all(
+            torch.equal(got_sd[k].cpu(), v) for k, v in want_sd.items()),
+            "(e) a converted leaf differs from the source model's")
+        md = dataset.get_image_metadata(data, scale)[0][0]
+        fx, fy, cx, cy = [float(v) for v in md.intrinsics[:4]]
+        rays = get_rays_np(get_ray_directions_np(md.H, md.W, fx, fy, cx, cy, True),
+                           np.asarray(md.c2w, np.float32), aabb=g).reshape(-1, 8)
+        rays = rays[:CONVERT_RAYS]
+        rend = Renderer(cfg, ours, None, device=DEV)
+        a = rend.render_rays(model, None, rays)
+        b = rend.render_rays(source.to(DEV), None, rays)
+        rgb_err = float(np.abs(a[0] - b[0]).max())
+        acc_err = float(np.abs(a[2] - b[2]).max())
+        check(rgb_err <= 1 / 255 and acc_err <= 1e-5 and np.isfinite(a[0]).all(),
+              f"(e) converted against source render: rgb {rgb_err}, acc {acc_err}")
+        check(_scan_counts(segscan) == (0, 0), "(e) launched the scan")
+        emit({"phase": "tools_converter", "experts": 4, "levels": hcfg.levels,
+              "features": hcfg.features_per_level, "log2_hashmap_size": hcfg.log2_hashmap_size,
+              "leaves": len(want_sd), "convert_s": convert_s, "rays": len(rays),
+              "rgb_max_abs_err": rgb_err, "acc_max_abs_err": acc_err,
+              "mean_acc": float(b[2].mean()), "nvidia_smi": smi})
+        del model, source, rend
+        torch.cuda.empty_cache()
+
+        # (b), read: the ranks' masks and boxes against (a)'s
+        try:
+            codes = [p.wait(timeout=400) for p in procs]
+        except subprocess.TimeoutExpired:
+            codes = None
+        ranks_s = time.perf_counter() - t_ranks
+        check(codes == [0, 0], f"(b) ranks exited {codes}:\n" + "\n".join(
+            (TOOLS_DIR / f"rank{r}.log").read_text()[-2000:] for r in (1, 0)))
+        out_b = data / "masks" / "g22_mp"
+        check(_mask_files(out_b) == files, "(b) the ranks wrote other mask files")
+        same = sum((out_a / f).read_bytes() == (out_b / f).read_bytes() for f in files)
+        check(same == len(files), f"(b) {len(files) - same} masks differ from (a)'s")
+        boxes_b = torch.load(out_b / "scene_boxes.pt", weights_only=False)
+        check(sorted(boxes_b) == sorted(boxes) and all(
+            torch.equal(boxes_b[k], v) if isinstance(v, torch.Tensor) else boxes_b[k] == v
+            for k, v in boxes.items()), "(b) scene_boxes.pt differs from (a)'s")
+        emit({"phase": "tools_two_ranks", "ranks": 2, "wall_s": ranks_s,
+              "beside": "(c)-(e)", "masks_byte_equal": same, "nvidia_smi": smi})
+
+        # (f) the profiling tools
+        _zero_scan_counts(segscan)
+        rows = bench_gather_scatter.run(device=DEV)
+        check(_scan_counts(segscan) == (0, 0), "(f) the gather/scatter bench launched the scan")
+        check(all(np.isfinite(r["Mrows_per_s"]) and r["Mrows_per_s"] > 0 for r in rows),
+              f"(f) gather/scatter figures {rows}")
+        emit({"phase": "tools_gather_scatter", "figures": rows, "nvidia_smi": smi})
+        torch.cuda.empty_cache()
+        prof = Path(profile_dir or TOOLS_DIR) / "step_breakdown"
+        _zero_scan_counts(segscan)
+        t0 = time.perf_counter()
+        _, text = quiet(bench_step_breakdown.main, ["--iters", "1", "--profile", str(prof),
+                                                    "--device", DEV])
+        breakdown_s = time.perf_counter() - t0
+        brk = json.loads(text.strip().splitlines()[-1])
+        launches = _scan_counts(segscan)
+        check(launches == (0, 0), f"(f) the breakdown's strided step launched {launches}")
+        check(all(np.isfinite(v) and v > 0 for v in brk["ms"].values()),
+              f"(f) breakdown {brk['ms']}")
+        summary, text = quiet(analyze_trace.main, [str(prof), "--top", "10"])
+        cats = sum(summary["by_category"].values())
+        check(abs(cats - summary["busy_s"]) <= 0.01 * summary["busy_s"],
+              f"(f) trace categories sum to {cats} s, busy {summary['busy_s']} s")
+        emit({"phase": "tools_step_breakdown", **{k: brk[k] for k in (
+            "ms", "units", "predicted_step_ms", "measured_step_ms", "slack",
+            "hash_fwd_Mrows_per_s", "hash_grad_Mrows_per_s", "timing", "scale", "iters")},
+            "wall_s": breakdown_s, "trace_events": summary["events"],
+            "trace_busy_s": summary["busy_s"], "trace_categories_s": cats,
+            "by_category_s": summary["by_category"], "scan_launches": list(launches),
+            "nvidia_smi": smi})
+        counted = [counted[0] + launches[0], counted[1] + launches[1]]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        dataset.RAY_CACHE, tasks.ROUTE_CACHE = saved
+        shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "tools_done", "phase13_s": time.perf_counter() - t_phase})
+    return tuple(counted)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="", metavar="DIR")
@@ -3405,6 +3764,7 @@ def main() -> int:
     mesh = phase_mesh(torch, segscan, toy, model, occ)
     del model, occ
     live = phase_live(torch, segscan, toy, run8["run"], baked_path)
+    fwd_tools, rev_tools = phase_tools(torch, segscan, toy, args.profile)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -3414,7 +3774,8 @@ def main() -> int:
     # frames, baked eval and videos; phase 10's steps, summed by
     # sub-phase; phase 11's sharded steps and fan-out frames, summed over the
     # ranks; phase 12's viewer frames, live frames, TTO steps and meta-train
-    # runner steps), each counted from 0 just before its path was driven. ms,
+    # runner steps; phase 13's --op train and step breakdown), each counted
+    # from 0 just before its path was driven. ms,
     # plain_ms and bound_ms at the serving chunk (B = 983,040);
     # "train_shapes" holds the same at the training step's B = 32,768 and
     # 16,384, "double_backward" phase 2's second derivative at 32,768.
@@ -3434,11 +3795,11 @@ def main() -> int:
          "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
                       + sum(c[0] for c in serve.values())
                       + sum(c[0] for c in m9.values()) + sum(c[0] for c in mesh.values())
-                      + sum(c[0] for c in live.values())),
+                      + sum(c[0] for c in live.values()) + fwd_tools),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
                               "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
-                              **by_path(0)},
+                              **by_path(0), "host_tools": fwd_tools},
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "reverse_ms": k["reverse_ms"], "plain_ms": k["plain_ms"],
          "double_backward": {key: k["double_backward"][key] for key in (
@@ -3450,11 +3811,11 @@ def main() -> int:
          "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
                       + sum(c[1] for c in serve.values())
                       + sum(c[1] for c in m9.values()) + sum(c[1] for c in mesh.values())
-                      + sum(c[1] for c in live.values())),
+                      + sum(c[1] for c in live.values()) + rev_tools),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
                               "runner_train": rev_rtrain, "runner_eval": rev_reval,
-                              **by_path(1)},
+                              **by_path(1), "host_tools": rev_tools},
          "max_abs_err": k["reverse_max_abs_err"], "ms": k["reverse_ms"],
          "plain_ms": k["reverse_plain_ms"],
          "train_shapes": [{"B": sh["B"], "ms": sh["reverse_ms"],

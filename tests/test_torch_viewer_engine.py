@@ -11,13 +11,18 @@ acn_tpu's, on the micro run of ``test_torch_viewer_util``.
   place, gives back the checkpoint's weights bit for bit, in the working
   model and in the published snapshot.
 * The runtime checkpoint: each package loads the other's, bit for bit, with
-  its step and grids.
+  its step and grids. After a load of a checkpoint with other (empty) grids,
+  frames read the loaded grids while TTO still steps on the context's
+  (ROADMAP Queue C, ``acn_tpu/viewer/engine/runners/runtime_adapt.py:92-93``):
+  in both packages the step's loss equals a fresh runner's on the context's
+  grids, bit for bit, and differs from a step on the empty grids.
 * ``Snapshots`` under contention: more reader threads than cores lease and
   re-read snapshots while a publisher writes new versions as fast as it can
   (the interpreter's switch interval cut to 1 µs); no lease ever sees a
   tensor change or two versions mixed. Bounded to 2 s.
 """
 
+import contextlib
 import os
 import sys
 import threading
@@ -163,6 +168,35 @@ def test_each_package_loads_the_others_runtime_checkpoint(viewer_run, tmp_path):
             np.testing.assert_array_equal(v.numpy(), np.asarray(jr.occ_states[k]))
     want = convert.from_jax_variables(jax.device_get(jr.variables), tctx["cfg"], "cpu")
     assert_state_equal(fresh.model, state_clone(want))
+
+
+def _empty(occ_states, to_port):
+    """The grids with no occupied cell."""
+    if to_port:
+        return {**occ_states, "binaries": torch.zeros_like(occ_states["binaries"])}
+    return {**occ_states, "binaries": jax.numpy.zeros_like(occ_states["binaries"])}
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_tto_steps_on_the_contexts_grids_after_loading_others(viewer_run, tmp_path,
+                                                              package):
+    jctx, tctx = contexts(viewer_run)
+    port = package == "port"
+    ctx = tctx if port else jctx
+    make = ((lambda c: TAdapt(c, draws=runner_draws(tctx["P"]))) if port
+            else (lambda c: JAdapt(c)))
+    saver = make(ctx)
+    saver.occ_states = _empty(ctx["occ_states"], port)
+    saver.save_runtime_checkpoint(tmp_path)
+    loaded = make(ctx)
+    loaded.load_runtime_checkpoint(tmp_path)
+    lease = loaded.get_render_params()  # the port's is a lease, acn_tpu's a tuple
+    with (lease if port else contextlib.nullcontext(lease)) as (_, frame_occ):
+        assert not np.asarray(frame_occ["binaries"]).any()  # frames: the loaded grids
+    assert np.asarray(ctx["occ_states"]["binaries"]).any()
+    got = loaded.step()["loss"]
+    assert got == make(ctx).step()["loss"]  # the context's grids
+    assert got != make({**ctx, "occ_states": _empty(ctx["occ_states"], port)}).step()["loss"]
 
 
 def test_snapshots_never_tear_under_contention():

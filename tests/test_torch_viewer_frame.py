@@ -7,7 +7,9 @@ micro run of ``test_torch_viewer_util``.
   at 12 × 16 pixels from a validation camera moved into the viewer's world:
   rgb at full and preview samples, exposure and gamma, the crop box on,
   depth (turbo) and opacity, a near/far override, one active module, and the
-  baked table (bake of the port at 16³, which both packages read). The u8
+  baked table (bake of the port at 16³, which both packages read), also with
+  the crop box and one module set, which a baked frame ignores in both
+  packages (ROADMAP Queue C): there it equals the plain baked frame. The u8
   frames agree within one step (a color on a rounding edge may round either
   way, ``test_torch_renderer.py``), but for up to 3 % of the pixels of the
   uncropped live frames: there a ray crosses a cell edge where XLA's fused
@@ -63,6 +65,9 @@ CASES = {
     "near_far": {"near_override_m": 0.4, "far_override_m": 1.9},
     "module_1": {"active_module": 1},
     "baked": {"baked": True},
+    "baked_crop_module": {"baked": True, "crop_enabled": True, "crop_pos_m": (0.0, 0.3, -0.2),
+                          "crop_rpy_deg": (0.0, 0.0, 30.0), "crop_size_m": (2.0, 1.2, 1.0),
+                          "active_module": 1},
 }
 # the frames whose rays cross a cell edge where XLA's fused multiply-add
 # flips a bin test (ROADMAP Queue C): a sample in one package, none in the
@@ -133,6 +138,17 @@ def test_render_frame_matches_jax(viewer_run, baked_asset, case):
     off = np.abs(got.astype(int) - want.astype(int)).max(-1) > 1
     assert off.sum() <= (0.03 * FH * FW if case in FLIPS else 0), off.sum()
     assert got.std() > 0  # the frame has content
+
+
+def test_a_baked_frame_ignores_the_crop_box_and_the_module(viewer_run, baked_asset):
+    """ROADMAP Queue C: ``acn_tpu/viewer/viewer.py:130-139`` hands the baked
+    renderer neither the crop's box nor the active module, and the port
+    does the same: in each package the cropped single-module baked frame is
+    the plain baked frame, bit for bit."""
+    plain = _frames(viewer_run, baked_asset, "baked")
+    cropped = _frames(viewer_run, baked_asset, "baked_crop_module")
+    for got, want in zip(cropped, plain):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_colormaps_match_jax():
