@@ -5,20 +5,19 @@ Port of ``acn_tpu/models/encodings.py``: SH, ``frequency_encode``,
 ``HashGridConfig``, ``init_hash_table`` (both layouts), the corner-layout
 encode (``_hash_encode_jnp_impl``: 8 hashed corner rows per point and
 level, its backward left to autograd, as JAX's ``hash_encode_jnp`` leaves it
-to ``jax.grad``), the cell-layout forward (``_hash_encode_cell_impl`` /
-``_cell_level_lookup``, with dense levels) and its hand-written backward
+to ``jax.grad``), and the cell-layout encode (``_hash_encode_cell_impl`` /
+``_cell_level_lookup``, with dense levels) with its hand-written backward
 (``_HashEncodeCellSaved``, the counterpart of ``_hash_encode_cell_saved`` /
-``_saved_bwd``): the gathered rows, their indices and the raw intra-cell
-fractions are kept, so the backward is a scatter-add per level plus
-elementwise work and gathers nothing again. ``hash_encode`` dispatches on
-the layout as ``acn_tpu``'s does. The hash encode is plain PyTorch here, as
-it is plain XLA in the JAX package; a hand-written gather kernel is a
-candidate for a later change.
+``_saved_bwd``). The cell-layout encode and its table cotangent are
+hand-written CUDA kernels on the card and their plain PyTorch versions on
+the CPU (``ops/hashgrid.py``, where the cell math lives): the forward
+gathers and blends one row per (point, level), the backward recomputes the
+cells and weights from x01 and scatter-adds, so nothing but x01 is kept.
+``hash_encode`` dispatches on the layout as ``acn_tpu``'s does.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -27,6 +26,9 @@ import numpy as np
 import torch
 
 from acn_tpu_torch.models.nn import norm3
+from acn_tpu_torch.ops.hashgrid import (  # noqa: F401  (the cell math lives there)
+    HashCellBwdTables, _cell_level_lookup, _corner_weights, _spatial_hash,
+    hash_cell_bwd_x, hash_cell_fwd)
 
 # ============================ spherical harmonics ============================
 
@@ -117,10 +119,6 @@ def frequency_out_dim(in_dim: int, pe_dim: int, include_input: bool = True) -> i
 
 # ============================ hash grid encoding ============================
 
-# Instant-NGP 3D spatial hash primes.
-HASH_PRIMES = (1, 2654435761, 805459861)
-
-
 @dataclass(frozen=True)
 class HashGridConfig:
     """``acn_tpu``'s ``HashGridConfig`` fields that the port reads, forward
@@ -131,9 +129,11 @@ class HashGridConfig:
     (levels · table_size, F) table, 8 gathers per (point, level); or
     ``"cell"``, one (8·F,) row per hashed cell in a table per level.
 
-    ``cell_backward``: ``"save_rows"`` keeps the gathered rows and fractions
-    for a backward that is scatter-add plus elementwise; ``"remat"`` leaves
-    the backward to autograd over ``_hash_encode_cell_impl``."""
+    ``cell_backward``: ``"save_rows"`` or ``"remat"``, carried from the JAX
+    config. Both take the hand-written backward (``_HashEncodeCellSaved``:
+    scatter-add plus elementwise, the cells and weights recomputed from x01,
+    so nothing but x01 is kept, which is what JAX's remat buys); in JAX the
+    two give the same values."""
 
     levels: int = 16
     min_res: int = 16
@@ -194,83 +194,6 @@ def init_hash_table(cfg: HashGridConfig, *,
     return uniform((cfg.table_size * cfg.levels, cfg.features_per_level))
 
 
-def _spatial_hash(ixyz: torch.Tensor, log2_size: int) -> torch.Tensor:
-    """3-prime XOR hash of non-negative integer coords → [0, 2^log2_size).
-
-    ``acn_tpu`` computes it in uint32 with wraparound; here it runs in int64
-    and is masked. Multiplication mod 2^32 and XOR keep the low 32 bits
-    identical, and cell coordinates (< 2^13) times the primes (< 2^32) stay
-    far below 2^63, so the indices are the same."""
-    ixyz = ixyz.to(torch.int64)
-    h = (ixyz[..., 0] * HASH_PRIMES[0]) ^ (ixyz[..., 1] * HASH_PRIMES[1]) \
-        ^ (ixyz[..., 2] * HASH_PRIMES[2])
-    return h & (2**log2_size - 1)
-
-
-def _interp_frac(frac: torch.Tensor, interpolation: str) -> torch.Tensor:
-    if interpolation == "Smoothstep":
-        return frac * frac * (3 - 2 * frac)
-    if interpolation == "Nearest":
-        return torch.round(frac)
-    return frac
-
-
-def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
-    """(..., 8) trilinear corner weights in packing order (dz fastest):
-    w[4·dx + 2·dy + dz] = (A_x[dx] · A_y[dy]) · A_z[dz] with A = (1 − f, f).
-    The products are ``acn_tpu``'s, in its order, so the values are the same
-    bits; they are taken as two broadcast products instead of one chain per
-    corner (5 kernels per call, where the chain per corner made about 30)."""
-    a = torch.stack([1.0 - frac, frac], dim=-1)  # (..., 3, 2)
-    xy = a[..., 0, :, None] * a[..., 1, None, :]  # (..., 2, 2)
-    return (xy[..., None] * a[..., 2, None, None, :]).flatten(-3)
-
-
-@functools.lru_cache(maxsize=None)
-def _res_as(res_l: int, dtype: torch.dtype) -> float:
-    """The level's resolution rounded to ``dtype``, as a host number:
-    ``acn_tpu`` multiplies by ``jnp.asarray(res, x01.dtype)``, so under bf16
-    the factor is the rounded one (4095 becomes 4096)."""
-    return float(torch.tensor(float(res_l), dtype=dtype))
-
-
-def _cell_level_lookup(tables, x01: torch.Tensor, cfg: HashGridConfig, l: int):
-    """Per-level (rows (..., 8F), h (...,), frac_raw (..., 3))."""
-    res_l = int(cfg.level_resolutions()[l])
-    scaled = x01 * _res_as(res_l, x01.dtype)
-    cell = torch.floor(scaled)
-    frac = scaled - cell
-    cell_i = cell.to(torch.int64)
-    if cfg.dense_levels and res_l**3 <= cfg.level_rows(l):
-        # dense level: collision-free linear index of the clipped cell
-        ci = torch.clamp(cell_i, 0, res_l - 1)
-        h = (ci[..., 0] * res_l + ci[..., 1]) * res_l + ci[..., 2]
-    else:
-        h = _spatial_hash(cell_i, cfg.log2_hashmap_size)
-    return tables[l][h], h, frac
-
-
-def _encode_levels(tables, x01: torch.Tensor, cfg: HashGridConfig):
-    """Cell-packed hash encoding: one gathered row per (point, level) holding
-    the cell's 8 corner features, blended trilinearly. (..., 3) in [0, 1] →
-    (features (..., L·F), [rows, h, frac_raw] of every level in turn)."""
-    F = cfg.features_per_level
-    feats, kept = [], []
-    for l in range(cfg.levels):
-        rows, h, frac = _cell_level_lookup(tables, x01, cfg, l)
-        w = _corner_weights(_interp_frac(frac, cfg.interpolation))
-        blended = rows.reshape(*rows.shape[:-1], 8, F) * w.to(rows.dtype)[..., None]
-        feats.append(blended.sum(dim=-2))  # (..., F)
-        kept += [rows, h, frac]
-    return torch.cat(feats, dim=-1), kept
-
-
-def _hash_encode_cell_impl(tables, x01: torch.Tensor,
-                           cfg: HashGridConfig) -> torch.Tensor:
-    """The encoding with its backward left to autograd."""
-    return _encode_levels(tables, x01, cfg)[0]
-
-
 def _hash_encode_jnp_impl(table: torch.Tensor, x01: torch.Tensor,
                          cfg: HashGridConfig) -> torch.Tensor:
     """Corner-layout encoding (``acn_tpu``'s ``_hash_encode_jnp_impl``):
@@ -314,95 +237,58 @@ def _hash_encode_jnp_impl(table: torch.Tensor, x01: torch.Tensor,
 hash_encode_jnp = _hash_encode_jnp_impl
 
 
-# corner sign per axis in packing order (dz fastest): +1 where the corner
-# takes the fraction f, −1 where it takes 1 − f
-_CORNER_SIGNS = tuple((1.0 if dx else -1.0, 1.0 if dy else -1.0,
-                       1.0 if dz else -1.0)
-                      for dx in (0, 1) for dy in (0, 1) for dz in (0, 1))
-
-
 class _HashEncodeCellSaved(torch.autograd.Function):
     """The cell-layout encode with ``acn_tpu``'s ``save_rows`` backward
-    (``acn_tpu/models/encodings.py:413-501``).
+    (``acn_tpu/models/encodings.py:413-501``), on the kernels of
+    ``ops/hashgrid.py`` for a CUDA x01 and their plain versions for a CPU
+    one.
 
-    Forward: ``_encode_levels``; it keeps, per level,
-    the gathered rows, their indices h and the raw fraction. Backward, per
-    level: the table cotangent is ``index_add_`` of w ⊗ g at h into zeros
-    of the **operand's** row count and dtype (under bf16 the sum runs in
-    bf16, as in the JAX package), and the x cotangent, only when x01 needs
-    one (in training it never does), comes from dw/df on the kept rows.
-    On the card ``index_add_`` adds with atomics: the order, and so the last
-    bits, are free.
+    Forward: ``hash_cell_fwd``; only x01 is kept (and the tables, when x01
+    needs a gradient). Backward: the table cotangent is
+    ``HashCellBwdTables``, which recomputes the cells and weights from x01
+    and adds w ⊗ g at h into zeros of the **operand's** row count and dtype
+    (under bf16 the sum runs in bf16, as in the JAX package); on the card
+    it adds with atomics, so the order, and so the last bits, are free. The
+    x cotangent, only when x01 needs one (in training it never does), comes
+    from dw/df on rows gathered again (``hash_cell_bwd_x``).
 
     Twice differentiable, as JAX's derivative of ``_saved_bwd`` is: the
     table cotangent is linear in g, so under ``create_graph`` it stays on
-    the graph and its own backward is a gather of the cotangent's cotangent
-    at h. The x path, when x01 needs a gradient under ``create_graph``,
-    recomputes the rows and fractions from the saved tables and x01 with
-    differentiable ops, so that its derivative reaches both."""
+    the graph and its own backward is the forward encode of the cotangent's
+    cotangent (the forward kernel on the card). The x path under
+    ``create_graph`` runs on differentiable ops, so that its derivative
+    reaches the tables, x01 and g."""
 
     @staticmethod
     def forward(ctx, x01, cfg, *tables):
-        out, kept = _encode_levels(tables, x01, cfg)
+        x01 = x01.contiguous()
         ctx.cfg, ctx.x_dtype = cfg, x01.dtype
         ctx.nrows = tuple(int(t.shape[0]) for t in tables)
-        # the inputs themselves only for the x path's second derivative
-        ctx.save_for_backward(*kept, *((x01, *tables) if ctx.needs_input_grad[0]
-                                       else ()))
-        return out
+        ctx.dtypes = tuple(t.dtype for t in tables)
+        # the tables only for the x path
+        ctx.save_for_backward(x01, *(tables if ctx.needs_input_grad[0] else ()))
+        return hash_cell_fwd(tables, x01, cfg)
 
     @staticmethod
     def backward(ctx, g):
-        cfg, saved = ctx.cfg, ctx.saved_tensors
-        F = cfg.features_per_level
-        need_x = ctx.needs_input_grad[0]
-        resolutions = cfg.level_resolutions()
-        if need_x and torch.is_grad_enabled():
-            x01, tables = saved[3 * cfg.levels], saved[3 * cfg.levels + 1:]
-            redo = [_cell_level_lookup(tables, x01, cfg, l) for l in range(cfg.levels)]
-        tab_grads = []
+        cfg = ctx.cfg
+        x01, *tables = ctx.saved_tensors
+        need_t = ctx.needs_input_grad[2:]
+        tab_grads = [None] * cfg.levels
+        if any(need_t):
+            got = HashCellBwdTables.apply(g, x01, cfg, ctx.nrows, ctx.dtypes)
+            tab_grads = [t if need else None for t, need in zip(got, need_t)]
         gx = None
-        for l in range(cfg.levels):
-            rows, h, frac_raw = saved[3 * l:3 * l + 3]
-            if need_x and torch.is_grad_enabled():
-                rows, h, frac_raw = redo[l]
-            g_l = g[..., l * F:(l + 1) * F]
-            f = _interp_frac(frac_raw, cfg.interpolation)
-            if ctx.needs_input_grad[2 + l]:
-                w = _corner_weights(f)
-                gw = (w[..., :, None].to(g_l.dtype) * g_l[..., None, :]).reshape(-1, 8 * F)
-                tab_grads.append(
-                    torch.zeros((ctx.nrows[l], 8 * F), dtype=rows.dtype,
-                                device=rows.device)
-                    .index_add_(0, h.reshape(-1), gw.to(rows.dtype)))
-            else:
-                tab_grads.append(None)
-            if not need_x:
-                continue
-            # dout/df_a = Σ_c sign_a(c) · Π_{b≠a} A_b(c) · (rows_c · g)
-            rg = torch.einsum("...cf,...f->...c",
-                              rows.reshape(*rows.shape[:-1], 8, F),
-                              g_l.to(rows.dtype)).to(torch.float32)
-            # (8, 3); a copy from the host, on this branch only
-            signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32,
-                                 device=rows.device)
-            fa = f[..., None, :]  # (..., 1, 3)
-            A = torch.where(signs > 0, fa, 1.0 - fa).to(torch.float32)  # (..., 8, 3)
-            s = torch.stack([
-                torch.sum(signs[:, a] * A[..., (a + 1) % 3] * A[..., (a + 2) % 3]
-                          * rg, dim=-1) for a in range(3)], dim=-1)
-            if cfg.interpolation == "Smoothstep":
-                s = s * (6.0 * frac_raw * (1.0 - frac_raw)).to(torch.float32)
-            s = s * float(resolutions[l])
-            gx = s if gx is None else gx + s
-        return (gx.to(ctx.x_dtype) if need_x else None, None, *tab_grads)
-
+        if ctx.needs_input_grad[0]:
+            gx = hash_cell_bwd_x(tables, x01, g, cfg).to(ctx.x_dtype)
+        return (gx, None, *tab_grads)
 
 def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     """Cell-layout encoding. Checks the tables against the config's row
-    ladder, as ``acn_tpu`` does. Backward per ``cfg.cell_backward``:
-    ``"save_rows"`` is the hand-written one; ``"remat"``, and ``"Nearest"``
-    interpolation, leave it to autograd over ``_hash_encode_cell_impl``."""
+    ladder, as ``acn_tpu`` does. Every ``cell_backward`` and interpolation
+    takes ``_HashEncodeCellSaved``: the kernels on the card, their plain
+    versions on the CPU (its backward recomputes from x01, so ``"remat"``
+    and ``"save_rows"`` are one path)."""
     got = tuple(int(t.shape[0]) for t in tables)
     want = tuple(cfg.level_rows(l) for l in range(cfg.levels))
     if got != want:
@@ -411,9 +297,7 @@ def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Te
             f"{want}, tables have {got})")
     if cfg.cell_backward not in ("save_rows", "remat"):
         raise ValueError(f"unknown cell_backward {cfg.cell_backward!r}")
-    if cfg.cell_backward == "save_rows" and cfg.interpolation != "Nearest":
-        return _HashEncodeCellSaved.apply(x01, cfg, *tables)
-    return _hash_encode_cell_impl(tables, x01, cfg)
+    return _HashEncodeCellSaved.apply(x01, cfg, *tables)
 
 
 def hash_encode(table, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:

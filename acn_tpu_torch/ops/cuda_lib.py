@@ -1,14 +1,16 @@
-"""Build and load the port's CUDA kernel library.
+"""Build and load the port's CUDA kernel libraries.
 
-``csrc/segscan.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library is built at first use into
-``acn_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. ptxas's report (registers, shared memory, spills) is kept
-beside the library as ``<lib>.log``. ``defines`` (``-D`` macros: the
-source's tile extents) builds a variant beside the default library; only
-``scripts/bench_segscan.py`` asks for one, to choose the tile by measurement.
+Each source in ``csrc/`` (``SOURCES``: ``segscan.cu``, ``hashgrid.cu``) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). A library is built at first use into
+``acn_tpu_torch/_build/`` (listed in ``.gitignore``), named by its source's
+name and a hash of the source and its flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. ptxas's report (registers, shared
+memory, spills) is kept beside the library as ``<lib>.log``. ``defines``
+(``-D`` macros: the scan's tile extents) builds a variant beside the default
+library; only ``scripts/bench_segscan.py`` asks for one, to choose the tile
+by measurement. ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -22,10 +24,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Sequence
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCE = PKG / "csrc" / "segscan.cu"
+SOURCES = {name: PKG / "csrc" / f"{name}.cu" for name in ("segscan", "hashgrid")}
 BUILD_DIR = PKG / "_build"
 
 NVCC_FLAGS = [
@@ -33,7 +35,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LOADED: Optional[ctypes.CDLL] = None
+_LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -48,49 +50,80 @@ def _flags(defines: Sequence[str]) -> list:
     return NVCC_FLAGS + [f"-D{d}" for d in defines]
 
 
-def library_path(defines: Sequence[str] = ()) -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(_flags(defines)).encode())
-    return BUILD_DIR / f"libsegscan-{digest.hexdigest()[:12]}.so"
+def library_path(defines: Sequence[str] = (), source: str = "segscan") -> Path:
+    digest = hashlib.sha256(SOURCES[source].read_bytes()
+                            + " ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"lib{source}-{digest.hexdigest()[:12]}.so"
 
 
-def build(defines: Sequence[str] = ()) -> float:
-    """Compile the library unless it is built already. Returns the build's
-    wall seconds (0.0 when it was built); raises with nvcc's output if the
-    build fails."""
-    out = library_path(defines)
+def _start(defines: Sequence[str], source: str):
+    """Start nvcc for the library unless it is built already: (the process,
+    its temporary output, the library, the start time), or None."""
+    out = library_path(defines, source)
     if out.exists():
-        return 0.0
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    proc = subprocess.Popen(
+        [_nvcc(), *_flags(defines), "-o", str(tmp), str(SOURCES[source])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(started) -> float:
+    """Wait for a started build; keep its report, raise with nvcc's output
+    if it failed. Returns its wall seconds."""
+    if started is None:
+        return 0.0
+    proc, tmp, out, t0 = started
+    stdout, _ = proc.communicate()
     seconds = time.perf_counter() - t0
-    Path(f"{out}.log").write_text(proc.stdout)
+    Path(f"{out}.log").write_text(stdout)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc exit {proc.returncode}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc exit {proc.returncode} on {out.name}:\n{stdout}")
     os.replace(tmp, out)
     return seconds
 
 
-def load() -> ctypes.CDLL:
-    """The loaded library, built first if needed."""
-    global _LOADED
-    if _LOADED is None:
-        build()
-        _LOADED = ctypes.CDLL(str(library_path()))
-    return _LOADED
+def build(defines: Sequence[str] = (), source: str = "segscan") -> float:
+    """Compile the library unless it is built already. Returns the build's
+    wall seconds (0.0 when it was built); raises with nvcc's output if the
+    build fails."""
+    return _finish(_start(defines, source))
+
+
+def build_all() -> Dict[str, float]:
+    """Build every source's default library, one nvcc each, all started
+    together. Returns each build's wall seconds (0.0 where it was built);
+    raises if any build fails, after all have ended."""
+    started = {name: _start((), name) for name in SOURCES}
+    seconds, failed = {}, []
+    for name, s in started.items():
+        try:
+            seconds[name] = _finish(s)
+        except RuntimeError as e:
+            failed.append(str(e))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load(source: str = "segscan") -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if needed."""
+    if source not in _LOADED:
+        build(source=source)
+        _LOADED[source] = ctypes.CDLL(str(library_path(source=source)))
+    return _LOADED[source]
 
 
 def load_variant(defines: Sequence[str]) -> ctypes.CDLL:
-    """A variant of the library built with ``defines``, loaded beside the
-    default one (which ``load`` returns and the port uses)."""
+    """A variant of the scan's library built with ``defines``, loaded beside
+    the default one (which ``load`` returns and the port uses)."""
     build(defines)
     return ctypes.CDLL(str(library_path(defines)))
 
 
-def build_log(defines: Sequence[str] = ()) -> str:
+def build_log(defines: Sequence[str] = (), source: str = "segscan") -> str:
     """ptxas's report from the library's build."""
-    p = Path(f"{library_path(defines)}.log")
+    p = Path(f"{library_path(defines, source)}.log")
     return p.read_text() if p.exists() else ""

@@ -1,0 +1,399 @@
+"""Cell-layout hash-grid encode, forward and table cotangent: CUDA kernels
+and plain versions.
+
+For every point p (x01 in [0, 1]³) and level l the cell layout keeps one row
+of 8·F values per hashed cell, the cell's eight corners in packing order
+(corner c = 4·dx + 2·dy + dz). The encode gathers the row h(p, l) of the
+cell that holds the point and blends it with the trilinear corner weights
+w_c of the intra-cell fraction:
+
+    out[p, l·F + f] = Σ_c w_c(p, l) · T_l[h(p, l), c·F + f]
+
+and its table cotangent scatters the output cotangent back into the rows:
+
+    G_l[h(p, l), c·F + f] += w_c(p, l) · g[p, l·F + f]
+
+The JAX package wrote no TPU kernel for these (a per-lane table gather
+does not lower to Mosaic); they are ``_cell_saved_fwd_impl`` and the table
+half of the hand-written VJP ``_saved_bwd``
+(``acn_tpu/models/encodings.py:413-501``), plain XLA there. Here they are
+hand-written CUDA kernels for ``sm_90a`` (``csrc/hashgrid.cu``), built by
+``ops/cuda_lib.py`` and called through ``ctypes``; the source has the
+design. Both recompute the cell and the weights from x01, so nothing but
+x01 is kept between the forward and the backward. The x cotangent, asked
+for only when x01 needs a gradient (never in training), stays PyTorch:
+``hash_cell_bwd_x``.
+
+Bound: memory. Per (point, level) one row of 8·F values is read or added
+into; at the serving chunk of the smoke's model (983,040 points, 8 levels,
+F = 4, float32) that is 1.0 GB, 0.31 ms at the H100's 3.35 TB/s.
+
+Bits: the kernels round every step where PyTorch's eager ops round it, so
+the cell, the row and the weights are the plain version's bits, in float32
+and in bfloat16; only the order of the sums (the eight corners, and the
+atomic adds of the backward) is free.
+
+Dispatch is by device and by nothing else: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises. ``HashCellBwdTables``
+makes the table cotangent differentiable in the output cotangent (and in
+x01): its backward is the forward kernel on the cotangent's cotangent, so
+second-order MAML runs forward kernel → backward kernel → forward kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from acn_tpu_torch.ops import cuda_lib
+
+# Instant-NGP 3D spatial hash primes.
+HASH_PRIMES = (1, 2654435761, 805459861)
+INTERPOLATIONS = ("Linear", "Smoothstep", "Nearest")
+FEATURES = (2, 4, 8)  # features per level the kernels are built for
+MAX_LEVELS = 32  # csrc/hashgrid.cu's kMaxLevels, checked when loaded
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# corner sign per axis in packing order (dz fastest): +1 where the corner
+# takes the fraction f, −1 where it takes 1 − f
+_CORNER_SIGNS = tuple((1.0 if dx else -1.0, 1.0 if dy else -1.0,
+                       1.0 if dz else -1.0)
+                      for dx in (0, 1) for dy in (0, 1) for dz in (0, 1))
+
+# ================================================================ plain math
+
+
+def _spatial_hash(ixyz: torch.Tensor, log2_size: int) -> torch.Tensor:
+    """3-prime XOR hash of non-negative integer coords → [0, 2^log2_size).
+
+    ``acn_tpu`` computes it in uint32 with wraparound; here it runs in int64
+    and is masked. Multiplication mod 2^32 and XOR keep the low 32 bits
+    identical, and cell coordinates (< 2^13) times the primes (< 2^32) stay
+    far below 2^63, so the indices are the same."""
+    ixyz = ixyz.to(torch.int64)
+    h = (ixyz[..., 0] * HASH_PRIMES[0]) ^ (ixyz[..., 1] * HASH_PRIMES[1]) \
+        ^ (ixyz[..., 2] * HASH_PRIMES[2])
+    return h & (2**log2_size - 1)
+
+
+def _interp_frac(frac: torch.Tensor, interpolation: str) -> torch.Tensor:
+    if interpolation == "Smoothstep":
+        return frac * frac * (3 - 2 * frac)
+    if interpolation == "Nearest":
+        return torch.round(frac)
+    return frac
+
+
+def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
+    """(..., 8) trilinear corner weights in packing order (dz fastest):
+    w[4·dx + 2·dy + dz] = (A_x[dx] · A_y[dy]) · A_z[dz] with A = (1 − f, f).
+    The products are ``acn_tpu``'s, in its order, so the values are the same
+    bits; they are taken as two broadcast products instead of one chain per
+    corner (5 kernels per call, where the chain per corner made about 30)."""
+    a = torch.stack([1.0 - frac, frac], dim=-1)  # (..., 3, 2)
+    xy = a[..., 0, :, None] * a[..., 1, None, :]  # (..., 2, 2)
+    return (xy[..., None] * a[..., 2, None, None, :]).flatten(-3)
+
+
+@functools.lru_cache(maxsize=None)
+def _res_as(res_l: int, dtype: torch.dtype) -> float:
+    """The level's resolution rounded to ``dtype``, as a host number:
+    ``acn_tpu`` multiplies by ``jnp.asarray(res, x01.dtype)``, so under bf16
+    the factor is the rounded one (4095 becomes 4096)."""
+    return float(torch.tensor(float(res_l), dtype=dtype))
+
+
+def _is_dense(cfg, l: int) -> bool:
+    res_l = int(cfg.level_resolutions()[l])
+    return bool(cfg.dense_levels and res_l**3 <= cfg.level_rows(l))
+
+
+def _cell_index(x01: torch.Tensor, cfg, l: int):
+    """Per-level (h (...,), frac_raw (..., 3)): the row of the cell that
+    holds each point and the raw intra-cell fraction."""
+    res_l = int(cfg.level_resolutions()[l])
+    scaled = x01 * _res_as(res_l, x01.dtype)
+    cell = torch.floor(scaled)
+    frac = scaled - cell
+    cell_i = cell.to(torch.int64)
+    if _is_dense(cfg, l):
+        # dense level: collision-free linear index of the clipped cell
+        ci = torch.clamp(cell_i, 0, res_l - 1)
+        h = (ci[..., 0] * res_l + ci[..., 1]) * res_l + ci[..., 2]
+    else:
+        h = _spatial_hash(cell_i, cfg.log2_hashmap_size)
+    return h, frac
+
+
+def _cell_level_lookup(tables, x01: torch.Tensor, cfg, l: int):
+    """Per-level (rows (..., 8F), h (...,), frac_raw (..., 3))."""
+    h, frac = _cell_index(x01, cfg, l)
+    return tables[l][h], h, frac
+
+
+def hash_cell_fwd_plain(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+    """Plain version of the forward: one gathered row per (point, level)
+    holding the cell's 8 corner features, blended trilinearly. (..., 3) in
+    [0, 1] → (..., L·F) in the tables' type."""
+    F = cfg.features_per_level
+    feats = []
+    for l in range(cfg.levels):
+        rows, _, frac = _cell_level_lookup(tables, x01, cfg, l)
+        w = _corner_weights(_interp_frac(frac, cfg.interpolation))
+        blended = rows.reshape(*rows.shape[:-1], 8, F) * w.to(rows.dtype)[..., None]
+        feats.append(blended.sum(dim=-2))  # (..., F)
+    return torch.cat(feats, dim=-1)
+
+
+def hash_cell_bwd_tables_plain(x01: torch.Tensor, g: torch.Tensor, cfg,
+                               nrows: Sequence[int],
+                               dtypes: Sequence[torch.dtype]) -> list:
+    """Plain version of the table cotangent, per level ``index_add_`` of
+    w ⊗ g at h into zeros of ``nrows[l]`` rows (the operand's, as JAX's
+    ``nrows`` rule has it) and type ``dtypes[l]`` (under bf16 the sum runs
+    in bf16, as in the JAX package)."""
+    F = cfg.features_per_level
+    grads = []
+    for l in range(cfg.levels):
+        h, frac_raw = _cell_index(x01, cfg, l)
+        w = _corner_weights(_interp_frac(frac_raw, cfg.interpolation))
+        g_l = g[..., l * F:(l + 1) * F]
+        gw = (w[..., :, None].to(g_l.dtype) * g_l[..., None, :]).reshape(-1, 8 * F)
+        grads.append(torch.zeros((nrows[l], 8 * F), dtype=dtypes[l], device=g.device)
+                     .index_add_(0, h.reshape(-1), gw.to(dtypes[l])))
+    return grads
+
+
+def hash_cell_bwd_x(tables, x01: torch.Tensor, g: torch.Tensor, cfg) -> torch.Tensor:
+    """The x cotangent (float32) of the encode at cotangent g, from rows
+    gathered again at h: the elementwise half of ``acn_tpu``'s
+    ``_saved_bwd``, dout/df_a = Σ_c sign_a(c) · Π_{b≠a} A_b(c) · (rows_c · g),
+    times the Smoothstep chain and the resolution, summed over levels.
+    Differentiable ops, so that under ``create_graph`` its derivative reaches
+    the tables, x01 and g. Nearest is piecewise constant in x: zero."""
+    if cfg.interpolation == "Nearest":
+        return torch.zeros(x01.shape, dtype=torch.float32, device=x01.device)
+    F = cfg.features_per_level
+    resolutions = cfg.level_resolutions()
+    # (8, 3); a copy from the host, on this path only
+    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=x01.device)
+    gx = None
+    for l in range(cfg.levels):
+        rows, h, frac_raw = _cell_level_lookup(tables, x01, cfg, l)
+        g_l = g[..., l * F:(l + 1) * F]
+        f = _interp_frac(frac_raw, cfg.interpolation)
+        rg = torch.einsum("...cf,...f->...c",
+                          rows.reshape(*rows.shape[:-1], 8, F),
+                          g_l.to(rows.dtype)).to(torch.float32)
+        fa = f[..., None, :]  # (..., 1, 3)
+        A = torch.where(signs > 0, fa, 1.0 - fa).to(torch.float32)  # (..., 8, 3)
+        s = torch.stack([
+            torch.sum(signs[:, a] * A[..., (a + 1) % 3] * A[..., (a + 2) % 3]
+                      * rg, dim=-1) for a in range(3)], dim=-1)
+        if cfg.interpolation == "Smoothstep":
+            s = s * (6.0 * frac_raw * (1.0 - frac_raw)).to(torch.float32)
+        s = s * float(resolutions[l])
+        gx = s if gx is None else gx + s
+    return gx
+
+
+# ================================================================ kernels
+
+_LIB = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a loaded library: pointers and the stream as
+    ``c_void_p`` (a bare int would be cut to 32 bits)."""
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    levels = [ctypes.POINTER(ctypes.c_longlong), i, ctypes.POINTER(ctypes.c_float),
+              ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, ll]
+    lib.hash_cell_fwd.argtypes = [vp, i, ctypes.POINTER(vp), *levels, vp, vp]
+    lib.hash_cell_fwd.restype = i
+    lib.hash_cell_bwd_tables.argtypes = [vp, i, vp, ctypes.POINTER(vp), *levels, vp]
+    lib.hash_cell_bwd_tables.restype = i
+    lib.hash_cell_max_levels.argtypes = []
+    lib.hash_cell_max_levels.restype = i
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = bind(cuda_lib.load("hashgrid"))
+        if lib.hash_cell_max_levels() != MAX_LEVELS:
+            raise RuntimeError("csrc/hashgrid.cu and ops/hashgrid.py disagree on "
+                               "the largest number of levels")
+        _LIB = lib
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _level_args(cfg, x_dtype: torch.dtype):
+    """The per-level constants the kernels take, as ctypes arrays: the scale
+    (resolution rounded to x01's type), the resolution, the dense flag."""
+    L = cfg.levels
+    res = [int(r) for r in cfg.level_resolutions()]
+    return ((ctypes.c_float * L)(*[_res_as(r, x_dtype) for r in res]),
+            (ctypes.c_int * L)(*res),
+            (ctypes.c_int * L)(*[int(_is_dense(cfg, l)) for l in range(L)]))
+
+
+def _check(x01: torch.Tensor, tables, cfg, what: str) -> torch.dtype:
+    """Refuse what the kernels do not take; returns the tables' type."""
+    if x01.device.type != "cuda":
+        raise ValueError(f"{what} needs x01 on a CUDA device, got {x01.device}")
+    if x01.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 x01, got {x01.dtype}")
+    if x01.shape[-1:] != (3,) or not x01.is_contiguous():
+        raise ValueError(f"{what} takes contiguous (..., 3) x01, got "
+                         f"{tuple(x01.shape)}")
+    if cfg.interpolation not in INTERPOLATIONS:
+        raise ValueError(f"{what}: unknown interpolation {cfg.interpolation!r}")
+    if cfg.features_per_level not in FEATURES or not 1 <= cfg.levels <= MAX_LEVELS:
+        raise ValueError(f"{what} takes F in {FEATURES} and 1 to {MAX_LEVELS} "
+                         f"levels, got F {cfg.features_per_level}, {cfg.levels} levels")
+    if not 1 <= cfg.log2_hashmap_size <= 31:
+        raise ValueError(f"{what} takes log2_hashmap_size 1 to 31, got "
+                         f"{cfg.log2_hashmap_size}")
+    if len(tables) != cfg.levels:
+        raise ValueError(f"{what}: {len(tables)} tables for {cfg.levels} levels")
+    dtype = tables[0].dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 tables, got {dtype}")
+    for l, t in enumerate(tables):
+        if t.dtype != dtype or t.device != x01.device or not t.is_contiguous():
+            raise ValueError(f"{what}: table {l} is {t.dtype} on {t.device} "
+                             f"(contiguous {t.is_contiguous()}), want contiguous "
+                             f"{dtype} on {x01.device}")
+        if (t.ndim != 2 or t.shape[1] != 8 * cfg.features_per_level
+                or t.shape[0] < cfg.level_rows(l)):
+            raise ValueError(f"{what}: table {l} is {tuple(t.shape)}, want at least "
+                             f"({cfg.level_rows(l)}, {8 * cfg.features_per_level})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: table {l} is not 16-byte aligned")
+    return dtype
+
+
+def _launch_args(tables, x01, cfg):
+    L = cfg.levels
+    return ((ctypes.c_void_p * L)(*[t.data_ptr() for t in tables]),
+            (ctypes.c_longlong * L)(*[int(t.shape[0]) for t in tables]),
+            _DTYPES[tables[0].dtype], *_level_args(cfg, x01.dtype), L,
+            cfg.features_per_level, cfg.log2_hashmap_size,
+            INTERPOLATIONS.index(cfg.interpolation), x01.numel() // 3)
+
+
+def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+    """Launch the forward kernel on the current stream: x01 (..., 3)
+    float32 or bfloat16, contiguous; the L tables (rows ≥ the config's
+    ladder, 8·F) float32 or bfloat16, all of one type, contiguous, on x01's
+    card. Returns (..., L·F) in the tables' type. Adds one to
+    ``hash_cell_fwd_kernel.launches`` per launch."""
+    dtype = _check(x01, tables, cfg, "the hash encode kernel")
+    lib = _library()
+    out = torch.empty((*x01.shape[:-1], cfg.levels * cfg.features_per_level),
+                      dtype=dtype, device=x01.device)
+    args = _launch_args(tables, x01, cfg)
+    with torch.cuda.device(x01.device):
+        err = lib.hash_cell_fwd(x01.data_ptr(), _DTYPES[x01.dtype], *args,
+                                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_cell_fwd kernel launch failed: CUDA error {err}")
+    if args[-1]:  # no points launch nothing
+        hash_cell_fwd_kernel.launches += 1
+    return out
+
+
+def hash_cell_bwd_tables_kernel(x01: torch.Tensor, g: torch.Tensor, cfg,
+                                nrows: Sequence[int],
+                                dtypes: Sequence[torch.dtype]) -> list:
+    """Launch the table cotangent on the current stream: zeroed tables of
+    ``nrows[l]`` × 8·F in the one type of ``dtypes``, then w ⊗ g added at h
+    (one call, two launches: the zero fill and the scatter). g: (..., L·F)
+    contiguous in that type. Adds one to ``hash_cell_bwd_tables_kernel.launches``
+    per call."""
+    F = cfg.features_per_level
+    if len(set(dtypes)) != 1 or g.dtype != dtypes[0]:
+        raise TypeError(f"the hash cotangent kernel takes g and tables of one "
+                        f"type, got {g.dtype} / {sorted(map(str, set(dtypes)))}")
+    if g.shape != (*x01.shape[:-1], cfg.levels * F) or not g.is_contiguous() \
+            or g.device != x01.device:
+        raise ValueError(f"the hash cotangent kernel takes a contiguous g of "
+                         f"{(*x01.shape[:-1], cfg.levels * F)} on {x01.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    grads = [torch.empty((int(r), 8 * F), dtype=g.dtype, device=g.device)
+             for r in nrows]
+    _check(x01, grads, cfg, "the hash cotangent kernel")
+    lib = _library()
+    args = _launch_args(grads, x01, cfg)
+    with torch.cuda.device(x01.device):
+        err = lib.hash_cell_bwd_tables(x01.data_ptr(), _DTYPES[x01.dtype],
+                                       g.data_ptr(), *args,
+                                       torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_cell_bwd_tables kernel launch failed: CUDA error {err}")
+    hash_cell_bwd_tables_kernel.launches += 1
+    return grads
+
+
+hash_cell_fwd_kernel.launches = 0
+hash_cell_bwd_tables_kernel.launches = 0
+
+
+def hash_cell_fwd(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+    """The encode's forward: the plain version for a CPU x01, the kernel
+    for a CUDA one."""
+    if x01.device.type == "cpu":
+        return hash_cell_fwd_plain(tables, x01, cfg)
+    return hash_cell_fwd_kernel(tables, x01, cfg)
+
+
+def hash_cell_bwd_tables(x01: torch.Tensor, g: torch.Tensor, cfg,
+                         nrows: Sequence[int], dtypes: Sequence[torch.dtype]) -> list:
+    """The table cotangent: the plain version for a CPU x01, the kernel for
+    a CUDA one."""
+    if x01.device.type == "cpu":
+        return hash_cell_bwd_tables_plain(x01, g, cfg, nrows, dtypes)
+    return hash_cell_bwd_tables_kernel(x01, g, cfg, nrows, dtypes)
+
+
+class HashCellBwdTables(torch.autograd.Function):
+    """The table cotangent as a function of the output cotangent g (and of
+    x01), with a gradient. It is linear in g, and its transpose is the
+    gather and blend at h: the g-cotangent of the tables' cotangents gg is
+    the forward encode of gg (the forward kernel on the card). Its x01
+    cotangent, when x01 needs one, is the encode's x cotangent with gg for
+    the tables and g for the cotangent (``hash_cell_bwd_x``). Differentiable
+    once: third derivatives raise."""
+
+    @staticmethod
+    def forward(ctx, g, x01, cfg, nrows, dtypes):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x01, g if ctx.needs_input_grad[1] else None)
+        return tuple(hash_cell_bwd_tables(x01, g.contiguous(), cfg, nrows, dtypes))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gg):
+        x01, g = ctx.saved_tensors
+        gg = [t.contiguous() for t in gg]
+        dg = hash_cell_fwd(gg, x01, ctx.cfg) if ctx.needs_input_grad[0] else None
+        dx = (hash_cell_bwd_x(gg, x01, g, ctx.cfg).to(x01.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dg, dx, None, None, None
+
+
+def launch_counts() -> tuple:
+    """(forward launches, table-cotangent calls) since the counters were
+    last set to 0."""
+    return (hash_cell_fwd_kernel.launches, hash_cell_bwd_tables_kernel.launches)
+
+
+def zero_launch_counts() -> None:
+    hash_cell_fwd_kernel.launches = 0
+    hash_cell_bwd_tables_kernel.launches = 0

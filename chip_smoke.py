@@ -10,7 +10,8 @@
 Phases, each printing one JSON line and each fatal on failure:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
-   the CUDA kernel library from the sources in ``acn_tpu_torch/csrc``;
+   the CUDA kernel libraries from the sources in ``acn_tpu_torch/csrc``
+   (``segscan.cu``, ``hashgrid.cu``: one ``nvcc`` each, started together);
 2. kernel: each kernel against its plain PyTorch version on the card, on
    edge cases and at the serving shape, forward, backward through autograd
    and the reverse kernel directly, on an unaligned view, on two streams at
@@ -220,7 +221,37 @@ Phases, each printing one JSON line and each fatal on failure:
    ``analyze_trace`` on its trace: the categories sum to the device's busy
    time within 1 %. Its directory ``logs/chip_smoke_tools/`` is removed at
    the end;
-14. the kernels line, then the card's ``nvidia-smi`` line, then the result
+14. the hash encode kernels (``ops/hashgrid.py``, ``csrc/hashgrid.cu``) at
+   the model's width (8 levels, F = 4, 2^17 rows, dense levels: 833,403 rows
+   of 32 per expert) on points from a seed, the first on cell faces of every
+   level and at 1 − 1e-6: for P = 983,040 (one expert of a serving chunk),
+   32,768 and 16,384 (a support and a query march), float32 and bfloat16,
+   the forward against its plain version (float32 within 2e-6 of the
+   output's largest magnitude; bfloat16 every element within one bf16 ulp,
+   the bit-equal share printed) and the table cotangent against its plain
+   version (float32 within 1e-5 of the sum of its terms' magnitudes;
+   bfloat16 per level no farther, in L2, from a float32-accumulated sum
+   than 1.5× the plain bf16 ``index_add_``), with a quarter of the points'
+   cotangents zero; the medians of 100 launches of each kernel, its plain
+   version and ``F.embedding_bag(mode="sum", per_sample_weights=w)`` on 8·h
+   + c (the yardstick, timed only), beside the byte bound (each distinct
+   byte once: x01, the distinct rows the points gather and the output;
+   for the cotangent x01, g and one write of the tables); Nearest on a
+   table whose row r holds 8·r + c in corner c, kernel equal to plain (h and
+   the corner exact); a pad case (a cell of many zero-cotangent points, real
+   points at most two to a row) bit-equal to plain in both types; MAML's
+   second derivative at 32,768 (forward, cotangent under ``create_graph``,
+   forward on the cotangent's cotangent: 2 + 1 launches) against the plain
+   versions. Every main path above counts the two kernels' launches from 0
+   (with the scan's) and fails unless it launched the forward, and the
+   cotangent exactly when it trains: the dense, routed, single-expert,
+   budget-0 and mesh frames, ``--op video`` live, the occupancy update, the
+   viewer's frames (forward only); the one- and two-rank mesh steps, the budget,
+   stratified and strided steps, the loop, the runner's train and eval, a
+   TTO step, MAML and the other cell-layout M9 steps, the viewer's TTO and
+   meta-train steps, the tools' ``--op train``; and with ``--profile`` the
+   frame's and the step's profiles list them;
+15. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -586,8 +617,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     n_table = sum(int(p.numel()) for p in model.experts["hash_table"])
 
     torch.cuda.reset_peak_memory_stats()
-    segscan.seg_excl_sum_kernel.launches = 0
-    segscan.seg_excl_rsum_kernel.launches = 0
+    _zero_scan_counts(segscan)
     t0 = time.perf_counter()
     renderer.render_image(model, occ, H=H, W=W, download=False, **cam)  # warm
     warm_ms = 1e3 * (time.perf_counter() - t0)
@@ -608,6 +638,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     launches = segscan.seg_excl_sum_kernel.launches
     rev_launches = segscan.seg_excl_rsum_kernel.launches
     frames = 6
+    hash_fwd, _ = note_hash("render_image", trains=False)
     check(launches == chunks * frames,
           f"seg_excl_sum launched {launches} times, want {chunks} chunks × "
           f"{frames} frames")
@@ -621,6 +652,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
           "chunks_per_frame": chunks, "frames": frames,
           "seg_excl_sum_launches": launches,
           "seg_excl_rsum_launches": rev_launches,
+          "hash_fwd_launches_per_frame": hash_fwd / frames,
           "host_syncs_per_frame": syncs,
           "host_sync_sites": sites,
           "setup_s": setup_s, "warm_frame_ms": warm_ms, "frame_ms": frame_ms,
@@ -656,8 +688,11 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
         scan_n = sum(e.count for e in scan)
         emit({"phase": "profile", "frame_wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+              "kernel_launches": sum(e.count for e in prof.key_averages()
+                                     if e.key == "cudaLaunchKernel"),
               "scan_kernel_launches": scan_n,
-              "scan_kernel_mean_us": scan_us / max(scan_n, 1)})
+              "scan_kernel_mean_us": scan_us / max(scan_n, 1),
+              "hash_kernels": hash_kernel_times(prof, busy_ms)})
     return model, occ, cam, (launches, rev_launches), frame_ms
 
 
@@ -919,9 +954,9 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
     torch.cuda.reset_peak_memory_stats()
 
     step_ms, launches, metrics, syncs, sites = [], [], None, 0, {}
+    hash_counts = []
     for i in range(4):  # one warm step, three timed
-        segscan.seg_excl_sum_kernel.launches = 0
-        segscan.seg_excl_rsum_kernel.launches = 0
+        _zero_scan_counts(segscan)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 3:  # the last timed step also counts the host's waits
@@ -934,7 +969,9 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
             step_ms.append(1e3 * (time.perf_counter() - t0))
         launches.append((segscan.seg_excl_sum_kernel.launches,
                          segscan.seg_excl_rsum_kernel.launches))
+        hash_counts.append(_hashgrid().launch_counts())
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in (0, 1)))
     check(all(l == (per_step, per_step) for l in launches),
           f"scan kernel launches per step (forward, reverse) {launches}, want "
           f"{per_step} of each")
@@ -981,6 +1018,7 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
           "rays_per_s": rays_per_step / (1e-3 * statistics.mean(step_ms)),
           "fwd_launches_per_step": launches[-1][0],
           "rev_launches_per_step": launches[-1][1],
+          "hash_launches_per_step": hash_counts[-1],
           "syncs_per_step": syncs, "sync_sites": sites, "peak_mem_mb": peak_mb,
           "metrics": {k: v.tolist() for k, v in m.items()},
           "scan_on_training_segments": shapes,
@@ -1001,6 +1039,7 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
         emit({"phase": "train_step_profile", "step_wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
               "kernel_launches": n_launch, "scan_kernels": scan,
+              "hash_kernels": hash_kernel_times(prof, busy_ms),
               "scan_share_of_busy": 1e-3 * sum(
                   v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
     return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
@@ -1025,8 +1064,34 @@ def _scan_counts(segscan):
 
 
 def _zero_scan_counts(segscan) -> None:
+    """Every kernel's count to 0: the scan's and the hash encode's."""
     segscan.seg_excl_sum_kernel.launches = 0
     segscan.seg_excl_rsum_kernel.launches = 0
+    _hashgrid().zero_launch_counts()
+
+
+def _hashgrid():
+    from acn_tpu_torch.ops import hashgrid
+
+    return hashgrid
+
+
+# the hash encode kernels' launches on each main path: (forward, table
+# cotangent), read just after the path ran, counted from 0 just before it
+HASH_BY_PATH: dict = {}
+
+
+def note_hash(path: str, trains: bool, counts=None) -> tuple:
+    """Record a main path's hash-kernel launches (the counters now, or
+    ``counts``) and fail unless the path launched the forward kernel, and
+    the cotangent kernel exactly when it trains."""
+    fwd, bwd = _hashgrid().launch_counts() if counts is None else counts
+    check(fwd > 0 and (bwd > 0) == trains,
+          f"{path}: the hash encode kernels launched {fwd} forward and {bwd} "
+          f"cotangent, want forward > 0 and cotangent {'> 0' if trains else '0'}")
+    old = HASH_BY_PATH.get(path, (0, 0))
+    HASH_BY_PATH[path] = (old[0] + fwd, old[1] + bwd)
+    return fwd, bwd
 
 
 def update_card_vs_cpu(torch, occ_grid, nn, cfg, occ_cfg, model) -> dict:
@@ -1112,6 +1177,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     boxes, _ = toy.quadrant_layout(K)
     occ10 = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
     counted = {"fwd": 0, "rev": 0}
+    hashed = [0, 0]
 
     def steps(step, occ, n):
         """``n`` steps of ``step`` from the running state: (ms per step,
@@ -1128,6 +1194,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
             launches.append(_scan_counts(segscan))
             counted["fwd"] += launches[-1][0]
             counted["rev"] += launches[-1][1]
+            hashed[:] = [a + b for a, b in zip(hashed, _hashgrid().launch_counts())]
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()), f"a metric is not finite: {m}")
         return ms, launches, m
@@ -1152,6 +1219,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     occ_upd = tr.init_occ_states(model.expert_aabbs, occ_cfg)
     torch.cuda.reset_peak_memory_stats()
     update_ms = []
+    _zero_scan_counts(segscan)
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1159,8 +1227,10 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
         torch.cuda.synchronize()
         update_ms.append(1e3 * (time.perf_counter() - t0))
         share = check_update_pass(torch, occ_cfg, before, occ_upd)
+    upd_hash = note_hash("occ_update", trains=False)
     del before
-    upd = {"update_ms": update_ms, "cells_per_expert": int(occ_upd["occs"][0].numel()),
+    upd = {"update_ms": update_ms, "hash_launches": upd_hash,
+           "cells_per_expert": int(occ_upd["occs"][0].numel()),
            "density_queries": int(occ_upd["occs"].numel()),
            "occupied_share_per_expert": share,
            "peak_mem_mb": torch.cuda.max_memory_allocated() / 1e6,
@@ -1206,6 +1276,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
           f"{per_step} forward and {per_step} reverse")
     after_switch = summary(ms, launches, m, None)
     check(state["step"] == 2 + len(schedule) + 2, f"the schedule took {state['step']} steps")
+    note_hash("regime_schedule", True, tuple(hashed))
     # one float32 strided episode on the card against the CPU
     P32 = types.SimpleNamespace(**{**vars(P), "use_amp": False, "occ_budget_per_ray": 0})
     bnp = toy.training_batch(K, T, S, Q, seed=0)
@@ -1253,12 +1324,14 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     renderer = Renderer(cfg, P0, occ_cfg)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    _hashgrid().zero_launch_counts()
     t0 = time.perf_counter()
     rgb, depth, acc = renderer.render_image(model, occ, H=H, W=W, **cam)
     warm_ms = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
     renderer.render_image(model, occ, H=H, W=W, download=False, **cam)
     frame_ms = 1e3 * (time.perf_counter() - t0)
+    note_hash("budget0_frames", trains=False)
     check(_scan_counts(segscan) == (0, 0),
           f"the budget-0 renderer launched scan kernels {_scan_counts(segscan)}")
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
@@ -1478,6 +1551,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     logger.close()
     launches = _scan_counts(segscan)
+    note_hash("meta_trainer", True)
     rec = out["loop"]
     steps = probe.per_step()
     regimes = [s["regime"] for s in rec["steps"]]
@@ -1574,6 +1648,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
           "host_syncs_non_log_step": resumed[0]["syncs"], "host_syncs_bare_step": step_syncs,
           "scan_launches_per_step": [s["launches"] for s in resumed]})
     total = _scan_counts(segscan)
+    note_hash("meta_trainer", True)
     del out, state2, model, pools
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
     return {"fwd": launches[0] + total[0], "rev": launches[1] + total[1]}
@@ -1617,11 +1692,14 @@ def tto_step_card_vs_cpu(torch, trt, tck, nn, toptim, tcont, cfg, occ_cfg, P, ru
         model, occ = tck.restore_model(tck.load_checkpoint(run, "last"), cfg, dev)
         opt = toptim.build_optimizer(P, tcont.param_group_labels(model.params()), grad_clip=1.0)
         step = trt.make_tto_step(cfg, P, opt, occ_cfg, use_occ=True)
+        _hashgrid().zero_launch_counts()
         t0 = time.perf_counter()
         state, loss = step(model, opt.init(model.params()), occ,
                            torch.from_numpy(rays).to(dev), torch.from_numpy(rgbs).to(dev),
                            tuple(x.to(dev) for x in rand))
         loss = float(loss)
+        if dev == "cuda":
+            note_hash("tto_step", True)
         out[dev] = (loss, nn.tree_leaves(model.params()), nn.tree_leaves(state["mu"]),
                     1e3 * (time.perf_counter() - t0))
         del model, occ, state
@@ -1726,6 +1804,7 @@ def phase_runner(torch, segscan, toy) -> dict:
         probes[-1].mark("end")
         train_s = time.perf_counter() - t0
         train_launches = _scan_counts(segscan)
+        note_hash("runner_train", True)
         # (c) --op eval on its last save, TTO 0, 2, 0
         _zero_scan_counts(segscan)
         t0 = time.perf_counter()
@@ -1734,6 +1813,7 @@ def phase_runner(torch, segscan, toy) -> dict:
             RUNNER_TTO, "--test_batch_size", "4", "--fname", str(RUNNER_DIR / "eval")))
         eval_s = time.perf_counter() - t0
         eval_launches = _scan_counts(segscan)
+        note_hash("runner_eval", True)
     finally:
         dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws = saved
     steps = probes[-1].per_step()
@@ -1916,6 +1996,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
     rgb, depth, acc = routed()
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     counted["routed_frames"] = _scan_counts(segscan)
+    note_hash("routed_frames", trains=False)
     check(counted["routed_frames"] == (4 * len(plan), 0),
           f"4 routed frames launched the scan {counted['routed_frames']}, want "
           f"{len(plan)} chunks × 4 forward and 0 reverse")
@@ -1968,6 +2049,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
                                                       download=False, **cam), 1)[0]
               for k in range(cfg.num_submodules)]
         counted[f"single_expert_{name}"] = got = _scan_counts(segscan)
+        note_hash(f"single_expert_{name}", trains=False)
         want = (0 if name == "budget0" else chunks * cfg.num_submodules, 0)
         check(got == want, f"single-expert {name} frames launched the scan {got}, want {want}")
         single[name] = {"frame_ms_by_expert": ms, "chunks_per_frame": chunks,
@@ -2119,6 +2201,8 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
                                      "--fname", str(RUNNER_DIR / f"video_{name}")))
         wall = time.perf_counter() - t0
         counted[f"runner_video_{name}"] = got = _scan_counts(segscan)
+        if name == "live":
+            note_hash("runner_video_live", trains=False)
         n = _gif_or_mp4_frames(out)
         check(Path(out).exists() and n == VIDEO_FRAMES,
               f"--op video ({name}) wrote {out} with {n} frames, want {VIDEO_FRAMES}")
@@ -2263,7 +2347,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
         start = nn.tree_map(lambda p: p.detach().clone(), model.params())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms, counts, metrics = [], [], None
+        ms, counts, metrics, hash_counts = [], [], None, []
         for _ in range(n):
             _zero_scan_counts(segscan)
             torch.cuda.synchronize()
@@ -2272,8 +2356,12 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
             counts.append(_scan_counts(segscan))
+            hash_counts.append(_hashgrid().launch_counts())
         peak = torch.cuda.max_memory_allocated() / 1e6
         launches[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
+        if name and getattr(getattr(cfg_.expert, "hash", None), "layout", "") == "cell":
+            note_hash(f"m9_{name}", True, tuple(sum(c[i] for c in hash_counts)
+                                                for i in (0, 1)))
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()),
               f"{name}: a metric is not finite: {m}")
@@ -2744,6 +2832,7 @@ def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
             dist.all_reduce(counts, group=pmesh.host_group())  # summed over the ranks
             launches.append({"this_rank": list(_scan_counts(segscan)),
                              "summed": counts.tolist(),
+                             "hash": list(_hashgrid().launch_counts()),
                              "collectives": mesh.stats["collectives"] - c0["collectives"],
                              "bytes": mesh.stats["bytes"] - c0["bytes"]})
             if i == 0:
@@ -2781,7 +2870,8 @@ def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
         rgb, depth, acc = frame()
         ms.append(1e3 * (time.perf_counter() - t0))
     out["frame"] = {"ms": ms, "rgb": rgb if rank == 0 else None,
-                    "launches": list(_scan_counts(segscan))}
+                    "launches": list(_scan_counts(segscan)),
+                    "hash": list(_hashgrid().launch_counts())}
     baked = _baked_to(torch, nn, a["baked"], dev)
     bh, bw = MESH_BAKED_HW
     bcam = toy.overhead_camera(bh, bw)
@@ -2872,7 +2962,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             state = {**state, "model": sh["model"], "opt_state": sh["opt_state"]}
             step = ts.make_meta_train_step(cfg, P, opt, occ_cfg, mesh=mesh)
             gen = torch.Generator(device=dev).manual_seed(0)
-            out = {"ms": [], "launches": [], "collectives": []}
+            out = {"ms": [], "launches": [], "hash": [], "collectives": []}
             for i in range(n_steps):
                 c0 = dict(mesh.stats)
                 if fault == "draws":  # keyed one expert off
@@ -2884,6 +2974,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
                                                  gen)
                 out["ms"].append(ms)
                 out["launches"].append(c)
+                out["hash"].append(_hashgrid().launch_counts())
                 out["collectives"].append((mesh.stats["collectives"] - c0["collectives"],
                                            mesh.stats["bytes"] - c0["bytes"]))
                 if i == 0:
@@ -2896,6 +2987,8 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             return out
 
         run_a = mesh_run(MESH_STEPS)
+        note_hash("mesh_one_rank_step", True,
+                  tuple(sum(c[i] for c in run_a["hash"]) for i in (0, 1)))
         check(all(c == (per_step, per_step) for c in run_a["launches"]),
               f"one-rank mesh step launches {run_a['launches']}, want {per_step} + {per_step}")
         launches["mesh_one_rank_step"] = tuple(sum(c[i] for c in run_a["launches"])
@@ -2937,6 +3030,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             else:
                 mesh_frame = out
                 mesh_counts_f = [a + b for a, b in zip(mesh_counts_f, _scan_counts(segscan))]
+                note_hash("mesh_one_rank_frame", trains=False)
         chunks = -(-H // (renderer.chunk_rays // W))
         check(mesh_counts_f == [2 * chunks, 0],
               f"(a) fan-out frames launched {mesh_counts_f}, want {chunks} a frame")
@@ -2987,6 +3081,8 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
                   f"(b) launches per step {l}, want {per_step // 2} + {per_step // 2} a rank")
     launches["mesh_two_rank_step"] = tuple(
         sum(l["summed"][i] for l in r0["step"]["launches"]) for i in (0, 1))
+    note_hash("mesh_two_rank_step", True, tuple(
+        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in (0, 1)))
     def got_b(run):
         m = run["metrics"]
         return {"cmp": _update_cmp(torch, run["update"], ref_update),
@@ -3009,6 +3105,8 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
           f"(b) baked frame over 2 ranks vs one: max |Δrgb| {err_baked}")
     launches["mesh_two_rank_frame"] = tuple(
         sum(r["frame"]["launches"][i] for r in ranks) for i in (0, 1))
+    note_hash("mesh_two_rank_frame", False,
+              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in (0, 1)))
     n_disp = -(-H // (2 * (renderer.chunk_rays // W)))  # dispatches of 2 × rows
     check(launches["mesh_two_rank_frame"] == (2 * 2 * n_disp, 0),
           f"(b) two timed frames over 2 ranks launched {launches['mesh_two_rank_frame']}, "
@@ -3176,6 +3274,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
                 name = f"{'preview' if preview else 'full'}_{display}"
                 view_ms[name] = 1e3 * (time.perf_counter() - t0)
                 got = _scan_counts(segscan)
+                note_hash("viewer_frames", trains=False)
                 check(got == (chunks, 0), f"(a) a {name} frame launched {got}, want "
                       f"({chunks}, 0): one forward scan per chunk")
                 view_counts = [view_counts[0] + got[0], view_counts[1] + got[1]]
@@ -3268,6 +3367,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         check(not controller._thread.is_alive(), "(c) the loop thread did not end")
         renderer.render_image = real_render
         live_counts = _scan_counts(segscan)
+        note_hash("viewer_live_frames_and_tto", True)
         check(controller.last_error is None, f"(c) the loop failed:\n{controller.last_error}")
         check(live.steps == LIVE_STEPS and len(metrics) == LIVE_STEPS,
               f"(c) {live.steps} steps, {len(metrics)} metrics, want {LIVE_STEPS}")
@@ -3303,6 +3403,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
             torch.cuda.synchronize()
             step_alone_ms.append(1e3 * (time.perf_counter() - t0))
         seq_counts = _scan_counts(segscan)
+        note_hash("viewer_tto_steps", True)
         check(seq_counts == (0, 0), f"(c) 16 TTO steps launched {seq_counts}, want none")
         counted["tto_steps"] = seq_counts
         psnr_diff = [abs(a["psnr"] - b["psnr"]) for a, b in zip(metrics, seq_metrics)]
@@ -3370,6 +3471,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
             torch.cuda.synchronize()
             meta_ms.append(1e3 * (time.perf_counter() - t0))
             got = _scan_counts(segscan)
+            note_hash("viewer_meta_train", True)
             check(got == (0, 0), f"(e) a meta-train runner step launched {got}, want none: "
                   "acn_tpu's runner builds its step without the occupancy config")
             meta_counts = [meta_counts[0] + got[0], meta_counts[1] + got[1]]
@@ -3581,6 +3683,7 @@ def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         fwd, rev = _scan_counts(segscan)
+        note_hash("host_tools_train", True)
         P = parse_args(train_argv)
         per_step = P.num_submodules * P.batch_size * (P.inner_iter + 1)  # 108
         regimes = [s["regime"] for s in out["loop"]["steps"]]
@@ -3714,6 +3817,276 @@ def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
     emit({"phase": "tools_done", "phase13_s": time.perf_counter() - t_phase})
     return tuple(counted)
 
+# ---------------------------------------------------------------- phase 14
+
+
+def hash_kernel_entries(hk: dict, smi: str) -> list:
+    """The kernels line's entries of the hash encode kernels: launches summed
+    over the main paths (``HASH_BY_PATH``); times at the serving chunk in
+    float32 for the forward and at a support march in bfloat16 (what
+    training runs) for the cotangent; every shape under ``shapes``."""
+    at = lambda P, dt: next(r for r in hk["shapes"] if r["P"] == P and r["dtype"] == dt)
+    fwd, bwd = at(HASH_P[0], "float32"), at(HASH_P[1], "bfloat16")
+    common = {"route": "cuda", "source": "acn_tpu_torch/csrc/hashgrid.cu", "bound_by": "bytes",
+              "library_note": "F.embedding_bag(mode='sum', per_sample_weights=w) on 8·h + c, "
+                              "timed only", "nvidia_smi": smi}
+    keys = lambda pre: ["P", "dtype", f"{pre}_ms", f"{pre}_plain_ms", f"{pre}_bound_ms",
+                        f"{pre}_library_ms"]
+    return [
+        {"name": "hash_cell_fwd", "replaces": "acn_tpu/models/encodings.py:413 (no TPU "
+         "kernel: _cell_saved_fwd_impl, plain XLA)",
+         "launches": sum(c[0] for c in HASH_BY_PATH.values()),
+         "launches_by_path": {k: c[0] for k, c in HASH_BY_PATH.items()},
+         "at": {"P": fwd["P"], "dtype": fwd["dtype"]}, "max_abs_err": fwd["fwd_max_abs_err"],
+         "ms": fwd["fwd_ms"], "plain_ms": fwd["fwd_plain_ms"], "bound_ms": fwd["fwd_bound_ms"],
+         "library_ms": fwd["fwd_library_ms"],
+         "shapes": [{k: r[k] for k in keys("fwd")} for r in hk["shapes"]], **common},
+        {"name": "hash_cell_bwd_tables", "replaces": "acn_tpu/models/encodings.py:444 (no TPU "
+         "kernel: _saved_bwd's table half, plain XLA)",
+         "launches": sum(c[1] for c in HASH_BY_PATH.values()),
+         "launches_by_path": {k: c[1] for k, c in HASH_BY_PATH.items()},
+         "at": {"P": bwd["P"], "dtype": bwd["dtype"]},
+         "max_abs_err": at(HASH_P[1], "float32")["bwd_max_abs_err"],
+         "ms": bwd["bwd_ms"], "plain_ms": bwd["bwd_plain_ms"], "bound_ms": bwd["bwd_bound_ms"],
+         "library_ms": bwd["bwd_library_ms"], "double_backward": hk["double_backward"],
+         "shapes": [{k: r[k] for k in keys("bwd")} for r in hk["shapes"]], **common},
+    ]
+
+
+HASH_P = (983_040, 32_768, 16_384)  # one expert of a serving chunk; a support
+# and a query march of a training step (1,024 and 512 rays × 32 samples)
+HASH_REPS = 100
+HASH_F32_RTOL = 2e-6  # of the output's largest magnitude (sum order)
+HASH_BF16_L2_FACTOR = 1.5  # bf16 cotangent: distance from an f32 sum, × plain's
+HASH_PAD_REAL = 256  # the pad-collision case's real points
+
+
+def hash_kernel_times(prof, busy_ms) -> dict:
+    """The hash encode kernels in a profile: launches, mean µs and their
+    share of the card's busy time."""
+    out = {}
+    for e in prof.key_averages():
+        if "hash_cell_" in e.key:
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            out[e.key[:100]] = {"launches": e.count, "mean_us": us / max(e.count, 1),
+                                "share_of_busy": 1e-3 * us / max(busy_ms, 1e-9)}
+    return out
+
+
+def _median_ms(torch, fn, n=HASH_REPS) -> float:
+    """The median of ``n`` calls of ``fn``, each between its own pair of CUDA
+    events (≈ 5 µs of the events' own cost in each), after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(n)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def _hash_points(torch, hcfg, P, gen):
+    """P points in [ENC_EPS, 1 − ENC_EPS]³ on the card, the first ones on the
+    edges the bits hinge on: 1 − 1e-6 (1.0 in bf16), and faces k/res of every
+    level."""
+    x = torch.rand((P, 3), generator=gen, device="cuda").clamp_(1e-6, 1 - 1e-6)
+    x[:64] = 1 - 1e-6
+    for l, r in enumerate(hcfg.level_resolutions()):
+        k = torch.randint(0, int(r) + 1, (64, 3), generator=gen, device="cuda")
+        x[64 * (l + 1):64 * (l + 2)] = (k.float() / float(r)).clamp_(1e-6, 1 - 1e-6)
+    return x
+
+
+def _ulps_bf16(torch, a, b):
+    """|a − b| in bf16 ulps of b, elementwise."""
+    a, b = a.float(), b.float()
+    ulp = torch.where(b == 0, torch.full_like(b, 2.0**-133),
+                      torch.exp2(torch.floor(torch.log2(b.abs())) - 7))
+    return (a - b).abs() / ulp
+
+
+def _embedding_bag_yardstick(torch, hg, tables, x, hcfg, g):
+    """One PyTorch call for the same gather-and-blend, timed only (the port
+    never calls it): ``embedding_bag(mode="sum", per_sample_weights=w)`` on
+    indices 8·h + c over the levels' tables stacked and viewed as
+    (rows·8, F); and its backward to the table. (ms forward, ms backward)."""
+    import torch.nn.functional as Fn
+
+    F = hcfg.features_per_level
+    offs = np.cumsum([0] + [int(t.shape[0]) for t in tables[:-1]])
+    idx, psw = [], []
+    for l in range(hcfg.levels):
+        h, frac = hg._cell_index(x, hcfg, l)
+        idx.append(8 * (h + int(offs[l]))[:, None]
+                   + torch.arange(8, device=x.device)[None, :])
+        psw.append(hg._corner_weights(hg._interp_frac(frac, hcfg.interpolation))
+                   .to(tables[0].dtype))
+    idx, psw = torch.cat(idx), torch.cat(psw)
+    weight = torch.cat(tables).view(-1, F).requires_grad_(True)
+    with torch.no_grad():
+        fwd_ms = _median_ms(torch, lambda: Fn.embedding_bag(
+            idx, weight, mode="sum", per_sample_weights=psw))
+    out = Fn.embedding_bag(idx, weight, mode="sum", per_sample_weights=psw)
+    gout = g.view(-1, hcfg.levels, F).transpose(0, 1).reshape(-1, F)
+    bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(out, weight, gout,
+                                                           retain_graph=True))
+    return fwd_ms, bwd_ms
+
+
+def phase_hash(torch, toy) -> dict:
+    """The hash encode kernels (module docstring, phase 14)."""
+    from acn_tpu_torch.models import encodings as enc
+
+    hg = _hashgrid()
+    hcfg = toy.train_occ_config()[0].expert.hash
+    L, F = hcfg.levels, hcfg.features_per_level
+    rows = [hcfg.level_rows(l) for l in range(L)]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    tables32 = [(torch.rand((r, 8 * F), generator=gen, device="cuda") * 2 - 1) * 1e-3
+                for r in rows]
+    shapes, t_start = [], time.perf_counter()
+    for P in HASH_P:
+        x32 = _hash_points(torch, hcfg, P, gen)
+        g32 = torch.randn((P, L * F), generator=gen, device="cuda")
+        g32[::4] = 0.0  # pad slots carry a zero cotangent
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            tables = [t.to(dt) for t in tables32]
+            sx = sg = x.element_size()
+            got = hg.hash_cell_fwd_kernel(tables, x, hcfg)
+            want = hg.hash_cell_fwd_plain(tables, x, hcfg)
+            got_t = hg.hash_cell_bwd_tables_kernel(x, g, hcfg, rows, [dt] * L)
+            want_t = hg.hash_cell_bwd_tables_plain(x, g, hcfg, rows, [dt] * L)
+            torch.cuda.synchronize()
+            row = {"P": P, "dtype": str(dt).split(".")[-1]}
+            fwd_err = float((got.float() - want.float()).abs().max())
+            if dt == torch.float32:
+                top = float(want.abs().max())
+                check(fwd_err <= HASH_F32_RTOL * top,
+                      f"hash forward P {P} f32: max |kernel − plain| {fwd_err}, largest "
+                      f"|out| {top}")
+                mag = hg.hash_cell_bwd_tables_plain(x, g.abs(), hcfg, rows, [dt] * L)
+                ratio = max(float(((a - b).abs() / (m + 1e-30)).max())
+                            for a, b, m in zip(got_t, want_t, mag))
+                check(ratio <= 1e-5, f"hash cotangent P {P} f32: |kernel − plain| up to "
+                      f"{ratio} of the terms' magnitudes, want ≤ 1e-5")
+                row.update(fwd_max_abs_err=fwd_err, fwd_max_abs=top,
+                           bwd_err_of_magnitude=ratio,
+                           bwd_max_abs_err=max(float((a - b).abs().max())
+                                               for a, b in zip(got_t, want_t)))
+            else:
+                ulps = _ulps_bf16(torch, got, want)
+                check(float(ulps.max()) <= 1.0,
+                      f"hash forward P {P} bf16: {float(ulps.max())} ulps from plain")
+                ref = hg.hash_cell_bwd_tables_plain(x, g.float(), hcfg, rows,
+                                                    [torch.float32] * L)
+                dk = [float((a.float() - r).norm()) for a, r in zip(got_t, ref)]
+                dp = [float((b.float() - r).norm()) for b, r in zip(want_t, ref)]
+                check(all(a <= HASH_BF16_L2_FACTOR * b for a, b in zip(dk, dp)),
+                      f"hash cotangent P {P} bf16: distance from the f32 sum per level "
+                      f"{dk}, plain's {dp}")
+                unequal = int((got != want).sum())
+                row.update(fwd_max_abs_err=fwd_err, fwd_max_ulps=float(ulps.max()),
+                           fwd_unequal_elements=unequal,
+                           fwd_bit_equal_share=1.0 - unequal / got.numel(),
+                           bwd_l2_from_f32_sum=dk, plain_bwd_l2_from_f32_sum=dp,
+                           bwd_max_abs_from_f32_sum=max(
+                               float((a.float() - r).abs().max()) for a, r in zip(got_t, ref)),
+                           plain_bwd_max_abs_from_f32_sum=max(
+                               float((b.float() - r).abs().max()) for b, r in zip(want_t, ref)))
+            del got, want, got_t, want_t
+            # each distinct byte once: x01, the distinct rows this run's
+            # points gather, the output; for the cotangent x01, g and one
+            # write of the tables (the adds land in L2)
+            distinct = sum(int(torch.unique(hg._cell_index(x, hcfg, l)[0]).numel())
+                           for l in range(L))
+            st = tables[0].element_size()
+            fwd_bytes = P * 3 * sx + distinct * 8 * F * st + P * L * F * st
+            bwd_bytes = P * 3 * sx + P * L * F * sg + sum(rows) * 8 * F * st
+            lib_f, lib_b = _embedding_bag_yardstick(torch, hg, tables, x, hcfg, g)
+            row.update(
+                fwd_ms=_median_ms(torch, lambda: hg.hash_cell_fwd_kernel(tables, x, hcfg)),
+                fwd_plain_ms=_median_ms(torch, lambda: hg.hash_cell_fwd_plain(tables, x, hcfg)),
+                fwd_bound_ms=1e3 * fwd_bytes / HBM_BYTES_PER_S, fwd_library_ms=lib_f,
+                distinct_rows=distinct,
+                bwd_ms=_median_ms(torch, lambda: hg.hash_cell_bwd_tables_kernel(
+                    x, g, hcfg, rows, [dt] * L)),
+                bwd_plain_ms=_median_ms(torch, lambda: hg.hash_cell_bwd_tables_plain(
+                    x, g, hcfg, rows, [dt] * L)),
+                bwd_bound_ms=1e3 * bwd_bytes / HBM_BYTES_PER_S, bwd_library_ms=lib_b)
+            shapes.append(row)
+            emit({"phase": "hash_kernels", **row})
+            torch.cuda.empty_cache()
+
+    # h and the corner, exactly: Nearest picks one corner with weight 1 from
+    # a table whose row r holds 8·r + c in corner c
+    near = dataclasses.replace(hcfg, interpolation="Nearest")
+    ramp = [(8 * torch.arange(r, device="cuda", dtype=torch.float32)[:, None, None]
+             + torch.arange(8, device="cuda", dtype=torch.float32)[None, :, None])
+            .expand(r, 8, F).reshape(r, 8 * F).contiguous() for r in rows]
+    x = _hash_points(torch, hcfg, HASH_P[0], gen)
+    check(torch.equal(hg.hash_cell_fwd_kernel(ramp, x, near),
+                      hg.hash_cell_fwd_plain(ramp, x, near)),
+          "Nearest: the kernel's row or corner differs from the plain version's")
+    del ramp
+
+    # pads: many zero-cotangent points in one cell, real points in distinct
+    # level-0 cells (at most two in a row of any level: two adds commute)
+    P = HASH_P[1]
+    r0 = int(hcfg.level_resolutions()[0])
+    cells = torch.randperm(r0**3, generator=gen, device="cuda")[:HASH_PAD_REAL]
+    ijk = torch.stack([cells // (r0 * r0), (cells // r0) % r0, cells % r0], -1).float()
+    real = (ijk + 0.05 + 0.9 * torch.rand((HASH_PAD_REAL, 3), generator=gen,
+                                           device="cuda")) / r0
+    x = torch.cat([real, real[:1].expand(P - HASH_PAD_REAL, 3)]).contiguous()
+    g = torch.randn((P, L * F), generator=gen, device="cuda")
+    g[HASH_PAD_REAL:] = 0.0
+    pad_equal = {}
+    for dt in (torch.float32, torch.bfloat16):
+        most = max(int(torch.bincount(hg._cell_index(real.to(dt), hcfg, l)[0]).max())
+                   for l in range(L))
+        check(most <= 2, f"the pad case put {most} real points in one row ({dt})")
+        got = hg.hash_cell_bwd_tables_kernel(x.to(dt), g.to(dt), hcfg, rows, [dt] * L)
+        want = hg.hash_cell_bwd_tables_plain(x.to(dt), g.to(dt), hcfg, rows, [dt] * L)
+        pad_equal[str(dt).split(".")[-1]] = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(all(pad_equal.values()), f"pad-collision case bit-equal to plain: {pad_equal}")
+
+    # MAML's second derivative at a support march: forward kernel, cotangent
+    # kernel under create_graph, forward kernel on the cotangent's cotangent
+    P = HASH_P[1]
+    x = _hash_points(torch, hcfg, P, gen)
+    tabs = [t.clone().requires_grad_(True) for t in tables32]
+    g = torch.randn((P, L * F), generator=gen, device="cuda", requires_grad=True)
+    v = [torch.randn(t.shape, generator=gen, device="cuda") for t in tables32]
+    before = hg.launch_counts()
+    out = enc.hash_encode(tabs, x, hcfg)
+    grads = torch.autograd.grad(out, tabs, g, create_graph=True)
+    (dg,) = torch.autograd.grad(grads, g, v)
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(before, hg.launch_counts()))
+    check(launched == (2, 1), f"the double backward launched {launched}, want "
+          "(2 forward, 1 cotangent)")
+    want_t = hg.hash_cell_bwd_tables_plain(x, g.detach(), hcfg, rows, [torch.float32] * L)
+    mag = hg.hash_cell_bwd_tables_plain(x, g.detach().abs(), hcfg, rows, [torch.float32] * L)
+    want_dg = hg.hash_cell_fwd_plain(v, x, hcfg)
+    t_ratio = max(float(((a.detach() - b).abs() / (m + 1e-30)).max())
+                  for a, b, m in zip(grads, want_t, mag))
+    dg_err = float((dg - want_dg).abs().max())
+    check(t_ratio <= 1e-5 and dg_err <= HASH_F32_RTOL * float(want_dg.abs().max()),
+          f"double backward: cotangent {t_ratio} of the magnitudes, dg max err {dg_err}")
+    double = {"P": P, "launches": launched, "cotangent_err_of_magnitude": t_ratio,
+              "dg_max_abs_err": dg_err}
+    emit({"phase": "hash_checks", "nearest_exact": True, "pad_case_bit_equal": pad_equal,
+          "pad_case": {"P": HASH_P[1], "real": HASH_PAD_REAL},
+          "double_backward": double, "phase_s": time.perf_counter() - t_start})
+    del tabs, grads, dg, out
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "double_backward": double}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -3737,12 +4110,12 @@ def main() -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    build_s = cuda_lib.build()
+    build_s = cuda_lib.build_all()  # one nvcc per source, started together
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_wall_s": time.perf_counter() - t0,
-          "ptxas": cuda_lib.build_log()})
+          "ptxas": {name: cuda_lib.build_log(source=name) for name in cuda_lib.SOURCES}})
 
     k = phase_kernel(torch, segscan, bench_segscan)
     model, occ, cam, (fwd_render, rev_render), dense_ms = phase_main_path(
@@ -3765,6 +4138,7 @@ def main() -> int:
     del model, occ
     live = phase_live(torch, segscan, toy, run8["run"], baked_path)
     fwd_tools, rev_tools = phase_tools(torch, segscan, toy, args.profile)
+    hk = phase_hash(torch, toy)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -3823,6 +4197,7 @@ def main() -> int:
                            "bound_ms": sh["bound_ms"],
                            "max_abs_err": sh["reverse_max_abs_err"]}
                           for sh in train["shapes"]], **common},
+        *hash_kernel_entries(hk, smi),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
