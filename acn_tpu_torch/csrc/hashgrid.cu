@@ -14,30 +14,58 @@
 //
 // Replaces the cell-layout encode of the JAX package, which wrote no TPU
 // kernel for it (a per-lane table gather does not lower to Mosaic): the
-// forward `_cell_saved_fwd_impl` / `_hash_encode_cell_impl` and the table
-// half of the hand-written VJP `_saved_bwd`
-// (acn_tpu/models/encodings.py:314-501). Bound to PyTorch through a plain C
-// interface (ctypes) in acn_tpu_torch/ops/hashgrid.py; the x cotangent stays
-// PyTorch there.
+// forward `_cell_saved_fwd_impl` / `_hash_encode_cell_impl`
+// (acn_tpu/models/encodings.py:314-433) and the table half of the
+// hand-written VJP `_saved_bwd` (:444-501). Bound to PyTorch through a plain
+// C interface (ctypes) in acn_tpu_torch/ops/hashgrid.py; the x cotangent
+// stays PyTorch there.
 //
-// Bound. Memory: per (point, level) one row of 8*F values is read (forward)
-// or added into (backward), against 8 multiplies and adds per feature. The
-// smoke's model (8 levels, F = 4, f32) reads 1 KB of rows per point, so the
-// serving chunk's 983,040 points need 1.0 GB: 0.31 ms at 3.35 TB/s. Most
-// levels' tables are smaller than the 50 MB L2, so the gathers mostly hit
-// L2 and the kernel can run under that byte bound.
+// Bound: bytes, each distinct byte once. The forward reads x01, the distinct
+// rows its points fall in, and writes the output; at the smoke's model (8
+// levels, F = 4, 833,403 rows of 32 values) and the serving chunk's 983,040
+// points that is 0.0726 ms in f32 and 0.0359 ms in bf16 at 3.35 TB/s. The
+// cotangent reads x01 and g and writes the tables once (0.0729 / 0.0365
+// ms). The operations, a few dozen per (point, level), are far below.
+// What held the first version (one thread per (point, level)) back was
+// neither: it read its row with 8 * F scalar loads, so each load
+// instruction of a warp touched 32 rows, and added with one atomic per
+// corner on 32 scattered rows. Rows are gathered at random, so the rows a
+// chunk reads (1 GB in f32 at 983,040 points) come from L2, not from
+// device memory: L2 and the issue of instructions are what bound this
+// design, the cotangent's count of vector reductions at L2 too.
 //
-// Design: one thread per (point, level), the grid level-major
-// (blockIdx.y = level), so the blocks resident at a time gather from one
-// level's table and keep it in L2. The thread recomputes the cell and the
-// weights from x01 (no indices or rows are kept between the passes), reads
-// its row with scalar loads (neighbouring loads of a thread share a sector,
-// so L1 serves all but the first) and writes its F outputs. The backward
-// adds with vector atomics (float4 or float2, bf16x2: one per corner for
-// F = 4 in f32) into tables zeroed by a first launch of the same call, and
-// skips a (point, level) whose F cotangent values are all zero (a pad slot
-// of the packed budget march): an accumulator that starts at +0 stays +0
-// under any number of added zeros, so skipping changes no bit.
+// Design. A block takes kPoints points by kLevelGroup levels (kTasks =
+// 256 (point, level) tasks). Phase A: one thread a task computes the row
+// and the eight weights once and keeps them in shared memory. Phase B: a
+// group of G = row bytes / 16 lanes a task (2 for bf16 at F = 2 to 16 for
+// f32 at F = 8), lane j taking the row's j-th 16 bytes with one read-only
+// load, so a warp's load instruction reads 32 / G whole rows; up to 8
+// passes' loads are in flight at once. The group sums its products in f32
+// by recursive halving over xor shuffles (F - 1 shuffles, then one per
+// remaining lane bit) and each lane ends with one output value to store;
+// the tasks of a pass are point-major, so one store instruction writes a
+// point's kLevelGroup * F outputs whole (f32 at F = 4: 64 bytes, two full
+// sectors; with one level a grid row it wrote half a sector). The grid is
+// level-major (blockIdx.y = a group of kLevelGroup levels), so the blocks
+// resident at a time gather from kLevelGroup tables, which the 50 MB L2
+// holds in bf16 (4 hashed tables: 33.6 MB; in f32 67 MB, of which the
+// points' rows are what stays). kLevelGroup = 4 was the fastest forward of
+// 1, 2 and 4 in f32 and bf16, on random and on ray-ordered points; the
+// cotangent took the same time as with 2 but for random f32 points, 7 %
+// slower (PERF.md section 6). To measure another value, edit kLevelGroup
+// in a copy of the tree and time it with scripts/bench_hashgrid.py, that
+// copy first on PYTHONPATH.
+//
+// The cotangent's phase B is level-major: a group walks G neighbouring
+// points of one level, and lane j adds its 16 bytes of the row with one
+// vector reduction (red.v4.f32, or red.v4.bf16x2: 8 bf16 values). A lane
+// sums its products in f32 while its points stay in one row (the budget
+// march packs samples ray-major, so on coarse levels a ray's samples share
+// cells) and adds when the row changes, together with the lanes of its
+// slot j in the warp whose runs end in the same row (__match_any_sync,
+// asked only when a neighbouring group's run ends in that row: random
+// points never pay for it): on coarse levels up to 32 points' adds become
+// one. A zero fill of the tables is a first launch of the same call.
 //
 // Bits. Every step rounds as PyTorch's eager ops round it: each product,
 // difference and the Smoothstep terms are taken in f32 and rounded to the
@@ -47,9 +75,14 @@
 // type on the host (bf16 turns 4095 into 4096). The weight is rounded to
 // the table's type, each weight-row product rounded to it, and the eight
 // products summed in f32 and rounded once. In the backward the weight is
-// rounded to the cotangent's type and each weight-cotangent product rounded
-// before its atomic add; a bf16 atomic add rounds its sum to bf16, as the
-// plain index_add_ does. Only the order of the atomic adds is free.
+// rounded to the cotangent's type and each weight-cotangent product rounded;
+// a pre-sum of such products runs in f32 and is rounded once before its add;
+// a bf16 add rounds its sum to bf16, as the plain index_add_ does. So the
+// cell, the row and the weights are the plain version's bits; only the
+// order of the sums is free. A (point, level) whose F cotangent values are
+// all zero (a pad slot of the packed budget march) adds nothing: an
+// accumulator that starts at +0 stays +0 under any number of added zeros,
+// so the skip changes no bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +93,7 @@ namespace {
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
 constexpr int kZeroBlocks = 1024;  // per level, grid-stride over its table
+constexpr int kLevelGroup = 4;  // levels per grid row
 
 enum Interp { kLinear = 0, kSmoothstep = 1, kNearest = 2 };
 
@@ -72,6 +106,23 @@ struct Levels {
   int res[kMaxLevels];            // resolution (dense index, clip)
   int dense[kMaxLevels];          // 1: dense index, 0: hash
 };
+
+// How a row of 8 * F values of type TT spreads over a group of lanes.
+template <typename TT, int F> struct Group {
+  static constexpr int V = 16 / (int)sizeof(TT);  // values per lane: 4 f32, 8 bf16
+  static constexpr int G = 8 * F / V;             // lanes per (point, level)
+  static constexpr int CPL = V >= F ? V / F : 1;  // corners per lane
+  static constexpr int LPC = F > V ? F / V : 1;   // lanes per corner (f32, F = 8)
+  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "2 to 16 lanes");
+  static_assert(LPC <= 2, "a corner spans at most two lanes");
+};
+
+// Lanes j, j + G, j + 2G, ... of a warp.
+__host__ __device__ constexpr unsigned same_slot_lanes(int G) {
+  unsigned m = 0;
+  for (int q = 0; q < 32; q += G) m |= 1u << q;
+  return m;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -87,18 +138,34 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f(from_f<T>(v));
 }
 
-// The row and the eight corner weights of point p at level l, as
-// `_cell_index` and `_corner_weights(_interp_frac(.))` compute them.
+// The i-th value of a 16-byte load of T, in f32.
+template <typename T> __device__ __forceinline__ float lane_value(const uint4& raw, int i);
+template <> __device__ __forceinline__ float lane_value<float>(const uint4& raw, int i) {
+  const unsigned w = i == 0 ? raw.x : i == 1 ? raw.y : i == 2 ? raw.z : raw.w;
+  return __uint_as_float(w);
+}
+template <> __device__ __forceinline__ float lane_value<__nv_bfloat16>(const uint4& raw, int i) {
+  const unsigned w = (i >> 1) == 0 ? raw.x : (i >> 1) == 1 ? raw.y : (i >> 1) == 2 ? raw.z : raw.w;
+  return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// Two values as a 32-bit word of bf16.
+__device__ __forceinline__ unsigned bf16_word(const float* v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[0]))
+         | ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
+}
+
+// The row and the per-axis factors (1 - f, f) of point x at level l, as
+// `_cell_index` and `_interp_frac` compute them.
 template <typename XT>
-__device__ __forceinline__ long long locate(const XT* __restrict__ x, long long p,
-                                            const Levels& lv, int l, int interp,
-                                            uint32_t mask, float w[8]) {
+__device__ __forceinline__ long long locate(const float xf[3], const Levels& lv, int l,
+                                            int interp, uint32_t mask, float A[3][2]) {
   const float scale = lv.scale[l];
   float f[3];
   int c[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float s = rnd<XT>(__fmul_rn(to_f(x[3 * p + a]), scale));
+    const float s = rnd<XT>(__fmul_rn(xf[a], scale));
     const float cell = floorf(s);
     float fr = rnd<XT>(__fsub_rn(s, cell));
     if (interp == kSmoothstep) {  // frac * frac * (3 - 2 * frac), op by op
@@ -122,46 +189,164 @@ __device__ __forceinline__ long long locate(const XT* __restrict__ x, long long 
     h = (long long)((((uint32_t)c[0] * 1u) ^ ((uint32_t)c[1] * 2654435761u)
                      ^ ((uint32_t)c[2] * 805459861u)) & mask);
   }
-  float A[3][2];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     A[a][0] = rnd<XT>(__fsub_rn(1.0f, f[a]));
     A[a][1] = f[a];
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float xy = rnd<XT>(__fmul_rn(A[0][i], A[1][j]));
-#pragma unroll
-      for (int k = 0; k < 2; ++k) w[4 * i + 2 * j + k] = rnd<XT>(__fmul_rn(xy, A[2][k]));
-    }
   return h;
+}
+
+// Corner c's weight (A_x[dx] * A_y[dy]) * A_z[dz], each product rounded to
+// x01's type: `_corner_weights`' order. c is a lane's own, so the factors
+// are picked with selects, not by indexing.
+template <typename XT>
+__device__ __forceinline__ float corner_weight(const float A[3][2], int c) {
+  const float ax = (c & 4) ? A[0][1] : A[0][0];
+  const float ay = (c & 2) ? A[1][1] : A[1][0];
+  const float az = (c & 1) ? A[2][1] : A[2][0];
+  return rnd<XT>(__fmul_rn(rnd<XT>(__fmul_rn(ax, ay)), az));
+}
+
+template <typename XT>
+__device__ __forceinline__ void load_point(const XT* __restrict__ x, long long p, float xf[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) xf[a] = to_f(x[3 * p + a]);
+}
+
+// A block's tasks: kTasks (point, level)s, kPoints points by kLevelGroup
+// levels. Phase A (one thread a task) writes each task's row and its eight
+// weights, already rounded to the table's type, to shared memory; phase B
+// (a group of lanes a task) reads them.
+constexpr int kTasks = kThreads;
+constexpr int kPoints = kTasks / kLevelGroup;
+static_assert(kPoints % 32 == 0, "a warp's tasks of phase B share a level");
+
+template <typename XT, typename TT>
+__device__ __forceinline__ int locate_task(const float xf[3], const Levels& lv, int l,
+                                           int interp, uint32_t mask, float* w) {
+  float A[3][2];
+  const int row = (int)locate<XT>(xf, lv, l, interp, mask, A);
+  float wk[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) wk[c] = rnd<TT>(corner_weight<XT>(A, c));
+  reinterpret_cast<float4*>(w)[0] = make_float4(wk[0], wk[1], wk[2], wk[3]);
+  reinterpret_cast<float4*>(w)[1] = make_float4(wk[4], wk[5], wk[6], wk[7]);
+  return row;
+}
+
+// The weights of a lane's CPL corners (or of the corner half of which it
+// holds) from its task's eight in shared memory.
+template <typename TT, int F>
+__device__ __forceinline__ void lane_weights(const float* w8, int j, float* w) {
+  using Gr = Group<TT, F>;
+  if constexpr (Gr::CPL == 4) {
+    const float4 v = reinterpret_cast<const float4*>(w8)[j];
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (Gr::CPL == 2) {
+    const float2 v = reinterpret_cast<const float2*>(w8)[j];
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = w8[j / Gr::LPC];
+  }
+}
+
+// Sum v over the lanes of a group that hold the same features (lanes apart
+// by O, O / 2, ... down to LO): halve the values a lane holds at each step
+// while it holds more than one (send one half, add the partner's other
+// half), then add the partner's one value. `feat` ends as the first of the
+// lane's features among the M it started with, `writer` true on one lane
+// per feature. Every lane of the warp takes every shuffle.
+template <int M, int O, int LO, int N>
+__device__ __forceinline__ void group_sum(float (&v)[N], int j, int& feat, bool& writer) {
+  if constexpr (O >= LO) {
+    if constexpr (M > 1) {
+      const bool up = (j & O) != 0;
+#pragma unroll
+      for (int i = 0; i < M / 2; ++i) {
+        const float send = up ? v[i] : v[i + M / 2];
+        const float keep = up ? v[i + M / 2] : v[i];
+        v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
+      }
+      if (up) feat += M / 2;
+      group_sum<M / 2, O / 2, LO>(v, j, feat, writer);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      if (j & O) writer = false;
+      group_sum<1, O / 2, LO>(v, j, feat, writer);
+    }
+  }
 }
 
 template <typename XT, typename TT, int F>
 __global__ void __launch_bounds__(kThreads)
 hash_cell_fwd_kernel(const XT* __restrict__ x, const Levels lv, int levels,
                      int interp, uint32_t mask, long long n, TT* __restrict__ out) {
-  const int l = blockIdx.y;
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
-  float w[8];
-  const long long h = locate<XT>(x, p, lv, l, interp, mask, w);
-  const TT* __restrict__ row = static_cast<const TT*>(lv.table[l]) + h * (8 * F);
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float wk = rnd<TT>(w[k]);
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      acc[f] = __fadd_rn(acc[f], rnd<TT>(__fmul_rn(to_f(row[k * F + f]), wk)));
+  using Gr = Group<TT, F>;
+  constexpr int G = Gr::G, V = Gr::V, M = F / Gr::LPC;
+  __shared__ __align__(16) float s_w[kTasks * 8];
+  __shared__ int s_row[kTasks];
+  const int l0 = blockIdx.y * kLevelGroup;
+  const long long p0 = (long long)blockIdx.x * kPoints;
+  {  // phase A: task t = (point t / kLevelGroup, level t % kLevelGroup)
+    const int t = threadIdx.x;
+    const long long p = p0 + t / kLevelGroup;
+    const int l = l0 + t % kLevelGroup;
+    int row = -1;
+    if (p < n && l < levels) {
+      float xf[3];
+      load_point<XT>(x, p, xf);
+      row = locate_task<XT, TT>(xf, lv, l, interp, mask, s_w + 8 * t);
+    }
+    s_row[t] = row;
   }
-  TT* o = out + p * (long long)(levels * F) + l * F;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (G - 1);
+  // phase B: G passes of kTasks / G tasks, kBatch passes' loads in flight
+  // together; a task without a row (past n, past the levels) reads row 0 of
+  // level l0 and stores nothing, so every lane takes every shuffle
+  constexpr int kBatch = G < 8 ? G : 8;
 #pragma unroll
-  for (int f = 0; f < F; ++f) o[f] = from_f<TT>(acc[f]);
+  for (int q0 = 0; q0 < G; q0 += kBatch) {
+    uint4 raw[kBatch];
+    int rows[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int t = (q0 + b) * (kTasks / G) + threadIdx.x / G;
+      rows[b] = s_row[t];
+      const void* table = lv.table[rows[b] >= 0 ? l0 + t % kLevelGroup : l0];
+      raw[b] = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const TT*>(table) + (long long)max(rows[b], 0) * (8 * F)) + j);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int t = (q0 + b) * (kTasks / G) + threadIdx.x / G;
+      float w[Gr::CPL];
+      lane_weights<TT, F>(s_w + 8 * t, j, w);
+      float v[M];
+      if constexpr (Gr::LPC == 1) {  // the lane's corners, summed in order
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < Gr::CPL; ++c)
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            v[f] = __fadd_rn(v[f], rnd<TT>(__fmul_rn(lane_value<TT>(raw[b], c * F + f), w[c])));
+      } else {  // half a corner
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = rnd<TT>(__fmul_rn(lane_value<TT>(raw[b], i), w[0]));
+      }
+      int feat = 0;
+      bool writer = rows[b] >= 0;
+      group_sum<M, G / 2, Gr::LPC>(v, j, feat, writer);
+      if (writer) {
+        const long long p = p0 + t / kLevelGroup;
+        const int f = (Gr::LPC == 2 ? (j & 1) * V : 0) + feat;
+        out[p * (long long)(levels * F) + (l0 + t % kLevelGroup) * F + f] = from_f<TT>(v[0]);
+      }
+    }
+  }
 }
 
 // Zero every level's cotangent table, 16 bytes a store (a row of 8*F values
@@ -176,26 +361,17 @@ hash_cell_zero_kernel(const Levels lv, int row_bytes) {
     t[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// Add F values (already rounded to the row's type) into a row's corner with
-// vector atomics: float4 (F a multiple of 4) or float2 in f32, bf16x2 in
-// bf16. Each element is added and rounded on its own, as by scalar atomics.
-template <int F> __device__ __forceinline__ void add_corner(float* row, const float* v) {
-  if constexpr (F % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < F / 4; ++i)
-      atomicAdd(reinterpret_cast<float4*>(row) + i,
-                make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]));
-  } else {
-#pragma unroll
-    for (int i = 0; i < F / 2; ++i)
-      atomicAdd(reinterpret_cast<float2*>(row) + i, make_float2(v[2 * i], v[2 * i + 1]));
-  }
+// Add a lane's 16 bytes (4 f32 or 8 bf16, each already rounded to the
+// row's type) with one vector reduction; each element is added and rounded
+// on its own, as by scalar atomics.
+__device__ __forceinline__ void add16(float* dst, const float* v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
 }
-template <int F> __device__ __forceinline__ void add_corner(__nv_bfloat16* row, const float* v) {
-#pragma unroll
-  for (int i = 0; i < F / 2; ++i)
-    atomicAdd(reinterpret_cast<__nv_bfloat162*>(row) + i,
-              __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]));
+__device__ __forceinline__ void add16(__nv_bfloat16* dst, const float* v) {
+  asm volatile("red.global.add.noftz.v4.bf16x2 [%0], {%1, %2, %3, %4};"
+               :: "l"(dst), "r"(bf16_word(v)), "r"(bf16_word(v + 2)),
+                  "r"(bf16_word(v + 4)), "r"(bf16_word(v + 6))
+               : "memory");
 }
 
 template <typename XT, typename TT, int F>
@@ -203,28 +379,109 @@ __global__ void __launch_bounds__(kThreads)
 hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
                      const Levels lv, int levels, int interp, uint32_t mask,
                      long long n) {
-  const int l = blockIdx.y;
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const TT* gp = g + p * (long long)(levels * F) + l * F;
-  float gv[F];
-  bool any = false;
+  using Gr = Group<TT, F>;
+  constexpr int G = Gr::G, V = Gr::V;
+  __shared__ __align__(16) float s_w[kTasks * 8];
+  __shared__ __align__(16) float s_g[kTasks * F];
+  __shared__ int s_row[kTasks];
+  const int l0 = blockIdx.y * kLevelGroup;
+  const long long p0 = (long long)blockIdx.x * kPoints;
+  {  // phase A: task t = (level t / kPoints, point t % kPoints), level-major,
+     // so that a warp's tasks of phase B are neighbouring points of one level
+    const int t = threadIdx.x;
+    const long long p = p0 + t % kPoints;
+    const int l = l0 + t / kPoints;
+    int row = -1;
+    if (p < n && l < levels) {
+      bool any = false;
 #pragma unroll
-  for (int f = 0; f < F; ++f) {
-    gv[f] = to_f(gp[f]);
-    any |= gv[f] != 0.0f;
+      for (int f = 0; f < F; ++f) {
+        const float gv = to_f(g[p * (long long)(levels * F) + l * F + f]);
+        s_g[F * t + f] = gv;
+        any |= gv != 0.0f;
+      }
+      if (any) {  // adds of (signed) zeros change no bit of the sums
+        float xf[3];
+        load_point<XT>(x, p, xf);
+        row = locate_task<XT, TT>(xf, lv, l, interp, mask, s_w + 8 * t);
+      }
+    }
+    s_row[t] = row;
   }
-  if (!any) return;  // adds of (signed) zeros change no bit of the sums
-  float w[8];
-  const long long h = locate<XT>(x, p, lv, l, interp, mask, w);
-  TT* row = static_cast<TT*>(lv.grad[l]) + h * (8 * F);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (G - 1);
+  const unsigned slot = same_slot_lanes(G) << j;
+  // phase B: group i of warp w walks tasks t0 + q, q < G: neighbouring
+  // points of one level (a warp's 32 tasks share it). A lane sums its
+  // products in f32 while its tasks' row stays the same (a pad task, with
+  // no row, does not end the run) and adds the sum when the run ends,
+  // together with the lanes of its slot j whose runs end in the same row
+  const int t0 = (threadIdx.x >> 5) * 32 + (lane / G) * G;
+  TT* const grad = static_cast<TT*>(lv.grad[min(l0 + t0 / kPoints, levels - 1)]);
+  float acc[V];
+  int cur = -1;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float wk = rnd<TT>(w[k]);
-    float v[F];
+  for (int q = 0; q <= G; ++q) {
+    const int row = q < G ? s_row[t0 + q] : -1;
+    float v[V];
+    if (row >= 0) {
+      const int t = t0 + q;
+      float w[Gr::CPL];
+      lane_weights<TT, F>(s_w + 8 * t, j, w);
+      const float* gt = s_g + F * t;
+      if constexpr (Gr::LPC == 1) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = rnd<TT>(__fmul_rn(wk, gv[f]));
-    add_corner<F>(row + k * F, v);
+        for (int c = 0; c < Gr::CPL; ++c)
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[c * F + f] = rnd<TT>(__fmul_rn(w[c], gt[f]));
+      } else {  // half a corner: the lane's half of the features
+        const int half = (j & 1) * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = rnd<TT>(__fmul_rn(w[0], gt[half + i]));
+      }
+    }
+    const bool flush = cur >= 0 && (q == G || (row >= 0 && row != cur));
+    const unsigned flushing = __ballot_sync(0xffffffffu, flush);
+    // only where a neighbouring group's run ends in the same row is it worth
+    // looking for every lane of the slot that does (random points: never)
+    const int other = __shfl_xor_sync(0xffffffffu, cur, G);
+    const bool merge = __any_sync(0xffffffffu,
+                                  flush && ((flushing >> (lane ^ G)) & 1u) && other == cur);
+    if (flush) {
+      const unsigned peers =
+          merge ? __match_any_sync(flushing, (unsigned)cur) & slot : 1u << lane;
+      bool add = true;
+      if (peers != (1u << lane)) {  // sum the runs in lane order
+        float sum[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) sum[i] = 0.0f;
+        for (unsigned m = peers; m; m &= m - 1) {
+          const int src = __ffs(m) - 1;
+#pragma unroll
+          for (int i = 0; i < V; ++i) sum[i] = __fadd_rn(sum[i], __shfl_sync(peers, acc[i], src));
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = sum[i];
+        add = lane == __ffs(peers) - 1;
+      }
+      if (add) {
+        float out[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) out[i] = rnd<TT>(acc[i]);
+        add16(grad + (long long)cur * (8 * F) + j * V, out);
+      }
+    }
+    if (row >= 0) {
+      if (row == cur) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = v[i];
+        cur = row;
+      }
+    }
   }
 }
 
@@ -244,35 +501,44 @@ int fill_levels(Levels* lv, const void* const* ptrs, const long long* rows,
   return 0;
 }
 
-dim3 point_grid(long long n, int levels) {
-  return dim3((unsigned)((n + kThreads - 1) / kThreads), (unsigned)levels);
+dim3 task_grid(long long n, int levels) {
+  return dim3((unsigned)((n + kPoints - 1) / kPoints),
+              (unsigned)((levels + kLevelGroup - 1) / kLevelGroup));
+}
+
+template <typename XT, typename TT, int F>
+void fwd_one(const void* x, const Levels& lv, int levels, int interp, uint32_t mask,
+             long long n, void* out, cudaStream_t s) {
+  hash_cell_fwd_kernel<XT, TT, F><<<task_grid(n, levels), kThreads, 0, s>>>(
+      static_cast<const XT*>(x), lv, levels, interp, mask, n, static_cast<TT*>(out));
 }
 
 template <typename XT, typename TT>
 int launch_fwd(const void* x, const Levels& lv, int levels, int features, int interp,
                uint32_t mask, long long n, void* out, cudaStream_t s) {
-  const dim3 grid = point_grid(n, levels);
-  const XT* xt = static_cast<const XT*>(x);
-  TT* o = static_cast<TT*>(out);
   switch (features) {
-    case 2: hash_cell_fwd_kernel<XT, TT, 2><<<grid, kThreads, 0, s>>>(xt, lv, levels, interp, mask, n, o); break;
-    case 4: hash_cell_fwd_kernel<XT, TT, 4><<<grid, kThreads, 0, s>>>(xt, lv, levels, interp, mask, n, o); break;
-    case 8: hash_cell_fwd_kernel<XT, TT, 8><<<grid, kThreads, 0, s>>>(xt, lv, levels, interp, mask, n, o); break;
+    case 2: fwd_one<XT, TT, 2>(x, lv, levels, interp, mask, n, out, s); break;
+    case 4: fwd_one<XT, TT, 4>(x, lv, levels, interp, mask, n, out, s); break;
+    case 8: fwd_one<XT, TT, 8>(x, lv, levels, interp, mask, n, out, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+template <typename XT, typename TT, int F>
+void bwd_one(const void* x, const void* g, const Levels& lv, int levels, int interp,
+             uint32_t mask, long long n, cudaStream_t s) {
+  hash_cell_bwd_kernel<XT, TT, F><<<task_grid(n, levels), kThreads, 0, s>>>(
+      static_cast<const XT*>(x), static_cast<const TT*>(g), lv, levels, interp, mask, n);
+}
+
 template <typename XT, typename TT>
 int launch_bwd(const void* x, const void* g, const Levels& lv, int levels, int features,
                int interp, uint32_t mask, long long n, cudaStream_t s) {
-  const dim3 grid = point_grid(n, levels);
-  const XT* xt = static_cast<const XT*>(x);
-  const TT* gt = static_cast<const TT*>(g);
   switch (features) {
-    case 2: hash_cell_bwd_kernel<XT, TT, 2><<<grid, kThreads, 0, s>>>(xt, gt, lv, levels, interp, mask, n); break;
-    case 4: hash_cell_bwd_kernel<XT, TT, 4><<<grid, kThreads, 0, s>>>(xt, gt, lv, levels, interp, mask, n); break;
-    case 8: hash_cell_bwd_kernel<XT, TT, 8><<<grid, kThreads, 0, s>>>(xt, gt, lv, levels, interp, mask, n); break;
+    case 2: bwd_one<XT, TT, 2>(x, g, lv, levels, interp, mask, n, s); break;
+    case 4: bwd_one<XT, TT, 4>(x, g, lv, levels, interp, mask, n, s); break;
+    case 8: bwd_one<XT, TT, 8>(x, g, lv, levels, interp, mask, n, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -282,7 +548,7 @@ int check_args(int levels, int features, int log2_size, int interp, long long n)
   if (levels < 1 || levels > kMaxLevels || log2_size < 1 || log2_size > 31
       || interp < kLinear || interp > kNearest
       || (features != 2 && features != 4 && features != 8)
-      || (n + kThreads - 1) / kThreads > 0x7fffffffLL)
+      || (n + kPoints - 1) / kPoints > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -295,8 +561,9 @@ int hash_cell_max_levels() { return kMaxLevels; }
 
 // One launch of the forward on `stream`. x: (n, 3) of x_bf16 ? bf16 : f32;
 // tables: `levels` pointers to (rows[l], 8 * features) of t_bf16 ? bf16 :
-// f32, each with at least the rows its level indexes; out: (n, levels *
-// features) of the tables' type. Returns the launch's CUDA error (0 = ok).
+// f32, 16-byte aligned, each with at least the rows its level indexes; out:
+// (n, levels * features) of the tables' type. Returns the launch's CUDA
+// error (0 = ok).
 int hash_cell_fwd(const void* x, int x_bf16, const void* const* tables,
                   const long long* rows, int t_bf16, const float* scale,
                   const int* res, const int* dense, int levels, int features,

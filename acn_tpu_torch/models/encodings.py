@@ -28,7 +28,7 @@ import torch
 from acn_tpu_torch.models.nn import norm3
 from acn_tpu_torch.ops.hashgrid import (  # noqa: F401  (the cell math lives there)
     HashCellBwdTables, _cell_level_lookup, _corner_weights, _spatial_hash,
-    hash_cell_bwd_x, hash_cell_fwd)
+    hash_cell_bwd_x, hash_cell_fwd, level_rows)
 
 # ============================ spherical harmonics ============================
 
@@ -290,7 +290,7 @@ def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Te
     versions on the CPU (its backward recomputes from x01, so ``"remat"``
     and ``"save_rows"`` are one path)."""
     got = tuple(int(t.shape[0]) for t in tables)
-    want = tuple(cfg.level_rows(l) for l in range(cfg.levels))
+    want = level_rows(cfg)
     if got != want:
         raise ValueError(
             f"hash table rows do not match the config ladder (config expects "

@@ -16,17 +16,21 @@ and its table cotangent scatters the output cotangent back into the rows:
 The JAX package wrote no TPU kernel for these (a per-lane table gather
 does not lower to Mosaic); they are ``_cell_saved_fwd_impl`` and the table
 half of the hand-written VJP ``_saved_bwd``
-(``acn_tpu/models/encodings.py:413-501``), plain XLA there. Here they are
+(``acn_tpu/models/encodings.py:314-501``), plain XLA there. Here they are
 hand-written CUDA kernels for ``sm_90a`` (``csrc/hashgrid.cu``), built by
 ``ops/cuda_lib.py`` and called through ``ctypes``; the source has the
-design. Both recompute the cell and the weights from x01, so nothing but
-x01 is kept between the forward and the backward. The x cotangent, asked
-for only when x01 needs a gradient (never in training), stays PyTorch:
-``hash_cell_bwd_x``.
+design: a group of lanes per (point, level), each lane one 16-byte piece of
+the row, so a warp reads and adds whole rows, and the cotangent sums the
+lanes that share a row before one of them adds. Both recompute the cell and
+the weights from x01, so nothing but x01 is kept between the forward and
+the backward. The x cotangent, asked for only when x01 needs a gradient
+(never in training), stays PyTorch: ``hash_cell_bwd_x``.
 
-Bound: memory. Per (point, level) one row of 8·F values is read or added
-into; at the serving chunk of the smoke's model (983,040 points, 8 levels,
-F = 4, float32) that is 1.0 GB, 0.31 ms at the H100's 3.35 TB/s.
+Bound: memory, each distinct byte once. The forward reads x01 and the
+distinct rows its points fall in and writes the output; at the serving
+chunk of the smoke's model (983,040 points, 8 levels, F = 4) that is
+0.0726 ms in float32 and 0.0359 ms in bfloat16 at the H100's 3.35 TB/s.
+The cotangent reads x01 and g and writes the tables once.
 
 Bits: the kernels round every step where PyTorch's eager ops round it, so
 the cell, the row and the weights are the plain version's bits, in float32
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import Sequence
 
 import torch
@@ -233,18 +238,45 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _level_args(cfg, x_dtype: torch.dtype):
-    """The per-level constants the kernels take, as ctypes arrays: the scale
-    (resolution rounded to x01's type), the resolution, the dense flag."""
-    L = cfg.levels
+def level_rows(cfg) -> tuple:
+    """The config's row ladder, ``cfg.level_rows(l)`` for every level
+    (each call of that recomputes the resolutions: a few µs a level)."""
+    return tuple(int(cfg.level_rows(l)) for l in range(cfg.levels))
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(cfg, x_dtype: torch.dtype) -> types.SimpleNamespace:
+    """What the kernels take that depends on the config and x01's type
+    alone: the per-level scale (resolution rounded to x01's type),
+    resolution and dense flag and the ladder's rows as ctypes arrays, the
+    scalar arguments after them, the row width. Refuses a config the
+    kernels do not take."""
+    if cfg.interpolation not in INTERPOLATIONS:
+        raise ValueError(f"unknown interpolation {cfg.interpolation!r}")
+    if cfg.features_per_level not in FEATURES or not 1 <= cfg.levels <= MAX_LEVELS:
+        raise ValueError(f"the hash kernels take F in {FEATURES} and 1 to {MAX_LEVELS} "
+                         f"levels, got F {cfg.features_per_level}, {cfg.levels} levels")
+    if not 1 <= cfg.log2_hashmap_size <= 31:
+        raise ValueError(f"the hash kernels take log2_hashmap_size 1 to 31, got "
+                         f"{cfg.log2_hashmap_size}")
+    L, F = cfg.levels, cfg.features_per_level
     res = [int(r) for r in cfg.level_resolutions()]
-    return ((ctypes.c_float * L)(*[_res_as(r, x_dtype) for r in res]),
-            (ctypes.c_int * L)(*res),
-            (ctypes.c_int * L)(*[int(_is_dense(cfg, l)) for l in range(L)]))
+    rows = level_rows(cfg)
+    return types.SimpleNamespace(
+        x_bf16=_DTYPES[x_dtype], rows=rows, rows_arr=(ctypes.c_longlong * L)(*rows),
+        width=8 * F, out_dim=L * F,
+        scale=(ctypes.c_float * L)(*[_res_as(r, x_dtype) for r in res]),
+        res=(ctypes.c_int * L)(*res),
+        dense=(ctypes.c_int * L)(*[int(_is_dense(cfg, l)) for l in range(L)]),
+        tail=(L, F, cfg.log2_hashmap_size, INTERPOLATIONS.index(cfg.interpolation)))
 
 
-def _check(x01: torch.Tensor, tables, cfg, what: str) -> torch.dtype:
-    """Refuse what the kernels do not take; returns the tables' type."""
+@functools.lru_cache(maxsize=None)
+def _rows_arr(nrows: tuple):
+    return (ctypes.c_longlong * len(nrows))(*nrows)
+
+
+def _check_x(x01: torch.Tensor, what: str) -> None:
     if x01.device.type != "cuda":
         raise ValueError(f"{what} needs x01 on a CUDA device, got {x01.device}")
     if x01.dtype not in _DTYPES:
@@ -252,40 +284,51 @@ def _check(x01: torch.Tensor, tables, cfg, what: str) -> torch.dtype:
     if x01.shape[-1:] != (3,) or not x01.is_contiguous():
         raise ValueError(f"{what} takes contiguous (..., 3) x01, got "
                          f"{tuple(x01.shape)}")
-    if cfg.interpolation not in INTERPOLATIONS:
-        raise ValueError(f"{what}: unknown interpolation {cfg.interpolation!r}")
-    if cfg.features_per_level not in FEATURES or not 1 <= cfg.levels <= MAX_LEVELS:
-        raise ValueError(f"{what} takes F in {FEATURES} and 1 to {MAX_LEVELS} "
-                         f"levels, got F {cfg.features_per_level}, {cfg.levels} levels")
-    if not 1 <= cfg.log2_hashmap_size <= 31:
-        raise ValueError(f"{what} takes log2_hashmap_size 1 to 31, got "
-                         f"{cfg.log2_hashmap_size}")
-    if len(tables) != cfg.levels:
-        raise ValueError(f"{what}: {len(tables)} tables for {cfg.levels} levels")
+
+
+def _check_tables(tables, c: types.SimpleNamespace, device: int, what: str):
+    """Refuse tables the kernels do not take: one per level, float32 or
+    bfloat16, all of one type, contiguous, on ``device`` (an index, as
+    ``Tensor.get_device`` gives it), (at least the ladder's rows, 8·F),
+    16-byte aligned. Returns (their type, their pointers as a ctypes
+    array)."""
+    if len(tables) != len(c.rows):
+        raise ValueError(f"{what}: {len(tables)} tables for {len(c.rows)} levels")
     dtype = tables[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or bfloat16 tables, got {dtype}")
-    for l, t in enumerate(tables):
-        if t.dtype != dtype or t.device != x01.device or not t.is_contiguous():
+    ptrs = []
+    for l, (t, need) in enumerate(zip(tables, c.rows)):
+        ptr = t.data_ptr()
+        if t.dtype != dtype or t.get_device() != device or not t.is_contiguous():
             raise ValueError(f"{what}: table {l} is {t.dtype} on {t.device} "
                              f"(contiguous {t.is_contiguous()}), want contiguous "
-                             f"{dtype} on {x01.device}")
-        if (t.ndim != 2 or t.shape[1] != 8 * cfg.features_per_level
-                or t.shape[0] < cfg.level_rows(l)):
+                             f"{dtype} on the device of x01")
+        if t.dim() != 2 or t.shape[1] != c.width or t.shape[0] < need:
             raise ValueError(f"{what}: table {l} is {tuple(t.shape)}, want at least "
-                             f"({cfg.level_rows(l)}, {8 * cfg.features_per_level})")
-        if t.data_ptr() % 16:
+                             f"({need}, {c.width})")
+        if ptr % 16:
             raise ValueError(f"{what}: table {l} is not 16-byte aligned")
-    return dtype
+        ptrs.append(ptr)
+    return dtype, (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _launch_args(tables, x01, cfg):
-    L = cfg.levels
-    return ((ctypes.c_void_p * L)(*[t.data_ptr() for t in tables]),
-            (ctypes.c_longlong * L)(*[int(t.shape[0]) for t in tables]),
-            _DTYPES[tables[0].dtype], *_level_args(cfg, x01.dtype), L,
-            cfg.features_per_level, cfg.log2_hashmap_size,
-            INTERPOLATIONS.index(cfg.interpolation), x01.numel() // 3)
+def _alloc_tables(nrows: Sequence[int], width: int, dtype: torch.dtype, device) -> list:
+    """The cotangent's L tables, (nrows[l], width) each, from one
+    allocation: contiguous row blocks of it, each 16-byte aligned (a row of
+    8·F values is a multiple of 16 bytes)."""
+    buf = torch.empty((sum(nrows), width), dtype=dtype, device=device)
+    return list(buf.split(list(nrows)))
+
+
+def _on_stream(x01: torch.Tensor, fn) -> int:
+    """``fn(stream)`` with x01's card current, on its current stream."""
+    idx = x01.get_device()
+    stream = torch.cuda.current_stream(idx).cuda_stream
+    if idx == torch.cuda.current_device():
+        return fn(stream)
+    with torch.cuda.device(idx):
+        return fn(stream)
 
 
 def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
@@ -294,17 +337,19 @@ def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
     ladder, 8·F) float32 or bfloat16, all of one type, contiguous, on x01's
     card. Returns (..., L·F) in the tables' type. Adds one to
     ``hash_cell_fwd_kernel.launches`` per launch."""
-    dtype = _check(x01, tables, cfg, "the hash encode kernel")
+    what = "the hash encode kernel"
+    _check_x(x01, what)
+    c = _consts(cfg, x01.dtype)
+    dtype, ptrs = _check_tables(tables, c, x01.get_device(), what)
     lib = _library()
-    out = torch.empty((*x01.shape[:-1], cfg.levels * cfg.features_per_level),
-                      dtype=dtype, device=x01.device)
-    args = _launch_args(tables, x01, cfg)
-    with torch.cuda.device(x01.device):
-        err = lib.hash_cell_fwd(x01.data_ptr(), _DTYPES[x01.dtype], *args,
-                                out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    out = torch.empty((*x01.shape[:-1], c.out_dim), dtype=dtype, device=x01.device)
+    n = x01.numel() // 3
+    err = _on_stream(x01, lambda s: lib.hash_cell_fwd(
+        x01.data_ptr(), c.x_bf16, ptrs, c.rows_arr, _DTYPES[dtype], c.scale, c.res,
+        c.dense, *c.tail, n, out.data_ptr(), s))
     if err != 0:
         raise RuntimeError(f"hash_cell_fwd kernel launch failed: CUDA error {err}")
-    if args[-1]:  # no points launch nothing
+    if n:  # no points launch nothing
         hash_cell_fwd_kernel.launches += 1
     return out
 
@@ -317,24 +362,26 @@ def hash_cell_bwd_tables_kernel(x01: torch.Tensor, g: torch.Tensor, cfg,
     (one call, two launches: the zero fill and the scatter). g: (..., L·F)
     contiguous in that type. Adds one to ``hash_cell_bwd_tables_kernel.launches``
     per call."""
-    F = cfg.features_per_level
-    if len(set(dtypes)) != 1 or g.dtype != dtypes[0]:
+    what = "the hash cotangent kernel"
+    dtype = dtypes[0]
+    if g.dtype != dtype or any(d != dtype for d in dtypes):
         raise TypeError(f"the hash cotangent kernel takes g and tables of one "
                         f"type, got {g.dtype} / {sorted(map(str, set(dtypes)))}")
-    if g.shape != (*x01.shape[:-1], cfg.levels * F) or not g.is_contiguous() \
+    _check_x(x01, what)
+    c = _consts(cfg, x01.dtype)
+    if g.shape != (*x01.shape[:-1], c.out_dim) or not g.is_contiguous() \
             or g.device != x01.device:
         raise ValueError(f"the hash cotangent kernel takes a contiguous g of "
-                         f"{(*x01.shape[:-1], cfg.levels * F)} on {x01.device}, got "
+                         f"{(*x01.shape[:-1], c.out_dim)} on {x01.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    grads = [torch.empty((int(r), 8 * F), dtype=g.dtype, device=g.device)
-             for r in nrows]
-    _check(x01, grads, cfg, "the hash cotangent kernel")
+    nrows = tuple(int(r) for r in nrows)
+    grads = _alloc_tables(nrows, c.width, dtype, g.device)
+    _, ptrs = _check_tables(grads, c, x01.get_device(), what)
     lib = _library()
-    args = _launch_args(grads, x01, cfg)
-    with torch.cuda.device(x01.device):
-        err = lib.hash_cell_bwd_tables(x01.data_ptr(), _DTYPES[x01.dtype],
-                                       g.data_ptr(), *args,
-                                       torch.cuda.current_stream().cuda_stream)
+    n = x01.numel() // 3
+    err = _on_stream(x01, lambda s: lib.hash_cell_bwd_tables(
+        x01.data_ptr(), c.x_bf16, g.data_ptr(), ptrs, _rows_arr(nrows), _DTYPES[dtype],
+        c.scale, c.res, c.dense, *c.tail, n, s))
     if err != 0:
         raise RuntimeError(f"hash_cell_bwd_tables kernel launch failed: CUDA error {err}")
     hash_cell_bwd_tables_kernel.launches += 1

@@ -223,25 +223,34 @@ Phases, each printing one JSON line and each fatal on failure:
    the end;
 14. the hash encode kernels (``ops/hashgrid.py``, ``csrc/hashgrid.cu``) at
    the model's width (8 levels, F = 4, 2^17 rows, dense levels: 833,403 rows
-   of 32 per expert) on points from a seed, the first on cell faces of every
-   level and at 1 − 1e-6: for P = 983,040 (one expert of a serving chunk),
-   32,768 and 16,384 (a support and a query march), float32 and bfloat16,
-   the forward against its plain version (float32 within 2e-6 of the
-   output's largest magnitude; bfloat16 every element within one bf16 ulp,
-   the bit-equal share printed) and the table cotangent against its plain
-   version (float32 within 1e-5 of the sum of its terms' magnitudes;
-   bfloat16 per level no farther, in L2, from a float32-accumulated sum
-   than 1.5× the plain bf16 ``index_add_``), with a quarter of the points'
-   cotangents zero; the medians of 100 launches of each kernel, its plain
-   version and ``F.embedding_bag(mode="sum", per_sample_weights=w)`` on 8·h
-   + c (the yardstick, timed only), beside the byte bound (each distinct
-   byte once: x01, the distinct rows the points gather and the output;
-   for the cotangent x01, g and one write of the tables); Nearest on a
-   table whose row r holds 8·r + c in corner c, kernel equal to plain (h and
-   the corner exact); a pad case (a cell of many zero-cotangent points, real
-   points at most two to a row) bit-equal to plain in both types; MAML's
-   second derivative at 32,768 (forward, cotangent under ``create_graph``,
-   forward on the cotangent's cotangent: 2 + 1 launches) against the plain
+   of 32 per expert) on two point sets of ``ops/hashgrid_bench.py``:
+   random points from a seed, the first on cell faces of every level and at
+   1 − 1e-6, at P = 983,040 (one expert of a serving chunk), 32,768 and
+   16,384 (a support and a query march), a quarter of the cotangents zero;
+   and ray-ordered points, the packed samples of a budget march of the
+   smoke's camera over its 10 % grids in expert 0's box (a serving chunk,
+   983,040 slots, and 1,024 rays drawn from the frame, 32,768), cotangents
+   zero on the pad slots. Float32 and bfloat16 each: the forward against
+   its plain version (float32 within 2e-6 of the output's largest
+   magnitude; bfloat16 every element within one bf16 ulp, the bit-equal
+   share printed) and the table cotangent against its plain version
+   (float32 within 1e-5 of the sum of its terms' magnitudes; bfloat16 per
+   level no farther, in L2, from a float32-accumulated sum than 1.5× the
+   plain bf16 ``index_add_``); each kernel's card time per call as a run
+   of calls between one pair of CUDA events (a spin kernel first, so the
+   calls run back to back; the calls cycle over copies of their inputs
+   that together span 4 × the L2, so each finds its rows in device
+   memory), the same for its plain version and for
+   ``F.embedding_bag(mode="sum", per_sample_weights=w)`` on 8·h + c (the
+   yardstick, timed only), the wrapper's host time per call (enqueue only)
+   apart, beside the byte bound (each distinct byte once: x01, the distinct
+   rows the points gather and the output; for the cotangent x01, g and one
+   write of the tables); Nearest on a table whose row r holds 8·r + c in
+   corner c, kernel equal to plain (h and the corner exact); a pad case (a
+   cell of many zero-cotangent points, real points at most two to a row)
+   bit-equal to plain in both types; MAML's second derivative at 32,768
+   (forward, cotangent under ``create_graph``, forward on the cotangent's
+   cotangent: 2 + 1 launches) against the plain
    versions. Every main path above counts the two kernels' launches from 0
    (with the scan's) and fails unless it launched the forward, and the
    cotangent exactly when it trains: the dense, routed, single-expert,
@@ -1306,6 +1315,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
             emit({"phase": f"{name}_profile", "step_wall_ms": wall_ms,
                   "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
                   "kernel_launches": n_launch,
+                  "hash_kernels": hash_kernel_times(prof, busy_ms),
                   "top_ops_device_ms": {e.key[:60]: 1e-3 * (
                       getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
                       for e in top}})
@@ -1958,6 +1968,7 @@ def _profile_frame(torch, fn, profile_dir, name) -> None:
         getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)))[:12]
     emit({"phase": f"{name}_profile", "frame_wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
+          "hash_kernels": hash_kernel_times(prof, busy_ms),
           "top_ops_device_ms": {e.key[:60]: 1e-3 * (
               getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
               for e in top}})
@@ -3824,38 +3835,44 @@ def hash_kernel_entries(hk: dict, smi: str) -> list:
     """The kernels line's entries of the hash encode kernels: launches summed
     over the main paths (``HASH_BY_PATH``); times at the serving chunk in
     float32 for the forward and at a support march in bfloat16 (what
-    training runs) for the cotangent; every shape under ``shapes``."""
-    at = lambda P, dt: next(r for r in hk["shapes"] if r["P"] == P and r["dtype"] == dt)
+    training runs) for the cotangent, both on random points; every shape of
+    both point sets under ``shapes``."""
+    at = lambda P, dt: next(r for r in hk["shapes"]
+                            if r["set"] == "random" and r["P"] == P and r["dtype"] == dt)
     fwd, bwd = at(HASH_P[0], "float32"), at(HASH_P[1], "bfloat16")
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/hashgrid.cu", "bound_by": "bytes",
               "library_note": "F.embedding_bag(mode='sum', per_sample_weights=w) on 8·h + c, "
-                              "timed only", "nvidia_smi": smi}
-    keys = lambda pre: ["P", "dtype", f"{pre}_ms", f"{pre}_plain_ms", f"{pre}_bound_ms",
-                        f"{pre}_library_ms"]
+                              "timed only", "timing": "card ms per call over a run of calls "
+                              "between one pair of CUDA events, cycling over copies of the "
+                              "inputs that exceed the L2; host µs per call apart",
+              "nvidia_smi": smi}
+    keys = lambda pre: ["set", "P", "dtype", f"{pre}_ms", f"{pre}_host_us", f"{pre}_plain_ms",
+                        f"{pre}_bound_ms", f"{pre}_library_ms", f"{pre}_copies"]
     return [
         {"name": "hash_cell_fwd", "replaces": "acn_tpu/models/encodings.py:413 (no TPU "
          "kernel: _cell_saved_fwd_impl, plain XLA)",
          "launches": sum(c[0] for c in HASH_BY_PATH.values()),
          "launches_by_path": {k: c[0] for k, c in HASH_BY_PATH.items()},
-         "at": {"P": fwd["P"], "dtype": fwd["dtype"]}, "max_abs_err": fwd["fwd_max_abs_err"],
-         "ms": fwd["fwd_ms"], "plain_ms": fwd["fwd_plain_ms"], "bound_ms": fwd["fwd_bound_ms"],
+         "at": {"set": "random", "P": fwd["P"], "dtype": fwd["dtype"]},
+         "max_abs_err": fwd["fwd_max_abs_err"], "ms": fwd["fwd_ms"], "host_us": fwd["fwd_host_us"],
+         "plain_ms": fwd["fwd_plain_ms"], "bound_ms": fwd["fwd_bound_ms"],
          "library_ms": fwd["fwd_library_ms"],
          "shapes": [{k: r[k] for k in keys("fwd")} for r in hk["shapes"]], **common},
         {"name": "hash_cell_bwd_tables", "replaces": "acn_tpu/models/encodings.py:444 (no TPU "
          "kernel: _saved_bwd's table half, plain XLA)",
          "launches": sum(c[1] for c in HASH_BY_PATH.values()),
          "launches_by_path": {k: c[1] for k, c in HASH_BY_PATH.items()},
-         "at": {"P": bwd["P"], "dtype": bwd["dtype"]},
+         "at": {"set": "random", "P": bwd["P"], "dtype": bwd["dtype"]},
          "max_abs_err": at(HASH_P[1], "float32")["bwd_max_abs_err"],
-         "ms": bwd["bwd_ms"], "plain_ms": bwd["bwd_plain_ms"], "bound_ms": bwd["bwd_bound_ms"],
-         "library_ms": bwd["bwd_library_ms"], "double_backward": hk["double_backward"],
+         "ms": bwd["bwd_ms"], "host_us": bwd["bwd_host_us"], "plain_ms": bwd["bwd_plain_ms"],
+         "bound_ms": bwd["bwd_bound_ms"], "library_ms": bwd["bwd_library_ms"],
+         "double_backward": hk["double_backward"],
          "shapes": [{k: r[k] for k in keys("bwd")} for r in hk["shapes"]], **common},
     ]
 
 
 HASH_P = (983_040, 32_768, 16_384)  # one expert of a serving chunk; a support
 # and a query march of a training step (1,024 and 512 rays × 32 samples)
-HASH_REPS = 100
 HASH_F32_RTOL = 2e-6  # of the output's largest magnitude (sum order)
 HASH_BF16_L2_FACTOR = 1.5  # bf16 cotangent: distance from an f32 sum, × plain's
 HASH_PAD_REAL = 256  # the pad-collision case's real points
@@ -3873,33 +3890,6 @@ def hash_kernel_times(prof, busy_ms) -> dict:
     return out
 
 
-def _median_ms(torch, fn, n=HASH_REPS) -> float:
-    """The median of ``n`` calls of ``fn``, each between its own pair of CUDA
-    events (≈ 5 µs of the events' own cost in each), after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in range(n)]
-    for a, b in evs:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in evs)
-
-
-def _hash_points(torch, hcfg, P, gen):
-    """P points in [ENC_EPS, 1 − ENC_EPS]³ on the card, the first ones on the
-    edges the bits hinge on: 1 − 1e-6 (1.0 in bf16), and faces k/res of every
-    level."""
-    x = torch.rand((P, 3), generator=gen, device="cuda").clamp_(1e-6, 1 - 1e-6)
-    x[:64] = 1 - 1e-6
-    for l, r in enumerate(hcfg.level_resolutions()):
-        k = torch.randint(0, int(r) + 1, (64, 3), generator=gen, device="cuda")
-        x[64 * (l + 1):64 * (l + 2)] = (k.float() / float(r)).clamp_(1e-6, 1 - 1e-6)
-    return x
-
-
 def _ulps_bf16(torch, a, b):
     """|a − b| in bf16 ulps of b, elementwise."""
     a, b = a.float(), b.float()
@@ -3908,40 +3898,53 @@ def _ulps_bf16(torch, a, b):
     return (a - b).abs() / ulp
 
 
-def _embedding_bag_yardstick(torch, hg, tables, x, hcfg, g):
-    """One PyTorch call for the same gather-and-blend, timed only (the port
-    never calls it): ``embedding_bag(mode="sum", per_sample_weights=w)`` on
-    indices 8·h + c over the levels' tables stacked and viewed as
-    (rows·8, F); and its backward to the table. (ms forward, ms backward)."""
-    import torch.nn.functional as Fn
-
-    F = hcfg.features_per_level
-    offs = np.cumsum([0] + [int(t.shape[0]) for t in tables[:-1]])
-    idx, psw = [], []
-    for l in range(hcfg.levels):
-        h, frac = hg._cell_index(x, hcfg, l)
-        idx.append(8 * (h + int(offs[l]))[:, None]
-                   + torch.arange(8, device=x.device)[None, :])
-        psw.append(hg._corner_weights(hg._interp_frac(frac, hcfg.interpolation))
-                   .to(tables[0].dtype))
-    idx, psw = torch.cat(idx), torch.cat(psw)
-    weight = torch.cat(tables).view(-1, F).requires_grad_(True)
-    with torch.no_grad():
-        fwd_ms = _median_ms(torch, lambda: Fn.embedding_bag(
-            idx, weight, mode="sum", per_sample_weights=psw))
-    out = Fn.embedding_bag(idx, weight, mode="sum", per_sample_weights=psw)
-    gout = g.view(-1, hcfg.levels, F).transpose(0, 1).reshape(-1, F)
-    bwd_ms = _median_ms(torch, lambda: torch.autograd.grad(out, weight, gout,
-                                                           retain_graph=True))
-    return fwd_ms, bwd_ms
+def check_hash_kernels(torch, hg, tables, x, g, hcfg, rows, what: str) -> dict:
+    """Both kernels against their plain versions on one input (phase 14's
+    limits); returns the errors."""
+    L = hcfg.levels
+    dt = tables[0].dtype
+    got = hg.hash_cell_fwd_kernel(tables, x, hcfg)
+    want = hg.hash_cell_fwd_plain(tables, x, hcfg)
+    got_t = hg.hash_cell_bwd_tables_kernel(x, g, hcfg, rows, [dt] * L)
+    want_t = hg.hash_cell_bwd_tables_plain(x, g, hcfg, rows, [dt] * L)
+    torch.cuda.synchronize()
+    fwd_err = float((got.float() - want.float()).abs().max())
+    if dt == torch.float32:
+        top = float(want.abs().max())
+        check(fwd_err <= HASH_F32_RTOL * top,
+              f"hash forward {what}: max |kernel − plain| {fwd_err}, largest |out| {top}")
+        mag = hg.hash_cell_bwd_tables_plain(x, g.abs(), hcfg, rows, [dt] * L)
+        ratio = max(float(((a - b).abs() / (m + 1e-30)).max())
+                    for a, b, m in zip(got_t, want_t, mag))
+        check(ratio <= 1e-5, f"hash cotangent {what}: |kernel − plain| up to {ratio} of "
+              "the terms' magnitudes, want ≤ 1e-5")
+        return dict(fwd_max_abs_err=fwd_err, fwd_max_abs=top, bwd_err_of_magnitude=ratio,
+                    bwd_max_abs_err=max(float((a - b).abs().max())
+                                        for a, b in zip(got_t, want_t)))
+    ulps = _ulps_bf16(torch, got, want)
+    check(float(ulps.max()) <= 1.0, f"hash forward {what}: {float(ulps.max())} ulps from plain")
+    ref = hg.hash_cell_bwd_tables_plain(x, g.float(), hcfg, rows, [torch.float32] * L)
+    dk = [float((a.float() - r).norm()) for a, r in zip(got_t, ref)]
+    dp = [float((b.float() - r).norm()) for b, r in zip(want_t, ref)]
+    check(all(a <= HASH_BF16_L2_FACTOR * b for a, b in zip(dk, dp)),
+          f"hash cotangent {what}: distance from the f32 sum per level {dk}, plain's {dp}")
+    unequal = int((got != want).sum())
+    return dict(fwd_max_abs_err=fwd_err, fwd_max_ulps=float(ulps.max()),
+                fwd_unequal_elements=unequal, fwd_bit_equal_share=1.0 - unequal / got.numel(),
+                bwd_l2_from_f32_sum=dk, plain_bwd_l2_from_f32_sum=dp,
+                bwd_max_abs_from_f32_sum=max(float((a.float() - r).abs().max())
+                                             for a, r in zip(got_t, ref)),
+                plain_bwd_max_abs_from_f32_sum=max(float((b.float() - r).abs().max())
+                                                   for b, r in zip(want_t, ref)))
 
 
 def phase_hash(torch, toy) -> dict:
     """The hash encode kernels (module docstring, phase 14)."""
     from acn_tpu_torch.models import encodings as enc
+    from acn_tpu_torch.ops import hashgrid_bench as hb
 
     hg = _hashgrid()
-    hcfg = toy.train_occ_config()[0].expert.hash
+    hcfg = hb.hash_config()
     L, F = hcfg.levels, hcfg.features_per_level
     rows = [hcfg.level_rows(l) for l in range(L)]
     torch.cuda.empty_cache()
@@ -3949,77 +3952,19 @@ def phase_hash(torch, toy) -> dict:
     tables32 = [(torch.rand((r, 8 * F), generator=gen, device="cuda") * 2 - 1) * 1e-3
                 for r in rows]
     shapes, t_start = [], time.perf_counter()
-    for P in HASH_P:
-        x32 = _hash_points(torch, hcfg, P, gen)
-        g32 = torch.randn((P, L * F), generator=gen, device="cuda")
-        g32[::4] = 0.0  # pad slots carry a zero cotangent
+    check(hb.RANDOM_P == HASH_P, f"hashgrid_bench's sizes {hb.RANDOM_P}, want {HASH_P}")
+    for name, P, x32, g32 in hb.point_sets(hcfg, ("random", "rays"), gen):
         for dt in (torch.float32, torch.bfloat16):
             x, g = x32.to(dt), g32.to(dt)
             tables = [t.to(dt) for t in tables32]
-            sx = sg = x.element_size()
-            got = hg.hash_cell_fwd_kernel(tables, x, hcfg)
-            want = hg.hash_cell_fwd_plain(tables, x, hcfg)
-            got_t = hg.hash_cell_bwd_tables_kernel(x, g, hcfg, rows, [dt] * L)
-            want_t = hg.hash_cell_bwd_tables_plain(x, g, hcfg, rows, [dt] * L)
-            torch.cuda.synchronize()
-            row = {"P": P, "dtype": str(dt).split(".")[-1]}
-            fwd_err = float((got.float() - want.float()).abs().max())
-            if dt == torch.float32:
-                top = float(want.abs().max())
-                check(fwd_err <= HASH_F32_RTOL * top,
-                      f"hash forward P {P} f32: max |kernel − plain| {fwd_err}, largest "
-                      f"|out| {top}")
-                mag = hg.hash_cell_bwd_tables_plain(x, g.abs(), hcfg, rows, [dt] * L)
-                ratio = max(float(((a - b).abs() / (m + 1e-30)).max())
-                            for a, b, m in zip(got_t, want_t, mag))
-                check(ratio <= 1e-5, f"hash cotangent P {P} f32: |kernel − plain| up to "
-                      f"{ratio} of the terms' magnitudes, want ≤ 1e-5")
-                row.update(fwd_max_abs_err=fwd_err, fwd_max_abs=top,
-                           bwd_err_of_magnitude=ratio,
-                           bwd_max_abs_err=max(float((a - b).abs().max())
-                                               for a, b in zip(got_t, want_t)))
-            else:
-                ulps = _ulps_bf16(torch, got, want)
-                check(float(ulps.max()) <= 1.0,
-                      f"hash forward P {P} bf16: {float(ulps.max())} ulps from plain")
-                ref = hg.hash_cell_bwd_tables_plain(x, g.float(), hcfg, rows,
-                                                    [torch.float32] * L)
-                dk = [float((a.float() - r).norm()) for a, r in zip(got_t, ref)]
-                dp = [float((b.float() - r).norm()) for b, r in zip(want_t, ref)]
-                check(all(a <= HASH_BF16_L2_FACTOR * b for a, b in zip(dk, dp)),
-                      f"hash cotangent P {P} bf16: distance from the f32 sum per level "
-                      f"{dk}, plain's {dp}")
-                unequal = int((got != want).sum())
-                row.update(fwd_max_abs_err=fwd_err, fwd_max_ulps=float(ulps.max()),
-                           fwd_unequal_elements=unequal,
-                           fwd_bit_equal_share=1.0 - unequal / got.numel(),
-                           bwd_l2_from_f32_sum=dk, plain_bwd_l2_from_f32_sum=dp,
-                           bwd_max_abs_from_f32_sum=max(
-                               float((a.float() - r).abs().max()) for a, r in zip(got_t, ref)),
-                           plain_bwd_max_abs_from_f32_sum=max(
-                               float((b.float() - r).abs().max()) for b, r in zip(want_t, ref)))
-            del got, want, got_t, want_t
-            # each distinct byte once: x01, the distinct rows this run's
-            # points gather, the output; for the cotangent x01, g and one
-            # write of the tables (the adds land in L2)
-            distinct = sum(int(torch.unique(hg._cell_index(x, hcfg, l)[0]).numel())
-                           for l in range(L))
-            st = tables[0].element_size()
-            fwd_bytes = P * 3 * sx + distinct * 8 * F * st + P * L * F * st
-            bwd_bytes = P * 3 * sx + P * L * F * sg + sum(rows) * 8 * F * st
-            lib_f, lib_b = _embedding_bag_yardstick(torch, hg, tables, x, hcfg, g)
-            row.update(
-                fwd_ms=_median_ms(torch, lambda: hg.hash_cell_fwd_kernel(tables, x, hcfg)),
-                fwd_plain_ms=_median_ms(torch, lambda: hg.hash_cell_fwd_plain(tables, x, hcfg)),
-                fwd_bound_ms=1e3 * fwd_bytes / HBM_BYTES_PER_S, fwd_library_ms=lib_f,
-                distinct_rows=distinct,
-                bwd_ms=_median_ms(torch, lambda: hg.hash_cell_bwd_tables_kernel(
-                    x, g, hcfg, rows, [dt] * L)),
-                bwd_plain_ms=_median_ms(torch, lambda: hg.hash_cell_bwd_tables_plain(
-                    x, g, hcfg, rows, [dt] * L)),
-                bwd_bound_ms=1e3 * bwd_bytes / HBM_BYTES_PER_S, bwd_library_ms=lib_b)
+            row = {"set": name, "P": P, "dtype": str(dt).split(".")[-1],
+                   "zero_cotangent_rows": int((g32 == 0).all(dim=1).sum()),
+                   **check_hash_kernels(torch, hg, tables, x, g, hcfg, rows,
+                                        f"{name} P {P} {row_dtype(dt)}"),
+                   **hb.time_kernels(tables, x, g, hcfg, rows)}
             shapes.append(row)
             emit({"phase": "hash_kernels", **row})
+            del tables
             torch.cuda.empty_cache()
 
     # h and the corner, exactly: Nearest picks one corner with weight 1 from
@@ -4028,7 +3973,7 @@ def phase_hash(torch, toy) -> dict:
     ramp = [(8 * torch.arange(r, device="cuda", dtype=torch.float32)[:, None, None]
              + torch.arange(8, device="cuda", dtype=torch.float32)[None, :, None])
             .expand(r, 8, F).reshape(r, 8 * F).contiguous() for r in rows]
-    x = _hash_points(torch, hcfg, HASH_P[0], gen)
+    x = hb.random_points(hcfg, HASH_P[0], gen)
     check(torch.equal(hg.hash_cell_fwd_kernel(ramp, x, near),
                       hg.hash_cell_fwd_plain(ramp, x, near)),
           "Nearest: the kernel's row or corner differs from the plain version's")
@@ -4052,13 +3997,13 @@ def phase_hash(torch, toy) -> dict:
         check(most <= 2, f"the pad case put {most} real points in one row ({dt})")
         got = hg.hash_cell_bwd_tables_kernel(x.to(dt), g.to(dt), hcfg, rows, [dt] * L)
         want = hg.hash_cell_bwd_tables_plain(x.to(dt), g.to(dt), hcfg, rows, [dt] * L)
-        pad_equal[str(dt).split(".")[-1]] = all(torch.equal(a, b) for a, b in zip(got, want))
+        pad_equal[row_dtype(dt)] = all(torch.equal(a, b) for a, b in zip(got, want))
     check(all(pad_equal.values()), f"pad-collision case bit-equal to plain: {pad_equal}")
 
     # MAML's second derivative at a support march: forward kernel, cotangent
     # kernel under create_graph, forward kernel on the cotangent's cotangent
     P = HASH_P[1]
-    x = _hash_points(torch, hcfg, P, gen)
+    x = hb.random_points(hcfg, P, gen)
     tabs = [t.clone().requires_grad_(True) for t in tables32]
     g = torch.randn((P, L * F), generator=gen, device="cuda", requires_grad=True)
     v = [torch.randn(t.shape, generator=gen, device="cuda") for t in tables32]
@@ -4086,6 +4031,10 @@ def phase_hash(torch, toy) -> dict:
     del tabs, grads, dg, out
     torch.cuda.empty_cache()
     return {"shapes": shapes, "double_backward": double}
+
+
+def row_dtype(dt) -> str:
+    return str(dt).split(".")[-1]
 
 
 def main() -> int:

@@ -223,6 +223,80 @@ def test_each_source_builds_its_own_library():
     assert cuda_lib.library_path(("SEGSCAN_ITEMS=4",)) != paths["segscan"]
 
 
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("interpolation", INTERPOLATIONS)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_cached_launch_constants_equal_fresh_ones(x_dtype, interpolation, dense):
+    """What the wrappers cache per (config, x01 type) is what a fresh build
+    gives, and what the cell math says: the scale rounded to x01's type
+    (4095 → 4096 in bf16), the resolution, the dense flag, the ladder."""
+    cfg = tenc.HashGridConfig(**_cfg_kw(4, interpolation, dense))
+    cached, fresh = hg._consts(cfg, x_dtype), hg._consts.__wrapped__(cfg, x_dtype)
+    assert hg._consts(cfg, x_dtype) is cached and fresh is not cached
+    L = cfg.levels
+    res = [int(r) for r in cfg.level_resolutions()]
+    for c in (cached, fresh):
+        assert list(c.scale) == [hg._res_as(r, x_dtype) for r in res]
+        assert list(c.res) == res
+        assert list(c.dense) == [int(hg._is_dense(cfg, l)) for l in range(L)]
+        assert c.rows == tuple(cfg.level_rows(l) for l in range(L)) == tuple(c.rows_arr)
+        assert c.tail == (L, 4, cfg.log2_hashmap_size, INTERPOLATIONS.index(interpolation))
+        assert (c.x_bf16, c.width, c.out_dim) == (int(x_dtype == torch.bfloat16), 32, 4 * L)
+    assert hg.level_rows(cfg) == cached.rows
+    if x_dtype == torch.bfloat16:
+        assert list(cached.scale)[-1] == 4096.0 and res[-1] == 4095
+
+
+def test_launch_constants_refuse_configs_the_kernels_do_not_take():
+    for kw in (dict(features_per_level=3), dict(levels=33), dict(log2_hashmap_size=0),
+               dict(interpolation="Cubic")):
+        cfg = tenc.HashGridConfig(**{**_cfg_kw(), **kw})
+        with pytest.raises(ValueError):
+            hg._consts.__wrapped__(cfg, torch.float32)
+
+
+def test_table_checks_refuse_what_the_kernels_do_not_take():
+    """``_check_tables`` on CPU tensors (device index −1): the tables the
+    kernels take pass and give their pointers; each fault raises."""
+    cfg = tenc.HashGridConfig(**_cfg_kw(4))
+    c = hg._consts(cfg, torch.float32)
+    good = [torch.zeros((r, 32)) for r in c.rows]
+    dtype, ptrs = hg._check_tables(good, c, -1, "t")
+    assert dtype == torch.float32 and list(ptrs) == [t.data_ptr() for t in good]
+    hg._check_tables([torch.zeros((r + 5, 32)) for r in c.rows], c, -1, "t")  # more rows
+    buf = torch.zeros(c.rows[1] * 32 + 1)
+    faults = {
+        "count": good[:-1],
+        "type": [t.double() for t in good],
+        "mixed types": good[:1] + [t.bfloat16() for t in good[1:]],
+        "device": None,
+        "contiguous": good[:1] + [torch.zeros((32, c.rows[1])).t()] + good[2:],
+        "rows": good[:1] + [torch.zeros((c.rows[1] - 1, 32))] + good[2:],
+        "width": good[:1] + [torch.zeros((c.rows[1], 16))] + good[2:],
+        "aligned": good[:1] + [buf[1:].view(c.rows[1], 32)] + good[2:],
+    }
+    for what, tables in faults.items():
+        with pytest.raises((ValueError, TypeError)):
+            hg._check_tables(good if tables is None else tables, c,
+                             0 if tables is None else -1, what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [2, 4, 8])
+def test_cotangent_tables_are_separate_aligned_blocks_of_one_allocation(F, dtype):
+    nrows = (4096, 42875, 131072, 3)
+    tables = hg._alloc_tables(nrows, 8 * F, dtype, "cpu")
+    assert [tuple(t.shape) for t in tables] == [(r, 8 * F) for r in nrows]
+    assert all(t.dtype == dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tables)
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tables)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))  # no overlap
+    for l, t in enumerate(tables):
+        t.fill_(l + 1)
+    assert all(bool((t == l + 1).all()) for l, t in enumerate(tables))
+
+
 # ------------------------------------------------------------------ the card
 
 
@@ -336,3 +410,201 @@ def test_double_backward_on_card_matches_plain():
     for a, b in zip(got_t, want_t):
         torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-5, atol=1e-9)
     torch.testing.assert_close(got_g, want_g, rtol=1e-5, atol=1e-7)
+
+
+def _card_pair(xt, tt, F, P, levels=4, seed=9):
+    """x01 (P, 3), tables, g (P, L·F) on the card from numpy draws."""
+    kw = {**_cfg_kw(F), "levels": levels}
+    cfg = tenc.HashGridConfig(**kw)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((P, 3)).astype(np.float32))
+    tabs = [torch.from_numpy(t) for t in _tables(cfg, seed=seed)]
+    g = torch.from_numpy(rng.normal(size=(P, cfg.out_dim)).astype(np.float32))
+    dev = "cuda"
+    return (cfg, x.to(dev, getattr(torch, xt)), [t.to(dev, getattr(torch, tt)) for t in tabs],
+            g.to(dev, getattr(torch, tt)))
+
+
+def _most_adds(h: torch.Tensor, real: torch.Tensor, nrows: int) -> torch.Tensor:
+    """(nrows,) float: at most how many adds the cotangent kernel makes into
+    each row of a level, from the points' rows h and which of them carry a
+    nonzero cotangent: one a point, but one for a warp's 32 points (32
+    aligned points, as the kernel's warps take a level) that all carry one
+    and all fall in the row (their runs end together and are summed
+    first)."""
+    h, real = h.reshape(-1).cpu(), real.reshape(-1).cpu()
+    n = torch.bincount(h[real], minlength=nrows).float()
+    whole = h.numel() // 32 * 32
+    seg, seg_real = h[:whole].view(-1, 32), real[:whole].view(-1, 32)
+    one_row = (seg == seg[:, :1]).all(1) & seg_real.all(1)
+    return n - 31 * torch.bincount(seg[one_row, 0], minlength=nrows).float()
+
+
+def _hold_to_plain(cfg, x, tabs, g):
+    """The kernels against the plain versions at the card tests' limits:
+    float32 forward within 2e-6 of the largest |out|, cotangent rtol 1e-5 /
+    atol 1e-6; bfloat16 forward within one ulp, cotangent within n · 2^-8 of
+    the terms' magnitudes, n the most adds the kernel can make into that
+    row (``_most_adds``). Returns n per level."""
+    nrows, dtypes = [t.shape[0] for t in tabs], [t.dtype for t in tabs]
+    got = hg.hash_cell_fwd_kernel(tabs, x, cfg)
+    got_t = hg.hash_cell_bwd_tables_kernel(x, g, cfg, nrows, dtypes)
+    torch.cuda.synchronize()
+    want = hg.hash_cell_fwd_plain(tabs, x, cfg)
+    assert got.shape == want.shape == (x.shape[0], cfg.out_dim) and got.dtype == want.dtype
+    if x.shape[0] == 0:
+        assert all(not bool(t.any()) for t in got_t)
+        return []
+    F = cfg.features_per_level
+    adds = [_most_adds(hg._cell_index(x, cfg, l)[0], (g[:, l * F:(l + 1) * F] != 0).any(-1),
+                       nrows[l]) for l in range(cfg.levels)]
+    if tabs[0].dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+        for a, b in zip(got_t, hg.hash_cell_bwd_tables_plain(x, g, cfg, nrows, dtypes)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        return adds
+    assert float(_ulps_apart_bf16(got, want).max()) <= 1.0
+    # the float32 sum of the kernel's own terms, w and each product rounded
+    # to bf16 as the plain version rounds them (a row of one add: the bound
+    # is the rounding of its sum alone)
+    ref = hg.hash_cell_bwd_tables_plain(x, g, cfg, nrows, [torch.float32] * cfg.levels)
+    mag = hg.hash_cell_bwd_tables_plain(x, g.abs(), cfg, nrows, [torch.float32] * cfg.levels)
+    for l, (a, r, m, n) in enumerate(zip(got_t, ref, mag, adds)):
+        bound = n.to(m.device)[:, None] * BF16_EPS * m
+        assert bool(((a.float() - r).abs() <= bound).all()), l
+    return adds
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("levels", [4, 3])
+@pytest.mark.parametrize("P", [0, 1, 63, 65, 1000])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_kernels_at_ragged_and_empty_point_counts_on_card(tt, P, levels):
+    """P off the block's points (64 at 4 levels a block), one point, none;
+    3 levels leave a block's level group short."""
+    _card()
+    cfg, x, tabs, g = _card_pair("float32", tt, 4, P, levels=levels)
+    before = hg.launch_counts()
+    _hold_to_plain(cfg, x, tabs, g)
+    assert hg.launch_counts() == (before[0] + (1 if P else 0), before[1] + 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("xt,tt", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16"), ("bfloat16", "float32")])
+def test_every_row_width_on_card(xt, tt, F):
+    """Rows of 64, 128 and 256 bytes in float32 (4, 8, 16 lanes a task; at
+    F = 8 a corner spans two lanes), 32, 64 and 128 in bfloat16."""
+    _card()
+    _hold_to_plain(*_card_pair(xt, tt, F, 777))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_a_warp_of_points_in_one_row_is_summed_first_on_card(tt, F):
+    """96 neighbouring points in one level-0 cell (ray order on a coarse
+    level), three whole warps of it: the cotangent sums each warp's runs in
+    f32 before one add, at every group width (float32: 4, 8 and 16 lanes a
+    task; bfloat16: 2, 4 and 8). Float32 within rtol 1e-5 of plain;
+    bfloat16 within n · 2^-8 of the terms' magnitudes with n = 3 in that
+    row (one add a warp), not 96."""
+    _card()
+    cfg, _, tabs, g = _card_pair("float32", tt, F, 96 + 32)
+    rng = np.random.default_rng(11)
+    x = np.concatenate([(3 + 0.1 + 0.8 * rng.random((96, 3))) / 16.0,
+                        rng.random((32, 3))]).astype(np.float32)
+    x = torch.from_numpy(x).cuda()
+    row = int(hg._cell_index(x[:1], cfg, 0)[0])
+    assert int(torch.bincount(hg._cell_index(x, cfg, 0)[0])[row]) >= 96
+    adds = _hold_to_plain(cfg, x, tabs, g)
+    assert 3 <= float(adds[0][row]) <= 4  # three warps, and a random point at most
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_pad_slots_change_no_bit_on_card(tt):
+    """Many zero-cotangent points in one cell (a budget pack's pad slots)
+    beside real points at most two to a row: the kernel's tables equal the
+    plain ``index_add_``'s bit for bit."""
+    _card()
+    cfg = tenc.HashGridConfig(**_cfg_kw(4))
+    rng = np.random.default_rng(23)
+    cells = rng.choice(16**3, size=200, replace=False)
+    ijk = np.stack([cells // 256, (cells // 16) % 16, cells % 16], -1)
+    real = (ijk + 0.05 + 0.9 * rng.random((200, 3))) / 16.0
+    x = np.concatenate([real, np.repeat(real[:1], 3000, 0)]).astype(np.float32)
+    g = rng.normal(size=(len(x), cfg.out_dim)).astype(np.float32)
+    g[200:] = 0.0
+    dt = getattr(torch, tt)
+    x, g = torch.from_numpy(x).cuda(), torch.from_numpy(g).cuda().to(dt)
+    for l in range(cfg.levels):
+        assert int(torch.bincount(hg._cell_index(x[:200], cfg, l)[0]).max()) <= 2
+    nrows = [cfg.level_rows(l) for l in range(cfg.levels)]
+    got = hg.hash_cell_bwd_tables_kernel(x, g, cfg, nrows, [dt] * cfg.levels)
+    want = hg.hash_cell_bwd_tables_plain(x, g, cfg, nrows, [dt] * cfg.levels)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bench_ray_ordered_points_are_a_packed_march():
+    """The ray-ordered set of ``ops/hashgrid_bench.py`` (phase 14 of the
+    smoke), at 64 rays on the CPU: 32 slots a ray, real samples first and
+    ray-major, x01 inside the clamp, neighbouring samples mostly in one
+    level-0 cell."""
+    from acn_tpu_torch.models.ngp import ENC_EPS
+    from acn_tpu_torch.ops import hashgrid_bench as bh
+
+    x, real = bh.ray_ordered_points(64, device="cpu")
+    assert x.shape == (64 * 32, 3) and x.dtype == torch.float32 and x.is_contiguous()
+    n = int(real.sum())
+    assert 0 < n < x.shape[0] and bool(real[:n].all()) and not bool(real[n:].any())
+    eps = float(torch.tensor(ENC_EPS, dtype=torch.float32))  # the clamp's float32 bound
+    assert float(x.min()) >= eps and float(x.max()) <= 1 - eps
+    h, _ = hg._cell_index(x[:n], bh.hash_config(), 0)
+    assert float((h[1:] == h[:-1]).float().mean()) > 0.5
+
+
+def test_most_adds_counts_a_point_each_but_one_a_whole_warp():
+    h = torch.tensor([5] * 32 + [5] * 31 + [7] + [5] * 3)
+    real = torch.ones(h.numel(), dtype=torch.bool)
+    assert _most_adds(h, real, 8).tolist() == [0, 0, 0, 0, 0, 1 + 31 + 3, 0, 1]
+    real[3] = False  # a pad slot: the warp's runs may end apart
+    assert _most_adds(h, real, 8).tolist() == [0, 0, 0, 0, 0, 31 + 31 + 3, 0, 1]
+
+
+def test_timing_copies_span_the_cold_bytes():
+    """The timed runs cycle over copies of the inputs that together exceed
+    the L2 four times; one copy where a call's bytes already do."""
+    from acn_tpu_torch.ops import hashgrid_bench as hb
+
+    assert hb.COLD_BYTES >= 4 * hb.L2_BYTES
+    assert hb.copies_for(hb.COLD_BYTES) == hb.copies_for(10 * hb.COLD_BYTES) == 1
+    assert hb.copies_for(hb.COLD_BYTES / 3) == 3 and hb.copies_for(hb.COLD_BYTES / 2.5) == 3
+    assert hb.copies_for(1.0) == hb.copies_for(0) == hb.MAX_COPIES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bench_bounds_count_each_distinct_byte_once(dtype):
+    """The byte bound: x01 and the output once a point, each distinct row
+    once however many points gather it; the cotangent x01, g and one write
+    of every table row."""
+    from acn_tpu_torch.ops import hashgrid_bench as hb
+
+    cfg = tenc.HashGridConfig(**_cfg_kw(4))
+    L, F = cfg.levels, cfg.features_per_level
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((50, 3)).astype(np.float32))
+    x = torch.cat([x, x[:10], x[:10]]).to(dtype)  # 20 repeats gather no new row
+    rows = [cfg.level_rows(l) for l in range(L)]
+    tabs = [torch.zeros((r, 8 * F), dtype=dtype) for r in rows]
+    g = torch.zeros((70, L * F), dtype=dtype)
+    d = sum(len(set(hg._cell_index(x[:50], cfg, l)[0].tolist())) for l in range(L))
+    s = x.element_size()
+    fwd, bwd, got_d = hb.work_bytes(x, g, tabs, rows, cfg)
+    assert got_d == d
+    assert fwd == 70 * 3 * s + d * 8 * F * s + 70 * L * F * s
+    assert bwd == 70 * 3 * s + 70 * L * F * s + sum(rows) * 8 * F * s
+    f_ms, b_ms, _ = hb.bounds_ms(x, g, tabs, rows, cfg)
+    assert f_ms == pytest.approx(1e3 * fwd / hb.HBM_BYTES_PER_S)
+    assert b_ms == pytest.approx(1e3 * bwd / hb.HBM_BYTES_PER_S)
