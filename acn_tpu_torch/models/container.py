@@ -10,7 +10,10 @@ functional forward of the config's variant (``instant``: ``ngp``,
 ``vanilla``: ``vanilla``) as views. Training works on ``Container.params()``,
 the parameters as a plain tree ``{"experts", "bg_mlp"}``, and runs an expert
 on any tree of that structure (fast weights) through
-``ContainerConfig.expert_forward``.
+``ContainerConfig.expert_forward``. Where no gradient is recorded, NGP
+experts and their blend run through ``ops/ngp_net`` (``uses_net``): the K
+hash encodes write into one (K, N, L·F) buffer and one call (the CUDA
+kernel on the card) evaluates and blends the K networks.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from acn_tpu_torch.models.encodings import (
 )
 from acn_tpu_torch.models.ngp import NGPConfig
 from acn_tpu_torch.models.vanilla import VanillaConfig
+from acn_tpu_torch.ops import ngp_net
 
 
 @dataclass(frozen=True)
@@ -227,6 +231,30 @@ def param_group_labels(params: dict) -> dict:
 # ============================ network calls ============================
 
 
+def uses_net(model: Container, x: torch.Tensor) -> bool:
+    """Whether the experts run through ``ops/ngp_net`` (one call for all K):
+    NGP experts, and no gradient recorded at float32 points
+    (``ngp_net.takes``)."""
+    return model.cfg.nerf_variant == "instant" and ngp_net.takes(x)
+
+
+def expert_features(model: Container, xyz: torch.Tensor) -> torch.Tensor:
+    """(K, N, L·F): every expert's hash features at xyz (N, 3), which the K
+    encodes write into one buffer (no gradient: ``hash_encode(out=)``)."""
+    ecfg = model.cfg.expert
+    K = model.cfg.num_submodules
+    h = torch.empty((K, xyz.shape[0], ecfg.hash.out_dim), dtype=xyz.dtype,
+                    device=xyz.device)
+    for k in range(K):
+        ngp_mod.hash_features(model.expert(k), ecfg, model.expert_aabbs[k], xyz, out=h[k])
+    return h
+
+
+def net_experts(model: Container) -> list:
+    """The K experts' parameter dicts (views), for ``ngp_net``."""
+    return [model.expert(k) for k in range(model.cfg.num_submodules)]
+
+
 def container_forward(
     model: Container,
     x: torch.Tensor,  # (N, D>=6) [xyz, dir, ...]
@@ -234,12 +262,19 @@ def container_forward(
 ) -> torch.Tensor:
     """Routed forward: one expert on everything when ``active_module`` is
     set, else all K experts blended with the dense routing weights,
-    y = Σ_k w_k · y_k. Returns (N, 4) [rgb, σ]."""
+    y = Σ_k w_k · y_k. Returns (N, 4) [rgb, σ]. Without a gradient
+    (``uses_net``) one expert is ``ngp_net``'s ``single`` mode (through
+    ``ngp_forward``) and the blend its ``linear_blend`` mode."""
     cfg = model.cfg
     fwd = cfg.expert_forward
     if active_module is not None:
         return fwd(model.expert(active_module), cfg.expert,
                    model.expert_aabbs[active_module], x[..., :6])
+    if uses_net(model, x):
+        w = routing_weights(model.centroids, x[..., :3], cfg.cluster_2d,
+                            cfg.boundary_margin)
+        return ngp_net.ngp_net("linear_blend", expert_features(model, x[..., :3]),
+                               x[..., 3:6], w, net_experts(model), cfg.expert)
     ys = torch.stack([
         fwd(model.expert(k), cfg.expert, model.expert_aabbs[k], x[..., :6])
         for k in range(cfg.num_submodules)
@@ -255,12 +290,17 @@ def container_density(
     active_module: Optional[int] = None,
 ) -> torch.Tensor:
     """Routed density query → σ (N,): one expert's when ``active_module`` is
-    set, else Σ_k w_k · σ_k with the dense routing weights."""
+    set, else Σ_k w_k · σ_k with the dense routing weights. Without a
+    gradient (``uses_net``) both are ``ngp_net``'s ``density`` mode."""
     cfg = model.cfg
     dens = cfg.expert_density
     if active_module is not None:
         return dens(model.expert(active_module), cfg.expert,
                     model.expert_aabbs[active_module], xyz)[..., 0]
+    if uses_net(model, xyz):
+        w = routing_weights(model.centroids, xyz, cfg.cluster_2d, cfg.boundary_margin)
+        return ngp_net.ngp_net("density", expert_features(model, xyz), None, w,
+                               net_experts(model), cfg.expert)
     sig = torch.stack([
         dens(model.expert(k), cfg.expert, model.expert_aabbs[k], xyz)[..., 0]
         for k in range(cfg.num_submodules)

@@ -109,7 +109,7 @@ def frequency_encode(x: torch.Tensor, pe_dim: int, include_input: bool = True,
     xin = x * (math.pi if use_pi else 1.0)
     x_exp = xin[..., None] * bands  # (..., D, L)
     pe = torch.cat([torch.cos(x_exp), torch.sin(x_exp)], dim=-1)
-    pe = pe.reshape(*x.shape[:-1], -1)
+    pe = pe.reshape(*x.shape[:-1], 2 * pe_dim * x.shape[-1])  # no -1: P may be 0
     return torch.cat([x, pe], dim=-1) if include_input else pe
 
 
@@ -289,6 +289,11 @@ def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Te
     takes ``_HashEncodeCellSaved``: the kernels on the card, their plain
     versions on the CPU (its backward recomputes from x01, so ``"remat"``
     and ``"save_rows"`` are one path)."""
+    _check_rows(tables, cfg)
+    return _HashEncodeCellSaved.apply(x01, cfg, *tables)
+
+
+def _check_rows(tables, cfg: HashGridConfig) -> None:
     got = tuple(int(t.shape[0]) for t in tables)
     want = level_rows(cfg)
     if got != want:
@@ -297,12 +302,23 @@ def hash_encode_cell(tables, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Te
             f"{want}, tables have {got})")
     if cfg.cell_backward not in ("save_rows", "remat"):
         raise ValueError(f"unknown cell_backward {cfg.cell_backward!r}")
-    return _HashEncodeCellSaved.apply(x01, cfg, *tables)
 
 
-def hash_encode(table, x01: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+def hash_encode(table, x01: torch.Tensor, cfg: HashGridConfig,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatch on the layout: ``cell`` → ``hash_encode_cell``, ``corner`` →
-    ``hash_encode_jnp``."""
+    ``hash_encode_jnp``. With ``out`` (only where no gradient is recorded)
+    the features are written into it: the cell layout's forward writes
+    there itself (the kernel on the card), the corner layout's result is
+    copied."""
+    if out is not None:
+        if torch.is_grad_enabled():
+            raise ValueError("hash_encode(out=...) records no gradient: call it "
+                             "under torch.no_grad()")
+        if cfg.layout == "cell":
+            _check_rows(table, cfg)
+            return hash_cell_fwd(table, x01.contiguous(), cfg, out=out)
+        return out.copy_(hash_encode(table, x01, cfg))
     if cfg.layout == "cell":
         return hash_encode_cell(table, x01, cfg)
     if cfg.layout == "corner":

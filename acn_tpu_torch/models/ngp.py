@@ -6,7 +6,10 @@ encoding (SH or frequency)] with sigmoid RGB. World coords are normalized into t
 clamped to [eps, 1−eps] before hash encoding. The parameter dict has the
 JAX tree's keys and layouts (``hash_table``: a list of per-level tables in
 the cell layout, one table in the corner layout; ``sigma_trunk`` list of
-``{w, b}``, ``sigma_head``, ``geo_head``, ``color_mlp``).
+``{w, b}``, ``sigma_head``, ``geo_head``, ``color_mlp``). The network after
+the encode is defined once, in ``ops/ngp_net.py``: its differentiable
+composition under autograd, its ``ngp_net`` (the CUDA kernel on the card)
+where no gradient is recorded.
 """
 
 from __future__ import annotations
@@ -19,14 +22,12 @@ import torch
 from acn_tpu_torch.models import nn
 from acn_tpu_torch.models.encodings import (
     HashGridConfig,
-    frequency_encode,
     frequency_out_dim,
     hash_encode,
     init_hash_table,
-    sh_encode,
     sh_out_dim,
 )
-from acn_tpu_torch.models.trunc_exp import trunc_exp
+from acn_tpu_torch.ops import ngp_net
 
 Params = Dict[str, Any]
 
@@ -89,11 +90,14 @@ def world_to_unit(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x01, ENC_EPS, 1.0 - ENC_EPS)
 
 
-def _enc_dir(cfg: NGPConfig, d: torch.Tensor) -> torch.Tensor:
-    d = d / torch.clamp(nn.norm3(d), min=1e-9)
-    if cfg.dir_encoding == "spherical":
-        return sh_encode(d, cfg.sh_levels)
-    return frequency_encode(d, cfg.freq_pe_dim, include_input=True, use_pi=False)
+def hash_features(params: Params, cfg: NGPConfig, aabb: torch.Tensor, x: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The expert's hash features at world coords x (..., 3): (..., L·F) in
+    x's type, or written into ``out`` (no gradient; ``hash_encode``)."""
+    x01 = world_to_unit(x, aabb)
+    if out is not None:
+        return hash_encode(params["hash_table"], x01, cfg.hash, out=out)
+    return hash_encode(params["hash_table"], x01, cfg.hash).to(x.dtype)
 
 
 def ngp_density(
@@ -103,15 +107,15 @@ def ngp_density(
     x: torch.Tensor,  # (..., 3) world coords
     return_feats: bool = False,
 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-    """σ (..., 1), and optionally geo features, at world coords."""
-    x01 = world_to_unit(x, aabb)
-    h = hash_encode(params["hash_table"], x01, cfg.hash).to(x.dtype)
-    h = nn.apply_mlp(params["sigma_trunk"], h, activation="relu",
-                     final_activation="relu")
-    sigma = trunc_exp(nn.apply_linear(params["sigma_head"], h))
-    if not return_feats:
-        return sigma
-    return {"sigma": sigma, "geo_feat": nn.apply_linear(params["geo_head"], h)}
+    """σ (..., 1), and optionally geo features, at world coords. Without a
+    gradient (``ngp_net.takes``) σ comes from ``ngp_net``'s ``density``
+    mode (the kernel on the card)."""
+    h = hash_features(params, cfg, aabb, x)
+    if not return_feats and ngp_net.takes(x):
+        flat = h.reshape(-1, h.shape[-1])
+        return ngp_net.ngp_net("density", flat[None], None, None, [params], cfg).reshape(
+            *x.shape[:-1], 1)
+    return ngp_net.features_density(params, h, return_feats)
 
 
 def ngp_color(
@@ -121,10 +125,7 @@ def ngp_color(
     geo_feat: torch.Tensor,  # (..., G)
 ) -> torch.Tensor:
     """View-dependent RGB."""
-    d_enc = _enc_dir(cfg, d).to(geo_feat.dtype)
-    h = torch.cat([geo_feat, d_enc], dim=-1)
-    rgb = nn.apply_mlp(params["color_mlp"], h, activation="relu")
-    return torch.sigmoid(rgb) if cfg.use_sigmoid_rgb else rgb
+    return ngp_net.features_color(params, cfg, d, geo_feat)
 
 
 def ngp_forward(
@@ -133,11 +134,17 @@ def ngp_forward(
     aabb: torch.Tensor,  # (2, 3)
     x_d: torch.Tensor,  # (..., 6) [xyz, dir]
 ) -> torch.Tensor:
-    """(..., 6) [xyz, dir] → (..., 4) [rgb, σ]."""
+    """(..., 6) [xyz, dir] → (..., 4) [rgb, σ]. Without a gradient
+    (``ngp_net.takes``) the network after the encode is ``ngp_net``'s
+    ``single`` mode (the kernel on the card)."""
     x, d = x_d[..., :3], x_d[..., 3:6]
-    out = ngp_density(params, cfg, aabb, x, return_feats=True)
-    rgb = ngp_color(params, cfg, d, out["geo_feat"])
-    return torch.cat([rgb, out["sigma"]], dim=-1)
+    h = hash_features(params, cfg, aabb, x)
+    if ngp_net.takes(x_d):
+        lead = x_d.shape[:-1]
+        out = ngp_net.ngp_net("single", h.reshape(-1, h.shape[-1])[None],
+                              d.reshape(-1, 3), None, [params], cfg)
+        return out.reshape(*lead, 4)
+    return ngp_net.features_forward(params, cfg, h, d)
 
 
 def param_group_labels(params: Params) -> Params:

@@ -30,6 +30,7 @@ from acn_tpu_torch.nerfs.render import (
 )
 from acn_tpu_torch.occupancy import grid as occ_grid
 from acn_tpu_torch.occupancy.grid import OccConfig
+from acn_tpu_torch.ops import ngp_net
 
 
 def render_expert_occ(
@@ -122,10 +123,15 @@ def _any_expert_valid_fn(occ_states: Dict[str, torch.Tensor],
 def _soft_moe_eval(model: Container,
                    xd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every expert at every point + σ-weighted soft blend. xd (M, 6) →
-    (σ_mix (M,), rgb_mix (M, 3))."""
+    (σ_mix (M,), rgb_mix (M, 3)). Without a gradient (``uses_net``) one
+    call of ``ngp_net``'s ``sigma_blend`` mode (the CUDA kernel on the card)
+    runs the K networks and blends them."""
     cfg = model.cfg
     w = cont.routing_weights(model.centroids, xd[:, :3], cfg.cluster_2d,
                              cfg.boundary_margin)  # (M, K)
+    if cont.uses_net(model, xd):
+        return ngp_net.ngp_net("sigma_blend", cont.expert_features(model, xd[:, :3]),
+                               xd[:, 3:6], w, cont.net_experts(model), cfg.expert)
     outs = torch.stack([
         cfg.expert_forward(model.expert(k), cfg.expert, model.expert_aabbs[k], xd)
         for k in range(cfg.num_submodules)

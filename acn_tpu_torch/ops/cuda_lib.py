@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernel libraries.
 
-Each source in ``csrc/`` (``SOURCES``: ``segscan.cu``, ``hashgrid.cu``) is
+Each source in ``csrc/`` (``SOURCES``: ``segscan.cu``, ``hashgrid.cu``,
+``ngp_net.cu``) is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). A library is built at first use into
@@ -27,7 +28,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = {name: PKG / "csrc" / f"{name}.cu" for name in ("segscan", "hashgrid")}
+SOURCES = {name: PKG / "csrc" / f"{name}.cu" for name in ("segscan", "hashgrid", "ngp_net")}
 BUILD_DIR = PKG / "_build"
 
 NVCC_FLAGS = [

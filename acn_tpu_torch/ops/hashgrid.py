@@ -49,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -140,10 +140,12 @@ def _cell_level_lookup(tables, x01: torch.Tensor, cfg, l: int):
     return tables[l][h], h, frac
 
 
-def hash_cell_fwd_plain(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+def hash_cell_fwd_plain(tables, x01: torch.Tensor, cfg,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the forward: one gathered row per (point, level)
     holding the cell's 8 corner features, blended trilinearly. (..., 3) in
-    [0, 1] → (..., L·F) in the tables' type."""
+    [0, 1] → (..., L·F) in the tables' type, written into ``out`` when
+    given."""
     F = cfg.features_per_level
     feats = []
     for l in range(cfg.levels):
@@ -151,6 +153,8 @@ def hash_cell_fwd_plain(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
         w = _corner_weights(_interp_frac(frac, cfg.interpolation))
         blended = rows.reshape(*rows.shape[:-1], 8, F) * w.to(rows.dtype)[..., None]
         feats.append(blended.sum(dim=-2))  # (..., F)
+    if out is not None:
+        return torch.cat(feats, dim=-1, out=out)
     return torch.cat(feats, dim=-1)
 
 
@@ -331,18 +335,28 @@ def _on_stream(x01: torch.Tensor, fn) -> int:
         return fn(stream)
 
 
-def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward kernel on the current stream: x01 (..., 3)
     float32 or bfloat16, contiguous; the L tables (rows ≥ the config's
     ladder, 8·F) float32 or bfloat16, all of one type, contiguous, on x01's
-    card. Returns (..., L·F) in the tables' type. Adds one to
+    card. Returns (..., L·F) in the tables' type: ``out`` when given (a
+    contiguous tensor of that shape and type on x01's card, such as one
+    expert's slice of a (K, P, L·F) buffer), else a new tensor. Adds one to
     ``hash_cell_fwd_kernel.launches`` per launch."""
     what = "the hash encode kernel"
     _check_x(x01, what)
     c = _consts(cfg, x01.dtype)
     dtype, ptrs = _check_tables(tables, c, x01.get_device(), what)
     lib = _library()
-    out = torch.empty((*x01.shape[:-1], c.out_dim), dtype=dtype, device=x01.device)
+    shape = (*x01.shape[:-1], c.out_dim)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=x01.device)
+    elif tuple(out.shape) != shape or out.dtype != dtype or out.device != x01.device \
+            or not out.is_contiguous():
+        raise ValueError(f"{what}: out is {out.dtype} {tuple(out.shape)} on {out.device} "
+                         f"(contiguous {out.is_contiguous()}), want contiguous {dtype} "
+                         f"{shape} on {x01.device}")
     n = x01.numel() // 3
     err = _on_stream(x01, lambda s: lib.hash_cell_fwd(
         x01.data_ptr(), c.x_bf16, ptrs, c.rows_arr, _DTYPES[dtype], c.scale, c.res,
@@ -392,12 +406,13 @@ hash_cell_fwd_kernel.launches = 0
 hash_cell_bwd_tables_kernel.launches = 0
 
 
-def hash_cell_fwd(tables, x01: torch.Tensor, cfg) -> torch.Tensor:
+def hash_cell_fwd(tables, x01: torch.Tensor, cfg,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The encode's forward: the plain version for a CPU x01, the kernel
-    for a CUDA one."""
+    for a CUDA one; into ``out`` when given."""
     if x01.device.type == "cpu":
-        return hash_cell_fwd_plain(tables, x01, cfg)
-    return hash_cell_fwd_kernel(tables, x01, cfg)
+        return hash_cell_fwd_plain(tables, x01, cfg, out=out)
+    return hash_cell_fwd_kernel(tables, x01, cfg, out=out)
 
 
 def hash_cell_bwd_tables(x01: torch.Tensor, g: torch.Tensor, cfg,

@@ -81,14 +81,12 @@ def random_points(hcfg, P: int, gen: torch.Generator) -> torch.Tensor:
     return x
 
 
-def ray_ordered_points(n_rays=None, seed: int = 0, device="cuda"):
-    """(x01 (B, 3) float32, real (B,) bool): the packed samples of a budget
-    march of toy's overhead camera over toy's random grids, mapped into
-    expert 0's box (``world_to_unit``), in the order the encode gets them;
-    ``real`` marks the slots that hold a sample. With ``n_rays`` None the
-    serving chunk at ``CHUNK_ROW0``, else ``n_rays`` rays drawn (numpy
-    seed) from the whole frame."""
-    from acn_tpu_torch.models.ngp import world_to_unit
+def budget_march(n_rays=None, seed: int = 0, device="cuda"):
+    """(the packed budget march of toy's overhead camera over toy's random
+    grids, the union of the experts' grids over the global box, as
+    ``march_rays_budget`` returns it; the experts' boxes on ``device``):
+    the serving chunk at ``CHUNK_ROW0`` (``n_rays`` None), or ``n_rays``
+    rays drawn (numpy seed) from the whole frame."""
     from acn_tpu_torch.nerfs.render_occ import _any_expert_valid_fn
     from acn_tpu_torch.occupancy import grid as occ_grid
     from acn_tpu_torch.pipelines.renderer import Renderer, _pinhole_block_rays
@@ -112,6 +110,17 @@ def ray_ordered_points(n_rays=None, seed: int = 0, device="cuda"):
                                           occ["binaries"].shape[1])}
     s = occ_grid.march_rays_budget(base, rays, occ_cfg, renderer.s_max, renderer.budget,
                                    extra_valid_fn=_any_expert_valid_fn(occ, aabbs))
+    return s, aabbs
+
+
+def ray_ordered_points(n_rays=None, seed: int = 0, device="cuda"):
+    """(x01 (B, 3) float32, real (B,) bool): the packed samples of
+    ``budget_march`` mapped into expert 0's box (``world_to_unit``), in the
+    order the encode gets them; ``real`` marks the slots that hold a
+    sample."""
+    from acn_tpu_torch.models.ngp import world_to_unit
+
+    s, aabbs = budget_march(n_rays, seed, device)
     return world_to_unit(s["xd"][:, :3], aabbs[0]).contiguous(), s["slot_real"]
 
 

@@ -1,0 +1,333 @@
+"""The Instant-NGP expert's network after the hash encode, and the
+container's blend over experts: a CUDA kernel and its plain version.
+
+Per point, from the expert's hash features h (L·F values) and the view
+direction d:
+
+    t     = relu(... relu(h W_0 + b_0) ... W_{D-1} + b_{D-1})    σ trunk
+    σ     = trunc_exp(t w_σ + b_σ)                               σ head
+    g     = t W_g + b_g                                          geo head (15)
+    c     = sigmoid(color_mlp([g, enc(d / |d|)]))                colour
+
+with enc the spherical harmonics of ``sh_levels`` levels or the frequency
+encoding (``enc_dir``, ``acn_tpu``'s ``_enc_dir``). The kernel has four modes, one
+for each way the port combines experts:
+
+* ``single``: one expert, (P, 4) [rgb, σ] (``container_forward`` with
+  ``active_module``, ``ngp_forward``);
+* ``sigma_blend``: σ_mix = max(Σ_k w_k σ_k, 1e-12) and
+  rgb_mix = Σ_k w_k σ_k c_k / σ_mix (``render_occ._soft_moe_eval``);
+* ``linear_blend``: Σ_k w_k [c_k, σ_k] (``container_forward`` without
+  ``active_module``);
+* ``density``: σ of one expert, or Σ_k w_k σ_k (``ngp_density``,
+  ``container_density``).
+
+The JAX package wrote no TPU kernel for this: it is plain XLA there
+(``acn_tpu/models/ngp.py:112-156``, ``acn_tpu/models/nn.py:44-85`` under
+``jax.vmap`` in ``acn_tpu/nerfs/render_occ.py:147-168`` and
+``acn_tpu/models/container.py:181,221``). Here it is one hand-written CUDA
+kernel for ``sm_90a`` (``csrc/ngp_net.cu``, built by ``ops/cuda_lib.py``
+and called through ``ctypes``; the source has the design and its bound),
+templated on the mode. The routing weights w (P, K) come from the plain
+``container.routing_weights``; the K hash encodes write into one (K, P, L·F)
+buffer (``hash_encode(..., out=)``).
+
+The plain version (``ngp_net_plain``) is the composition the port ran
+before the kernel: ``apply_mlp``, ``trunc_exp``, the direction encoding,
+``torch.cat`` and the three blends. ``models/ngp.py`` takes its pieces
+(``features_density``, ``features_color``, ``features_forward``) from here,
+so both share one definition.
+
+Dispatch. By device: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. By need of a gradient: ``models/ngp.py``,
+``models/container.py`` and ``nerfs/render_occ.py`` call ``ngp_net`` only
+where ``takes(x)`` holds: no gradient is being recorded
+(``torch.is_grad_enabled()`` false, as under every serving entry point's
+``torch.no_grad``) and the points are float32. The kernel has no backward
+yet: under autograd (training steps, TTO steps) the differentiable
+composition runs as before, and so does the bf16 of a training step's AMP,
+whose evaluations under ``no_grad`` (Reptile's query loss, the eval step)
+are part of training.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from acn_tpu_torch.models import nn
+from acn_tpu_torch.models.encodings import frequency_encode, sh_encode
+from acn_tpu_torch.models.trunc_exp import trunc_exp
+from acn_tpu_torch.ops import cuda_lib
+from acn_tpu_torch.ops.hashgrid import _on_stream
+
+MODES = ("single", "sigma_blend", "linear_blend", "density")
+# what csrc/ngp_net.cu takes (its constants, checked when it is loaded)
+MAX_EXPERTS = 16
+MAX_DEPTH = 4
+MAX_WIDTH = 128
+MAX_IN = 64  # hash features L·F, and geo + direction encoding
+GEO = 15
+DIR_KINDS = ("spherical", "frequency")
+
+# ================================================================ plain
+
+
+def enc_dir(cfg, d: torch.Tensor) -> torch.Tensor:
+    """The direction encoding of ``acn_tpu``'s ``_enc_dir``: d normalized
+    (norm clamped at 1e-9), then SH (which normalizes again) or the
+    frequency encoding (cos before sin, no π)."""
+    d = d / torch.clamp(nn.norm3(d), min=1e-9)
+    if cfg.dir_encoding == "spherical":
+        return sh_encode(d, cfg.sh_levels)
+    return frequency_encode(d, cfg.freq_pe_dim, include_input=True, use_pi=False)
+
+
+def features_density(params, h: torch.Tensor, return_feats: bool = False):
+    """σ (..., 1) from hash features h (..., L·F), and optionally the geo
+    features: the σ trunk (ReLU on every layer), the σ head through
+    ``trunc_exp``, the geo head."""
+    t = nn.apply_mlp(params["sigma_trunk"], h, activation="relu", final_activation="relu")
+    sigma = trunc_exp(nn.apply_linear(params["sigma_head"], t))
+    if not return_feats:
+        return sigma
+    return {"sigma": sigma, "geo_feat": nn.apply_linear(params["geo_head"], t)}
+
+
+def features_color(params, cfg, d: torch.Tensor, geo_feat: torch.Tensor) -> torch.Tensor:
+    """View-dependent RGB from [geo features, direction encoding]."""
+    d_enc = enc_dir(cfg, d).to(geo_feat.dtype)
+    h = torch.cat([geo_feat, d_enc], dim=-1)
+    rgb = nn.apply_mlp(params["color_mlp"], h, activation="relu")
+    return torch.sigmoid(rgb) if cfg.use_sigmoid_rgb else rgb
+
+
+def features_forward(params, cfg, h: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [rgb, σ] from hash features and view directions."""
+    out = features_density(params, h, return_feats=True)
+    rgb = features_color(params, cfg, d, out["geo_feat"])
+    return torch.cat([rgb, out["sigma"]], dim=-1)
+
+
+def ngp_net_plain(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                  experts: Sequence[dict], cfg):
+    """Plain version of every mode. h: (K, P, L·F) (or K tensors of
+    (P, L·F)), d: (P, 3) (None for ``density``), w: (P, K) routing weights
+    (None for ``single`` and a one-expert ``density``), ``experts``: K
+    parameter dicts. Returns ``single`` / ``linear_blend``: (P, 4);
+    ``sigma_blend``: (σ_mix (P,), rgb_mix (P, 3)); ``density``: (P,)."""
+    if mode == "single":
+        return features_forward(experts[0], cfg, h[0], d)
+    if mode == "density":
+        if w is None:
+            return features_density(experts[0], h[0])[..., 0]
+        sig = torch.stack([features_density(e, h[k])[..., 0]
+                           for k, e in enumerate(experts)])  # (K, P)
+        return torch.einsum("nk,kn->n", w.to(sig.dtype), sig)
+    if mode == "linear_blend":
+        ys = torch.stack([features_forward(e, cfg, h[k], d)
+                          for k, e in enumerate(experts)])  # (K, P, 4)
+        return torch.einsum("nk,kno->no", w.to(ys.dtype), ys)
+    if mode == "sigma_blend":
+        outs = torch.stack([features_forward(e, cfg, h[k], d)
+                            for k, e in enumerate(experts)], dim=1)  # (P, K, 4)
+        SIG, RGB = outs[..., 3], outs[..., :3]
+        w = w.to(SIG.dtype)
+        s_num = torch.clamp(torch.sum(w * SIG, dim=1, keepdim=True), min=1e-12)
+        rgb = torch.sum(w[..., None] * SIG[..., None] * RGB, dim=1) / s_num
+        return s_num[:, 0], rgb
+    raise ValueError(f"unknown mode {mode!r}, want one of {MODES}")
+
+
+# ================================================================ kernel
+
+_LIB = None
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_lib.load("ngp_net")
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ngp_net_fwd.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(vp),
+                                    ctypes.POINTER(i), i, ll, vp, ll, vp, vp, ll, vp, ll, vp]
+        lib.ngp_net_fwd.restype = i
+        lib.ngp_net_limits.argtypes = [ctypes.POINTER(i)]
+        lib.ngp_net_limits.restype = None
+        got = (i * 5)()
+        lib.ngp_net_limits(got)
+        if tuple(got) != (MAX_EXPERTS, MAX_DEPTH, MAX_WIDTH, MAX_IN, GEO):
+            raise RuntimeError("csrc/ngp_net.cu and ops/ngp_net.py disagree on the "
+                               f"limits: {tuple(got)}")
+        _LIB = lib
+    return _LIB
+
+
+SUPPORTED = (f"hidden and color_hidden 1 to {MAX_WIDTH}, sigma_depth and color_depth 1 to "
+             f"{MAX_DEPTH}, hash features L·F 1 to {MAX_IN}, geo_feat_dim {GEO}, "
+             f"dir_encoding 'spherical' with sh_levels 1 to 5 or 'frequency' with "
+             f"{GEO} + 3·(2·freq_pe_dim + 1) ≤ {MAX_IN}, 1 to {MAX_EXPERTS} experts, "
+             "float32")
+
+
+def check_config(cfg, K: int = 1) -> None:
+    """Refuse an expert config (``NGPConfig``) the kernel does not take,
+    naming the supported set."""
+    why = []
+    if not (1 <= cfg.hidden <= MAX_WIDTH and 1 <= cfg.color_hidden <= MAX_WIDTH):
+        why.append(f"hidden {cfg.hidden}, color_hidden {cfg.color_hidden}")
+    if not (1 <= cfg.sigma_depth <= MAX_DEPTH and 1 <= cfg.color_depth <= MAX_DEPTH):
+        why.append(f"sigma_depth {cfg.sigma_depth}, color_depth {cfg.color_depth}")
+    if not 1 <= cfg.hash.out_dim <= MAX_IN:
+        why.append(f"L·F {cfg.hash.out_dim}")
+    if cfg.geo_feat_dim != GEO:
+        why.append(f"geo_feat_dim {cfg.geo_feat_dim}")
+    if cfg.dir_encoding not in DIR_KINDS:
+        why.append(f"dir_encoding {cfg.dir_encoding!r}")
+    elif cfg.dir_encoding == "spherical" and not 1 <= cfg.sh_levels <= 5:
+        why.append(f"sh_levels {cfg.sh_levels}")
+    elif cfg.dir_encoding == "frequency" and not (
+            cfg.freq_pe_dim >= 0 and GEO + cfg.dir_enc_dim <= MAX_IN):
+        why.append(f"freq_pe_dim {cfg.freq_pe_dim}")
+    if not 1 <= K <= MAX_EXPERTS:
+        why.append(f"{K} experts")
+    if why:
+        raise ValueError(f"the NGP network kernel does not take {', '.join(why)}; it "
+                         f"takes {SUPPORTED}")
+
+
+def _layers(params, cfg) -> list:
+    """An expert's (w, b) pairs in the kernel's slot order: the trunk's
+    ``MAX_DEPTH`` slots, σ head, geo head, the colour MLP's
+    ``MAX_DEPTH + 1``; unused slots None."""
+    trunk = list(params["sigma_trunk"]) + [None] * (MAX_DEPTH - cfg.sigma_depth)
+    color = list(params["color_mlp"]) + [None] * (MAX_DEPTH - cfg.color_depth)
+    return trunk + [params["sigma_head"], params["geo_head"]] + color
+
+
+def _expert_ptrs(params, cfg, device, what: str) -> list:
+    """The expert's 2·SLOTS weight and bias pointers, after checking every
+    tensor: float32, contiguous, on ``device``, of the config's shape."""
+    L, H, CH = cfg.hash.out_dim, cfg.hidden, cfg.color_hidden
+    shapes = ([(L if l == 0 else H, H) for l in range(cfg.sigma_depth)]
+              + [None] * (MAX_DEPTH - cfg.sigma_depth) + [(H, 1), (H, GEO)]
+              + [(GEO + cfg.dir_enc_dim if c == 0 else CH, CH) for c in range(cfg.color_depth)]
+              + [(CH, 3)] + [None] * (MAX_DEPTH - cfg.color_depth))
+    if len(params["sigma_trunk"]) != cfg.sigma_depth or \
+            len(params["color_mlp"]) != cfg.color_depth + 1:
+        raise ValueError(f"{what}: {len(params['sigma_trunk'])} trunk and "
+                         f"{len(params['color_mlp'])} colour layers for sigma_depth "
+                         f"{cfg.sigma_depth}, color_depth {cfg.color_depth}")
+    ptrs = []
+    for layer, shape in zip(_layers(params, cfg), shapes):
+        if layer is None:
+            ptrs += [None, None]
+            continue
+        for t, want in ((layer["w"], shape), (layer["b"], shape[1:])):
+            if t.dtype != torch.float32 or t.device != device or not t.is_contiguous() \
+                    or tuple(t.shape) != want:
+                raise ValueError(f"{what}: a layer tensor is {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device} (contiguous {t.is_contiguous()}), want "
+                                 f"contiguous float32 {want} on {device}")
+            ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                   experts: Sequence[dict], cfg):
+    """Launch the kernel on the current stream; arguments and results as
+    ``ngp_net_plain``'s. h: (K, P, L·F) float32 contiguous, or K contiguous
+    (P, L·F) tensors; d: (P, 3) float32 whose rows may be strided (a view
+    of a (P, 6) xd); w: (P, K) float32 contiguous; every tensor on one card.
+    Adds one to ``ngp_net_kernel.launches`` per launch (none for P = 0)."""
+    what = "the NGP network kernel"
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}, want one of {MODES}")
+    K = len(experts)
+    check_config(cfg, K)
+    if len(h) != K:
+        raise ValueError(f"{what}: {len(h)} feature sets for {K} experts")
+    dev = h[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs tensors on a CUDA device, got {dev}")
+    L = cfg.hash.out_dim
+    P = int(h[0].shape[0])
+    for hk in h:
+        if hk.dtype != torch.float32 or hk.device != dev or not hk.is_contiguous() \
+                or tuple(hk.shape) != (P, L):
+            raise ValueError(f"{what}: features {hk.dtype} {tuple(hk.shape)} on {hk.device}, "
+                             f"want contiguous float32 ({P}, {L}) on {dev}")
+    blend = mode in ("sigma_blend", "linear_blend") or (mode == "density" and w is not None)
+    if mode == "single" and K != 1:
+        raise ValueError(f"{what}: mode single takes one expert, got {K}")
+    if blend:
+        if w is None or w.dtype != torch.float32 or w.device != dev \
+                or not w.is_contiguous() or tuple(w.shape) != (P, K):
+            raise ValueError(f"{what}: routing weights must be contiguous float32 "
+                             f"({P}, {K}) on {dev}")
+    elif K != 1 or w is not None:
+        raise ValueError(f"{what}: mode {mode} without weights takes one expert")
+    if mode != "density":
+        if d is None or d.dtype != torch.float32 or d.device != dev or d.dim() != 2 \
+                or tuple(d.shape) != (P, 3) or (P and d.stride(1) != 1):
+            raise ValueError(f"{what}: directions must be float32 (P, 3) with unit column "
+                             f"stride on {dev}")
+    ptrs = [p for e in experts for p in _expert_ptrs(e, cfg, dev, what)]
+    if mode in ("single", "linear_blend"):
+        out = torch.empty((P, 4), dtype=torch.float32, device=dev)
+        rgb, rgb_s, sig, sig_s = out.data_ptr(), 4, out.data_ptr() + 12, 4
+        result = out
+    elif mode == "sigma_blend":
+        s_out = torch.empty((P,), dtype=torch.float32, device=dev)
+        c_out = torch.empty((P, 3), dtype=torch.float32, device=dev)
+        rgb, rgb_s, sig, sig_s = c_out.data_ptr(), 3, s_out.data_ptr(), 1
+        result = (s_out, c_out)
+    else:
+        s_out = torch.empty((P,), dtype=torch.float32, device=dev)
+        rgb, rgb_s, sig, sig_s = None, 0, s_out.data_ptr(), 1
+        result = s_out
+    if P == 0:
+        return result
+    dims = (ctypes.c_int * 8)(L, cfg.hidden, cfg.sigma_depth, cfg.color_hidden,
+                              cfg.color_depth, DIR_KINDS.index(cfg.dir_encoding),
+                              cfg.sh_levels if cfg.dir_encoding == "spherical"
+                              else cfg.freq_pe_dim, int(bool(cfg.use_sigmoid_rgb)))
+    lib = _library()
+    err = _on_stream(h[0], lambda s: lib.ngp_net_fwd(
+        MODES.index(mode), (ctypes.c_void_p * K)(*[hk.data_ptr() for hk in h]),
+        (ctypes.c_void_p * len(ptrs))(*ptrs), dims, K, P,
+        None if d is None else d.data_ptr(), 0 if d is None else d.stride(0),
+        w.data_ptr() if blend else None, rgb, rgb_s, sig, sig_s, s))
+    if err != 0:
+        raise RuntimeError(f"ngp_net kernel launch failed: CUDA error {err}")
+    ngp_net_kernel.launches += 1
+    return result
+
+
+ngp_net_kernel.launches = 0
+
+
+def ngp_net(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Tensor],
+            experts: Sequence[dict], cfg):
+    """The network in ``mode``: the plain version for CPU tensors, the
+    kernel for CUDA ones."""
+    if h[0].device.type == "cpu":
+        return ngp_net_plain(mode, h, d, w, experts, cfg)
+    return ngp_net_kernel(mode, h, d, w, experts, cfg)
+
+
+def takes(x: torch.Tensor) -> bool:
+    """Whether a network evaluation at points x goes through ``ngp_net``:
+    no gradient is being recorded and x is float32 (module docstring)."""
+    return not torch.is_grad_enabled() and x.dtype == torch.float32
+
+
+def launch_counts() -> int:
+    """The kernel's launches since the counter was last set to 0."""
+    return ngp_net_kernel.launches
+
+
+def zero_launch_counts() -> None:
+    ngp_net_kernel.launches = 0

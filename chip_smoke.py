@@ -11,7 +11,8 @@ Phases, each printing one JSON line and each fatal on failure:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the CUDA kernel libraries from the sources in ``acn_tpu_torch/csrc``
-   (``segscan.cu``, ``hashgrid.cu``: one ``nvcc`` each, started together);
+   (``segscan.cu``, ``hashgrid.cu``, ``ngp_net.cu``: one ``nvcc`` each,
+   started together);
 2. kernel: each kernel against its plain PyTorch version on the card, on
    edge cases and at the serving shape, forward, backward through autograd
    and the reverse kernel directly, on an unaligned view, on two streams at
@@ -260,7 +261,30 @@ Phases, each printing one JSON line and each fatal on failure:
    TTO step, MAML and the other cell-layout M9 steps, the viewer's TTO and
    meta-train steps, the tools' ``--op train``; and with ``--profile`` the
    frame's and the step's profiles list them;
-15. the kernels line, then the card's ``nvidia-smi`` line, then the result
+15. the NGP network kernel (``ops/ngp_net.py``, ``csrc/ngp_net.cu``) at the
+   model's width (4 experts, hash features 32, σ trunk 64 × 2, colour 64 × 2,
+   SH of 4 levels; ``ops/ngp_net_bench.py``'s weights from seed 15 and
+   features N(0, 1)) in all four modes (``single``, ``sigma_blend``,
+   ``linear_blend``, ``density``) on random points and on the ray-ordered
+   packed samples of the dense frame's budget march, at P = 983,040 (a
+   dense serving chunk) and 32,768 (a support march), and ``single`` at
+   4,000,000 (a routed chunk): the kernel against its plain version within
+   rtol 1e-5 / atol 1e-6 of float32, every output finite; the card time
+   per call of the kernel, the plain network and the chain of cuBLAS ``mm``
+   calls the plain network issues (the yardstick, timed only), beside the
+   operation bound (2 × the multiply-adds of the (point, expert) pairs
+   whose routing weight is not 0, at 67 TFLOP/s) and the byte bound. Every
+   main path above also counts the network kernel's launches from 0 and
+   fails unless a serving path (the dense, budget-0, routed,
+   single-expert and mesh frames, the occupancy update, ``--op eval``,
+   ``--op bake``, ``--op video`` live, the viewer's frames) launched it and
+   a training step (the budget, stratified and strided steps, MAML and the
+   other M9 steps, the mesh steps, a TTO step, the viewer's TTO and
+   meta-train steps) did not (its network runs under autograd, or in bf16);
+   the loop, the runner's and the tools' ``--op train`` (steps and
+   occupancy updates) are recorded; with ``--profile`` the dense and
+   routed frames' profiles give the kernel's mean time and share of busy;
+16. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -701,7 +725,8 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
                                      if e.key == "cudaLaunchKernel"),
               "scan_kernel_launches": scan_n,
               "scan_kernel_mean_us": scan_us / max(scan_n, 1),
-              "hash_kernels": hash_kernel_times(prof, busy_ms)})
+              "hash_kernels": hash_kernel_times(prof, busy_ms),
+              "ngp_net_kernel": net_kernel_times(prof, busy_ms)})
     return model, occ, cam, (launches, rev_launches), frame_ms
 
 
@@ -978,9 +1003,9 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
             step_ms.append(1e3 * (time.perf_counter() - t0))
         launches.append((segscan.seg_excl_sum_kernel.launches,
                          segscan.seg_excl_rsum_kernel.launches))
-        hash_counts.append(_hashgrid().launch_counts())
+        hash_counts.append(_kernel_counts())
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in (0, 1)))
+    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in (0, 1, 2)))
     check(all(l == (per_step, per_step) for l in launches),
           f"scan kernel launches per step (forward, reverse) {launches}, want "
           f"{per_step} of each")
@@ -1073,10 +1098,16 @@ def _scan_counts(segscan):
 
 
 def _zero_scan_counts(segscan) -> None:
-    """Every kernel's count to 0: the scan's and the hash encode's."""
+    """Every kernel's count to 0: the scan's, the hash encode's and the
+    network's."""
     segscan.seg_excl_sum_kernel.launches = 0
     segscan.seg_excl_rsum_kernel.launches = 0
+    _zero_hash_and_net()
+
+
+def _zero_hash_and_net() -> None:
     _hashgrid().zero_launch_counts()
+    _ngp_net().zero_launch_counts()
 
 
 def _hashgrid():
@@ -1085,21 +1116,46 @@ def _hashgrid():
     return hashgrid
 
 
+def _ngp_net():
+    from acn_tpu_torch.ops import ngp_net
+
+    return ngp_net
+
+
+def _kernel_counts() -> tuple:
+    """(hash forward, hash cotangent, network) launches since the counters
+    were last set to 0."""
+    return (*_hashgrid().launch_counts(), _ngp_net().launch_counts())
+
+
 # the hash encode kernels' launches on each main path: (forward, table
-# cotangent), read just after the path ran, counted from 0 just before it
+# cotangent), and the network kernel's, read just after the path ran,
+# counted from 0 just before it
 HASH_BY_PATH: dict = {}
+NET_BY_PATH: dict = {}
 
 
-def note_hash(path: str, trains: bool, counts=None) -> tuple:
-    """Record a main path's hash-kernel launches (the counters now, or
-    ``counts``) and fail unless the path launched the forward kernel, and
-    the cotangent kernel exactly when it trains."""
-    fwd, bwd = _hashgrid().launch_counts() if counts is None else counts
+def note_hash(path: str, trains: bool, counts=None, net=None) -> tuple:
+    """Record a main path's hash-kernel and network-kernel launches (the
+    counters now, or ``counts``: (hash forward, hash cotangent, network))
+    and fail unless the path launched the hash forward kernel, the
+    cotangent kernel exactly when it trains, and the network kernel as
+    ``net`` says: "serves" (> 0; the default of a path that does not
+    train), "none" (0; the default of one that trains: the kernel has no
+    backward, and a training step's network runs under autograd or in bf16)
+    or "any" (a path that trains and serves, such as a loop with its
+    occupancy updates: recorded, not held)."""
+    fwd, bwd, nl = _kernel_counts() if counts is None else counts
     check(fwd > 0 and (bwd > 0) == trains,
           f"{path}: the hash encode kernels launched {fwd} forward and {bwd} "
           f"cotangent, want forward > 0 and cotangent {'> 0' if trains else '0'}")
+    net = net or ("none" if trains else "serves")
+    check(net == "any" or (nl > 0) == (net == "serves"),
+          f"{path}: the network kernel launched {nl} times, want "
+          f"{'> 0' if net == 'serves' else '0'}")
     old = HASH_BY_PATH.get(path, (0, 0))
     HASH_BY_PATH[path] = (old[0] + fwd, old[1] + bwd)
+    NET_BY_PATH[path] = NET_BY_PATH.get(path, 0) + nl
     return fwd, bwd
 
 
@@ -1186,7 +1242,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     boxes, _ = toy.quadrant_layout(K)
     occ10 = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
     counted = {"fwd": 0, "rev": 0}
-    hashed = [0, 0]
+    hashed = [0, 0, 0]
 
     def steps(step, occ, n):
         """``n`` steps of ``step`` from the running state: (ms per step,
@@ -1203,7 +1259,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
             launches.append(_scan_counts(segscan))
             counted["fwd"] += launches[-1][0]
             counted["rev"] += launches[-1][1]
-            hashed[:] = [a + b for a, b in zip(hashed, _hashgrid().launch_counts())]
+            hashed[:] = [a + b for a, b in zip(hashed, _kernel_counts())]
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()), f"a metric is not finite: {m}")
         return ms, launches, m
@@ -1334,7 +1390,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     renderer = Renderer(cfg, P0, occ_cfg)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    _hashgrid().zero_launch_counts()
+    _zero_hash_and_net()
     t0 = time.perf_counter()
     rgb, depth, acc = renderer.render_image(model, occ, H=H, W=W, **cam)
     warm_ms = 1e3 * (time.perf_counter() - t0)
@@ -1561,7 +1617,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     logger.close()
     launches = _scan_counts(segscan)
-    note_hash("meta_trainer", True)
+    note_hash("meta_trainer", True, net="any")
     rec = out["loop"]
     steps = probe.per_step()
     regimes = [s["regime"] for s in rec["steps"]]
@@ -1658,7 +1714,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
           "host_syncs_non_log_step": resumed[0]["syncs"], "host_syncs_bare_step": step_syncs,
           "scan_launches_per_step": [s["launches"] for s in resumed]})
     total = _scan_counts(segscan)
-    note_hash("meta_trainer", True)
+    note_hash("meta_trainer", True, net="any")
     del out, state2, model, pools
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
     return {"fwd": launches[0] + total[0], "rev": launches[1] + total[1]}
@@ -1702,7 +1758,7 @@ def tto_step_card_vs_cpu(torch, trt, tck, nn, toptim, tcont, cfg, occ_cfg, P, ru
         model, occ = tck.restore_model(tck.load_checkpoint(run, "last"), cfg, dev)
         opt = toptim.build_optimizer(P, tcont.param_group_labels(model.params()), grad_clip=1.0)
         step = trt.make_tto_step(cfg, P, opt, occ_cfg, use_occ=True)
-        _hashgrid().zero_launch_counts()
+        _zero_hash_and_net()
         t0 = time.perf_counter()
         state, loss = step(model, opt.init(model.params()), occ,
                            torch.from_numpy(rays).to(dev), torch.from_numpy(rgbs).to(dev),
@@ -1814,7 +1870,7 @@ def phase_runner(torch, segscan, toy) -> dict:
         probes[-1].mark("end")
         train_s = time.perf_counter() - t0
         train_launches = _scan_counts(segscan)
-        note_hash("runner_train", True)
+        note_hash("runner_train", True, net="any")
         # (c) --op eval on its last save, TTO 0, 2, 0
         _zero_scan_counts(segscan)
         t0 = time.perf_counter()
@@ -1823,7 +1879,7 @@ def phase_runner(torch, segscan, toy) -> dict:
             RUNNER_TTO, "--test_batch_size", "4", "--fname", str(RUNNER_DIR / "eval")))
         eval_s = time.perf_counter() - t0
         eval_launches = _scan_counts(segscan)
-        note_hash("runner_eval", True)
+        note_hash("runner_eval", True, net="serves")
     finally:
         dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws = saved
     steps = probes[-1].per_step()
@@ -1969,6 +2025,7 @@ def _profile_frame(torch, fn, profile_dir, name) -> None:
     emit({"phase": f"{name}_profile", "frame_wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": launches,
           "hash_kernels": hash_kernel_times(prof, busy_ms),
+          "ngp_net_kernel": net_kernel_times(prof, busy_ms),
           "top_ops_device_ms": {e.key[:60]: 1e-3 * (
               getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
               for e in top}})
@@ -2091,6 +2148,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
 
     baking.save_baked = recording_save
     try:
+        _zero_scan_counts(segscan)
         t0 = time.perf_counter()
         path = runner.main(_run_flags(
             "eval.json", "--op", "bake", "--checkpoint_path", str(run), "--prefix", "last",
@@ -2098,6 +2156,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
         bake_s = time.perf_counter() - t0
     finally:
         baking.save_baked = save_baked
+    note_hash("runner_bake", trains=False)
     asset = baking.load_baked(path)
     for name in ("table", "aabb"):
         check(torch.equal(asset[name], saved[0][name]), f"load_baked's {name} differs")
@@ -2367,12 +2426,12 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
             counts.append(_scan_counts(segscan))
-            hash_counts.append(_hashgrid().launch_counts())
+            hash_counts.append(_kernel_counts())
         peak = torch.cuda.max_memory_allocated() / 1e6
         launches[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
         if name and getattr(getattr(cfg_.expert, "hash", None), "layout", "") == "cell":
             note_hash(f"m9_{name}", True, tuple(sum(c[i] for c in hash_counts)
-                                                for i in (0, 1)))
+                                                for i in (0, 1, 2)))
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()),
               f"{name}: a metric is not finite: {m}")
@@ -2843,7 +2902,7 @@ def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
             dist.all_reduce(counts, group=pmesh.host_group())  # summed over the ranks
             launches.append({"this_rank": list(_scan_counts(segscan)),
                              "summed": counts.tolist(),
-                             "hash": list(_hashgrid().launch_counts()),
+                             "hash": list(_kernel_counts()),
                              "collectives": mesh.stats["collectives"] - c0["collectives"],
                              "bytes": mesh.stats["bytes"] - c0["bytes"]})
             if i == 0:
@@ -2882,7 +2941,7 @@ def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
         ms.append(1e3 * (time.perf_counter() - t0))
     out["frame"] = {"ms": ms, "rgb": rgb if rank == 0 else None,
                     "launches": list(_scan_counts(segscan)),
-                    "hash": list(_hashgrid().launch_counts())}
+                    "hash": list(_kernel_counts())}
     baked = _baked_to(torch, nn, a["baked"], dev)
     bh, bw = MESH_BAKED_HW
     bcam = toy.overhead_camera(bh, bw)
@@ -2985,7 +3044,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
                                                  gen)
                 out["ms"].append(ms)
                 out["launches"].append(c)
-                out["hash"].append(_hashgrid().launch_counts())
+                out["hash"].append(_kernel_counts())
                 out["collectives"].append((mesh.stats["collectives"] - c0["collectives"],
                                            mesh.stats["bytes"] - c0["bytes"]))
                 if i == 0:
@@ -2999,7 +3058,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
 
         run_a = mesh_run(MESH_STEPS)
         note_hash("mesh_one_rank_step", True,
-                  tuple(sum(c[i] for c in run_a["hash"]) for i in (0, 1)))
+                  tuple(sum(c[i] for c in run_a["hash"]) for i in (0, 1, 2)))
         check(all(c == (per_step, per_step) for c in run_a["launches"]),
               f"one-rank mesh step launches {run_a['launches']}, want {per_step} + {per_step}")
         launches["mesh_one_rank_step"] = tuple(sum(c[i] for c in run_a["launches"])
@@ -3093,7 +3152,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     launches["mesh_two_rank_step"] = tuple(
         sum(l["summed"][i] for l in r0["step"]["launches"]) for i in (0, 1))
     note_hash("mesh_two_rank_step", True, tuple(
-        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in (0, 1)))
+        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in (0, 1, 2)))
     def got_b(run):
         m = run["metrics"]
         return {"cmp": _update_cmp(torch, run["update"], ref_update),
@@ -3117,7 +3176,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     launches["mesh_two_rank_frame"] = tuple(
         sum(r["frame"]["launches"][i] for r in ranks) for i in (0, 1))
     note_hash("mesh_two_rank_frame", False,
-              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in (0, 1)))
+              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in (0, 1, 2)))
     n_disp = -(-H // (2 * (renderer.chunk_rays // W)))  # dispatches of 2 × rows
     check(launches["mesh_two_rank_frame"] == (2 * 2 * n_disp, 0),
           f"(b) two timed frames over 2 ranks launched {launches['mesh_two_rank_frame']}, "
@@ -3378,7 +3437,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         check(not controller._thread.is_alive(), "(c) the loop thread did not end")
         renderer.render_image = real_render
         live_counts = _scan_counts(segscan)
-        note_hash("viewer_live_frames_and_tto", True)
+        note_hash("viewer_live_frames_and_tto", True, net="serves")
         check(controller.last_error is None, f"(c) the loop failed:\n{controller.last_error}")
         check(live.steps == LIVE_STEPS and len(metrics) == LIVE_STEPS,
               f"(c) {live.steps} steps, {len(metrics)} metrics, want {LIVE_STEPS}")
@@ -3694,7 +3753,7 @@ def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         fwd, rev = _scan_counts(segscan)
-        note_hash("host_tools_train", True)
+        note_hash("host_tools_train", True, net="any")
         P = parse_args(train_argv)
         per_step = P.num_submodules * P.batch_size * (P.inner_iter + 1)  # 108
         regimes = [s["regime"] for s in out["loop"]["steps"]]
@@ -3890,6 +3949,17 @@ def hash_kernel_times(prof, busy_ms) -> dict:
     return out
 
 
+def net_kernel_times(prof, busy_ms) -> dict:
+    """The network kernel in a profile: launches, mean µs and share of the
+    card's busy time."""
+    evs = [e for e in prof.key_averages() if "ngp_net_kernel" in e.key]
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in evs)
+    n = sum(e.count for e in evs)
+    return {"launches": n, "mean_us": us / max(n, 1),
+            "share_of_busy": 1e-3 * us / max(busy_ms, 1e-9)}
+
+
 def _ulps_bf16(torch, a, b):
     """|a − b| in bf16 ulps of b, elementwise."""
     a, b = a.float(), b.float()
@@ -4033,6 +4103,76 @@ def phase_hash(torch, toy) -> dict:
     return {"shapes": shapes, "double_backward": double}
 
 
+NET_RTOL, NET_ATOL = 1e-5, 1e-6  # kernel against plain f32: the products' sum order
+
+
+def phase_net(torch) -> dict:
+    """The network kernel (module docstring, phase 15)."""
+    from acn_tpu_torch.ops import ngp_net_bench as nb
+
+    net = _ngp_net()
+    _, ecfg = nb.config()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    experts = nb.net_params(ecfg, 4, seed=15)
+    shapes, t_start = [], time.perf_counter()
+    cases = [(s, P) for s in nb.SETS for P in nb.SIZES] + [("random", nb.ROUTED_P)]
+    for set_name, P in cases:
+        ins = nb.inputs(set_name, P, 4, gen)
+        for mode in (nb.MODES if P != nb.ROUTED_P else ("single",)):
+            args = nb.call_args(mode, *ins, experts)
+            got = net.ngp_net_kernel(mode, *args, ecfg)
+            want = net.ngp_net_plain(mode, *args, ecfg)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            # the largest excess over atol + rtol·|plain| (≤ 0 passes)
+            excess = max(float(((g - w).abs() - NET_ATOL - NET_RTOL * w.abs()).max())
+                         for g, w in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            check(finite and excess <= 0.0,
+                  f"ngp_net {mode} {set_name} P {P}: max |kernel − plain| {err}, over the "
+                  f"tolerance by {excess}, finite {finite}")
+            del got, want
+            row = {"max_abs_err": err, "tolerance_excess": excess,
+                   **nb.time_case(mode, set_name, P, gen, experts, kernel=net.ngp_net_kernel,
+                                  ins=ins)}
+            shapes.append(row)
+            emit({"phase": "net_kernel", **row})
+        del ins
+        torch.cuda.empty_cache()
+    emit({"phase": "net_checks", "cases": len(shapes), "rtol": NET_RTOL, "atol": NET_ATOL,
+          "max_abs_err": max(r["max_abs_err"] for r in shapes),
+          "phase_s": time.perf_counter() - t_start})
+    return {"shapes": shapes}
+
+
+def net_kernel_entry(nk: dict, smi: str) -> dict:
+    """The kernels line's entry of the network kernel: launches summed over
+    the main paths (``NET_BY_PATH``); times at what a dense frame's chunk
+    gives it (``sigma_blend``, the ray-ordered 983,040 slots of 4 experts);
+    every (mode, set, P) under ``shapes``."""
+    at = next(r for r in nk["shapes"]
+              if r["mode"] == "sigma_blend" and r["set"] == "rays" and r["P"] == SERVING_B)
+    keys = ("mode", "set", "P", "K", "pairs", "ms", "host_us", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "ops_bound_ms", "bytes_bound_ms", "max_abs_err")
+    return {"name": "ngp_net_fwd", "route": "cuda", "source": "acn_tpu_torch/csrc/ngp_net.cu",
+            "replaces": "acn_tpu/models/ngp.py:112-156, acn_tpu/nerfs/render_occ.py:147, "
+                        "acn_tpu/models/container.py:181,221 (no TPU kernel: plain XLA)",
+            "launches": sum(NET_BY_PATH.values()), "launches_by_path": dict(NET_BY_PATH),
+            "at": {k: at[k] for k in ("mode", "set", "P", "K", "pairs")},
+            "max_abs_err": max(r["max_abs_err"] for r in nk["shapes"]),
+            "ms": at["ms"], "host_us": at["host_us"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "library_note": "the chain of cuBLAS mm calls of the plain version alone, timed "
+                            "only; no single PyTorch call computes the network",
+            "timing": "card ms per call over a run of calls between one pair of CUDA events, "
+                      "cycling over copies of the inputs that exceed the L2; host µs apart",
+            "shapes": [{k: r[k] for k in keys} for r in nk["shapes"]], "nvidia_smi": smi}
+
+
 def row_dtype(dt) -> str:
     return str(dt).split(".")[-1]
 
@@ -4088,6 +4228,7 @@ def main() -> int:
     live = phase_live(torch, segscan, toy, run8["run"], baked_path)
     fwd_tools, rev_tools = phase_tools(torch, segscan, toy, args.profile)
     hk = phase_hash(torch, toy)
+    nk = phase_net(torch)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -4147,6 +4288,7 @@ def main() -> int:
                            "max_abs_err": sh["reverse_max_abs_err"]}
                           for sh in train["shapes"]], **common},
         *hash_kernel_entries(hk, smi),
+        net_kernel_entry(nk, smi),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -92,14 +92,29 @@ def test_cell_hash_encode_gradgradcheck_in_the_tables(interpolation):
     assert torch.autograd.gradgradcheck(f, tabs)
 
 
-def test_cell_hash_encode_gradgradcheck_with_the_x_path():
+# seed 0's cotangents put one element of the derivative in the output
+# cotangent 2.24e-5 from its finite difference, over gradcheck's bound of
+# 1.85e-5 (atol 1e-5 + rtol 1e-3 × 0.0085): the x path runs in float32, as
+# acn_tpu's _saved_bwd does, and eps = 1e-4 differences its roundings
+X_PATH_SEEDS = [pytest.param(0, marks=pytest.mark.xfail(
+    strict=True, reason="float32 x path: |analytic − numeric| 2.24e-5 > bound 1.85e-5 in "
+                        "d(x cotangent)/d(output cotangent) (ROADMAP Queue C)")),
+                *range(1, 8)]
+
+
+@pytest.mark.parametrize("seed", X_PATH_SEEDS)
+def test_cell_hash_encode_gradgradcheck_with_the_x_path(seed):
+    """The output cotangents come from the test's own generator (seed), not
+    from the global one, whose state depends on the tests run before."""
     cfg = _cell_cfg()
     tabs = [t.to(F64).requires_grad_(True) for t in tenc.init_hash_table(
         cfg, generator=torch.Generator().manual_seed(0))]
     x = torch.rand(5, 3, dtype=F64, generator=torch.Generator().manual_seed(3),
                    requires_grad=True)
     f = lambda xx, *t: tenc.hash_encode(list(t), xx, cfg)
-    assert torch.autograd.gradgradcheck(f, (x, *tabs), eps=1e-4)
+    g = torch.randn((5, cfg.out_dim), dtype=F64,
+                    generator=torch.Generator().manual_seed(seed)).requires_grad_(True)
+    assert torch.autograd.gradgradcheck(f, (x, *tabs), grad_outputs=(g,), eps=1e-4)
 
 
 def test_trunc_exp_gradgradcheck():

@@ -216,9 +216,10 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_types():
 
 def test_each_source_builds_its_own_library():
     paths = {name: cuda_lib.library_path(source=name) for name in cuda_lib.SOURCES}
-    assert set(paths) == {"segscan", "hashgrid"}
+    assert set(paths) == {"segscan", "hashgrid", "ngp_net"}
     assert paths["segscan"].name.startswith("libsegscan-")
     assert paths["hashgrid"].name.startswith("libhashgrid-")
+    assert paths["ngp_net"].name.startswith("libngp_net-")
     assert paths["segscan"] == cuda_lib.library_path()  # the scan's default
     assert cuda_lib.library_path(("SEGSCAN_ITEMS=4",)) != paths["segscan"]
 

@@ -1,0 +1,410 @@
+"""The NGP expert's network and the soft-MoE blend (acn_tpu_torch.ops.ngp_net):
+its plain version in every mode against acn_tpu's functions on the CPU, the
+config checks, the routing of the serving call sites, and the CUDA kernel
+against the plain version on the card (``requires_cuda``).
+
+The same numpy inputs, made from a seed, go through both packages at micro
+widths; the JAX weights come from acn_tpu's own init and are carried across
+with ``convert``. Tolerances, with their reasons:
+
+* CPU, plain against JAX, float32: rtol 1e-5 / atol 1e-6 — the same
+  network, whose matrix products the two frameworks sum in other orders;
+* card, kernel against plain, float32: rtol 1e-5 / atol 1e-6 on σ and rgb
+  — the kernel sums its products in its own order with fused multiply-adds,
+  cuBLAS in another; everything else rounds as the plain ops do.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acn_tpu.models import container as jcont
+from acn_tpu.models import ngp as jngp
+from acn_tpu.models.container import ContainerConfig as JContainerConfig
+from acn_tpu.models.encodings import HashGridConfig as JHashGridConfig
+from acn_tpu.models.ngp import NGPConfig as JNGPConfig
+from acn_tpu.nerfs import render_occ as jrocc
+from acn_tpu_torch import convert
+from acn_tpu_torch.models import container as tcont
+from acn_tpu_torch.models import ngp as tngp
+from acn_tpu_torch.models import nn as tnn
+from acn_tpu_torch.models.ngp import NGPConfig
+from acn_tpu_torch.models.encodings import HashGridConfig
+from acn_tpu_torch.nerfs import render_occ as trocc
+from acn_tpu_torch.ops import ngp_net
+
+from test_torch_models import SMALL_HASH
+
+RTOL, ATOL = 1e-5, 1e-6
+
+# (hidden, color_hidden, sigma_depth, color_depth, dir_encoding, sh_levels or
+# freq_pe_dim, boundary_margin): every SH level count asked for and the
+# frequency encoding, depths 1 to 3, widths 16 and 64, one-hot and soft
+CONFIGS = [
+    (16, 16, 1, 1, "spherical", 1, 1.0),
+    (16, 16, 2, 3, "spherical", 4, 1.1),
+    (64, 64, 3, 2, "spherical", 5, 1.0),
+    (16, 64, 2, 2, "frequency", 2, 1.1),
+    (64, 16, 1, 3, "spherical", 4, 1.1),
+    (64, 64, 2, 2, "spherical", 4, 1.0),
+]
+MODES = ["single", "density_single", "linear_blend", "density", "sigma_blend"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Micro shapes gain nothing from torch's threads, and under several
+    workers their threads wait on each other's."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jexpert(hidden, color_hidden, sd, cd, enc, lv):
+    kw = dict(sh_levels=lv) if enc == "spherical" else dict(freq_pe_dim=lv)
+    return JNGPConfig(hidden=hidden, color_hidden=color_hidden, sigma_depth=sd,
+                      color_depth=cd, dir_encoding=enc,
+                      hash=JHashGridConfig(**SMALL_HASH), **kw)
+
+
+_SCENES = {}
+
+
+def _scene(conf, K=4, seed=0):
+    """K experts in both packages with one set of weights: (jcfg, jvars,
+    tcfg, model on the CPU). The port's init (torch's Linear init, hash
+    tables ×100 so that the features, not the biases, set the outputs)
+    carried to JAX with ``convert.to_jax_variables``."""
+    key = (conf, K, seed)
+    if key not in _SCENES:
+        *expert, margin = conf
+        jcfg = JContainerConfig(num_submodules=K, boundary_margin=margin, cluster_2d=True,
+                                use_bg_nerf=False, expert=_jexpert(*expert))
+        boxes = np.asarray([[[-1.0, -1.0 if iy < 0 else -0.1, -1.0 if iz < 0 else -0.1],
+                             [1.0, 0.1 if iy < 0 else 1.0, 0.1 if iz < 0 else 1.0]]
+                            for iy in (-1, 1) for iz in (-1, 1)][:K], np.float32)
+        cents = np.asarray([[0.0, 0.5 * iy, 0.5 * iz] for iy in (-1, 1)
+                            for iz in (-1, 1)][:K], np.float32)
+        gaabb = np.array([[-1, -1, -1], [1, 1, 1]], np.float32)
+        tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+        model = tcont.init_container(tcfg, *map(torch.from_numpy, (cents, boxes, gaabb)),
+                                     generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            for t in model.experts["hash_table"]:
+                t.mul_(100.0)
+        _SCENES[key] = (jcfg, convert.to_jax_variables(model), tcfg, model)
+    return _SCENES[key]
+
+
+def _xd(n=257, seed=3):
+    rng = np.random.default_rng(seed)
+    xd = rng.uniform(-1.0, 1.0, (n, 6)).astype(np.float32)
+    xd[::17, 3:6] = 0.0  # a zero direction: the norm's clamp
+    return xd
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: "-".join(map(str, c)))
+def test_plain_matches_jax(conf, mode):
+    """``ngp_net_plain`` in each mode, and the port's entry point that takes
+    it under ``torch.no_grad``, against acn_tpu's function on the CPU."""
+    jcfg, jvars, tcfg, model = _scene(conf)
+    xd = _xd()
+    xt = torch.from_numpy(xd)
+    jv = jax.tree.map(jnp.asarray, jvars)
+    k = 2
+    jp = jax.tree.map(lambda a: a[k], jv["params"]["experts"])
+    ab = jnp.asarray(jvars["buffers"]["expert_aabbs"][k])
+    ecfg = tcfg.expert
+    with torch.no_grad():
+        h_all = tcont.expert_features(model, xt[:, :3])
+        experts = tcont.net_experts(model)
+        w = tcont.routing_weights(model.centroids, xt[:, :3], tcfg.cluster_2d,
+                                  tcfg.boundary_margin)
+        if mode == "single":
+            want = jax.jit(lambda p, b, x: jngp.ngp_forward(p, jcfg.expert, b, x))(jp, ab, xd)
+            got = [ngp_net.ngp_net_plain("single", h_all[k:k + 1], xt[:, 3:6], None,
+                                         [experts[k]], ecfg),
+                   tcont.container_forward(model, xt, active_module=k)]
+        elif mode == "density_single":
+            want = jax.jit(lambda p, b, x: jngp.ngp_density(p, jcfg.expert, b, x))(
+                jp, ab, xd[:, :3])[:, 0]
+            got = [ngp_net.ngp_net_plain("density", h_all[k:k + 1], None, None,
+                                         [experts[k]], ecfg),
+                   tcont.container_density(model, xt[:, :3], active_module=k)]
+        elif mode == "linear_blend":
+            want = jax.jit(lambda v, x: jcont.container_forward(v, jcfg, x))(jv, xd)
+            got = [ngp_net.ngp_net_plain("linear_blend", h_all, xt[:, 3:6], w, experts, ecfg),
+                   tcont.container_forward(model, xt)]
+        elif mode == "density":
+            want = jax.jit(lambda v, x: jcont.container_density(v, jcfg, x))(jv, xd[:, :3])
+            got = [ngp_net.ngp_net_plain("density", h_all, None, w, experts, ecfg),
+                   tcont.container_density(model, xt[:, :3])]
+        else:
+            want = jnp.concatenate([a.reshape(a.shape[0], -1) for a in jax.jit(
+                lambda v, x: jrocc._soft_moe_eval(v, jcfg, x))(jv, xd)[::-1]], axis=1)
+            got = [torch.cat([t.reshape(t.shape[0], -1) for t in o[::-1]], dim=1) for o in (
+                ngp_net.ngp_net_plain("sigma_blend", h_all, xt[:, 3:6], w, experts, ecfg),
+                trocc._soft_moe_eval(model, xt))]
+    for g in got:
+        assert g.shape == np.asarray(want).shape
+        np.testing.assert_allclose(_np(g), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ngp_net.MODES)
+@pytest.mark.parametrize("enc", ["spherical", "frequency"])
+def test_plain_takes_no_points(mode, enc):
+    """P = 0 (a chunk that marched nothing) gives empty outputs of the
+    mode's shapes; the frequency encoding of no direction included."""
+    _, _, tcfg, model = _scene((16, 16, 2, 2, enc, 2, 1.1))
+    xd = torch.zeros((0, 6))
+    with torch.no_grad():
+        h = tcont.expert_features(model, xd[:, :3])
+        w = tcont.routing_weights(model.centroids, xd[:, :3], True, 1.1)
+        experts = tcont.net_experts(model)
+        if mode == "single":
+            h, w, experts = h[:1], None, experts[:1]
+        out = ngp_net.ngp_net(mode, h, None if mode == "density" else xd[:, 3:6], w,
+                              experts, tcfg.expert)
+    shapes = {"single": [(0, 4)], "linear_blend": [(0, 4)], "density": [(0,)],
+              "sigma_blend": [(0,), (0, 3)]}[mode]
+    assert [tuple(t.shape) for t in (out if isinstance(out, tuple) else (out,))] == shapes
+
+
+def _ngp_cfg(**over):
+    kw = dict(hidden=64, color_hidden=64, sigma_depth=2, color_depth=2,
+              hash=HashGridConfig(levels=8, features_per_level=4, layout="cell"))
+    kw.update(over)
+    return NGPConfig(**kw)
+
+
+@pytest.mark.parametrize("over,K,word", [
+    (dict(hidden=129), 1, "hidden 129"),
+    (dict(color_hidden=0), 1, "color_hidden 0"),
+    (dict(sigma_depth=0), 1, "sigma_depth 0"),
+    (dict(color_depth=5), 1, "color_depth 5"),
+    (dict(hash=HashGridConfig(levels=17, features_per_level=4)), 1, "L·F 68"),
+    (dict(geo_feat_dim=16), 1, "geo_feat_dim 16"),
+    (dict(sh_levels=6), 1, "sh_levels 6"),
+    (dict(dir_encoding="frequency", freq_pe_dim=8), 1, "freq_pe_dim 8"),
+    (dict(dir_encoding="hash"), 1, "dir_encoding 'hash'"),
+    ({}, 17, "17 experts"),
+])
+def test_config_checks_refuse_what_the_kernel_does_not_take(over, K, word):
+    with pytest.raises(ValueError, match="it takes hidden and color_hidden") as e:
+        ngp_net.check_config(_ngp_cfg(**over), K)
+    assert word in str(e.value)
+
+
+def test_config_checks_take_the_smoke_and_the_limits():
+    for cfg, K in [(_ngp_cfg(), 4), (_ngp_cfg(hidden=128, color_hidden=1, sigma_depth=4,
+                                              color_depth=1, sh_levels=5), 16),
+                   (_ngp_cfg(dir_encoding="frequency", freq_pe_dim=7,
+                             hash=HashGridConfig(levels=32, features_per_level=2)), 1)]:
+        ngp_net.check_config(cfg, K)
+
+
+def test_kernel_refuses_cpu_tensors_and_unknown_modes():
+    cfg = _ngp_cfg(hidden=16, color_hidden=16,
+                   hash=HashGridConfig(levels=2, features_per_level=2, log2_hashmap_size=8))
+    params = tngp.init_ngp(cfg, generator=torch.Generator().manual_seed(0))
+    h = torch.zeros((1, 5, 4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ngp_net.ngp_net_kernel("single", h, torch.zeros((5, 3)), None, [params], cfg)
+    with pytest.raises(ValueError, match="unknown mode"):
+        ngp_net.ngp_net("blend", h, torch.zeros((5, 3)), None, [params], cfg)
+    with pytest.raises(ValueError, match="records no gradient"):
+        tngp.hash_features(params, cfg, torch.tensor([[-1.0] * 3, [1.0] * 3]),
+                           torch.zeros((5, 3)), out=torch.empty((5, 4)))
+
+
+def _serving_calls(model, tcfg):
+    """The serving call sites, each a thunk: (name, mode it reaches)."""
+    from acn_tpu_torch.occupancy.grid import OccConfig
+    from acn_tpu_torch.pipelines import baking
+    from acn_tpu_torch.pipelines.offline_stage import trainer
+    from acn_tpu_torch.pipelines.renderer import Renderer
+    import types
+
+    occ_cfg = OccConfig(resolution=8, levels=1, alpha_thre=0.0, near_plane=0.0,
+                        far_plane=100.0)
+    occ = trainer.init_occ_states(model.expert_aabbs, occ_cfg)
+    occ["binaries"][:] = True
+    rng = np.random.default_rng(1)
+    o = np.concatenate([rng.uniform(-0.8, 0.8, (24, 2)), np.full((24, 1), 2.0)], 1)
+    d = np.concatenate([rng.uniform(-0.3, 0.3, (24, 2)), -np.ones((24, 1))], 1)
+    rays = np.concatenate([o, d / np.linalg.norm(d, axis=1, keepdims=True),
+                           np.tile([[0.5, 3.5]], (24, 1))], 1).astype(np.float32)
+
+    def renderer(budget, use_occ=True):
+        P = types.SimpleNamespace(ray_samples=16, chunk_points=4096, bg_color_default="white",
+                                  occ_s_max=32, occ_s_kept=8, occ_budget_per_ray=budget,
+                                  occ_render_s_max=0)
+        return Renderer(tcfg, P, occ_cfg if use_occ else None, device="cpu")
+
+    update = trainer.make_occ_update_fn(tcfg, occ_cfg)
+    jitter = torch.zeros((tcfg.num_submodules, 1, 8**3, 3))
+    return [
+        ("budget_frame", "sigma_blend", lambda: renderer(8).render_rays(model, occ, rays)),
+        ("budget0_frame", "sigma_blend", lambda: renderer(0).render_rays(model, occ, rays)),
+        ("stratified_frame", "linear_blend",
+         lambda: renderer(8, use_occ=False).render_rays(model, occ, rays)),
+        ("routed_expert", "single",
+         lambda: renderer(8).render_rays(model, occ, rays, active_module=1)),
+        ("bake", "sigma_blend", lambda: baking.bake_container(
+            model, resolution=4, chunk=64, occ_resolution=4)),
+        ("occ_update", "density", lambda: update(model, occ, jitter=jitter)),
+        ("container_density", "density",
+         lambda: tcont.container_density(model, torch.from_numpy(rays[:, :3]))),
+    ]
+
+
+@pytest.mark.parametrize("site", range(7))
+def test_serving_call_sites_reach_ngp_net_without_grad_and_the_composition_with(
+        site, monkeypatch):
+    conf = (16, 16, 2, 2, "spherical", 4, 1.1)
+    _, _, tcfg, model = _scene(conf)
+    name, mode, call = _serving_calls(model, tcfg)[site]
+    seen, composed = [], []
+    real_net, real_fwd, real_dens = (ngp_net.ngp_net, ngp_net.features_forward,
+                                     ngp_net.features_density)
+    monkeypatch.setattr(ngp_net, "ngp_net", lambda m, *a: seen.append(m) or real_net(m, *a))
+    monkeypatch.setattr(ngp_net, "features_forward",
+                        lambda *a: composed.append(1) or real_fwd(*a))
+    monkeypatch.setattr(ngp_net, "features_density",
+                        lambda *a, **k: composed.append(1) or real_dens(*a, **k))
+    with torch.no_grad():
+        call()
+    assert seen and set(seen) == {mode}, (name, seen)
+    # the plain version runs inside ngp_net on the CPU; nothing composes
+    # outside it
+    assert len(composed) > 0
+    seen.clear()
+    # under autograd: the composition, never ngp_net
+    xd = torch.from_numpy(_xd(40))
+    with torch.enable_grad():
+        tcont.container_forward(model, xd).sum().backward()
+        trocc._soft_moe_eval(model, xd)[0].sum().backward()
+        tcont.container_density(model, xd[:, :3]).sum().backward()
+        tngp.ngp_density(model.expert(0), tcfg.expert, model.expert_aabbs[0], xd[:, :3])
+    assert seen == []
+    # bf16 under no_grad (a training step's AMP) keeps the composition too
+    p16 = tnn.tree_cast(model.expert(1), torch.bfloat16)
+    with torch.no_grad():
+        tngp.ngp_forward(p16, tcfg.expert, model.expert_aabbs[1], xd.to(torch.bfloat16))
+    assert seen == []
+
+
+# ================================================================ card
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return "cuda"
+
+
+def _net_inputs(cfg, K, P, seed, dev, sigma_shift=0.0, margin=1.1):
+    """K experts' layer weights (torch's Linear init), hash features of the
+    init's scale ×1e3, directions with zero rows, routing weights of random
+    points (one-hot at margin 1): all on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+    experts = []
+    for _ in range(K):
+        p = {"sigma_trunk": tnn.init_mlp([cfg.hash.out_dim] + [cfg.hidden] * cfg.sigma_depth,
+                                         generator=gen),
+             "sigma_head": tnn.init_linear(cfg.hidden, 1, generator=gen),
+             "geo_head": tnn.init_linear(cfg.hidden, cfg.geo_feat_dim, generator=gen),
+             "color_mlp": tnn.init_mlp([cfg.geo_feat_dim + cfg.dir_enc_dim]
+                                       + [cfg.color_hidden] * cfg.color_depth + [3],
+                                       generator=gen)}
+        p["sigma_head"]["b"] = p["sigma_head"]["b"] - 1.0 + sigma_shift
+        experts.append(tnn.tree_map(lambda t: t.to(dev), p))
+    rng = np.random.default_rng(seed)
+    L = cfg.hash.out_dim
+    h = torch.from_numpy(rng.normal(size=(K, P, L)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(P, 6)).astype(np.float32)).to(dev)
+    d[::7, 3:6] = 0.0
+    cents = torch.from_numpy(rng.uniform(-1, 1, (K, 3)).astype(np.float32)).to(dev)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (P, 3)).astype(np.float32)).to(dev)
+    w = tcont.routing_weights(cents, pts, True, margin)
+    return experts, h, d[:, 3:6], w
+
+
+def _close(got, want):
+    for g, t in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.shape == t.shape
+        torch.testing.assert_close(g, t, rtol=RTOL, atol=ATOL)
+
+
+def _run_modes(cfg, K, P, seed, **kw):
+    dev = _card()
+    experts, h, d, w = _net_inputs(cfg, K, P, seed, dev, **kw)
+    before = ngp_net.launch_counts()
+    calls = [("single", h[:1], d, None, experts[:1]),
+             ("density", h[:1], None, None, experts[:1]),
+             ("sigma_blend", h, d, w, experts), ("linear_blend", h, d, w, experts),
+             ("density", h, None, w, experts)]
+    for mode, hh, dd, ww, ee in calls:
+        got = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        torch.cuda.synchronize()
+        _close(got, ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg))
+    assert ngp_net.launch_counts() - before == (len(calls) if P else 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [0, 1, 31, 33, 32_768])
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: "-".join(map(str, c)))
+def test_kernel_matches_plain_on_card(conf, P):
+    hidden, ch, sd, cd, enc, lv, margin = conf
+    kw = dict(sh_levels=lv) if enc == "spherical" else dict(freq_pe_dim=lv)
+    cfg = _ngp_cfg(hidden=hidden, color_hidden=ch, sigma_depth=sd, color_depth=cd,
+                   dir_encoding=enc, hash=HashGridConfig(levels=4, features_per_level=2), **kw)
+    _run_modes(cfg, 4, P, seed=P + hidden, margin=margin)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [32_768, 983_040])
+def test_kernel_matches_plain_at_the_smoke_width_on_card(P):
+    _run_modes(_ngp_cfg(), 4, P, seed=1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shift", [-200.0, 200.0])
+def test_kernel_matches_plain_past_the_trunc_exp_clamp_on_card(shift):
+    _run_modes(_ngp_cfg(), 4, 4_099, seed=2, sigma_shift=shift, margin=1.0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("width", [96, 128])
+def test_kernel_matches_plain_at_the_widest_class_on_card(width):
+    _run_modes(_ngp_cfg(hidden=width, color_hidden=width - 32, sigma_depth=4, color_depth=4),
+               3, 1_000, seed=4)
+
+
+@pytest.mark.requires_cuda
+def test_kernel_reads_strided_directions_and_raises_on_bad_input_on_card():
+    dev = _card()
+    cfg = _ngp_cfg()
+    experts, h, d, w = _net_inputs(cfg, 2, 100, 5, dev)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ngp_net.ngp_net_kernel("sigma_blend", h, d, w.t().contiguous().t(), experts, cfg)
+    with pytest.raises(ValueError, match="features"):
+        ngp_net.ngp_net_kernel("single", h[:1].double(), d, None, experts[:1], cfg)
+    with pytest.raises(ValueError, match="NGP network kernel does not take"):
+        ngp_net.ngp_net_kernel("single", h[:1], d, None, experts[:1],
+                               dataclasses.replace(cfg, geo_feat_dim=16))
+    assert d.stride(0) == 6  # a view of (P, 6) rows
+    _close(ngp_net.ngp_net_kernel("single", h[:1], d, None, experts[:1], cfg),
+            ngp_net.ngp_net_plain("single", h[:1], d.contiguous(), None, experts[:1], cfg))
