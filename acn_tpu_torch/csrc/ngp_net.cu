@@ -20,45 +20,79 @@
 // Bound to PyTorch through a plain C interface (ctypes) in
 // acn_tpu_torch/ops/ngp_net.py, which holds the plain version.
 //
-// Bound: operations. At the smoke's widths (L*F 32, hidden 64, depth 2,
-// colour 64 deep 2, SH 4 levels) a point costs 13,440 multiply-adds per
-// expert; the bytes per point (K * 32 features, d, w, 4 outputs) are a few
-// hundred. At 67 TFLOP/s f32 a serving chunk of 983,040 points and 4 experts
-// takes at least 1.58 ms, its bytes 0.15 ms at 3.35 TB/s.
+// Bound: operations, on the tensor cores. Every layer product runs as
+// "3xTF32" on mma.sync.m16n8k8 (below): three TF32 products a multiply-add.
+// At the smoke's widths (L*F 32, hidden 64, depth 2, colour 64 deep 2, SH 4
+// levels) a (point, expert) pair costs 13,440 multiply-adds (13,824 with the
+// tiles' padding), so 3 x 2 x 13,440 flops; at 495 TFLOP/s (dense TF32) a
+// serving chunk whose routing needs 2.24 M pairs takes at least 0.36 ms, its
+// bytes (each needed feature row once, d, w, 4 outputs) about 0.1 ms at
+// 3.35 TB/s.
 //
-// Design, all f32 on the FMA pipes (tensor cores are a later redesign). A
-// block of kThreads threads takes kThreads * PTS points, PTS points a
-// thread (2 at widths up to 64, 1 at 128). For each expert it stages one
-// layer at a time into shared memory, its weights as rows of the layer's
-// padded width (W, the widths' class 32, 64 or 128, zeros past the layer's
-// own width: a zero unit stays zero through ReLU and feeds nothing), and the
-// thread multiplies its points' activations into W accumulators in
-// registers: for each input i, one read of each point's activation and W / 4
-// float4 reads of the weight row, which every lane of the warp reads at one
-// address (a broadcast), so a float4 read feeds 4 * PTS FMAs. The points'
-// activations live in shared memory as one row per point (a row stride
-// that is odd, so a warp's reads fall in 32 banks), which lets every input
-// count be a runtime loop: only the outputs are unrolled. The hash features
-// come in with one coalesced copy of the block's contiguous rows; the
-// concatenation [g, e] is a place in the row, not a copy. The sigma and geo
-// heads are one staged layer of 16 columns, the last colour layer one of 4.
+// Design.
+// * Points of a block come in slabs of S (at most kSlabMax; shared memory
+//   sets it: 640 at the smoke's widths, 1,024 in density; a call of fewer
+//   points than S slabs an SM takes slabs of P / SMs, at least kSlabMin, so
+//   that every SM has work). For each slab the block encodes
+//   each point's direction once into shared memory; then, for each expert in
+//   turn, it compacts the slab's points whose routing weight is not 0 into a
+//   list (ballots and a prefix count in shared memory) and its warps run
+//   16-point tiles of that list, gathering each point's feature row from
+//   h[k]. The epilogue adds the expert's share into the point's accumulators
+//   in shared memory. A point is in a list at most once and the experts go
+//   in order, so no atomics are needed and every sum runs over k in the
+//   plain version's order: the outputs are deterministic. Unweighted modes
+//   list every point. The grid is one block an SM, each taking every
+//   grid-th slab.
+// * A warp keeps its tile's activations in registers: a layer's input as
+//   the A fragments of m16n8k8, its output as the accumulator fragments. The
+//   accumulator puts columns (2t, 2t+1) of an 8-column tile in lane t of a
+//   quad, where A wants columns (t, t+4): instead of moving the values,
+//   every layer reads its weight rows permuted, k-slot t from row 2t and
+//   k-slot t+4 from row 2t+1, so a layer's output fragment is the next
+//   layer's input fragment as it stands (no shuffle, no shared memory, no
+//   barrier). The hash features are loaded into the same layout.
+// * The weights, split once per (slab, expert) and read as the mma's want
+//   them: for each (input tile of 8, output tile of 8, lane) one 16-byte
+//   {b0 big, b1 big, b0 small, b1 small}, so that the products' inner loop
+//   is one shared-memory read and three mma's (splitting f32 weights at
+//   each use made the integer pipe the limit). The split image (112 KB at
+//   the smoke's widths) has no room for a second one beside a slab, so the
+//   next expert's f32 layers land by cp.async in a landing buffer (62 KB)
+//   while the current expert computes, and all threads split them into the
+//   image after the barrier that ends it. An expert that stays (one-expert
+//   modes) is neither landed nor split again. When an expert does not fit
+//   beside a slab (widths 96-128 at depth 4: up to 470 KB an expert), its
+//   layers land and split one at a time, all warps taking one tile each per
+//   pass.
+// * The three products of a multiply-add chain through one accumulator and
+//   a warp issues in order: for each input tile the mma's go one product at
+//   a time across up to 4 output tiles (asm volatile keeps that order), so
+//   that no mma waits on the one before it. They sum into a partial from 0,
+//   added to the layer's sum with one rounded add (the mma's own
+//   accumulation does not round to nearest).
+// * The sigma and geo heads are one layer of 16 columns (sigma in column 0).
+//   Its output fragments are the colour MLP's first two input tiles: the
+//   colour layer 0 is staged with a zero row in front of its own rows, and
+//   the sigma column is set to 0 after it is read. The direction encoding
+//   follows from column 16, padded with zeros to the tile. The last colour
+//   layer is 8 columns wide (3 used). Zero rows and columns add exact zeros.
+// * Two classes of width, templated: up to 64 (16 warps a block, at most
+//   128 registers a thread) and up to 128 (8 warps). A hidden layer is
+//   computed at its class's width (zero columns past its own), its input at
+//   its own.
 //
-// Blends loop over the experts inside the block, adding into each point's
-// accumulators in registers. An expert whose routing weight is 0 at every
-// point of the block is skipped (its layers are neither staged nor run), and
-// a warp whose 32 * PTS points all have weight 0 skips the arithmetic: the
-// plain version adds 0 * y for them, and 0 * y is 0 for every finite y
-// (trunc_exp caps s at exp(88), the sigmoid's c lies in [0, 1]). With the
-// hard one-hot routing of boundary margin 1 this runs one expert a point
-// where the plain version runs K.
-//
-// Bits. The matrix products sum in their own order (as cuBLAS does against
-// the CPU) with fused multiply-adds, and the bias is added after the sum,
-// as (x @ w) + b adds it. The direction's normalisation and its encoding
-// round every step as PyTorch's eager ops do (__fmul_rn / __fadd_rn /
-// __fdiv_rn, no contraction), normalising twice on the SH path as
-// enc_dir and sh_encode do; the blends take w * s and (w * s) * c as two
-// rounded products, as the plain version does.
+// Bits. A product a*b is summed as a_small*b_big + a_big*b_small +
+// a_big*b_big in the f32 accumulators, with big = cvt.rna.tf32.f32(x) and
+// small = cvt.rna.tf32.f32(x - big) (small*small dropped), for the weights
+// and the activations alike: within ~1e-7 of an f32 product's sum
+// (tests/test_torch_ngp_net.py emulates it). The bias is added after the
+// sum, as (x @ w) + b adds it. ReLU, trunc_exp at +-88, the sigmoid, the
+// direction's normalisation and its encoding round every step as PyTorch's
+// eager ops do (__fmul_rn / __fadd_rn / __fdiv_rn, no contraction),
+// normalising twice on the SH path as enc_dir and sh_encode do; the blends
+// take w * s and (w * s) * c as two rounded products, as the plain version
+// does.
 
 #include <cuda_runtime.h>
 
@@ -69,12 +103,16 @@ constexpr int kMaxDepth = 4;
 constexpr int kMaxWidth = 128;
 constexpr int kMaxIn = 64;  // L*F, and geo + direction encoding
 constexpr int kGeo = 15;
-constexpr int kHeads = 16;  // sigma + geo, staged as one layer
-constexpr int kOut = 4;     // the last colour layer's 3, padded
-constexpr int kThreads = 128;
-constexpr int kSlots = kMaxDepth + 2 + kMaxDepth + 1;  // layers per expert
+constexpr int kSlots = kMaxDepth + 2 + kMaxDepth + 1;  // weight slots per expert
+constexpr int kMaxLayers = kMaxDepth + 1 + kMaxDepth + 1;
+constexpr int kSlabMax = 1024;  // points a slab, at most (the list indices are 16-bit)
+constexpr int kSlabMin = 256;   // one 16-point tile a warp of a 16-warp block
 
 enum Mode { kSingle = 0, kSigmaBlend = 1, kLinearBlend = 2, kDensity = 3 };
+
+// warps a block (above 64 wide, a thread's activations and accumulators
+// take twice the registers)
+__host__ __device__ constexpr int threads_for(int W) { return W > 64 ? 8 * 32 : 16 * 32; }
 
 struct Layer {
   const float* w;  // (in, out) row-major, as the port stores it
@@ -88,91 +126,251 @@ struct Expert {
   Layer color[kMaxDepth + 1];
 };
 
+// A layer: kt input tiles of 8 rows, nt output tiles of 8 columns. As it
+// lands (f32, row-major): rows ds floats apart, the bias (8 nt floats) after
+// the 8 kt rows, at off in an expert's landed image. As the mma's read it:
+// for each (input tile, output tile, lane) the lane's B fragment split into
+// TF32 parts, {b0 big, b1 big, b0 small, b1 small}, then the bias, at foff
+// in the expert's split image.
+struct Shape {
+  int kt, nt, ds, off, foff;
+};
+
 // Passed by value in the kernel's parameter space (under 4 KB), read in
 // place (__grid_constant__: a runtime index into it makes no local copy).
 struct Net {
   Expert e[kMaxExperts];
+  Shape layer[kMaxLayers];
   const float* dirs;  // (P, >= 3) rows dir_stride apart
   const float* w;     // (P, K) routing weights, or null
   float* rgb;         // rows rgb_stride apart, or null
   float* sigma;       // rows sigma_stride apart
-  long long P, dir_stride, rgb_stride, sigma_stride;
+  long long P, dir_stride, rgb_stride, sigma_stride, slabs;
   int K, in_dim, hidden, sigma_depth, color_hidden, color_depth;
   int dir_kind, dir_param, sigmoid, enc_dim;
-  int wrows;       // rows of the weight buffer
-  int act_stride;  // floats per point row of activations (odd)
+  int nl;              // layers an expert (density: the trunk and the heads)
+  int streamed;        // 0: whole experts; 1: one layer at a time
+  int land, split;     // floats of the landing and split buffers
+  int S, ES;           // points a slab; floats a point's encoding row (even)
 };
+
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 4 bytes, or a zero when n is 0 (src is then not read)
+__device__ __forceinline__ void cp4(float* dst, const float* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, each a TF32 value
+__device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
+  big = tf32(x);
+  small = tf32(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// volatile: the mma's issue in the order written (see dense)
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ------------------------------------------------------------------ staging
 
-// Rows [0, in) of a layer of OUTP padded columns into sw (row stride OUTP)
-// and its bias into sb: the columns of part a, then those of part b (the
-// heads), zeros after.
-template <int OUTP>
-__device__ __forceinline__ void stage(float* sw, float* sb, int in, Layer a, int na,
-                                      Layer b, int nb) {
-  for (int e = threadIdx.x; e < in * OUTP; e += kThreads) {
-    const int i = e / OUTP, j = e - i * OUTP;
-    float v = 0.f;
-    if (j < na) v = __ldg(a.w + (long long)i * na + j);
-    else if (j - na < nb) v = __ldg(b.w + (long long)i * nb + (j - na));
-    sw[e] = v;
-  }
-  for (int j = threadIdx.x; j < OUTP; j += kThreads) {
-    float v = 0.f;
-    if (j < na) v = __ldg(a.b + j);
-    else if (j - na < nb) v = __ldg(b.b + (j - na));
-    sb[j] = v;
+// A source of a staged layer: rows [row0, row0 + rows) and columns
+// [col0, col0 + cols) of the staged matrix come from w (rows x cols), the
+// bias columns from b.
+struct Part {
+  const float* w;
+  const float* b;
+  int rows, cols, row0, col0;
+};
+
+// Layer l's sources: one part, or two for the heads (b.cols = 0 where none).
+__device__ __forceinline__ void parts_of(const Net& net, const Expert& e, int l, Part& a,
+                                         Part& b) {
+  const int sd = net.sigma_depth, cd = net.color_depth;
+  b = {nullptr, nullptr, 0, 0, 0, 0};
+  if (l < sd) {
+    a = {e.trunk[l].w, e.trunk[l].b, l == 0 ? net.in_dim : net.hidden, net.hidden, 0, 0};
+  } else if (l == sd) {  // [sigma | geo]
+    a = {e.sigma.w, e.sigma.b, net.hidden, 1, 0, 0};
+    b = {e.geo.w, e.geo.b, net.hidden, kGeo, 0, 1};
+  } else if (l == sd + 1) {  // behind a zero row: the heads' sigma column
+    a = {e.color[0].w, e.color[0].b, kGeo + net.enc_dim, net.color_hidden, 1, 0};
+  } else if (l - sd - 1 < cd) {
+    a = {e.color[l - sd - 1].w, e.color[l - sd - 1].b, net.color_hidden, net.color_hidden, 0, 0};
+  } else {
+    a = {e.color[cd].w, e.color[cd].b, net.color_hidden, 3, 0, 0};
   }
 }
 
-template <int OUTP>
-__device__ __forceinline__ void stage(float* sw, float* sb, int in, Layer a, int na) {
-  stage<OUTP>(sw, sb, in, a, na, Layer{nullptr, nullptr}, 0);
+// the source of element (i, j) of a staged layer, or null (a zero)
+__device__ __forceinline__ const float* source(const Part& p, int i, int j) {
+  const int r = i - p.row0, c = j - p.col0;
+  return r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.w + (long long)r * p.cols + c : nullptr;
+}
+
+// Issue the cp.asyncs of a layer (parts a, b; s its shape) into dst, weights
+// then bias, every padded element included: zeros where no part covers it.
+// Arguments by value: nothing in the loop is read through a pointer that a
+// store could alias.
+__device__ __noinline__ void stage_layer(float* dst, const Part a, const Part b, const Shape s) {
+  const int lq = __ffs(2 * s.nt) - 1, n = 8 * s.kt << lq;  // 2 nt quads a row (nt: a power of 2)
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const int i = q >> lq, j = 4 * (q - (i << lq));
+    float* d = dst + i * s.ds + j;
+    const int r = i - a.row0;
+    if (b.cols == 0 && r >= 0 && r < a.rows && j + 4 <= a.cols) {
+      const float* src = a.w + (long long)r * a.cols + j;
+      if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+        cp16(d, src);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* src = source(a, i, j + u);
+      if (src == nullptr && b.cols) src = source(b, i, j + u);
+      cp4(d + u, src ? src : a.w, src ? 4 : 0);
+    }
+  }
+  float* bias = dst + 8 * s.kt * s.ds;
+  for (int j = threadIdx.x; j < 8 * s.nt; j += blockDim.x) {
+    const float* src = j < a.col0 + a.cols ? a.b + (j - a.col0)
+                       : b.cols && j >= b.col0 && j < b.col0 + b.cols ? b.b + (j - b.col0)
+                                                                    : nullptr;
+    cp4(bias + j, src ? src : a.b, src ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void stage(float* dst, const Net& net, const Expert& e, int l) {
+  Part a, b;
+  parts_of(net, e, l, a, b);
+  stage_layer(dst, a, b, net.layer[l]);
+}
+
+__device__ __forceinline__ void stage_expert(float* dst, const Net& net, const Expert& e) {
+  for (int l = 0; l < net.nl; ++l) stage(dst + net.layer[l].off, net, e, l);
+}
+
+// A landed layer into its split B fragments (every thread of the block):
+// lane (g, t) of the mma reads k-slot t from row 2t and k-slot t + 4 from
+// row 2t + 1 of the input tile, column g of the output tile.
+__device__ __noinline__ void split_layer(float* dst, const float* src, const Shape s) {
+  const int n = s.kt * s.nt * 32, ln = __ffs(s.nt) - 1;  // nt: a power of 2
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int lane = i & 31, tile = i >> 5, kt = tile >> ln, nt = tile - (kt << ln);
+    const float* r = src + (kt * 8 + 2 * (lane & 3)) * s.ds + nt * 8 + (lane >> 2);
+    unsigned b0, s0, b1, s1;
+    split(r[0], b0, s0);
+    split(r[s.ds], b1, s1);
+    reinterpret_cast<uint4*>(dst)[i] = make_uint4(b0, b1, s0, s1);
+  }
+  for (int j = threadIdx.x; j < 8 * s.nt; j += blockDim.x) dst[4 * n + j] = src[8 * s.kt * s.ds + j];
+}
+
+__device__ __forceinline__ void split_expert(float* dst, const float* src, const Net& net) {
+  for (int l = 0; l < net.nl; ++l)
+    split_layer(dst + net.layer[l].foff, src + net.layer[l].off, net.layer[l]);
 }
 
 // ------------------------------------------------------------------ layers
 
-// y[q][j] = sum_i act_q[i] * W[i][j] + b[j] for the thread's PTS points,
-// act_q the point's row (q * kThreads * S floats past the thread's first).
-template <int OUT, int PTS>
-__device__ __forceinline__ void dense(const float* a, int S, int in, const float* sw,
-                                      const float* sb, float (&y)[PTS][OUT]) {
+// c[0, NT) = a @ W + b on one tile of 16 points: a, the input's kt_n tiles
+// as A fragments (column 2t of an input tile in k-slot t, 2t + 1 in slot
+// t + 4, rows g and g + 8); c, NT output tiles as accumulator fragments. w:
+// the layer's split B fragments, then its bias. NT is fixed at compile time
+// and kt_n tested once an input tile, so the products of an input tile form
+// one block of independent mma's.
+template <int NT, int KA, int NC>
+__device__ __forceinline__ void dense(const float (&a)[KA][4], float (&c)[NC][4], const float* w,
+                                      int kt_n) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const uint4* b = reinterpret_cast<const uint4*>(w) + lane;
 #pragma unroll
-  for (int q = 0; q < PTS; ++q)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int j = 0; j < OUT; ++j) y[q][j] = 0.f;
-#pragma unroll 2
-  for (int i = 0; i < in; ++i) {
-    float x[PTS];
+    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
 #pragma unroll
-    for (int q = 0; q < PTS; ++q) x[q] = a[q * kThreads * S + i];
-    const float4* r = reinterpret_cast<const float4*>(sw + i * OUT);
+  for (int kt = 0; kt < KA; ++kt) {
+    if (kt < kt_n) {
+      unsigned ab[4], as[4];
 #pragma unroll
-    for (int j = 0; j < OUT / 4; ++j) {
-      const float4 v = r[j];
+      for (int i = 0; i < 4; ++i) split(a[kt][i], ab[i], as[i]);
+      // up to 4 output tiles at a time: their B fragments, then each of the
+      // three products across the tiles, so that an mma never waits on the
+      // one issued just before it (they chain through an accumulator; the
+      // warp issues in order). The 24 products of an input tile sum into a
+      // partial from 0, added to the layer's sum with one rounded add: the
+      // long sum does not pass through the mma's own accumulation, whose
+      // rounding, repeated three times an input tile at the sum's magnitude,
+      // put sigma 2e-6 off f32 at large activations.
+      constexpr int G = NT < 4 ? NT : 4;
 #pragma unroll
-      for (int q = 0; q < PTS; ++q) {
-        y[q][4 * j + 0] = fmaf(x[q], v.x, y[q][4 * j + 0]);
-        y[q][4 * j + 1] = fmaf(x[q], v.y, y[q][4 * j + 1]);
-        y[q][4 * j + 2] = fmaf(x[q], v.z, y[q][4 * j + 2]);
-        y[q][4 * j + 3] = fmaf(x[q], v.w, y[q][4 * j + 3]);
+      for (int n0 = 0; n0 < NT; n0 += G) {
+        uint4 f[G];  // b0, b1 big; b0, b1 small
+        float d[G][4];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          f[j] = b[(kt * NT + n0 + j) * 32];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j) mma(d[j], as, f[j].x, f[j].y);
+#pragma unroll
+        for (int j = 0; j < G; ++j) mma(d[j], ab, f[j].z, f[j].w);
+#pragma unroll
+        for (int j = 0; j < G; ++j) mma(d[j], ab, f[j].x, f[j].y);
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[n0 + j][i] = __fadd_rn(c[n0 + j][i], d[j][i]);
       }
     }
   }
+  const float* bias = w + 128 * kt_n * NT + 2 * t;
 #pragma unroll
-  for (int q = 0; q < PTS; ++q)
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) y[q][j] = __fadd_rn(y[q][j], sb[j]);
+  for (int nt = 0; nt < NT; ++nt) {
+    const float2 bv = *reinterpret_cast<const float2*>(bias + nt * 8);
+    c[nt][0] = __fadd_rn(c[nt][0], bv.x);
+    c[nt][1] = __fadd_rn(c[nt][1], bv.y);
+    c[nt][2] = __fadd_rn(c[nt][2], bv.x);
+    c[nt][3] = __fadd_rn(c[nt][3], bv.y);
+  }
 }
 
-// relu(y) into the point rows
-template <int OUT, int PTS>
-__device__ __forceinline__ void store_relu(float* a, int S, const float (&y)[PTS][OUT]) {
+// the output tiles [0, N) as the next layer's input, through ReLU or not
+template <int N, int KA, int NC>
+__device__ __forceinline__ void feed(const float (&c)[NC][4], float (&a)[KA][4], bool relu) {
 #pragma unroll
-  for (int q = 0; q < PTS; ++q)
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) a[q * kThreads * S + j] = fmaxf(y[q][j], 0.f);
+  for (int kt = 0; kt < N; ++kt) {
+    a[kt][0] = relu ? fmaxf(c[kt][0], 0.f) : c[kt][0];
+    a[kt][1] = relu ? fmaxf(c[kt][2], 0.f) : c[kt][2];
+    a[kt][2] = relu ? fmaxf(c[kt][1], 0.f) : c[kt][1];
+    a[kt][3] = relu ? fmaxf(c[kt][3], 0.f) : c[kt][3];
+  }
 }
 
 // ------------------------------------------------------------------ direction
@@ -263,175 +461,375 @@ __device__ __forceinline__ void encode_dir(float x, float y, float z, int kind, 
 
 #undef C
 
-// ------------------------------------------------------------------ kernel
+// ------------------------------------------------------------------ a tile
 
-template <int MODE, int W, int PTS>
-__global__ void __launch_bounds__(kThreads) ngp_net_kernel(const __grid_constant__ Net net) {
-  extern __shared__ __align__(16) float smem[];
-  float* sw = smem;                    // weights: wrows x W
-  float* sb = smem + net.wrows * W;    // bias: W
-  float* act = sb + W;                 // point rows: kThreads * PTS x S
-  const int S = net.act_stride;
-  const int t = threadIdx.x;
-  constexpr int NP = kThreads * PTS;
-  const long long base = (long long)blockIdx.x * NP;
-  const int n_here = (int)min((long long)NP, net.P - base);
-  float* a = act + t * S;
-  constexpr bool kBlend = MODE == kSigmaBlend || MODE == kLinearBlend || MODE == kDensity;
-  const bool weighted = kBlend && net.w != nullptr;
+// Where layer l's split weights are. Resident: in the expert's split image.
+// Streamed: every thread of the block calls it for every layer in turn; it
+// waits for layer l to land, splits it (between two barriers), then stages
+// the next layer of the pass (or layer 0 of the next pass) into the landing
+// slot, to land while layer l computes.
+struct Weights {
+  const Net& net;
+  float* landing;
+  float* frags;
+  int k, pass, passes;
 
-  bool valid[PTS];
-  long long p[PTS];
-#pragma unroll
-  for (int q = 0; q < PTS; ++q) {
-    p[q] = base + q * kThreads + t;
-    valid[q] = p[q] < net.P;
+  __device__ __forceinline__ const float* operator()(int l) {
+    if (!net.streamed) return frags + net.layer[l].foff;
+    cp_wait_all();
+    __syncthreads();  // layer l landed; every warp left layer l - 1
+    split_layer(frags, landing, net.layer[l]);
+    __syncthreads();  // layer l split; the landing slot is free
+    const int next = l + 1 < net.nl ? l + 1 : 0;
+    if (next > 0 || pass + 1 < passes) stage(landing, net, net.e[k], next);
+    cp_commit();
+    return frags;
   }
-  float dir[PTS][3];
-  if (MODE != kDensity) {
+};
+
+// One expert's network on tile `tile` of the list (16 points; its rows past
+// n_k idle), adding into the slab's accumulators. Every thread of the block
+// calls `weights` for every layer, active or not (the streamed layers'
+// barriers).
+template <int MODE, int W>
+__device__ __forceinline__ void run_tile(const Net& net, int k, long long base, bool active,
+                                         int tile, int n_k, const unsigned short* list,
+                                         const float* enc, float4* acc, Weights& weights) {
+  constexpr int NC = W / 8;             // a hidden layer's tiles (zero columns past its width)
+  constexpr int KA = NC > 8 ? NC : 8;   // input tiles, at most: L*F and the colour input reach 64
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Expert& e = net.e[k];
+  int slot[2];  // rows g and g + 8
+  bool valid[2];
 #pragma unroll
-    for (int q = 0; q < PTS; ++q)
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        dir[q][c] = valid[q] ? __ldg(net.dirs + p[q] * net.dir_stride + c) : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = tile * 16 + 8 * h + g;
+    valid[h] = active && r < n_k;
+    slot[h] = valid[h] ? list[r] : 0;
   }
-  // per point: [c, s] (single), accumulators of the blends
-  float acc[PTS][4];
-#pragma unroll
-  for (int q = 0; q < PTS; ++q)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[q][c] = 0.f;
 
-  for (int k = 0; k < net.K; ++k) {
-    float wk[PTS];
-    bool mine = false;
+  float a[KA][4], c[NC][4];
+  if (active) {  // the feature rows
+    const int kt0 = net.layer[0].kt;
 #pragma unroll
-    for (int q = 0; q < PTS; ++q) {
-      wk[q] = !valid[q] ? 0.f : weighted ? __ldg(net.w + p[q] * net.K + k) : 1.f;
-      mine |= wk[q] != 0.f;
-    }
-    // also the barrier after the previous expert's last reads
-    if (!__syncthreads_or(mine)) continue;
-    const bool on = __any_sync(0xffffffffu, mine);
-    const Expert& e = net.e[k];
-
-    // the block's feature rows (contiguous in h) into the point rows
-    {
-      const int in = net.in_dim;
-      const float* src = e.h + base * in;
-      for (int i = t; i < NP * in; i += kThreads) {
-        const int r = i / in, c = i - r * in;
-        act[r * S + c] = r < n_here ? __ldg(src + i) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const float* row = e.h + (base + slot[h]) * net.in_dim;
+#pragma unroll
+      for (int kt = 0; kt < KA; ++kt) {
+        if (kt < kt0) {
+          const int j = kt * 8 + 2 * t;
+          a[kt][h] = valid[h] && j < net.in_dim ? __ldg(row + j) : 0.f;
+          a[kt][2 + h] = valid[h] && j + 1 < net.in_dim ? __ldg(row + j + 1) : 0.f;
+        }
       }
-      stage<W>(sw, sb, in, e.trunk[0], net.hidden);
     }
-    __syncthreads();
-
-    float y[PTS][W];
-    for (int l = 0; l < net.sigma_depth; ++l) {
-      if (on) dense<W, PTS>(a, S, l == 0 ? net.in_dim : net.hidden, sw, sb, y);
-      __syncthreads();
-      if (l + 1 < net.sigma_depth) stage<W>(sw, sb, net.hidden, e.trunk[l + 1], net.hidden);
-      else stage<kHeads>(sw, sb, net.hidden, e.sigma, 1, e.geo, kGeo);
-      if (on) store_relu<W, PTS>(a, S, y);
-      __syncthreads();
-    }
-
-    float sig[PTS];
-    {
-      float hd[PTS][kHeads];
-      if (on) {
-        dense<kHeads, PTS>(a, S, net.hidden, sw, sb, hd);
+  }
+  // the layers in order: the trunk, the heads, the colour MLP, its last
+  // layer; one call site a kind
+  const int heads = net.sigma_depth, last = net.nl - 1;
+  float sig[2], o[2][3];
+  for (int l = 0; l < net.nl; ++l) {
+    const float* w = weights(l);
+    if (!active) continue;
+    const Shape s = net.layer[l];
+    if (l == heads) {  // sigma in column 0 (lane t = 0), geo in 1..15
+      dense<2>(a, c, w, s.kt);
+      sig[0] = expf(fminf(fmaxf(c[0][0], -88.f), 88.f));  // trunc_exp
+      sig[1] = expf(fminf(fmaxf(c[0][2], -88.f), 88.f));
+      if (MODE == kDensity) continue;
+      if (t == 0) c[0][0] = c[0][2] = 0.f;  // the colour layer's zero row
+      feed<2>(c, a, false);
 #pragma unroll
-        for (int q = 0; q < PTS; ++q) {
-          sig[q] = expf(fminf(fmaxf(hd[q][0], -88.f), 88.f));  // trunc_exp
-          if (MODE == kDensity) {
-            acc[q][3] = weighted ? __fadd_rn(acc[q][3], __fmul_rn(wk[q], sig[q])) : sig[q];
-          } else {
-            float* row = a + q * kThreads * S;
+      for (int h = 0; h < 2; ++h) {
+        const float* x = enc + slot[h] * net.ES - 16 + 2 * t;
 #pragma unroll
-            for (int j = 0; j < kGeo; ++j) row[j] = hd[q][1 + j];
-            encode_dir(dir[q][0], dir[q][1], dir[q][2], net.dir_kind, net.dir_param,
-                       row + kGeo);
+        for (int kt = 2; kt < KA; ++kt) {
+          if (kt < net.layer[l + 1].kt) {
+            const float2 v = *reinterpret_cast<const float2*>(x + kt * 8);
+            a[kt][h] = v.x;
+            a[kt][2 + h] = v.y;
           }
         }
       }
-    }
-    if (MODE == kDensity) continue;
-
-    __syncthreads();
-    stage<W>(sw, sb, kGeo + net.enc_dim, e.color[0], net.color_hidden);
-    __syncthreads();
-    for (int c = 0; c < net.color_depth; ++c) {
-      if (on) dense<W, PTS>(a, S, c == 0 ? kGeo + net.enc_dim : net.color_hidden, sw, sb, y);
-      __syncthreads();
-      if (c + 1 < net.color_depth)
-        stage<W>(sw, sb, net.color_hidden, e.color[c + 1], net.color_hidden);
-      else stage<kOut>(sw, sb, net.color_hidden, e.color[net.color_depth], 3);
-      if (on) store_relu<W, PTS>(a, S, y);
-      __syncthreads();
-    }
-    if (on) {
-      float o[PTS][kOut];
-      dense<kOut, PTS>(a, S, net.color_hidden, sw, sb, o);
-#pragma unroll
-      for (int q = 0; q < PTS; ++q) {
-        float rgb[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          rgb[c] = net.sigmoid ? 1.f / (1.f + expf(-o[q][c])) : o[q][c];
-        if (MODE == kSingle) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) acc[q][c] = rgb[c];
-          acc[q][3] = sig[q];
-        } else if (MODE == kSigmaBlend) {
-          const float ws = __fmul_rn(wk[q], sig[q]);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) acc[q][c] = __fadd_rn(acc[q][c], __fmul_rn(ws, rgb[c]));
-          acc[q][3] = __fadd_rn(acc[q][3], ws);
-        } else {  // kLinearBlend
-#pragma unroll
-          for (int c = 0; c < 3; ++c) acc[q][c] = __fadd_rn(acc[q][c], __fmul_rn(wk[q], rgb[c]));
-          acc[q][3] = __fadd_rn(acc[q][3], __fmul_rn(wk[q], sig[q]));
-        }
-      }
+    } else if (MODE != kDensity && l == last) {  // rgb: 3 of 8 columns
+      dense<1>(a, c, w, s.kt);
+    } else {  // a hidden layer, through ReLU
+      dense<NC>(a, c, w, s.kt);
+      feed<NC>(c, a, true);
     }
   }
-
+  if (!active) return;
+  if (MODE != kDensity) {
+    // columns 0, 1 in lane t = 0, column 2 in lane t = 1
 #pragma unroll
-  for (int q = 0; q < PTS; ++q) {
-    if (!valid[q]) continue;
-    if (MODE == kSigmaBlend) {
-      const float s = fmaxf(acc[q][3], 1e-12f);
+    for (int h = 0; h < 2; ++h) {
+      o[h][0] = c[0][2 * h];
+      o[h][1] = c[0][2 * h + 1];
+      o[h][2] = __shfl_sync(0xffffffffu, c[0][2 * h], (lane & ~3) | 1);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) net.rgb[p[q] * net.rgb_stride + c] = __fdiv_rn(acc[q][c], s);
-      net.sigma[p[q] * net.sigma_stride] = s;
-    } else {
-      if (MODE != kDensity) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) net.rgb[p[q] * net.rgb_stride + c] = acc[q][c];
-      }
-      net.sigma[p[q] * net.sigma_stride] = acc[q][3];
+      for (int j = 0; j < 3; ++j)
+        if (net.sigmoid) o[h][j] = 1.f / (1.f + expf(-o[h][j]));
     }
+  }
+  if (t != 0) return;
+  const bool weighted = net.w != nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!valid[h]) continue;
+    const int p = slot[h];
+    const float wk = weighted ? __ldg(net.w + (base + p) * net.K + k) : 1.f;
+    float4 A = acc[p];
+    if (MODE == kSingle) {
+      A = make_float4(o[h][0], o[h][1], o[h][2], sig[h]);
+    } else if (MODE == kSigmaBlend) {
+      const float ws = __fmul_rn(wk, sig[h]);
+      A.x = __fadd_rn(A.x, __fmul_rn(ws, o[h][0]));
+      A.y = __fadd_rn(A.y, __fmul_rn(ws, o[h][1]));
+      A.z = __fadd_rn(A.z, __fmul_rn(ws, o[h][2]));
+      A.w = __fadd_rn(A.w, ws);
+    } else if (MODE == kLinearBlend) {
+      A.x = __fadd_rn(A.x, __fmul_rn(wk, o[h][0]));
+      A.y = __fadd_rn(A.y, __fmul_rn(wk, o[h][1]));
+      A.z = __fadd_rn(A.z, __fmul_rn(wk, o[h][2]));
+      A.w = __fadd_rn(A.w, __fmul_rn(wk, sig[h]));
+    } else {
+      A.w = weighted ? __fadd_rn(A.w, __fmul_rn(wk, sig[h])) : sig[h];
+    }
+    acc[p] = A;
   }
 }
 
+// ------------------------------------------------------------------ kernel
+
 template <int MODE, int W>
-int launch(const Net& net, cudaStream_t stream) {
-  constexpr int PTS = W <= 64 ? 2 : 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)net.wrows * W + W + (size_t)kThreads * PTS * net.act_stride);
-  cudaError_t err = cudaFuncSetAttribute(ngp_net_kernel<MODE, W, PTS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(threads_for(W), 1) ngp_net_kernel(const __grid_constant__ Net net) {
+  constexpr int NW = threads_for(W) / 32;
+  extern __shared__ __align__(16) float smem[];
+  const int S = net.S, ES = net.ES, nch = S / 32;
+  float* frags = smem;                    // the split weights the mma's read
+  float* landing = frags + net.split;     // where cp.async lands the next weights
+  float* enc = landing + net.land;
+  float4* acc = reinterpret_cast<float4*>(enc + (MODE == kDensity ? 0 : S * ES));
+  unsigned* masks = reinterpret_cast<unsigned*>(acc + S);
+  unsigned short* list = reinterpret_cast<unsigned short*>(masks + nch);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool weighted = net.w != nullptr;
+
+  if (!net.streamed && blockIdx.x < net.slabs) stage_expert(landing, net, net.e[0]);
+  cp_commit();
+  int split_k = -1;  // the expert whose layers frags holds (resident)
+
+  for (long long slab = blockIdx.x; slab < net.slabs; slab += gridDim.x) {
+    const long long base = slab * S;
+    const int n_here = (int)min((long long)S, net.P - base);
+    for (int i = tid; i < S; i += blockDim.x) {
+      acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (MODE != kDensity && i < n_here) {
+        const float* d = net.dirs + (base + i) * net.dir_stride;
+        float* row = enc + i * ES;
+        encode_dir(__ldg(d), __ldg(d + 1), __ldg(d + 2), net.dir_kind, net.dir_param, row);
+        for (int j = net.enc_dim; j < ES; ++j) row[j] = 0.f;
+      }
+    }
+    for (int k = 0; k < net.K; ++k) {
+      // the expert's list: a ballot a 32 points, then a prefix count
+      for (int ch = warp; ch < nch; ch += NW) {
+        const int i = ch * 32 + lane;
+        bool on = i < n_here;
+        if (on && weighted) on = __ldg(net.w + (base + i) * net.K + k) != 0.f;
+        const unsigned m = __ballot_sync(0xffffffffu, on);
+        if (lane == 0) masks[ch] = m;
+      }
+      const bool restage = !net.streamed && split_k != k;  // one expert stays put
+      if (restage) cp_wait_all();  // this expert's layers landed
+      __syncthreads();  // also: every warp is done with the previous expert
+      if (restage) {
+        split_expert(frags, landing, net);
+        split_k = k;
+      }
+      int n_k = 0;
+      for (int c0 = 0; c0 < nch; c0 += 32) {
+        const unsigned m = c0 + lane < nch ? masks[c0 + lane] : 0u;
+        int inc = __popc(m);
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, inc, d);
+          if (lane >= d) inc += v;
+        }
+        const int excl = n_k + inc - __popc(m);
+        for (int j = warp; j < 32 && c0 + j < nch; j += NW) {
+          const unsigned mj = __shfl_sync(0xffffffffu, m, j);
+          const int off = __shfl_sync(0xffffffffu, excl, j);
+          if ((mj >> lane) & 1u)
+            list[off + __popc(mj & ((1u << lane) - 1u))] = (unsigned short)((c0 + j) * 32 + lane);
+        }
+        n_k += __shfl_sync(0xffffffffu, inc, 31);
+      }
+      __syncthreads();  // the list and the split layers are in; the landing buffer is free
+      const int tiles = (n_k + 15) / 16;
+      Weights weights{net, landing, frags, k, 0, 0};
+      if (!net.streamed) {
+        // the next (slab, expert)'s layers land while this expert computes
+        long long ns = slab;
+        int nk = k + 1;
+        if (nk == net.K) {
+          nk = 0;
+          ns += gridDim.x;
+        }
+        if (ns < net.slabs && nk != k) stage_expert(landing, net, net.e[nk]);
+        cp_commit();
+        for (int tile = warp; tile < tiles; tile += NW)
+          run_tile<MODE, W>(net, k, base, true, tile, n_k, list, enc, acc, weights);
+      } else if (tiles > 0) {
+        // one layer at a time, one tile a warp a pass
+        weights.passes = (tiles + NW - 1) / NW;
+        stage(landing, net, net.e[k], 0);
+        cp_commit();
+        for (; weights.pass < weights.passes; ++weights.pass) {
+          const int tile = weights.pass * NW + warp;
+          run_tile<MODE, W>(net, k, base, tile < tiles, tile, n_k, list, enc, acc, weights);
+        }
+      }
+    }
+    __syncthreads();  // every expert's adds are in
+    for (int i = tid; i < n_here; i += blockDim.x) {
+      const float4 A = acc[i];
+      const long long p = base + i;
+      if (MODE == kSigmaBlend) {
+        const float s = fmaxf(A.w, 1e-12f);
+        net.rgb[p * net.rgb_stride + 0] = __fdiv_rn(A.x, s);
+        net.rgb[p * net.rgb_stride + 1] = __fdiv_rn(A.y, s);
+        net.rgb[p * net.rgb_stride + 2] = __fdiv_rn(A.z, s);
+        net.sigma[p * net.sigma_stride] = s;
+      } else {
+        if (MODE != kDensity) {
+          net.rgb[p * net.rgb_stride + 0] = A.x;
+          net.rgb[p * net.rgb_stride + 1] = A.y;
+          net.rgb[p * net.rgb_stride + 2] = A.z;
+        }
+        net.sigma[p * net.sigma_stride] = A.w;
+      }
+    }
+  }
+  cp_wait_all();
+}
+
+// ------------------------------------------------------------------ launch
+
+struct DeviceLimits {
+  int sms = 0, smem = 0;
+};
+
+DeviceLimits device_limits() {
+  static DeviceLimits cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return {};
+  DeviceLimits& d = cache[dev];
+  if (d.sms == 0) {
+    cudaDeviceGetAttribute(&d.smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return d;
+}
+
+// A block's shared memory for a slab of S points.
+size_t slab_bytes(const Net& net, long long S) {
+  return 4 * (size_t)(net.land + net.split) + 4 * (size_t)S * (net.ES + 4) +
+         4 * (size_t)(S / 32) + 2 * (size_t)S;
+}
+
+// The layers' staged shapes, the weight buffers and the slab: what fits in
+// the block's shared memory, or less where a call has fewer points than a
+// full slab for each of the sms. Returns the bytes of shared memory of a
+// full slab (the most a launch of this net takes), or 0.
+size_t plan(Net& net, int W, int smem_max, int sms) {
+  const int sd = net.sigma_depth, cd = net.color_depth;
+  const int density = net.rgb == nullptr;
+  auto tiles = [](int n) { return (n + 7) / 8; };
+  int n = 0, limage = 0, fimage = 0, lslot = 0, fslot = 0;
+  auto add = [&](int in, int nt) {
+    Shape& s = net.layer[n++];
+    s.kt = tiles(in);
+    s.nt = nt;
+    s.ds = 8 * s.nt + 4;
+    s.off = limage;
+    s.foff = fimage;
+    const int lf = 8 * s.kt * s.ds + 8 * s.nt, ff = 128 * s.kt * s.nt + 8 * s.nt;
+    limage += lf;
+    fimage += ff;
+    if (lf > lslot) lslot = lf;
+    if (ff > fslot) fslot = ff;
+  };
+  // hidden layers as wide as the class W (zero columns past their width),
+  // the heads 16 columns, the last colour layer 8
+  for (int l = 0; l < sd; ++l) add(l == 0 ? net.in_dim : net.hidden, W / 8);
+  add(net.hidden, tiles(1 + kGeo));
+  if (!density) {
+    add(1 + kGeo + net.enc_dim, W / 8);
+    for (int c = 1; c < cd; ++c) add(net.color_hidden, W / 8);
+    add(net.color_hidden, 1);
+  }
+  net.nl = n;
+  net.ES = density ? 0 : 8 * tiles(1 + kGeo + net.enc_dim) - 16 + 2;
+  const size_t per_point = 4 * (size_t)(net.ES + 4) + 2 + 1;  // enc, acc, list, ballot
+  auto slab_beside = [&](int wfloats) -> long long {
+    const size_t wbytes = 4 * (size_t)wfloats;
+    if (wbytes + 32 * per_point > (size_t)smem_max) return 0;
+    long long S = (long long)(((size_t)smem_max - wbytes) / per_point) / 32 * 32;
+    return S < kSlabMax ? S : kSlabMax;
+  };
+  net.streamed = 0;
+  net.land = limage;
+  net.split = fimage;
+  long long S = slab_beside(limage + fimage);
+  if (S < kSlabMin && slab_beside(lslot + fslot) > S) {  // too small a slab beside an expert
+    net.streamed = 1;
+    net.land = lslot;
+    net.split = fslot;
+    S = slab_beside(lslot + fslot);
+  }
+  if (S == 0) return 0;
+  const size_t full = slab_bytes(net, S);
+  long long fill = ((net.P + sms - 1) / sms + 31) / 32 * 32;
+  if (fill < kSlabMin) fill = kSlabMin;
+  if (fill < S) S = fill;
+  net.S = (int)S;
+  net.slabs = (net.P + S - 1) / S;
+  return full;
+}
+
+template <int MODE, int W>
+int launch(Net& net, cudaStream_t stream) {
+  const DeviceLimits d = device_limits();
+  if (d.sms == 0) return (int)cudaErrorInvalidDevice;
+  const size_t smem = plan(net, W, d.smem, d.sms);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = ngp_net_kernel<MODE, W>;
+  // the attribute and the occupancy for the last full slab's shared memory a
+  // device (a smaller slab takes less, so as many blocks an SM at least)
+  static size_t set_for[64];
+  static int blocks_for[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (net.P + kThreads * PTS - 1) / (kThreads * PTS);
-  ngp_net_kernel<MODE, W, PTS><<<(unsigned)blocks, kThreads, smem, stream>>>(net);
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (set_for[dev] != smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_for[dev], kernel,
+                                                        threads_for(W), smem);
+    if (err != cudaSuccess) return (int)err;
+    set_for[dev] = smem;
+  }
+  const int per_sm = blocks_for[dev];
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long grid = net.slabs < (long long)per_sm * d.sms ? net.slabs : (long long)per_sm * d.sms;
+  kernel<<<(unsigned)grid, threads_for(W), slab_bytes(net, net.S), stream>>>(net);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
-int launch_width(const Net& net, int width, cudaStream_t stream) {
-  if (width <= 32) return launch<MODE, 32>(net, stream);
+int launch_width(Net& net, int width, cudaStream_t stream) {
   if (width <= 64) return launch<MODE, 64>(net, stream);
   return launch<MODE, 128>(net, stream);
 }
@@ -473,7 +871,7 @@ int ngp_net_fwd(int mode, const void* const* h, const void* const* layers, const
   if (net.in_dim < 1 || net.in_dim > kMaxIn || net.hidden < 1 || net.hidden > kMaxWidth ||
       net.color_hidden < 1 || net.color_hidden > kMaxWidth || net.sigma_depth < 1 ||
       net.sigma_depth > kMaxDepth || net.color_depth < 1 || net.color_depth > kMaxDepth ||
-      kGeo + net.enc_dim > kMaxIn || (net.dir_kind == 0 && net.dir_param > 5))
+      1 + kGeo + net.enc_dim > kMaxIn || (net.dir_kind == 0 && net.dir_param > 5))
     return (int)cudaErrorInvalidValue;
   const void* const* L = layers;
   for (int k = 0; k < K; ++k, L += 2 * kSlots) {
@@ -489,21 +887,15 @@ int ngp_net_fwd(int mode, const void* const* h, const void* const* layers, const
     for (int c = 0; c <= kMaxDepth; ++c) e.color[c] = at(kMaxDepth + 2 + c);
   }
   net.dirs = static_cast<const float*>(dirs);
-  net.w = static_cast<const float*>(w);
-  net.rgb = static_cast<float*>(rgb);
+  net.w = mode == kSingle ? nullptr : static_cast<const float*>(w);
+  net.rgb = mode == kDensity ? nullptr : static_cast<float*>(rgb);
   net.sigma = static_cast<float*>(sigma);
   net.P = P;
   net.dir_stride = dir_stride;
   net.rgb_stride = rgb_stride;
   net.sigma_stride = sigma_stride;
-  const int width = net.hidden > net.color_hidden ? net.hidden : net.color_hidden;
-  const int W = width <= 32 ? 32 : width <= 64 ? 64 : 128;
-  int rows = net.in_dim;
-  if (W > rows) rows = W;
-  if (kGeo + net.enc_dim > rows) rows = kGeo + net.enc_dim;
-  net.wrows = rows;
-  net.act_stride = rows | 1;
   if (P == 0) return 0;
+  const int width = net.hidden > net.color_hidden ? net.hidden : net.color_hidden;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kSingle: return launch_width<kSingle>(net, width, s);

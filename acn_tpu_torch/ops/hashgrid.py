@@ -178,18 +178,21 @@ def hash_cell_bwd_tables_plain(x01: torch.Tensor, g: torch.Tensor, cfg,
 
 
 def hash_cell_bwd_x(tables, x01: torch.Tensor, g: torch.Tensor, cfg) -> torch.Tensor:
-    """The x cotangent (float32) of the encode at cotangent g, from rows
-    gathered again at h: the elementwise half of ``acn_tpu``'s
-    ``_saved_bwd``, dout/df_a = Σ_c sign_a(c) · Π_{b≠a} A_b(c) · (rows_c · g),
-    times the Smoothstep chain and the resolution, summed over levels.
+    """The x cotangent of the encode at cotangent g, from rows gathered
+    again at h: the elementwise half of ``acn_tpu``'s ``_saved_bwd``,
+    dout/df_a = Σ_c sign_a(c) · Π_{b≠a} A_b(c) · (rows_c · g), times the
+    Smoothstep chain and the resolution, summed over levels. It works in
+    float64 when x01 is float64 (``gradgradcheck``) and in float32 otherwise,
+    as ``_saved_bwd`` does for every type JAX takes without x64.
     Differentiable ops, so that under ``create_graph`` its derivative reaches
     the tables, x01 and g. Nearest is piecewise constant in x: zero."""
+    dt = torch.float64 if x01.dtype == torch.float64 else torch.float32
     if cfg.interpolation == "Nearest":
-        return torch.zeros(x01.shape, dtype=torch.float32, device=x01.device)
+        return torch.zeros(x01.shape, dtype=dt, device=x01.device)
     F = cfg.features_per_level
     resolutions = cfg.level_resolutions()
     # (8, 3); a copy from the host, on this path only
-    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=x01.device)
+    signs = torch.tensor(_CORNER_SIGNS, dtype=dt, device=x01.device)
     gx = None
     for l in range(cfg.levels):
         rows, h, frac_raw = _cell_level_lookup(tables, x01, cfg, l)
@@ -197,14 +200,14 @@ def hash_cell_bwd_x(tables, x01: torch.Tensor, g: torch.Tensor, cfg) -> torch.Te
         f = _interp_frac(frac_raw, cfg.interpolation)
         rg = torch.einsum("...cf,...f->...c",
                           rows.reshape(*rows.shape[:-1], 8, F),
-                          g_l.to(rows.dtype)).to(torch.float32)
+                          g_l.to(rows.dtype)).to(dt)
         fa = f[..., None, :]  # (..., 1, 3)
-        A = torch.where(signs > 0, fa, 1.0 - fa).to(torch.float32)  # (..., 8, 3)
+        A = torch.where(signs > 0, fa, 1.0 - fa).to(dt)  # (..., 8, 3)
         s = torch.stack([
             torch.sum(signs[:, a] * A[..., (a + 1) % 3] * A[..., (a + 2) % 3]
                       * rg, dim=-1) for a in range(3)], dim=-1)
         if cfg.interpolation == "Smoothstep":
-            s = s * (6.0 * frac_raw * (1.0 - frac_raw)).to(torch.float32)
+            s = s * (6.0 * frac_raw * (1.0 - frac_raw)).to(dt)
         s = s * float(resolutions[l])
         gx = s if gx is None else gx + s
     return gx

@@ -28,7 +28,11 @@ The JAX package wrote no TPU kernel for this: it is plain XLA there
 ``acn_tpu/models/container.py:181,221``). Here it is one hand-written CUDA
 kernel for ``sm_90a`` (``csrc/ngp_net.cu``, built by ``ops/cuda_lib.py``
 and called through ``ctypes``; the source has the design and its bound),
-templated on the mode. The routing weights w (P, K) come from the plain
+templated on the mode. Its layer products run on the tensor cores in
+3xTF32 (each f32 operand split into two TF32 parts, three products a
+multiply-add): within ≈ 1e-7 of a full f32 product, the tolerance of the
+plain f32 network unchanged. Each expert runs only on the points whose
+routing weight is not 0. The routing weights w (P, K) come from the plain
 ``container.routing_weights``; the K hash encodes write into one (K, P, L·F)
 buffer (``hash_encode(..., out=)``).
 

@@ -19,12 +19,18 @@ phase 15 of ``chip_smoke.py`` share.
   of the inputs that span 4 × the L2; host µs per call apart.
 * Bounds: the larger of the operations and the bytes. Operations: 2 ×
   the multiply-adds of each (point, expert) the data needs (every point in
-  ``single``; in the blends the pairs whose routing weight is not 0) over
-  67 TFLOP/s f32; bytes, each input once (those pairs' features, d, w, the
-  layer weights) and each output once, over 3.35 TB/s.
+  ``single``; in the blends the pairs whose routing weight is not 0), done
+  as the kernel does them: three TF32 products a multiply-add (3xTF32) at
+  495 TFLOP/s (``ops_bound_ms``, the bound). The same flops once at 67
+  TFLOP/s f32 outside the tensor cores (``f32_fma_bound_ms``) are kept
+  beside it, the bound of an f32 FMA design. Bytes, each input once (those
+  pairs' features, d, w, the layer weights) and each output once, over
+  3.35 TB/s.
 * Yardstick (``library``): no single PyTorch call computes the network;
   the chain of cuBLAS ``mm`` calls that the plain version issues, alone, on
-  inputs of the same shapes, is the nearest library figure.
+  inputs of the same shapes, is the nearest library figure, timed in full
+  f32 (``library_ms``) and with TF32 allowed (``library_tf32_ms``; the
+  setting is restored after: the port never multiplies in TF32).
 
 The plain network is timed through the primitives every tree of the port
 has (``nn.apply_mlp``, ``nn.apply_linear``, ``trunc_exp``,
@@ -44,6 +50,8 @@ from acn_tpu_torch.models.trunc_exp import trunc_exp
 from acn_tpu_torch.ops import hashgrid_bench as hb
 
 F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32 on the tensor cores
+TF32_PRODUCTS = 3  # 3xTF32: the TF32 products the kernel takes a multiply-add
 MODES = ("single", "sigma_blend", "linear_blend", "density")
 SETS = ("random", "rays")
 SIZES = (983_040, 32_768)  # a dense serving chunk; a support march
@@ -180,8 +188,10 @@ def bounds_ms(mode, P, K, w, ecfg) -> dict:
     if mode != "single":
         byts += 4 * P * K
     byts += 4 * P * (1 if mode == "density" else 4)
-    ops_ms, bytes_ms = 1e3 * flops / F32_OPS_PER_S, 1e3 * byts / hb.HBM_BYTES_PER_S
+    ops_ms = 1e3 * TF32_PRODUCTS * flops / TF32_OPS_PER_S
+    bytes_ms = 1e3 * byts / hb.HBM_BYTES_PER_S
     return {"pairs": n, "flops": flops, "bytes": byts, "ops_bound_ms": ops_ms,
+            "f32_fma_bound_ms": 1e3 * flops / F32_OPS_PER_S,
             "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -218,6 +228,13 @@ def time_case(mode, set_name, P, gen, experts, plain: bool = True, kernel=None,
     if plain:
         row["plain_ms"] = hb.device_ms([lambda a=a: plain_network(mode, a[0], a[1], a[2], ee,
                                                                   ecfg) for a in runs])
-        row["library_ms"] = hb.device_ms(mm_chain(mode, P, kk, ecfg, gen))
+        chain = mm_chain(mode, P, kk, ecfg, gen)
+        row["library_ms"] = hb.device_ms(chain)
+        allowed = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            row["library_tf32_ms"] = hb.device_ms(chain)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allowed
     del runs
     return row

@@ -12,8 +12,10 @@ serving chunk; 32,768, a support march) of ``ops/ngp_net_bench.py``, and
 per call of the kernel, of the plain network (unless ``--no-plain``) and
 of the chain of cuBLAS ``mm`` calls the plain network issues (the nearest
 library figure: no single PyTorch call computes the network), each a run
-of calls between one pair of CUDA events; the kernel's host µs per call;
-the bounds (operations at 67 TFLOP/s f32, bytes at 3.35 TB/s).
+of calls between one pair of CUDA events (the ``mm`` chain also with TF32
+allowed, then restored); the kernel's host µs per call; the bounds (the
+kernel's 3xTF32 operations at 495 TFLOP/s, the same flops at 67 TFLOP/s
+f32 beside them, bytes at 3.35 TB/s).
 
 ``frames``: the smoke's scene (``configs/train_occ.json``'s model from
 seed 0, toy's 10 % grids, its overhead camera) at 1080 × 1920: a warm and
@@ -28,8 +30,9 @@ kernel, the tables in DIR.
 
 With another tree first on ``PYTHONPATH`` (the parent commit), this file
 times that tree: its plain network, and its frames; the kernel only where
-the tree has ``ops/ngp_net.py``. Every line carries the card's
-``nvidia-smi`` name and power limit.
+the tree has ``ops/ngp_net.py``. To compare two trees, run ``--what
+frames`` from each in turns in one call (parent, this, this, parent).
+Every line carries the card's ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations

@@ -92,14 +92,9 @@ def test_cell_hash_encode_gradgradcheck_in_the_tables(interpolation):
     assert torch.autograd.gradgradcheck(f, tabs)
 
 
-# seed 0's cotangents put one element of the derivative in the output
-# cotangent 2.24e-5 from its finite difference, over gradcheck's bound of
-# 1.85e-5 (atol 1e-5 + rtol 1e-3 × 0.0085): the x path runs in float32, as
-# acn_tpu's _saved_bwd does, and eps = 1e-4 differences its roundings
-X_PATH_SEEDS = [pytest.param(0, marks=pytest.mark.xfail(
-    strict=True, reason="float32 x path: |analytic − numeric| 2.24e-5 > bound 1.85e-5 in "
-                        "d(x cotangent)/d(output cotangent) (ROADMAP Queue C)")),
-                *range(1, 8)]
+# the x path works in float64 when x01 is float64, so eps = 1e-4 differences
+# float64 roundings at every seed
+X_PATH_SEEDS = range(8)
 
 
 @pytest.mark.parametrize("seed", X_PATH_SEEDS)

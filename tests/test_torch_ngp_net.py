@@ -10,8 +10,11 @@ with ``convert``. Tolerances, with their reasons:
 * CPU, plain against JAX, float32: rtol 1e-5 / atol 1e-6 — the same
   network, whose matrix products the two frameworks sum in other orders;
 * card, kernel against plain, float32: rtol 1e-5 / atol 1e-6 on σ and rgb
-  — the kernel sums its products in its own order with fused multiply-adds,
-  cuBLAS in another; everything else rounds as the plain ops do.
+  — the kernel sums its layer products on the tensor cores in 3xTF32 (each
+  operand split into two TF32 parts, the small × small product dropped) in
+  its own order, cuBLAS in full f32 in another; everything else rounds as
+  the plain ops do. ``test_3xtf32_products_match_plain_and_jax`` emulates
+  the split on the CPU and holds it to the same tolerance.
 """
 
 import dataclasses
@@ -112,18 +115,40 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: "-".join(map(str, c)))
-def test_plain_matches_jax(conf, mode):
-    """``ngp_net_plain`` in each mode, and the port's entry point that takes
-    it under ``torch.no_grad``, against acn_tpu's function on the CPU."""
-    jcfg, jvars, tcfg, model = _scene(conf)
-    xd = _xd()
-    xt = torch.from_numpy(xd)
-    jv = jax.tree.map(jnp.asarray, jvars)
-    k = 2
-    jp = jax.tree.map(lambda a: a[k], jv["params"]["experts"])
-    ab = jnp.asarray(jvars["buffers"]["expert_aabbs"][k])
+_JAX_WANT = {}
+
+
+def _jax_want(conf, mode, k=2):
+    """acn_tpu's function in ``mode`` on ``_xd()`` (cached: the tests of
+    the plain version and of the 3xTF32 emulation share it)."""
+    key = (conf, mode, k)
+    if key not in _JAX_WANT:
+        jcfg, jvars, _, _ = _scene(conf)
+        xd = _xd()
+        jv = jax.tree.map(jnp.asarray, jvars)
+        jp = jax.tree.map(lambda a: a[k], jv["params"]["experts"])
+        ab = jnp.asarray(jvars["buffers"]["expert_aabbs"][k])
+        if mode == "single":
+            want = jax.jit(lambda p, b, x: jngp.ngp_forward(p, jcfg.expert, b, x))(jp, ab, xd)
+        elif mode == "density_single":
+            want = jax.jit(lambda p, b, x: jngp.ngp_density(p, jcfg.expert, b, x))(
+                jp, ab, xd[:, :3])[:, 0]
+        elif mode == "linear_blend":
+            want = jax.jit(lambda v, x: jcont.container_forward(v, jcfg, x))(jv, xd)
+        elif mode == "density":
+            want = jax.jit(lambda v, x: jcont.container_density(v, jcfg, x))(jv, xd[:, :3])
+        else:
+            want = jnp.concatenate([a.reshape(a.shape[0], -1) for a in jax.jit(
+                lambda v, x: jrocc._soft_moe_eval(v, jcfg, x))(jv, xd)[::-1]], axis=1)
+        _JAX_WANT[key] = np.asarray(want)
+    return _JAX_WANT[key]
+
+
+def _port_outputs(conf, mode, k=2, entry=True):
+    """``ngp_net_plain`` in ``mode`` on ``_xd()`` and, with ``entry``, the
+    port's entry point that takes it under ``torch.no_grad``."""
+    _, _, tcfg, model = _scene(conf)
+    xt = torch.from_numpy(_xd())
     ecfg = tcfg.expert
     with torch.no_grad():
         h_all = tcont.expert_features(model, xt[:, :3])
@@ -131,33 +156,111 @@ def test_plain_matches_jax(conf, mode):
         w = tcont.routing_weights(model.centroids, xt[:, :3], tcfg.cluster_2d,
                                   tcfg.boundary_margin)
         if mode == "single":
-            want = jax.jit(lambda p, b, x: jngp.ngp_forward(p, jcfg.expert, b, x))(jp, ab, xd)
             got = [ngp_net.ngp_net_plain("single", h_all[k:k + 1], xt[:, 3:6], None,
                                          [experts[k]], ecfg),
-                   tcont.container_forward(model, xt, active_module=k)]
+                   entry and tcont.container_forward(model, xt, active_module=k)]
         elif mode == "density_single":
-            want = jax.jit(lambda p, b, x: jngp.ngp_density(p, jcfg.expert, b, x))(
-                jp, ab, xd[:, :3])[:, 0]
             got = [ngp_net.ngp_net_plain("density", h_all[k:k + 1], None, None,
                                          [experts[k]], ecfg),
-                   tcont.container_density(model, xt[:, :3], active_module=k)]
+                   entry and tcont.container_density(model, xt[:, :3], active_module=k)]
         elif mode == "linear_blend":
-            want = jax.jit(lambda v, x: jcont.container_forward(v, jcfg, x))(jv, xd)
             got = [ngp_net.ngp_net_plain("linear_blend", h_all, xt[:, 3:6], w, experts, ecfg),
-                   tcont.container_forward(model, xt)]
+                   entry and tcont.container_forward(model, xt)]
         elif mode == "density":
-            want = jax.jit(lambda v, x: jcont.container_density(v, jcfg, x))(jv, xd[:, :3])
             got = [ngp_net.ngp_net_plain("density", h_all, None, w, experts, ecfg),
-                   tcont.container_density(model, xt[:, :3])]
+                   entry and tcont.container_density(model, xt[:, :3])]
         else:
-            want = jnp.concatenate([a.reshape(a.shape[0], -1) for a in jax.jit(
-                lambda v, x: jrocc._soft_moe_eval(v, jcfg, x))(jv, xd)[::-1]], axis=1)
-            got = [torch.cat([t.reshape(t.shape[0], -1) for t in o[::-1]], dim=1) for o in (
-                ngp_net.ngp_net_plain("sigma_blend", h_all, xt[:, 3:6], w, experts, ecfg),
-                trocc._soft_moe_eval(model, xt))]
-    for g in got:
-        assert g.shape == np.asarray(want).shape
-        np.testing.assert_allclose(_np(g), np.asarray(want), rtol=RTOL, atol=ATOL)
+            got = [ngp_net.ngp_net_plain("sigma_blend", h_all, xt[:, 3:6], w, experts, ecfg),
+                   entry and trocc._soft_moe_eval(model, xt)]
+            got = [o if o is False else torch.cat([t.reshape(t.shape[0], -1)
+                                                   for t in o[::-1]], dim=1) for o in got]
+    return got if entry else got[:1]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: "-".join(map(str, c)))
+def test_plain_matches_jax(conf, mode):
+    """``ngp_net_plain`` in each mode, and the port's entry point that takes
+    it under ``torch.no_grad``, against acn_tpu's function on the CPU."""
+    want = _jax_want(conf, mode)
+    for g in _port_outputs(conf, mode):
+        assert g.shape == want.shape
+        np.testing.assert_allclose(_np(g), want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------- 3xTF32
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 of float32 x: round half away from zero at bit 13 of
+    the int32 view (the sign bit apart, the pattern is the magnitude), the 13
+    low bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as csrc/ngp_net.cu takes it on the tensor cores: each operand
+    v = big + small, big = tf32(v), small = tf32(v − big); the sum of
+    small·big + big·small + big·big (small·small dropped). The TF32
+    products are exact in float64, and so is their sum here; the kernel's
+    float32 accumulators round it, in their own order."""
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    d = torch.float64
+    return (xs.to(d) @ wb.to(d) + xb.to(d) @ ws.to(d) + xb.to(d) @ wb.to(d)).to(x.dtype)
+
+
+def _linear_3xtf32(p, x: torch.Tensor) -> torch.Tensor:
+    y = _mm_3xtf32(x, p["w"].to(x.dtype))  # the bias after the sum, as (x @ w) + b
+    return y + p["b"].to(x.dtype) if "b" in p else y
+
+
+@pytest.mark.parametrize("conf", CONFIGS, ids=lambda c: "-".join(map(str, c)))
+def test_3xtf32_products_match_plain_and_jax(conf, monkeypatch):
+    """The network with every layer product emulated as the kernel computes
+    it (``_mm_3xtf32``), in every mode, against the plain f32 network and
+    against acn_tpu's functions, within the f32 tolerances (the emulation
+    moves the outputs by ≈ 1e-7 relative: the split keeps ≈ 22 bits of each
+    operand)."""
+    plain = {mode: _port_outputs(conf, mode, entry=False)[0] for mode in MODES}
+    monkeypatch.setattr(tnn, "apply_linear", _linear_3xtf32)
+    for mode in MODES:
+        emu = _np(_port_outputs(conf, mode, entry=False)[0])
+        want = _jax_want(conf, mode)
+        assert emu.shape == want.shape and np.isfinite(emu).all()
+        np.testing.assert_allclose(emu, _np(plain[mode]), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(emu, want, rtol=RTOL, atol=ATOL)
+
+
+def test_tf32_rounding_on_chosen_bit_patterns():
+    """``_tf32`` on ties, just below and above them, negatives, subnormals,
+    ±0, the largest finite values; and big + small reconstructs x to within
+    the small part's own rounding."""
+    bits = {  # input pattern: cvt.rna.tf32.f32's pattern
+        0x3F800000: 0x3F800000,  # 1.0, exact
+        0x3F800FFF: 0x3F800000,  # below the half: down
+        0x3F801000: 0x3F802000,  # the tie: away from zero
+        0x3F803000: 0x3F804000,  # a tie with an odd kept bit: away from zero, not to even
+        0x3F801001: 0x3F802000,
+        0xBF801000: 0xBF802000,  # -: away from zero
+        0xBF800FFF: 0xBF800000,
+        0x3FFFF000: 0x40000000,  # the carry reaches the exponent
+        0x00000FFF: 0x00000000,  # subnormals: the same rule on the pattern
+        0x00001000: 0x00002000,
+        0x807FF000: 0x80800000,  # -subnormal rounds up to -FLT_MIN
+        0x00000000: 0x00000000,  # +0
+        0x80000000: 0x80000000,  # -0
+        0x7F7FE000: 0x7F7FE000,  # the largest TF32 value, exact
+    }
+    x = torch.tensor(list(bits), dtype=torch.int64).to(torch.int32).view(torch.float32)
+    got = _tf32(x).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    assert got.tolist() == list(bits.values())
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    big = _tf32(v)
+    small = _tf32(v - big)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((v - big).abs() <= big.abs() * 2.0**-11).all())
+    assert bool(((big + small - v).abs() <= v.abs() * 2.0**-21).all())
 
 
 @pytest.mark.parametrize("mode", ngp_net.MODES)
@@ -408,3 +511,148 @@ def test_kernel_reads_strided_directions_and_raises_on_bad_input_on_card():
     assert d.stride(0) == 6  # a view of (P, 6) rows
     _close(ngp_net.ngp_net_kernel("single", h[:1], d, None, experts[:1], cfg),
             ngp_net.ngp_net_plain("single", h[:1], d.contiguous(), None, experts[:1], cfg))
+
+
+# the point lists: which points each expert runs, slab edges, bits
+
+
+def _blend_calls(h, d, w, experts):
+    return [("sigma_blend", h, d, w, experts), ("linear_blend", h, d, w, experts),
+            ("density", h, None, w, experts)]
+
+
+@pytest.mark.requires_cuda
+def test_kernel_skips_an_expert_with_no_point_on_card():
+    """Expert 1's weight is 0 at every point of the call: its list is empty
+    in every slab."""
+    dev = _card()
+    cfg = _ngp_cfg()
+    experts, h, d, w = _net_inputs(cfg, 4, 5_000, 6, dev)
+    w = w.clone()
+    w[:, 1] = 0.0
+    for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts):
+        _close(ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg),
+               ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg))
+
+
+@pytest.mark.requires_cuda
+def test_kernel_takes_one_hot_weights_in_random_order_on_card():
+    """Each point's weight one-hot on a random expert (margin 1.0), the
+    points in random order: every list is a random quarter of the slab."""
+    dev = _card()
+    cfg = _ngp_cfg()
+    P, K = 20_000, 4
+    experts, h, d, _ = _net_inputs(cfg, K, P, 7, dev)
+    pick = torch.from_numpy(np.random.default_rng(7).integers(0, K, P)).to(dev)
+    w = torch.nn.functional.one_hot(pick, K).to(torch.float32).contiguous()
+    for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts):
+        _close(ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg),
+               ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg))
+
+
+SLAB_MAX, SLAB_MIN = 1024, 256  # kSlabMax, kSlabMin of csrc/ngp_net.cu
+
+
+def _slab(cfg, mode, P, smem, sms):
+    """The points a slab that ``plan()`` in csrc/ngp_net.cu takes for this
+    net, mode and P on a card of ``smem`` bytes of shared memory a block and
+    ``sms`` SMs: the weights' staged images (f32 landing and split), then
+    as many points as fit beside them, fewer where the call has less than a
+    full slab an SM. Its arithmetic, step for step."""
+    tiles = lambda n: (n + 7) // 8
+    nt = (64 if max(cfg.hidden, cfg.color_hidden) <= 64 else 128) // 8
+    density = mode == "density"
+    shapes = [(tiles(cfg.hash.out_dim if l == 0 else cfg.hidden), nt)
+              for l in range(cfg.sigma_depth)] + [(tiles(cfg.hidden), tiles(1 + ngp_net.GEO))]
+    if not density:
+        shapes += ([(tiles(1 + ngp_net.GEO + cfg.dir_enc_dim), nt)]
+                   + [(tiles(cfg.color_hidden), nt)] * (cfg.color_depth - 1)
+                   + [(tiles(cfg.color_hidden), 1)])
+    land = [8 * kt * (8 * n + 4) + 8 * n for kt, n in shapes]
+    split = [128 * kt * n + 8 * n for kt, n in shapes]
+    enc = 0 if density else 8 * tiles(1 + ngp_net.GEO + cfg.dir_enc_dim) - 16 + 2
+    per_point = 4 * (enc + 4) + 3
+
+    def beside(floats):
+        if 4 * floats + 32 * per_point > smem:
+            return 0
+        return min((smem - 4 * floats) // per_point // 32 * 32, SLAB_MAX)
+
+    S = beside(sum(land) + sum(split))
+    if S < SLAB_MIN and beside(max(land) + max(split)) > S:
+        S = beside(max(land) + max(split))
+    fill = (-(-P // sms) + 31) // 32 * 32
+    return min(S, max(SLAB_MIN, fill))
+
+
+def test_slab_plan_at_the_smoke_width():
+    """``_slab`` gives the slabs PERF.md reports for the smoke's net on an
+    H100 (227 KB of shared memory a block, 132 SMs): 640 points where the
+    direction encoding is kept, 1,024 in density, 256 for a support march,
+    and between those, a slab an SM."""
+    cfg, smem, sms = _ngp_cfg(), 232_448, 132
+    assert [_slab(cfg, m, 983_040, smem, sms) for m in ("single", "sigma_blend", "density")] \
+        == [640, 640, 1024]
+    assert [_slab(cfg, m, P, smem, sms) for m in ("single", "density")
+            for P in (1, 32_768, 84_480, 84_481)] == [256, 256, 640, 640, 256, 256, 640, 672]
+
+
+def _edge_calls(cfg, edge, seed):
+    """For each of ``_run_modes``' five calls, P on the named edge of the
+    slab the card plans for that call's mode, and its inputs."""
+    dev = _card()
+    props = torch.cuda.get_device_properties(dev)
+    smem, sms = props.shared_memory_per_block_optin, props.multi_processor_count
+    for mode, blend in (("single", False), ("density", False), ("sigma_blend", True),
+                        ("linear_blend", True), ("density", True)):
+        full = _slab(cfg, mode, 1 << 40, smem, sms)
+        P = {"1": 1, "15": 15, "17": 17, "min_slab+1": SLAB_MIN + 1,
+             "full_slabs+1": full * sms + 1, "twice_full_slabs+1": 2 * full * sms + 1}[edge]
+        want = {"min_slab+1": SLAB_MIN, "full_slabs+1": full, "twice_full_slabs+1": full}
+        if edge in want:
+            assert _slab(cfg, mode, P, smem, sms) == want[edge], (mode, edge)
+        experts, h, d, w = _net_inputs(cfg, 4 if blend else 1, P, seed, dev, margin=1.05)
+        yield (mode, h, None if mode == "density" else d, w if blend else None, experts)
+
+
+EDGES = ["1", "15", "17", "min_slab+1", "full_slabs+1", "twice_full_slabs+1"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("edge", EDGES)
+def test_kernel_matches_plain_at_tile_and_slab_edges_on_card(edge):
+    """A partial tile (1, 15, 17 points), and one point past a whole number
+    of slabs, each call at its own mode's slab as ``plan()`` sizes it: two
+    slabs of the least size (the second of one point), a full slab on every
+    SM and one more point, and twice that (blocks take several slabs). The
+    encoding modes and density plan different slabs (640 and 1,024 points
+    at the smoke's width on an H100)."""
+    cfg = _ngp_cfg()
+    for mode, hh, dd, ww, ee in _edge_calls(cfg, edge, seed=8 + EDGES.index(edge)):
+        got = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        _close(got, ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("width", [96, 128])
+def test_kernel_matches_plain_at_the_widest_class_with_frequency_on_card(width):
+    """Widths 96 and 128 at depth 4 (their layers stream through two slots)
+    with the frequency encoding of 7 bands (the widest colour input, 15 + 45)
+    over several slabs."""
+    _run_modes(_ngp_cfg(hidden=width, color_hidden=width, sigma_depth=4, color_depth=4,
+                        dir_encoding="frequency", freq_pe_dim=7), 3, 2_500, seed=9)
+
+
+@pytest.mark.requires_cuda
+def test_kernel_is_deterministic_on_card():
+    """Two launches on the same inputs give the same bits (the experts add
+    in order into per-point sums: no atomics)."""
+    dev = _card()
+    cfg = _ngp_cfg()
+    experts, h, d, w = _net_inputs(cfg, 4, 50_000, 10, dev)
+    for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts) + [
+            ("single", h[:1], d, None, experts[:1])]:
+        a = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        b = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y), mode
