@@ -56,6 +56,27 @@
 // in a copy of the tree and time it with scripts/bench_hashgrid.py, that
 // copy first on PYTHONPATH.
 //
+// Every F takes this design where a row's 16-byte pieces spread over a
+// power-of-two group of lanes and a corner over at most 4 lanes: F = 1, 2,
+// 4, 8 and 16 (a row of 1 to 32 pieces in f32, 1 to 16 in bf16). Any other
+// F (a row of 2F pieces in f32, F in bf16, a corner straddling pieces) takes
+// one general kernel of each direction, F a runtime argument: the forward
+// stages its tasks' rows in shared memory a piece a thread (rows above
+// kStageBytes are read where they lie), then one thread a (task, feature)
+// sums the eight corners in corner order and stores one value (the output
+// offsets of odd F are not 16-byte aligned: no vector stores); the
+// cotangent gives one thread a (run of kRun neighbouring points of one
+// level, piece j), computes each of the piece's values with its own corner
+// and feature (a bf16x2 pair may span two corners) and adds the piece with
+// one vector reduction when its row changes.
+//
+// The per-level constants (scale, resolution, dense flag) and the forward's
+// table pointers live in device memory (the wrappers keep them on the card,
+// the pointers cached by value), so the level count is bounded by memory
+// alone; the cotangent's tables are row blocks of one allocation, given as
+// its base and each level's offset. A grid row takes kLevelGroup levels, the
+// last one ragged where L is not a multiple.
+//
 // The cotangent's phase B is level-major: a group walks G neighbouring
 // points of one level, and lane j adds its 16 bytes of the row with one
 // vector reduction (red.v4.f32, or red.v4.bf16x2: 8 bf16 values). A lane
@@ -90,21 +111,23 @@
 
 namespace {
 
-constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
-constexpr int kZeroBlocks = 1024;  // per level, grid-stride over its table
+constexpr int kZeroBlocks = 1024;  // grid-stride over the cotangent's tables
 constexpr int kLevelGroup = 4;  // levels per grid row
+constexpr int kStageBytes = 16384;  // the general forward's staged rows
+constexpr int kRun = 8;  // the general cotangent's points a thread
 
 enum Interp { kLinear = 0, kSmoothstep = 1, kNearest = 2 };
 
-// Per-level arguments, passed by value in the kernel's parameter space.
+// Per-level arguments: pointers to arrays of `levels` entries in device
+// memory (the kernel's parameters stay a few dozen bytes at any L).
 struct Levels {
-  const void* table[kMaxLevels];  // forward: the tables
-  void* grad[kMaxLevels];         // backward: the cotangent tables
-  long long rows[kMaxLevels];     // rows of each table
-  float scale[kMaxLevels];        // resolution rounded to x01's type
-  int res[kMaxLevels];            // resolution (dense index, clip)
-  int dense[kMaxLevels];          // 1: dense index, 0: hash
+  const void* const* table;   // forward: the tables
+  const float* scale;         // resolution rounded to x01's type
+  const int* res;             // resolution (dense index, clip)
+  const int* dense;           // 1: dense index, 0: hash
+  void* grad;                 // backward: the cotangent tables' one allocation
+  const long long* grad_off;  // backward: each level's first value in it
 };
 
 // How a row of 8 * F values of type TT spreads over a group of lanes.
@@ -112,9 +135,9 @@ template <typename TT, int F> struct Group {
   static constexpr int V = 16 / (int)sizeof(TT);  // values per lane: 4 f32, 8 bf16
   static constexpr int G = 8 * F / V;             // lanes per (point, level)
   static constexpr int CPL = V >= F ? V / F : 1;  // corners per lane
-  static constexpr int LPC = F > V ? F / V : 1;   // lanes per corner (f32, F = 8)
-  static_assert(G >= 2 && G <= 16 && (G & (G - 1)) == 0, "2 to 16 lanes");
-  static_assert(LPC <= 2, "a corner spans at most two lanes");
+  static constexpr int LPC = F > V ? F / V : 1;   // lanes per corner (f32 F = 8, 16)
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "1 to 32 lanes");
+  static_assert(CPL <= 8 && LPC <= 4, "a lane holds whole corners or a quarter");
 };
 
 // Lanes j, j + G, j + 2G, ... of a warp.
@@ -160,7 +183,7 @@ __device__ __forceinline__ unsigned bf16_word(const float* v) {
 template <typename XT>
 __device__ __forceinline__ long long locate(const float xf[3], const Levels& lv, int l,
                                             int interp, uint32_t mask, float A[3][2]) {
-  const float scale = lv.scale[l];
+  const float scale = __ldg(lv.scale + l);
   float f[3];
   int c[3];
 #pragma unroll
@@ -179,8 +202,8 @@ __device__ __forceinline__ long long locate(const float xf[3], const Levels& lv,
     c[a] = (int)cell;
   }
   long long h;
-  if (lv.dense[l]) {
-    const long long r = lv.res[l];
+  if (__ldg(lv.dense + l)) {
+    const long long r = __ldg(lv.res + l);
     long long ci[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) ci[a] = c[a] < 0 ? 0 : (c[a] > r - 1 ? r - 1 : c[a]);
@@ -240,7 +263,12 @@ __device__ __forceinline__ int locate_task(const float xf[3], const Levels& lv, 
 template <typename TT, int F>
 __device__ __forceinline__ void lane_weights(const float* w8, int j, float* w) {
   using Gr = Group<TT, F>;
-  if constexpr (Gr::CPL == 4) {
+  if constexpr (Gr::CPL == 8) {
+    const float4 a = reinterpret_cast<const float4*>(w8)[0];
+    const float4 b = reinterpret_cast<const float4*>(w8)[1];
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  } else if constexpr (Gr::CPL == 4) {
     const float4 v = reinterpret_cast<const float4*>(w8)[j];
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   } else if constexpr (Gr::CPL == 2) {
@@ -278,6 +306,30 @@ __device__ __forceinline__ void group_sum(float (&v)[N], int j, int& feat, bool&
   }
 }
 
+// The forward's phase A: task t = (point t / kLevelGroup, level t %
+// kLevelGroup) computes its row (or -1: past n, past the levels) and its
+// weights; the group's table pointers into shared memory. Ends with a
+// barrier.
+template <typename XT, typename TT>
+__device__ __forceinline__ void fwd_phase_a(const XT* __restrict__ x, const Levels& lv,
+                                            int levels, int interp, uint32_t mask, long long n,
+                                            int l0, long long p0, float* s_w, int* s_row,
+                                            const TT** s_table) {
+  const int t = threadIdx.x;
+  const long long p = p0 + t / kLevelGroup;
+  const int l = l0 + t % kLevelGroup;
+  int row = -1;
+  if (p < n && l < levels) {
+    float xf[3];
+    load_point<XT>(x, p, xf);
+    row = locate_task<XT, TT>(xf, lv, l, interp, mask, s_w + 8 * t);
+  }
+  s_row[t] = row;
+  if (t < kLevelGroup)
+    s_table[t] = static_cast<const TT*>(lv.table[l0 + t < levels ? l0 + t : l0]);
+  __syncthreads();
+}
+
 template <typename XT, typename TT, int F>
 __global__ void __launch_bounds__(kThreads)
 hash_cell_fwd_kernel(const XT* __restrict__ x, const Levels lv, int levels,
@@ -286,21 +338,10 @@ hash_cell_fwd_kernel(const XT* __restrict__ x, const Levels lv, int levels,
   constexpr int G = Gr::G, V = Gr::V, M = F / Gr::LPC;
   __shared__ __align__(16) float s_w[kTasks * 8];
   __shared__ int s_row[kTasks];
+  __shared__ const TT* s_table[kLevelGroup];
   const int l0 = blockIdx.y * kLevelGroup;
   const long long p0 = (long long)blockIdx.x * kPoints;
-  {  // phase A: task t = (point t / kLevelGroup, level t % kLevelGroup)
-    const int t = threadIdx.x;
-    const long long p = p0 + t / kLevelGroup;
-    const int l = l0 + t % kLevelGroup;
-    int row = -1;
-    if (p < n && l < levels) {
-      float xf[3];
-      load_point<XT>(x, p, xf);
-      row = locate_task<XT, TT>(xf, lv, l, interp, mask, s_w + 8 * t);
-    }
-    s_row[t] = row;
-  }
-  __syncthreads();
+  fwd_phase_a<XT, TT>(x, lv, levels, interp, mask, n, l0, p0, s_w, s_row, s_table);
   const int lane = threadIdx.x & 31;
   const int j = lane & (G - 1);
   // phase B: G passes of kTasks / G tasks, kBatch passes' loads in flight
@@ -315,9 +356,8 @@ hash_cell_fwd_kernel(const XT* __restrict__ x, const Levels lv, int levels,
     for (int b = 0; b < kBatch; ++b) {
       const int t = (q0 + b) * (kTasks / G) + threadIdx.x / G;
       rows[b] = s_row[t];
-      const void* table = lv.table[rows[b] >= 0 ? l0 + t % kLevelGroup : l0];
-      raw[b] = __ldg(reinterpret_cast<const uint4*>(
-          static_cast<const TT*>(table) + (long long)max(rows[b], 0) * (8 * F)) + j);
+      const TT* table = s_table[rows[b] >= 0 ? t % kLevelGroup : 0];
+      raw[b] = __ldg(reinterpret_cast<const uint4*>(table + (long long)max(rows[b], 0) * (8 * F)) + j);
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
@@ -342,20 +382,18 @@ hash_cell_fwd_kernel(const XT* __restrict__ x, const Levels lv, int levels,
       group_sum<M, G / 2, Gr::LPC>(v, j, feat, writer);
       if (writer) {
         const long long p = p0 + t / kLevelGroup;
-        const int f = (Gr::LPC == 2 ? (j & 1) * V : 0) + feat;
+        const int f = (j & (Gr::LPC - 1)) * V + feat;
         out[p * (long long)(levels * F) + (l0 + t % kLevelGroup) * F + f] = from_f<TT>(v[0]);
       }
     }
   }
 }
 
-// Zero every level's cotangent table, 16 bytes a store (a row of 8*F values
-// is a multiple of 16 bytes; the wrapper checks the alignment).
-__global__ void __launch_bounds__(kThreads)
-hash_cell_zero_kernel(const Levels lv, int row_bytes) {
-  const int l = blockIdx.y;
-  const long long n16 = lv.rows[l] * row_bytes / 16;
-  uint4* t = static_cast<uint4*>(lv.grad[l]);
+
+// Zero the cotangent's tables, one allocation of n16 16-byte pieces (a row
+// of 8*F values is a multiple of 16 bytes; the wrapper checks the
+// alignment).
+__global__ void __launch_bounds__(kThreads) hash_cell_zero_kernel(uint4* t, long long n16) {
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n16;
        i += (long long)gridDim.x * kThreads)
     t[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -418,7 +456,7 @@ hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
   // no row, does not end the run) and adds the sum when the run ends,
   // together with the lanes of its slot j whose runs end in the same row
   const int t0 = (threadIdx.x >> 5) * 32 + (lane / G) * G;
-  TT* const grad = static_cast<TT*>(lv.grad[min(l0 + t0 / kPoints, levels - 1)]);
+  TT* const grad = static_cast<TT*>(lv.grad) + lv.grad_off[min(l0 + t0 / kPoints, levels - 1)];
   float acc[V];
   int cur = -1;
 #pragma unroll
@@ -435,8 +473,8 @@ hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
         for (int c = 0; c < Gr::CPL; ++c)
 #pragma unroll
           for (int f = 0; f < F; ++f) v[c * F + f] = rnd<TT>(__fmul_rn(w[c], gt[f]));
-      } else {  // half a corner: the lane's half of the features
-        const int half = (j & 1) * V;
+      } else {  // part of a corner: the lane's share of the features
+        const int half = (j & (Gr::LPC - 1)) * V;
 #pragma unroll
         for (int i = 0; i < V; ++i) v[i] = rnd<TT>(__fmul_rn(w[0], gt[half + i]));
       }
@@ -445,9 +483,11 @@ hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
     const unsigned flushing = __ballot_sync(0xffffffffu, flush);
     // only where a neighbouring group's run ends in the same row is it worth
     // looking for every lane of the slot that does (random points: never)
-    const int other = __shfl_xor_sync(0xffffffffu, cur, G);
-    const bool merge = __any_sync(0xffffffffu,
-                                  flush && ((flushing >> (lane ^ G)) & 1u) && other == cur);
+    bool merge = false;  // a group of 32 lanes has no neighbour in the warp
+    if constexpr (G < 32) {
+      const int other = __shfl_xor_sync(0xffffffffu, cur, G);
+      merge = __any_sync(0xffffffffu, flush && ((flushing >> (lane ^ G)) & 1u) && other == cur);
+    }
     if (flush) {
       const unsigned peers =
           merge ? __match_any_sync(flushing, (unsigned)cur) & slot : 1u << lane;
@@ -485,21 +525,133 @@ hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
   }
 }
 
-int fill_levels(Levels* lv, const void* const* ptrs, const long long* rows,
-                const float* scale, const int* res, const int* dense, int levels,
-                bool grad) {
-  if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const bool on = l < levels;
-    lv->table[l] = on && !grad ? ptrs[l] : nullptr;
-    lv->grad[l] = on && grad ? const_cast<void*>(ptrs[l]) : nullptr;
-    lv->rows[l] = on ? rows[l] : 0;
-    lv->scale[l] = on ? scale[l] : 0.0f;
-    lv->res[l] = on ? res[l] : 0;
-    lv->dense[l] = on ? dense[l] : 0;
+// ------------------------------------------------------------------ any F
+
+// The forward for any F (a runtime argument). Phase A as above. Phase B in
+// passes of the tasks whose rows fit in kStageBytes: the block loads their
+// rows a 16-byte piece a thread into shared memory (rows of more than
+// kStageBytes are read where they lie), then one thread a (task, feature)
+// sums the eight corners' products in corner order in f32 and stores one
+// value.
+template <typename XT, typename TT>
+__global__ void __launch_bounds__(kThreads)
+hash_cell_fwd_any_kernel(const XT* __restrict__ x, const Levels lv, int levels, int F,
+                         int interp, uint32_t mask, long long n, TT* __restrict__ out) {
+  __shared__ __align__(16) float s_w[kTasks * 8];
+  __shared__ int s_row[kTasks];
+  __shared__ const TT* s_table[kLevelGroup];
+  __shared__ uint4 s_stage[kStageBytes / 16];
+  const int l0 = blockIdx.y * kLevelGroup;
+  const long long p0 = (long long)blockIdx.x * kPoints;
+  fwd_phase_a<XT, TT>(x, lv, levels, interp, mask, n, l0, p0, s_w, s_row, s_table);
+  const int row_vals = 8 * F, pieces = F * (int)sizeof(TT) / 2;  // a row's 16-byte pieces
+  const bool staged = 16 * pieces <= kStageBytes;
+  const int tp = staged ? min(kTasks, kStageBytes / (16 * pieces)) : kTasks;
+  for (int t0 = 0; t0 < kTasks; t0 += tp) {
+    const int nt = min(tp, kTasks - t0);
+    if (staged) {
+      for (int i = threadIdx.x; i < nt * pieces; i += kThreads) {
+        const int tl = i / pieces, t = t0 + tl, row = s_row[t];
+        if (row >= 0)
+          s_stage[i] = __ldg(reinterpret_cast<const uint4*>(
+              s_table[t % kLevelGroup] + (long long)row * row_vals) + (i - tl * pieces));
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < nt * F; e += kThreads) {
+      const int tl = e / F, f = e - tl * F, t = t0 + tl, row = s_row[t];
+      if (row < 0) continue;
+      const TT* src = staged ? reinterpret_cast<const TT*>(s_stage + tl * pieces)
+                             : s_table[t % kLevelGroup] + (long long)row * row_vals;
+      const float* w = s_w + 8 * t;
+      float v = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v = __fadd_rn(v, rnd<TT>(__fmul_rn(to_f(src[c * F + f]), w[c])));
+      out[(p0 + t / kLevelGroup) * (long long)(levels * F) + (l0 + t % kLevelGroup) * F + f] =
+          from_f<TT>(v);
+    }
+    if (staged) __syncthreads();
   }
-  return 0;
 }
+
+// The table cotangent for any F. Phase A as the templated kernel's (level-
+// major tasks), the cotangents read where they lie. Phase B: one thread a
+// (level, run of kRun neighbouring points, 16-byte piece j of the row); the
+// piece's V values each take their own corner c and feature f (value e of
+// the row: c = e / F, f = e % F, so a bf16x2 pair may span two corners);
+// the thread sums them in f32 while the run's row stays the same (a pad
+// task does not end it) and adds the piece with one vector reduction when
+// it changes.
+template <typename XT, typename TT>
+__global__ void __launch_bounds__(kThreads)
+hash_cell_bwd_any_kernel(const XT* __restrict__ x, const TT* __restrict__ g, const Levels lv,
+                         int levels, int F, int interp, uint32_t mask, long long n) {
+  constexpr int V = 16 / (int)sizeof(TT);
+  __shared__ __align__(16) float s_w[kTasks * 8];
+  __shared__ int s_row[kTasks];
+  const int l0 = blockIdx.y * kLevelGroup;
+  const long long p0 = (long long)blockIdx.x * kPoints;
+  const long long gw = (long long)levels * F;  // g's row
+  {  // phase A: task t = (level t / kPoints, point t % kPoints)
+    const int t = threadIdx.x;
+    const long long p = p0 + t % kPoints;
+    const int l = l0 + t / kPoints;
+    int row = -1;
+    if (p < n && l < levels) {
+      bool any = false;
+      for (int f = 0; f < F && !any; ++f) any = to_f(g[p * gw + l * F + f]) != 0.0f;
+      if (any) {  // adds of (signed) zeros change no bit of the sums
+        float xf[3];
+        load_point<XT>(x, p, xf);
+        row = locate_task<XT, TT>(xf, lv, l, interp, mask, s_w + 8 * t);
+      }
+    }
+    s_row[t] = row;
+  }
+  __syncthreads();
+  const int row_vals = 8 * F, pieces = F * (int)sizeof(TT) / 2;
+  constexpr int runs = kPoints / kRun;
+  for (int it = threadIdx.x; it < kLevelGroup * runs * pieces; it += kThreads) {
+    const int run = it / pieces, j = it - run * pieces;
+    const int lt = run / runs, r0 = (run - lt * runs) * kRun, l = l0 + lt;
+    if (l >= levels) continue;
+    TT* const grad = static_cast<TT*>(lv.grad) + lv.grad_off[l];
+    float acc[V];
+    int cur = -1;
+    for (int q = 0; q < kRun; ++q) {
+      const int t = lt * kPoints + r0 + q, row = s_row[t];
+      if (row < 0) continue;
+      const float* w = s_w + 8 * t;
+      const TT* gp = g + (p0 + r0 + q) * gw + l * F;
+      float v[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int e = j * V + i, c = e / F;
+        v[i] = rnd<TT>(__fmul_rn(w[c], to_f(gp[e - c * F])));
+      }
+      if (row == cur) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
+        continue;
+      }
+      if (cur >= 0) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = rnd<TT>(acc[i]);
+        add16(grad + (long long)cur * row_vals + j * V, acc);
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = v[i];
+      cur = row;
+    }
+    if (cur >= 0) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = rnd<TT>(acc[i]);
+      add16(grad + (long long)cur * row_vals + j * V, acc);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
 
 dim3 task_grid(long long n, int levels) {
   return dim3((unsigned)((n + kPoints - 1) / kPoints),
@@ -507,47 +659,60 @@ dim3 task_grid(long long n, int levels) {
 }
 
 template <typename XT, typename TT, int F>
-void fwd_one(const void* x, const Levels& lv, int levels, int interp, uint32_t mask,
-             long long n, void* out, cudaStream_t s) {
+void fwd_one(const XT* x, const Levels& lv, int levels, int interp, uint32_t mask, long long n,
+             TT* out, cudaStream_t s) {
   hash_cell_fwd_kernel<XT, TT, F><<<task_grid(n, levels), kThreads, 0, s>>>(
-      static_cast<const XT*>(x), lv, levels, interp, mask, n, static_cast<TT*>(out));
+      x, lv, levels, interp, mask, n, out);
 }
 
 template <typename XT, typename TT>
 int launch_fwd(const void* x, const Levels& lv, int levels, int features, int interp,
                uint32_t mask, long long n, void* out, cudaStream_t s) {
+  const XT* xp = static_cast<const XT*>(x);
+  TT* o = static_cast<TT*>(out);
   switch (features) {
-    case 2: fwd_one<XT, TT, 2>(x, lv, levels, interp, mask, n, out, s); break;
-    case 4: fwd_one<XT, TT, 4>(x, lv, levels, interp, mask, n, out, s); break;
-    case 8: fwd_one<XT, TT, 8>(x, lv, levels, interp, mask, n, out, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: fwd_one<XT, TT, 1>(xp, lv, levels, interp, mask, n, o, s); break;
+    case 2: fwd_one<XT, TT, 2>(xp, lv, levels, interp, mask, n, o, s); break;
+    case 4: fwd_one<XT, TT, 4>(xp, lv, levels, interp, mask, n, o, s); break;
+    case 8: fwd_one<XT, TT, 8>(xp, lv, levels, interp, mask, n, o, s); break;
+    case 16: fwd_one<XT, TT, 16>(xp, lv, levels, interp, mask, n, o, s); break;
+    default:
+      hash_cell_fwd_any_kernel<XT, TT><<<task_grid(n, levels), kThreads, 0, s>>>(
+          xp, lv, levels, features, interp, mask, n, o);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename XT, typename TT, int F>
-void bwd_one(const void* x, const void* g, const Levels& lv, int levels, int interp,
-             uint32_t mask, long long n, cudaStream_t s) {
+void bwd_one(const XT* x, const TT* g, const Levels& lv, int levels, int interp, uint32_t mask,
+             long long n, cudaStream_t s) {
   hash_cell_bwd_kernel<XT, TT, F><<<task_grid(n, levels), kThreads, 0, s>>>(
-      static_cast<const XT*>(x), static_cast<const TT*>(g), lv, levels, interp, mask, n);
+      x, g, lv, levels, interp, mask, n);
 }
 
 template <typename XT, typename TT>
 int launch_bwd(const void* x, const void* g, const Levels& lv, int levels, int features,
                int interp, uint32_t mask, long long n, cudaStream_t s) {
+  const XT* xp = static_cast<const XT*>(x);
+  const TT* gp = static_cast<const TT*>(g);
   switch (features) {
-    case 2: bwd_one<XT, TT, 2>(x, g, lv, levels, interp, mask, n, s); break;
-    case 4: bwd_one<XT, TT, 4>(x, g, lv, levels, interp, mask, n, s); break;
-    case 8: bwd_one<XT, TT, 8>(x, g, lv, levels, interp, mask, n, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: bwd_one<XT, TT, 1>(xp, gp, lv, levels, interp, mask, n, s); break;
+    case 2: bwd_one<XT, TT, 2>(xp, gp, lv, levels, interp, mask, n, s); break;
+    case 4: bwd_one<XT, TT, 4>(xp, gp, lv, levels, interp, mask, n, s); break;
+    case 8: bwd_one<XT, TT, 8>(xp, gp, lv, levels, interp, mask, n, s); break;
+    case 16: bwd_one<XT, TT, 16>(xp, gp, lv, levels, interp, mask, n, s); break;
+    default:
+      hash_cell_bwd_any_kernel<XT, TT><<<task_grid(n, levels), kThreads, 0, s>>>(
+          xp, gp, lv, levels, features, interp, mask, n);
   }
   return (int)cudaGetLastError();
 }
 
+// The grid's rows of kLevelGroup levels and columns of kPoints points stay
+// within CUDA's grid limits.
 int check_args(int levels, int features, int log2_size, int interp, long long n) {
-  if (levels < 1 || levels > kMaxLevels || log2_size < 1 || log2_size > 31
-      || interp < kLinear || interp > kNearest
-      || (features != 2 && features != 4 && features != 8)
+  if (levels < 1 || (levels + kLevelGroup - 1) / kLevelGroup > 65535 || features < 1
+      || log2_size < 1 || log2_size > 31 || interp < kLinear || interp > kNearest
       || (n + kPoints - 1) / kPoints > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -557,23 +722,23 @@ int check_args(int levels, int features, int log2_size, int interp, long long n)
 
 extern "C" {
 
-int hash_cell_max_levels() { return kMaxLevels; }
-
 // One launch of the forward on `stream`. x: (n, 3) of x_bf16 ? bf16 : f32;
-// tables: `levels` pointers to (rows[l], 8 * features) of t_bf16 ? bf16 :
-// f32, 16-byte aligned, each with at least the rows its level indexes; out:
-// (n, levels * features) of the tables' type. Returns the launch's CUDA
+// tables: a device array of `levels` pointers to (rows, 8 * features) of
+// t_bf16 ? bf16 : f32, 16-byte aligned, each with at least the rows its
+// level indexes; scale, res, dense: device arrays of `levels` entries (the
+// resolution rounded to x01's type, the resolution, 1 for a dense level);
+// out: (n, levels * features) of the tables' type. Returns the launch's CUDA
 // error (0 = ok).
-int hash_cell_fwd(const void* x, int x_bf16, const void* const* tables,
-                  const long long* rows, int t_bf16, const float* scale,
-                  const int* res, const int* dense, int levels, int features,
-                  int log2_size, int interp, long long n, void* out, void* stream) {
+int hash_cell_fwd(const void* x, int x_bf16, const void* tables, int t_bf16,
+                  const void* scale, const void* res, const void* dense, int levels,
+                  int features, int log2_size, int interp, long long n, void* out,
+                  void* stream) {
   if (n <= 0) return 0;
-  int err = check_args(levels, features, log2_size, interp, n);
+  const int err = check_args(levels, features, log2_size, interp, n);
   if (err) return err;
-  Levels lv;
-  err = fill_levels(&lv, tables, rows, scale, res, dense, levels, false);
-  if (err) return err;
+  const Levels lv = {static_cast<const void* const*>(tables), static_cast<const float*>(scale),
+                     static_cast<const int*>(res), static_cast<const int*>(dense), nullptr,
+                     nullptr};
   const uint32_t mask = (uint32_t)((1ull << log2_size) - 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
@@ -584,28 +749,27 @@ int hash_cell_fwd(const void* x, int x_bf16, const void* const* tables,
                 : launch_fwd<float, float>(x, lv, levels, features, interp, mask, n, out, s);
 }
 
-// The table cotangent on `stream`: zero the `levels` tables at `grads`
-// (rows[l] x 8 * features of t_bf16 ? bf16 : f32, 16-byte aligned), then add
-// w * g into them. g: (n, levels * features) of the tables' type. Two
+// The table cotangent on `stream`: zero the `total_rows` rows of 8 *
+// features values (t_bf16 ? bf16 : f32) at `grads`, one 16-byte aligned
+// allocation holding the `levels` tables, level l's first value at
+// grad_off[l] (a device array), then add w * g into them. g: (n, levels *
+// features) of the tables' type; scale, res, dense as for the forward. Two
 // launches; returns the first CUDA error (0 = ok).
-int hash_cell_bwd_tables(const void* x, int x_bf16, const void* g, void* const* grads,
-                         const long long* rows, int t_bf16, const float* scale,
-                         const int* res, const int* dense, int levels, int features,
-                         int log2_size, int interp, long long n, void* stream) {
+int hash_cell_bwd_tables(const void* x, int x_bf16, const void* g, void* grads,
+                         const void* grad_off, long long total_rows, int t_bf16,
+                         const void* scale, const void* res, const void* dense, int levels,
+                         int features, int log2_size, int interp, long long n, void* stream) {
   int err = check_args(levels, features, log2_size, interp, n < 0 ? 0 : n);
   if (err) return err;
-  Levels lv;
-  err = fill_levels(&lv, const_cast<const void* const*>(grads), rows, scale, res,
-                    dense, levels, true);
-  if (err) return err;
+  const Levels lv = {nullptr, static_cast<const float*>(scale), static_cast<const int*>(res),
+                     static_cast<const int*>(dense), grads,
+                     static_cast<const long long*>(grad_off)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int row_bytes = 8 * features * (t_bf16 ? 2 : 4);
-  long long most = 0;
-  for (int l = 0; l < levels; ++l) most = rows[l] > most ? rows[l] : most;
-  const long long want = (most * row_bytes / 16 + kThreads - 1) / kThreads;
+  const long long n16 = total_rows * 8 * features * (t_bf16 ? 2 : 4) / 16;
+  const long long want = (n16 + kThreads - 1) / kThreads;
   if (want > 0) {
-    const dim3 zgrid((unsigned)(want < kZeroBlocks ? want : kZeroBlocks), (unsigned)levels);
-    hash_cell_zero_kernel<<<zgrid, kThreads, 0, s>>>(lv, row_bytes);
+    hash_cell_zero_kernel<<<(unsigned)(want < kZeroBlocks ? want : kZeroBlocks), kThreads, 0, s>>>(
+        static_cast<uint4*>(grads), n16);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -78,9 +78,37 @@
 //   follows from column 16, padded with zeros to the tile. The last colour
 //   layer is 8 columns wide (3 used). Zero rows and columns add exact zeros.
 // * Two classes of width, templated: up to 64 (16 warps a block, at most
-//   128 registers a thread) and up to 128 (8 warps). A hidden layer is
-//   computed at its class's width (zero columns past its own), its input at
-//   its own.
+//   128 registers a thread) and up to 128 (8 warps), chosen by every width
+//   the network carries (hidden, color_hidden, L*F and the colour input,
+//   1 + 15 + the direction encoding). A hidden layer is computed at its
+//   class's width (zero columns past its own), its input at its own.
+// * Anything wider takes the wide path (ngp_net_wide_kernel, one launch a
+//   chunk too, mode a runtime argument): a warp cannot carry 16 points x W
+//   columns in registers there, nor a block a layer's split image in shared
+//   memory (at width 256, 512 KB). The slabs, the point lists, the direction
+//   encodings and the accumulators are the classes'; a pass takes 16 tiles
+//   of the list (one a warp), and its activations live in a global scratch
+//   buffer of the block's own, in the mma's fragment layout: a lane reads
+//   back only what it wrote, so the buffer needs no barrier. Each layer is
+//   computed in column blocks of 64, each summed over slices of 64 input
+//   rows; a slice of the split weights (32 KB) is the block's shared image,
+//   the next slice landing by cp.async while the current one computes. A
+//   warp loads a slice's 8 input fragments before its first mma (from L2
+//   or device memory: one latency a slice, not one an input tile). Each
+//   input tile's products still sum into a partial from 0, added with one
+//   rounded add in input order, so a layer's outputs are the classes' bits.
+//   A pass stages every weight of the expert, so the slab is as large as
+//   shared memory holds (lists that fill passes), evened over whole rounds
+//   of the grid. At the wide expert of chip_smoke.py (trunk 256 x 8, colour
+//   128 x 5: 541,696 multiply-adds a pair) a dense chunk of random points
+//   (1.02 M pairs) is bound at 6.7 ms by 3xTF32 operations.
+// * The expert and layer tables are in device memory: the layer weights'
+//   pointers an array of K x slots (w, b) pairs that the wrapper keeps on
+//   the card (a block copies the row of the expert it stages next into
+//   shared memory, all slots at once, before the barrier that precedes the
+//   staging), the layers' staged shapes computed by each block into shared
+//   memory, the K feature sets one buffer at a stride. K and the depth are
+//   bounded by memory alone.
 //
 // Bits. A product a*b is summed as a_small*b_big + a_big*b_small +
 // a_big*b_big in the f32 accumulators, with big = cvt.rna.tf32.f32(x) and
@@ -96,34 +124,43 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 namespace {
 
-constexpr int kMaxExperts = 16;
-constexpr int kMaxDepth = 4;
-constexpr int kMaxWidth = 128;
-constexpr int kMaxIn = 64;  // L*F, and geo + direction encoding
 constexpr int kGeo = 15;
-constexpr int kSlots = kMaxDepth + 2 + kMaxDepth + 1;  // weight slots per expert
-constexpr int kMaxLayers = kMaxDepth + 1 + kMaxDepth + 1;
+constexpr int kMaxShLevels = 5;  // spherical harmonics levels sh_encode takes
+constexpr int kClassWidth = 128;  // the widest class; wider networks take the wide path
 constexpr int kSlabMax = 1024;  // points a slab, at most (the list indices are 16-bit)
 constexpr int kSlabMin = 256;   // one 16-point tile a warp of a 16-warp block
+// the wide path
+constexpr int kWideWarps = 16;
+constexpr int kWideTiles = 1;  // 16-point tiles a warp carries through a pass
+constexpr int kPassTiles = kWideWarps * kWideTiles;
+constexpr int kSliceK = 8;  // input tiles of a weight slice
+constexpr int kSliceN = 8;  // output tiles of a weight slice (a column block)
+constexpr int kSliceDs = 8 * kSliceN + 4;
+constexpr int kSliceLand = 8 * kSliceK * kSliceDs + 8 * kSliceN;    // floats, as it lands
+constexpr int kSliceSplit = 128 * kSliceK * kSliceN + 8 * kSliceN;  // floats, split
+// points a slab on the wide path, at most: a pass stages every weight of the
+// expert for its 16 tiles, so the slab is as large as shared memory holds
+// (1,920 points at the smoke's direction encoding), for lists that fill
+// whole passes
+constexpr int kWideSlabMax = 4096;
 
 enum Mode { kSingle = 0, kSigmaBlend = 1, kLinearBlend = 2, kDensity = 3 };
 
 // warps a block (above 64 wide, a thread's activations and accumulators
-// take twice the registers)
-__host__ __device__ constexpr int threads_for(int W) { return W > 64 ? 8 * 32 : 16 * 32; }
+// take twice the registers; 0: the wide path)
+__host__ __device__ constexpr int threads_for(int W) {
+  return W == 0 ? kWideWarps * 32 : W > 64 ? 8 * 32 : 16 * 32;
+}
+
+__host__ __device__ constexpr int tiles8(int n) { return (n + 7) / 8; }
 
 struct Layer {
   const float* w;  // (in, out) row-major, as the port stores it
   const float* b;  // (out,)
-};
-
-struct Expert {
-  const float* h;  // (P, L*F)
-  Layer trunk[kMaxDepth];
-  Layer sigma, geo;
-  Layer color[kMaxDepth + 1];
 };
 
 // A layer: kt input tiles of 8 rows, nt output tiles of 8 columns. As it
@@ -136,23 +173,61 @@ struct Shape {
   int kt, nt, ds, off, foff;
 };
 
-// Passed by value in the kernel's parameter space (under 4 KB), read in
-// place (__grid_constant__: a runtime index into it makes no local copy).
+// The floats that nl shapes take at the front of shared memory (16-byte
+// multiples, so that what follows stays aligned for float4).
+__host__ __device__ constexpr int shape_floats(int nl) { return (5 * nl + 3) / 4 * 4; }
+
+// Passed by value in the kernel's parameter space, read in place
+// (__grid_constant__). The tables it points to are in device memory.
 struct Net {
-  Expert e[kMaxExperts];
-  Shape layer[kMaxLayers];
-  const float* dirs;  // (P, >= 3) rows dir_stride apart
-  const float* w;     // (P, K) routing weights, or null
-  float* rgb;         // rows rgb_stride apart, or null
-  float* sigma;       // rows sigma_stride apart
-  long long P, dir_stride, rgb_stride, sigma_stride, slabs;
-  int K, in_dim, hidden, sigma_depth, color_hidden, color_depth;
+  const float* h;       // (K, P, in_dim): expert k's features at h + k * h_stride
+  const Layer* layers;  // K x nslots (w, b) pairs: trunk, sigma, geo, colour (+ last)
+  const float* dirs;    // (P, >= 3) rows dir_stride apart
+  const float* w;       // (P, K) routing weights, or null
+  float* rgb;           // rows rgb_stride apart, or null
+  float* sigma;         // rows sigma_stride apart
+  float* scratch;       // wide path: scratch_block floats a block
+  long long P, h_stride, dir_stride, rgb_stride, sigma_stride, slabs, scratch_block;
+  int mode, K, in_dim, hidden, sigma_depth, color_hidden, color_depth;
   int dir_kind, dir_param, sigmoid, enc_dim;
-  int nl;              // layers an expert (density: the trunk and the heads)
+  int W;               // width class: 64, 128, or 0 (the wide path)
+  int nl, nslots;      // layers an expert (density: the trunk and the heads); weight slots
   int streamed;        // 0: whole experts; 1: one layer at a time
   int land, split;     // floats of the landing and split buffers
   int S, ES;           // points a slab; floats a point's encoding row (even)
+  int KW;              // wide path: tiles of a scratch row (the widest layer)
 };
+
+__host__ __device__ inline void add_shape(Shape* s, int& n, int& limage, int& fimage, int in,
+                                          int nt) {
+  Shape& x = s[n++];
+  x.kt = tiles8(in);
+  x.nt = nt;
+  x.ds = 8 * nt + 4;
+  x.off = limage;
+  x.foff = fimage;
+  limage += 8 * x.kt * x.ds + 8 * nt;
+  fimage += 128 * x.kt * nt + 8 * nt;
+}
+
+// An expert's layers as staged: the trunk, the heads (16 columns: sigma,
+// geo), the colour MLP and its last layer (8 columns, 3 used); density: the
+// trunk and the heads. Hidden layers are as wide as the class W (zero
+// columns past their width), or their own width on the wide path (W = 0).
+// Writes net.nl shapes.
+__host__ __device__ inline void layer_shapes(const Net& net, Shape* s) {
+  int n = 0, limage = 0, fimage = 0;
+  const int hid = net.W ? net.W / 8 : tiles8(net.hidden);
+  const int col = net.W ? net.W / 8 : tiles8(net.color_hidden);
+  for (int l = 0; l < net.sigma_depth; ++l)
+    add_shape(s, n, limage, fimage, l == 0 ? net.in_dim : net.hidden, hid);
+  add_shape(s, n, limage, fimage, net.hidden, tiles8(1 + kGeo));
+  if (net.mode != kDensity) {
+    add_shape(s, n, limage, fimage, 1 + kGeo + net.enc_dim, col);
+    for (int c = 1; c < net.color_depth; ++c) add_shape(s, n, limage, fimage, net.color_hidden, col);
+    add_shape(s, n, limage, fimage, net.color_hidden, 1);
+  }
+}
 
 // ------------------------------------------------------------------ PTX
 
@@ -205,22 +280,34 @@ struct Part {
   int rows, cols, row0, col0;
 };
 
-// Layer l's sources: one part, or two for the heads (b.cols = 0 where none).
-__device__ __forceinline__ void parts_of(const Net& net, const Expert& e, int l, Part& a,
+// Expert k's weight slots (its trunk layers, sigma, geo, its colour layers)
+// into the block's table in shared memory, all slots' loads at once: the
+// staging that follows (after a barrier) reads its pointers from there.
+__device__ __forceinline__ void load_table(const Net& net, int k, Layer* tab) {
+  const ulonglong2* src = reinterpret_cast<const ulonglong2*>(net.layers) + (long long)k * net.nslots;
+  for (int i = threadIdx.x; i < net.nslots; i += blockDim.x) {
+    const ulonglong2 v = __ldg(src + i);
+    tab[i] = {reinterpret_cast<const float*>(v.x), reinterpret_cast<const float*>(v.y)};
+  }
+}
+
+// Layer l's sources, from the expert's table: one part, or two for the heads
+// (b.cols = 0 where none).
+__device__ __forceinline__ void parts_of(const Net& net, const Layer* tab, int l, Part& a,
                                          Part& b) {
   const int sd = net.sigma_depth, cd = net.color_depth;
   b = {nullptr, nullptr, 0, 0, 0, 0};
   if (l < sd) {
-    a = {e.trunk[l].w, e.trunk[l].b, l == 0 ? net.in_dim : net.hidden, net.hidden, 0, 0};
+    a = {tab[l].w, tab[l].b, l == 0 ? net.in_dim : net.hidden, net.hidden, 0, 0};
   } else if (l == sd) {  // [sigma | geo]
-    a = {e.sigma.w, e.sigma.b, net.hidden, 1, 0, 0};
-    b = {e.geo.w, e.geo.b, net.hidden, kGeo, 0, 1};
+    a = {tab[sd].w, tab[sd].b, net.hidden, 1, 0, 0};
+    b = {tab[sd + 1].w, tab[sd + 1].b, net.hidden, kGeo, 0, 1};
   } else if (l == sd + 1) {  // behind a zero row: the heads' sigma column
-    a = {e.color[0].w, e.color[0].b, kGeo + net.enc_dim, net.color_hidden, 1, 0};
-  } else if (l - sd - 1 < cd) {
-    a = {e.color[l - sd - 1].w, e.color[l - sd - 1].b, net.color_hidden, net.color_hidden, 0, 0};
+    a = {tab[sd + 2].w, tab[sd + 2].b, kGeo + net.enc_dim, net.color_hidden, 1, 0};
   } else {
-    a = {e.color[cd].w, e.color[cd].b, net.color_hidden, 3, 0, 0};
+    const int c = l - sd - 1;
+    a = {tab[sd + 2 + c].w, tab[sd + 2 + c].b, net.color_hidden, c < cd ? net.color_hidden : 3,
+         0, 0};
   }
 }
 
@@ -230,18 +317,20 @@ __device__ __forceinline__ const float* source(const Part& p, int i, int j) {
   return r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.w + (long long)r * p.cols + c : nullptr;
 }
 
-// Issue the cp.asyncs of a layer (parts a, b; s its shape) into dst, weights
-// then bias, every padded element included: zeros where no part covers it.
-// Arguments by value: nothing in the loop is read through a pointer that a
-// store could alias.
-__device__ __noinline__ void stage_layer(float* dst, const Part a, const Part b, const Shape s) {
+// Issue the cp.asyncs of rows [ro, ro + 8 kt) and columns [co, co + 8 nt)
+// of a layer (parts a, b; kt, nt, ds from s) into dst, weights then bias,
+// every padded element included: zeros where no part covers it. Arguments
+// by value: nothing in the loop is read through a pointer that a store
+// could alias.
+__device__ __noinline__ void stage_layer(float* dst, const Part a, const Part b, const Shape s,
+                                         int ro, int co) {
   const int lq = __ffs(2 * s.nt) - 1, n = 8 * s.kt << lq;  // 2 nt quads a row (nt: a power of 2)
   for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    const int i = q >> lq, j = 4 * (q - (i << lq));
+    const int i = q >> lq, j = 4 * (q - (i << lq)), gi = ro + i, gj = co + j;
     float* d = dst + i * s.ds + j;
-    const int r = i - a.row0;
-    if (b.cols == 0 && r >= 0 && r < a.rows && j + 4 <= a.cols) {
-      const float* src = a.w + (long long)r * a.cols + j;
+    const int r = gi - a.row0;
+    if (b.cols == 0 && r >= 0 && r < a.rows && gj + 4 <= a.cols) {
+      const float* src = a.w + (long long)r * a.cols + gj;
       if ((reinterpret_cast<unsigned long long>(src) & 15) == 0) {
         cp16(d, src);
         continue;
@@ -249,28 +338,41 @@ __device__ __noinline__ void stage_layer(float* dst, const Part a, const Part b,
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float* src = source(a, i, j + u);
-      if (src == nullptr && b.cols) src = source(b, i, j + u);
+      const float* src = source(a, gi, gj + u);
+      if (src == nullptr && b.cols) src = source(b, gi, gj + u);
       cp4(d + u, src ? src : a.w, src ? 4 : 0);
     }
   }
   float* bias = dst + 8 * s.kt * s.ds;
   for (int j = threadIdx.x; j < 8 * s.nt; j += blockDim.x) {
-    const float* src = j < a.col0 + a.cols ? a.b + (j - a.col0)
-                       : b.cols && j >= b.col0 && j < b.col0 + b.cols ? b.b + (j - b.col0)
-                                                                    : nullptr;
+    const int gj = co + j;
+    const float* src = gj < a.col0 + a.cols ? a.b + (gj - a.col0)
+                       : b.cols && gj >= b.col0 && gj < b.col0 + b.cols ? b.b + (gj - b.col0)
+                                                                      : nullptr;
     cp4(bias + j, src ? src : a.b, src ? 4 : 0);
   }
 }
 
-__device__ __forceinline__ void stage(float* dst, const Net& net, const Expert& e, int l) {
+__device__ __forceinline__ void stage(float* dst, const Net& net, const Layer* tab, int l,
+                                      const Shape* shp) {
   Part a, b;
-  parts_of(net, e, l, a, b);
-  stage_layer(dst, a, b, net.layer[l]);
+  parts_of(net, tab, l, a, b);
+  stage_layer(dst, a, b, shp[l], 0, 0);
 }
 
-__device__ __forceinline__ void stage_expert(float* dst, const Net& net, const Expert& e) {
-  for (int l = 0; l < net.nl; ++l) stage(dst + net.layer[l].off, net, e, l);
+__device__ __forceinline__ void stage_expert(float* dst, const Net& net, const Layer* tab,
+                                             const Shape* shp) {
+  for (int l = 0; l < net.nl; ++l) stage(dst + shp[l].off, net, tab, l, shp);
+}
+
+// The wide path's slice (cb, ks) of layer l: input tiles [kSliceK ks, +
+// kSliceK) by output tiles [kSliceN cb, + kSliceN), zeros past the layer.
+__device__ __forceinline__ void stage_slice(float* dst, const Net& net, const Layer* tab, int l,
+                                            int cb, int ks) {
+  Part a, b;
+  parts_of(net, tab, l, a, b);
+  stage_layer(dst, a, b, Shape{kSliceK, kSliceN, kSliceDs, 0, 0}, 8 * kSliceK * ks,
+              8 * kSliceN * cb);
 }
 
 // A landed layer into its split B fragments (every thread of the block):
@@ -290,9 +392,9 @@ __device__ __noinline__ void split_layer(float* dst, const float* src, const Sha
   for (int j = threadIdx.x; j < 8 * s.nt; j += blockDim.x) dst[4 * n + j] = src[8 * s.kt * s.ds + j];
 }
 
-__device__ __forceinline__ void split_expert(float* dst, const float* src, const Net& net) {
-  for (int l = 0; l < net.nl; ++l)
-    split_layer(dst + net.layer[l].foff, src + net.layer[l].off, net.layer[l]);
+__device__ __forceinline__ void split_expert(float* dst, const float* src, const Net& net,
+                                             const Shape* shp) {
+  for (int l = 0; l < net.nl; ++l) split_layer(dst + shp[l].foff, src + shp[l].off, shp[l]);
 }
 
 // ------------------------------------------------------------------ layers
@@ -470,18 +572,20 @@ __device__ __forceinline__ void encode_dir(float x, float y, float z, int kind, 
 // slot, to land while layer l computes.
 struct Weights {
   const Net& net;
+  const Shape* shp;
+  const Layer* tab;  // the expert's weight pointers
   float* landing;
   float* frags;
-  int k, pass, passes;
+  int pass, passes;
 
   __device__ __forceinline__ const float* operator()(int l) {
-    if (!net.streamed) return frags + net.layer[l].foff;
+    if (!net.streamed) return frags + shp[l].foff;
     cp_wait_all();
     __syncthreads();  // layer l landed; every warp left layer l - 1
-    split_layer(frags, landing, net.layer[l]);
+    split_layer(frags, landing, shp[l]);
     __syncthreads();  // layer l split; the landing slot is free
     const int next = l + 1 < net.nl ? l + 1 : 0;
-    if (next > 0 || pass + 1 < passes) stage(landing, net, net.e[k], next);
+    if (next > 0 || pass + 1 < passes) stage(landing, net, tab, next, shp);
     cp_commit();
     return frags;
   }
@@ -496,9 +600,9 @@ __device__ __forceinline__ void run_tile(const Net& net, int k, long long base, 
                                          int tile, int n_k, const unsigned short* list,
                                          const float* enc, float4* acc, Weights& weights) {
   constexpr int NC = W / 8;             // a hidden layer's tiles (zero columns past its width)
-  constexpr int KA = NC > 8 ? NC : 8;   // input tiles, at most: L*F and the colour input reach 64
+  constexpr int KA = NC > 8 ? NC : 8;   // input tiles, at most: L*F and the colour input reach 8 KA
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const Expert& e = net.e[k];
+  const Shape* shp = weights.shp;
   int slot[2];  // rows g and g + 8
   bool valid[2];
 #pragma unroll
@@ -510,10 +614,10 @@ __device__ __forceinline__ void run_tile(const Net& net, int k, long long base, 
 
   float a[KA][4], c[NC][4];
   if (active) {  // the feature rows
-    const int kt0 = net.layer[0].kt;
+    const int kt0 = shp[0].kt;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* row = e.h + (base + slot[h]) * net.in_dim;
+      const float* row = net.h + k * net.h_stride + (base + slot[h]) * net.in_dim;
 #pragma unroll
       for (int kt = 0; kt < KA; ++kt) {
         if (kt < kt0) {
@@ -531,7 +635,7 @@ __device__ __forceinline__ void run_tile(const Net& net, int k, long long base, 
   for (int l = 0; l < net.nl; ++l) {
     const float* w = weights(l);
     if (!active) continue;
-    const Shape s = net.layer[l];
+    const Shape s = shp[l];
     if (l == heads) {  // sigma in column 0 (lane t = 0), geo in 1..15
       dense<2>(a, c, w, s.kt);
       sig[0] = expf(fminf(fmaxf(c[0][0], -88.f), 88.f));  // trunc_exp
@@ -544,7 +648,7 @@ __device__ __forceinline__ void run_tile(const Net& net, int k, long long base, 
         const float* x = enc + slot[h] * net.ES - 16 + 2 * t;
 #pragma unroll
         for (int kt = 2; kt < KA; ++kt) {
-          if (kt < net.layer[l + 1].kt) {
+          if (kt < shp[l + 1].kt) {
             const float2 v = *reinterpret_cast<const float2*>(x + kt * 8);
             a[kt][h] = v.x;
             a[kt][2 + h] = v.y;
@@ -599,6 +703,87 @@ __device__ __forceinline__ void run_tile(const Net& net, int k, long long base, 
   }
 }
 
+// ------------------------------------------------------------------ a slab
+
+// Zero the slab's accumulators and encode its points' directions into
+// their rows of enc (zeros to ES).
+__device__ __forceinline__ void encode_slab(const Net& net, int mode, long long base, int n_here,
+                                            float* enc, float4* acc) {
+  for (int i = threadIdx.x; i < net.S; i += blockDim.x) {
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mode != kDensity && i < n_here) {
+      const float* d = net.dirs + (base + i) * net.dir_stride;
+      float* row = enc + i * net.ES;
+      encode_dir(__ldg(d), __ldg(d + 1), __ldg(d + 2), net.dir_kind, net.dir_param, row);
+      for (int j = net.enc_dim; j < net.ES; ++j) row[j] = 0.f;
+    }
+  }
+}
+
+// Expert k's list, first half: a ballot a 32 points of whether its weight
+// is not 0, into masks.
+template <int NW>
+__device__ __forceinline__ void ballots(const Net& net, int k, long long base, int n_here,
+                                        unsigned* masks) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int ch = warp; ch < net.S / 32; ch += NW) {
+    const int i = ch * 32 + lane;
+    bool on = i < n_here;
+    if (on && net.w != nullptr) on = __ldg(net.w + (base + i) * net.K + k) != 0.f;
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) masks[ch] = m;
+  }
+}
+
+// Second half (after a barrier): a prefix count over the masks writes the
+// list, the points in slab order; every warp returns its length.
+template <int NW>
+__device__ __forceinline__ int compact(int nch, const unsigned* masks, unsigned short* list) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int n_k = 0;
+  for (int c0 = 0; c0 < nch; c0 += 32) {
+    const unsigned m = c0 + lane < nch ? masks[c0 + lane] : 0u;
+    int inc = __popc(m);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += v;
+    }
+    const int excl = n_k + inc - __popc(m);
+    for (int j = warp; j < 32 && c0 + j < nch; j += NW) {
+      const unsigned mj = __shfl_sync(0xffffffffu, m, j);
+      const int off = __shfl_sync(0xffffffffu, excl, j);
+      if ((mj >> lane) & 1u)
+        list[off + __popc(mj & ((1u << lane) - 1u))] = (unsigned short)((c0 + j) * 32 + lane);
+    }
+    n_k += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  return n_k;
+}
+
+// The slab's outputs from its accumulators (after a barrier).
+__device__ __forceinline__ void write_slab(const Net& net, int mode, long long base, int n_here,
+                                           const float4* acc) {
+  for (int i = threadIdx.x; i < n_here; i += blockDim.x) {
+    const float4 A = acc[i];
+    const long long p = base + i;
+    if (mode == kSigmaBlend) {
+      const float s = fmaxf(A.w, 1e-12f);
+      net.rgb[p * net.rgb_stride + 0] = __fdiv_rn(A.x, s);
+      net.rgb[p * net.rgb_stride + 1] = __fdiv_rn(A.y, s);
+      net.rgb[p * net.rgb_stride + 2] = __fdiv_rn(A.z, s);
+      net.sigma[p * net.sigma_stride] = s;
+    } else {
+      if (mode != kDensity) {
+        net.rgb[p * net.rgb_stride + 0] = A.x;
+        net.rgb[p * net.rgb_stride + 1] = A.y;
+        net.rgb[p * net.rgb_stride + 2] = A.z;
+      }
+      net.sigma[p * net.sigma_stride] = A.w;
+    }
+  }
+}
+
 // ------------------------------------------------------------------ kernel
 
 template <int MODE, int W>
@@ -606,68 +791,44 @@ __global__ void __launch_bounds__(threads_for(W), 1) ngp_net_kernel(const __grid
   constexpr int NW = threads_for(W) / 32;
   extern __shared__ __align__(16) float smem[];
   const int S = net.S, ES = net.ES, nch = S / 32;
-  float* frags = smem;                    // the split weights the mma's read
-  float* landing = frags + net.split;     // where cp.async lands the next weights
+  Shape* shp = reinterpret_cast<Shape*>(smem);      // the layers' staged shapes
+  Layer* tab = reinterpret_cast<Layer*>(smem + shape_floats(net.nl));  // the staged expert's
+  float* frags = smem + shape_floats(net.nl) + 4 * net.nslots;  // the split weights the mma's read
+  float* landing = frags + net.split;               // where cp.async lands the next weights
   float* enc = landing + net.land;
   float4* acc = reinterpret_cast<float4*>(enc + (MODE == kDensity ? 0 : S * ES));
   unsigned* masks = reinterpret_cast<unsigned*>(acc + S);
   unsigned short* list = reinterpret_cast<unsigned short*>(masks + nch);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool weighted = net.w != nullptr;
+  const int warp = threadIdx.x >> 5;
 
-  if (!net.streamed && blockIdx.x < net.slabs) stage_expert(landing, net, net.e[0]);
+  if (threadIdx.x == 0) layer_shapes(net, shp);
+  load_table(net, 0, tab);
+  __syncthreads();
+  if (!net.streamed && blockIdx.x < net.slabs) stage_expert(landing, net, tab, shp);
   cp_commit();
   int split_k = -1;  // the expert whose layers frags holds (resident)
 
   for (long long slab = blockIdx.x; slab < net.slabs; slab += gridDim.x) {
     const long long base = slab * S;
     const int n_here = (int)min((long long)S, net.P - base);
-    for (int i = tid; i < S; i += blockDim.x) {
-      acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (MODE != kDensity && i < n_here) {
-        const float* d = net.dirs + (base + i) * net.dir_stride;
-        float* row = enc + i * ES;
-        encode_dir(__ldg(d), __ldg(d + 1), __ldg(d + 2), net.dir_kind, net.dir_param, row);
-        for (int j = net.enc_dim; j < ES; ++j) row[j] = 0.f;
-      }
-    }
+    encode_slab(net, MODE, base, n_here, enc, acc);
     for (int k = 0; k < net.K; ++k) {
       // the expert's list: a ballot a 32 points, then a prefix count
-      for (int ch = warp; ch < nch; ch += NW) {
-        const int i = ch * 32 + lane;
-        bool on = i < n_here;
-        if (on && weighted) on = __ldg(net.w + (base + i) * net.K + k) != 0.f;
-        const unsigned m = __ballot_sync(0xffffffffu, on);
-        if (lane == 0) masks[ch] = m;
-      }
+      ballots<NW>(net, k, base, n_here, masks);
       const bool restage = !net.streamed && split_k != k;  // one expert stays put
       if (restage) cp_wait_all();  // this expert's layers landed
       __syncthreads();  // also: every warp is done with the previous expert
       if (restage) {
-        split_expert(frags, landing, net);
+        split_expert(frags, landing, net, shp);
         split_k = k;
       }
-      int n_k = 0;
-      for (int c0 = 0; c0 < nch; c0 += 32) {
-        const unsigned m = c0 + lane < nch ? masks[c0 + lane] : 0u;
-        int inc = __popc(m);
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int v = __shfl_up_sync(0xffffffffu, inc, d);
-          if (lane >= d) inc += v;
-        }
-        const int excl = n_k + inc - __popc(m);
-        for (int j = warp; j < 32 && c0 + j < nch; j += NW) {
-          const unsigned mj = __shfl_sync(0xffffffffu, m, j);
-          const int off = __shfl_sync(0xffffffffu, excl, j);
-          if ((mj >> lane) & 1u)
-            list[off + __popc(mj & ((1u << lane) - 1u))] = (unsigned short)((c0 + j) * 32 + lane);
-        }
-        n_k += __shfl_sync(0xffffffffu, inc, 31);
-      }
-      __syncthreads();  // the list and the split layers are in; the landing buffer is free
+      // the pointers of the expert staged next: the next (slab, expert)'s
+      // where whole experts stay resident, this one's where layers stream
+      load_table(net, net.streamed ? k : (k + 1 < net.K ? k + 1 : 0), tab);
+      const int n_k = compact<NW>(nch, masks, list);
+      __syncthreads();  // the list, the table and the split layers are in; the landing buffer is free
       const int tiles = (n_k + 15) / 16;
-      Weights weights{net, landing, frags, k, 0, 0};
+      Weights weights{net, shp, tab, landing, frags, 0, 0};
       if (!net.streamed) {
         // the next (slab, expert)'s layers land while this expert computes
         long long ns = slab;
@@ -676,14 +837,14 @@ __global__ void __launch_bounds__(threads_for(W), 1) ngp_net_kernel(const __grid
           nk = 0;
           ns += gridDim.x;
         }
-        if (ns < net.slabs && nk != k) stage_expert(landing, net, net.e[nk]);
+        if (ns < net.slabs && nk != k) stage_expert(landing, net, tab, shp);
         cp_commit();
         for (int tile = warp; tile < tiles; tile += NW)
           run_tile<MODE, W>(net, k, base, true, tile, n_k, list, enc, acc, weights);
       } else if (tiles > 0) {
         // one layer at a time, one tile a warp a pass
         weights.passes = (tiles + NW - 1) / NW;
-        stage(landing, net, net.e[k], 0);
+        stage(landing, net, tab, 0, shp);
         cp_commit();
         for (; weights.pass < weights.passes; ++weights.pass) {
           const int tile = weights.pass * NW + warp;
@@ -692,24 +853,267 @@ __global__ void __launch_bounds__(threads_for(W), 1) ngp_net_kernel(const __grid
       }
     }
     __syncthreads();  // every expert's adds are in
-    for (int i = tid; i < n_here; i += blockDim.x) {
-      const float4 A = acc[i];
-      const long long p = base + i;
-      if (MODE == kSigmaBlend) {
-        const float s = fmaxf(A.w, 1e-12f);
-        net.rgb[p * net.rgb_stride + 0] = __fdiv_rn(A.x, s);
-        net.rgb[p * net.rgb_stride + 1] = __fdiv_rn(A.y, s);
-        net.rgb[p * net.rgb_stride + 2] = __fdiv_rn(A.z, s);
-        net.sigma[p * net.sigma_stride] = s;
-      } else {
-        if (MODE != kDensity) {
-          net.rgb[p * net.rgb_stride + 0] = A.x;
-          net.rgb[p * net.rgb_stride + 1] = A.y;
-          net.rgb[p * net.rgb_stride + 2] = A.z;
+    write_slab(net, MODE, base, n_here, acc);
+  }
+  cp_wait_all();
+}
+
+// ------------------------------------------------------------------ the wide path
+
+// c[u][j] (the warp's T tiles, the slice's output tiles j < nb) += the
+// products of input tiles [kt0, kt0 + kSliceK) below kt_n, in order: each
+// input tile's 24 products into a partial from 0 (three mma's in turn across
+// 4 output tiles, as dense issues them), added with one rounded add. in:
+// the pass's activations, tile u of the warp at (warp T + u) KW 32 float4s.
+template <int T>
+__device__ __forceinline__ void slice_products(float (&c)[T][kSliceN][4], const float4* in,
+                                               int KW, int kt0, int kt_n, int nb,
+                                               const float* frags, const bool (&act)[T]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint4* b = reinterpret_cast<const uint4*>(frags) + lane;
+  float4 af[T][kSliceK];  // the slice's input fragments, loaded together
+#pragma unroll
+  for (int kk = 0; kk < kSliceK; ++kk)
+#pragma unroll
+    for (int u = 0; u < T; ++u)
+      if (kt0 + kk < kt_n && act[u]) af[u][kk] = in[((warp * T + u) * KW + kt0 + kk) * 32 + lane];
+#pragma unroll
+  for (int kk = 0; kk < kSliceK; ++kk) {
+    if (kt0 + kk < kt_n) {
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        if (!act[u]) continue;
+        const float4 a = af[u][kk];
+        unsigned ab[4], as[4];
+        split(a.x, ab[0], as[0]);
+        split(a.y, ab[1], as[1]);
+        split(a.z, ab[2], as[2]);
+        split(a.w, ab[3], as[3]);
+#pragma unroll
+        for (int n0 = 0; n0 < kSliceN; n0 += 4) {
+          if (n0 < nb) {
+            uint4 f[4];
+            float d[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              f[j] = b[(kk * kSliceN + n0 + j) * 32];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma(d[j], as, f[j].x, f[j].y);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma(d[j], ab, f[j].z, f[j].w);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma(d[j], ab, f[j].x, f[j].y);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) c[u][n0 + j][i] = __fadd_rn(c[u][n0 + j][i], d[j][i]);
+          }
         }
-        net.sigma[p * net.sigma_stride] = A.w;
       }
     }
+  }
+}
+
+// Networks wider than 128 (the module note). One block an SM; every thread
+// of the block takes every slice's barriers.
+__global__ void __launch_bounds__(kWideWarps * 32, 1)
+ngp_net_wide_kernel(const __grid_constant__ Net net) {
+  constexpr int NW = kWideWarps, T = kWideTiles;
+  extern __shared__ __align__(16) float smem[];
+  const int mode = net.mode, S = net.S, ES = net.ES, nch = S / 32, KW = net.KW;
+  const bool density = mode == kDensity;
+  Shape* shp = reinterpret_cast<Shape*>(smem);
+  Layer* tab = reinterpret_cast<Layer*>(smem + shape_floats(net.nl));  // the expert's pointers
+  float* frags = smem + shape_floats(net.nl) + 4 * net.nslots;  // the slice the mma's read
+  float* landing = frags + kSliceSplit;        // the next slice, landing
+  float* enc = landing + kSliceLand;
+  float4* acc = reinterpret_cast<float4*>(enc + (density ? 0 : S * ES));
+  unsigned* masks = reinterpret_cast<unsigned*>(acc + S);
+  unsigned short* list = reinterpret_cast<unsigned short*>(masks + nch);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nl = net.nl, heads = net.sigma_depth, last = nl - 1;
+  // the block's two activation buffers; tile u of the warp at row w T + u
+  float4* const buf0 = reinterpret_cast<float4*>(net.scratch + blockIdx.x * net.scratch_block);
+  float4* const buf1 = buf0 + (long long)kPassTiles * KW * 32;
+  const Shape slice = {kSliceK, kSliceN, kSliceDs, 0, 0};
+
+  if (threadIdx.x == 0) layer_shapes(net, shp);
+  __syncthreads();
+
+  for (long long slab = blockIdx.x; slab < net.slabs; slab += gridDim.x) {
+    const long long base = slab * S;
+    const int n_here = (int)min((long long)S, net.P - base);
+    encode_slab(net, mode, base, n_here, enc, acc);
+    for (int k = 0; k < net.K; ++k) {
+      ballots<NW>(net, k, base, n_here, masks);
+      __syncthreads();  // also: every warp is done with the previous expert
+      load_table(net, k, tab);
+      const int n_k = compact<NW>(nch, masks, list);
+      __syncthreads();
+      const int tiles = (n_k + 15) / 16;
+      if (tiles == 0) continue;
+      const int passes = (tiles + kPassTiles - 1) / kPassTiles;
+      stage_slice(landing, net, tab, 0, 0, 0);
+      cp_commit();
+      const float* hk = net.h + k * net.h_stride;
+      for (int pass = 0; pass < passes; ++pass) {
+        bool act[T], valid[T][2];
+        int slot[T][2];
+#pragma unroll
+        for (int u = 0; u < T; ++u) {
+          const int tile = pass * kPassTiles + warp * T + u;
+          act[u] = tile < tiles;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = tile * 16 + 8 * h + g;
+            valid[u][h] = act[u] && r < n_k;
+            slot[u][h] = valid[u][h] ? list[r] : 0;
+          }
+        }
+        // layer 0's input: the feature rows, as A fragments
+#pragma unroll
+        for (int u = 0; u < T; ++u) {
+          if (!act[u]) continue;
+          const float* r0 = hk + (base + slot[u][0]) * net.in_dim;
+          const float* r1 = hk + (base + slot[u][1]) * net.in_dim;
+          for (int kt = 0; kt < shp[0].kt; ++kt) {
+            const int j = kt * 8 + 2 * t;
+            float4 a;
+            a.x = valid[u][0] && j < net.in_dim ? __ldg(r0 + j) : 0.f;
+            a.y = valid[u][1] && j < net.in_dim ? __ldg(r1 + j) : 0.f;
+            a.z = valid[u][0] && j + 1 < net.in_dim ? __ldg(r0 + j + 1) : 0.f;
+            a.w = valid[u][1] && j + 1 < net.in_dim ? __ldg(r1 + j + 1) : 0.f;
+            buf0[((warp * T + u) * KW + kt) * 32 + lane] = a;
+          }
+        }
+        float sig[T][2], o[T][2][3];
+        for (int l = 0; l < nl; ++l) {
+          const Shape s = shp[l];
+          const float4* in = (l & 1) ? buf1 : buf0;
+          float4* out = (l & 1) ? buf0 : buf1;
+          const int ncb = (s.nt + kSliceN - 1) / kSliceN, nks = (s.kt + kSliceK - 1) / kSliceK;
+          for (int cb = 0; cb < ncb; ++cb) {
+            const int nb = min(kSliceN, s.nt - cb * kSliceN);
+            float c[T][kSliceN][4];
+#pragma unroll
+            for (int u = 0; u < T; ++u)
+#pragma unroll
+              for (int j = 0; j < kSliceN; ++j)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) c[u][j][i] = 0.f;
+            for (int ks = 0; ks < nks; ++ks) {
+              cp_wait_all();
+              __syncthreads();  // the slice landed; every warp left the one before
+              split_layer(frags, landing, slice);
+              __syncthreads();  // the slice split; the landing buffer is free
+              // the next slice lands while this one computes: the layer's
+              // next, the next layer's first, or the next pass's first
+              int l2 = l, cb2 = cb, ks2 = ks + 1;
+              if (ks2 == nks) {
+                ks2 = 0;
+                if (++cb2 == ncb) {
+                  cb2 = 0;
+                  ++l2;
+                }
+              }
+              if (l2 < nl) stage_slice(landing, net, tab, l2, cb2, ks2);
+              else if (pass + 1 < passes) stage_slice(landing, net, tab, 0, 0, 0);
+              cp_commit();
+              slice_products<T>(c, in, KW, ks * kSliceK, s.kt, nb, frags, act);
+            }
+            // the column block's bias (the same in every slice of it)
+            const float* bias = frags + 128 * kSliceK * kSliceN + 2 * t;
+#pragma unroll
+            for (int j = 0; j < kSliceN; ++j) {
+              if (j < nb) {
+                const float2 bv = *reinterpret_cast<const float2*>(bias + j * 8);
+#pragma unroll
+                for (int u = 0; u < T; ++u) {
+                  c[u][j][0] = __fadd_rn(c[u][j][0], bv.x);
+                  c[u][j][1] = __fadd_rn(c[u][j][1], bv.y);
+                  c[u][j][2] = __fadd_rn(c[u][j][2], bv.x);
+                  c[u][j][3] = __fadd_rn(c[u][j][3], bv.y);
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < T; ++u) {
+              if (!act[u]) continue;
+              float4* ou = out + (warp * T + u) * KW * 32 + lane;
+              if (l == heads) {  // sigma in column 0 (lane t = 0), geo in 1..15
+                sig[u][0] = expf(fminf(fmaxf(c[u][0][0], -88.f), 88.f));  // trunc_exp
+                sig[u][1] = expf(fminf(fmaxf(c[u][0][2], -88.f), 88.f));
+                if (density) continue;
+                if (t == 0) c[u][0][0] = c[u][0][2] = 0.f;  // the colour layer's zero row
+                ou[0] = make_float4(c[u][0][0], c[u][0][2], c[u][0][1], c[u][0][3]);
+                ou[32] = make_float4(c[u][1][0], c[u][1][2], c[u][1][1], c[u][1][3]);
+                // the direction encoding from column 16 of the colour input
+                const float* x0 = enc + slot[u][0] * ES - 16 + 2 * t;
+                const float* x1 = enc + slot[u][1] * ES - 16 + 2 * t;
+                for (int kt = 2; kt < shp[l + 1].kt; ++kt) {
+                  const float2 v0 = *reinterpret_cast<const float2*>(x0 + kt * 8);
+                  const float2 v1 = *reinterpret_cast<const float2*>(x1 + kt * 8);
+                  ou[kt * 32] = make_float4(v0.x, v1.x, v0.y, v1.y);
+                }
+              } else if (!density && l == last) {  // rgb: 3 of 8 columns
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  o[u][h][0] = c[u][0][2 * h];
+                  o[u][h][1] = c[u][0][2 * h + 1];
+                  o[u][h][2] = __shfl_sync(0xffffffffu, c[u][0][2 * h], (lane & ~3) | 1);
+#pragma unroll
+                  for (int j = 0; j < 3; ++j)
+                    if (net.sigmoid) o[u][h][j] = 1.f / (1.f + expf(-o[u][h][j]));
+                }
+              } else {  // a hidden layer, through ReLU, as the next one's input tiles
+#pragma unroll
+                for (int j = 0; j < kSliceN; ++j)
+                  if (j < nb)
+                    ou[(cb * kSliceN + j) * 32] =
+                        make_float4(fmaxf(c[u][j][0], 0.f), fmaxf(c[u][j][2], 0.f),
+                                    fmaxf(c[u][j][1], 0.f), fmaxf(c[u][j][3], 0.f));
+              }
+            }
+          }
+        }
+        // the expert's share into the points' accumulators (lane t = 0)
+        if (t == 0) {
+#pragma unroll
+          for (int u = 0; u < T; ++u) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (!valid[u][h]) continue;
+              const int p = slot[u][h];
+              const float wk = net.w != nullptr ? __ldg(net.w + (base + p) * net.K + k) : 1.f;
+              const float sg = sig[u][h];
+              float4 A = acc[p];
+              if (mode == kSingle) {
+                A = make_float4(o[u][h][0], o[u][h][1], o[u][h][2], sg);
+              } else if (mode == kSigmaBlend) {
+                const float ws = __fmul_rn(wk, sg);
+                A.x = __fadd_rn(A.x, __fmul_rn(ws, o[u][h][0]));
+                A.y = __fadd_rn(A.y, __fmul_rn(ws, o[u][h][1]));
+                A.z = __fadd_rn(A.z, __fmul_rn(ws, o[u][h][2]));
+                A.w = __fadd_rn(A.w, ws);
+              } else if (mode == kLinearBlend) {
+                A.x = __fadd_rn(A.x, __fmul_rn(wk, o[u][h][0]));
+                A.y = __fadd_rn(A.y, __fmul_rn(wk, o[u][h][1]));
+                A.z = __fadd_rn(A.z, __fmul_rn(wk, o[u][h][2]));
+                A.w = __fadd_rn(A.w, __fmul_rn(wk, sg));
+              } else {
+                A.w = net.w != nullptr ? __fadd_rn(A.w, __fmul_rn(wk, sg)) : sg;
+              }
+              acc[p] = A;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every expert's adds are in
+    write_slab(net, mode, base, n_here, acc);
   }
   cp_wait_all();
 }
@@ -734,62 +1138,65 @@ DeviceLimits device_limits() {
 
 // A block's shared memory for a slab of S points.
 size_t slab_bytes(const Net& net, long long S) {
-  return 4 * (size_t)(net.land + net.split) + 4 * (size_t)S * (net.ES + 4) +
-         4 * (size_t)(S / 32) + 2 * (size_t)S;
+  return 4 * (size_t)(shape_floats(net.nl) + 4 * net.nslots + net.land + net.split) +
+         4 * (size_t)S * (net.ES + 4) + 4 * (size_t)(S / 32) + 2 * (size_t)S;
 }
 
-// The layers' staged shapes, the weight buffers and the slab: what fits in
-// the block's shared memory, or less where a call has fewer points than a
-// full slab for each of the sms. Returns the bytes of shared memory of a
-// full slab (the most a launch of this net takes), or 0.
-size_t plan(Net& net, int W, int smem_max, int sms) {
-  const int sd = net.sigma_depth, cd = net.color_depth;
-  const int density = net.rgb == nullptr;
-  auto tiles = [](int n) { return (n + 7) / 8; };
-  int n = 0, limage = 0, fimage = 0, lslot = 0, fslot = 0;
-  auto add = [&](int in, int nt) {
-    Shape& s = net.layer[n++];
-    s.kt = tiles(in);
-    s.nt = nt;
-    s.ds = 8 * s.nt + 4;
-    s.off = limage;
-    s.foff = fimage;
+// The weight buffers and the slab: what fits in the block's shared memory,
+// or less where a call has fewer points than a full slab for each of the
+// sms. The classes keep an expert's whole split image (or, streamed, one
+// layer at a time); the wide path one slice, and sizes its scratch row.
+// Returns the bytes of shared memory of a full slab (the most a launch of
+// this net takes), or 0.
+size_t plan(Net& net, int smem_max, int sms) {
+  std::vector<Shape> shapes(net.nl);
+  layer_shapes(net, shapes.data());
+  int limage = 0, fimage = 0, lslot = 0, fslot = 0, kw = 0;
+  for (const Shape& s : shapes) {
     const int lf = 8 * s.kt * s.ds + 8 * s.nt, ff = 128 * s.kt * s.nt + 8 * s.nt;
     limage += lf;
     fimage += ff;
-    if (lf > lslot) lslot = lf;
-    if (ff > fslot) fslot = ff;
-  };
-  // hidden layers as wide as the class W (zero columns past their width),
-  // the heads 16 columns, the last colour layer 8
-  for (int l = 0; l < sd; ++l) add(l == 0 ? net.in_dim : net.hidden, W / 8);
-  add(net.hidden, tiles(1 + kGeo));
-  if (!density) {
-    add(1 + kGeo + net.enc_dim, W / 8);
-    for (int c = 1; c < cd; ++c) add(net.color_hidden, W / 8);
-    add(net.color_hidden, 1);
+    lslot = lf > lslot ? lf : lslot;
+    fslot = ff > fslot ? ff : fslot;
+    kw = s.kt > kw ? s.kt : kw;
+    kw = s.nt > kw ? s.nt : kw;
   }
-  net.nl = n;
-  net.ES = density ? 0 : 8 * tiles(1 + kGeo + net.enc_dim) - 16 + 2;
+  const int density = net.mode == kDensity;
+  net.ES = density ? 0 : 8 * tiles8(1 + kGeo + net.enc_dim) - 16 + 2;
   const size_t per_point = 4 * (size_t)(net.ES + 4) + 2 + 1;  // enc, acc, list, ballot
+  const long long cap = net.W == 0 ? kWideSlabMax : kSlabMax;
   auto slab_beside = [&](int wfloats) -> long long {
-    const size_t wbytes = 4 * (size_t)wfloats;
+    const size_t wbytes = 4 * (size_t)(wfloats + shape_floats(net.nl) + 4 * net.nslots);
     if (wbytes + 32 * per_point > (size_t)smem_max) return 0;
     long long S = (long long)(((size_t)smem_max - wbytes) / per_point) / 32 * 32;
-    return S < kSlabMax ? S : kSlabMax;
+    return S < cap ? S : cap;
   };
   net.streamed = 0;
-  net.land = limage;
-  net.split = fimage;
-  long long S = slab_beside(limage + fimage);
-  if (S < kSlabMin && slab_beside(lslot + fslot) > S) {  // too small a slab beside an expert
-    net.streamed = 1;
-    net.land = lslot;
-    net.split = fslot;
-    S = slab_beside(lslot + fslot);
+  long long S;
+  if (net.W == 0) {
+    net.land = kSliceLand;
+    net.split = kSliceSplit;
+    net.KW = kw;
+    net.scratch_block = 2LL * kPassTiles * kw * 128;
+    S = slab_beside(kSliceLand + kSliceSplit);
+  } else {
+    net.land = limage;
+    net.split = fimage;
+    S = slab_beside(limage + fimage);
+    if (S < kSlabMin && slab_beside(lslot + fslot) > S) {  // too small a slab beside an expert
+      net.streamed = 1;
+      net.land = lslot;
+      net.split = fslot;
+      S = slab_beside(lslot + fslot);
+    }
   }
   if (S == 0) return 0;
   const size_t full = slab_bytes(net, S);
+  if (net.W == 0) {  // whole rounds of slabs over the blocks (one an SM): no tail round
+    const long long rounds = (net.P + S * sms - 1) / (S * sms);
+    const long long even = ((net.P + rounds * sms - 1) / (rounds * sms) + 31) / 32 * 32;
+    if (even < S) S = even;
+  }
   long long fill = ((net.P + sms - 1) / sms + 31) / 32 * 32;
   if (fill < kSlabMin) fill = kSlabMin;
   if (fill < S) S = fill;
@@ -798,17 +1205,17 @@ size_t plan(Net& net, int W, int smem_max, int sms) {
   return full;
 }
 
-template <int MODE, int W>
-int launch(Net& net, cudaStream_t stream) {
+// Plan the net for `kernel` (threads a block), set its shared memory
+// attribute for the full slab and read its occupancy (once a size a
+// device; a smaller slab takes less, so as many blocks an SM at least):
+// the blocks of its grid.
+template <typename Kernel>
+int grid_of(Net& net, Kernel kernel, int threads, size_t* set_for, int* blocks_for,
+            long long& grid) {
   const DeviceLimits d = device_limits();
   if (d.sms == 0) return (int)cudaErrorInvalidDevice;
-  const size_t smem = plan(net, W, d.smem, d.sms);
+  const size_t smem = plan(net, d.smem, d.sms);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  auto kernel = ngp_net_kernel<MODE, W>;
-  // the attribute and the occupancy for the last full slab's shared memory a
-  // device (a smaller slab takes less, so as many blocks an SM at least)
-  static size_t set_for[64];
-  static int blocks_for[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -816,48 +1223,58 @@ int launch(Net& net, cudaStream_t stream) {
   if (set_for[dev] != smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_for[dev], kernel,
-                                                        threads_for(W), smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_for[dev], kernel, threads, smem);
     if (err != cudaSuccess) return (int)err;
     set_for[dev] = smem;
   }
   const int per_sm = blocks_for[dev];
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = net.slabs < (long long)per_sm * d.sms ? net.slabs : (long long)per_sm * d.sms;
-  kernel<<<(unsigned)grid, threads_for(W), slab_bytes(net, net.S), stream>>>(net);
+  grid = net.slabs < (long long)per_sm * d.sms ? net.slabs : (long long)per_sm * d.sms;
+  return 0;
+}
+
+template <int MODE, int W>
+int launch(Net& net, cudaStream_t stream) {
+  static size_t set_for[64];
+  static int blocks_for[64];
+  long long grid = 0;
+  const int err = grid_of(net, ngp_net_kernel<MODE, W>, threads_for(W), set_for, blocks_for, grid);
+  if (err) return err;
+  ngp_net_kernel<MODE, W><<<(unsigned)grid, threads_for(W), slab_bytes(net, net.S), stream>>>(net);
   return (int)cudaGetLastError();
 }
 
+// The wide path's grid: its scratch takes net.scratch_block floats a block.
+int wide_grid(Net& net, long long& grid) {
+  static size_t set_for[64];
+  static int blocks_for[64];
+  return grid_of(net, ngp_net_wide_kernel, threads_for(0), set_for, blocks_for, grid);
+}
+
+// The width class: 64 or 128 where every width the network carries fits
+// it, else 0 (the wide path).
+int width_class(const Net& net) {
+  int widest = net.hidden > net.in_dim ? net.hidden : net.in_dim;
+  if (net.mode != kDensity) {
+    widest = net.color_hidden > widest ? net.color_hidden : widest;
+    widest = 1 + kGeo + net.enc_dim > widest ? 1 + kGeo + net.enc_dim : widest;
+  }
+  return widest <= 64 ? 64 : widest <= kClassWidth ? kClassWidth : 0;
+}
+
 template <int MODE>
-int launch_width(Net& net, int width, cudaStream_t stream) {
-  if (width <= 64) return launch<MODE, 64>(net, stream);
-  return launch<MODE, 128>(net, stream);
+int launch_class(Net& net, cudaStream_t stream) {
+  if (net.W == 64) return launch<MODE, 64>(net, stream);
+  return launch<MODE, kClassWidth>(net, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// The limits the Python wrapper checks against its own.
-void ngp_net_limits(int* out) {
-  out[0] = kMaxExperts;
-  out[1] = kMaxDepth;
-  out[2] = kMaxWidth;
-  out[3] = kMaxIn;
-  out[4] = kGeo;
-}
-
-// mode: 0 single, 1 sigma_blend, 2 linear_blend, 3 density. h: K feature
-// pointers; layers: K * kSlots (w, b) pairs in the order trunk[kMaxDepth],
-// sigma, geo, color[kMaxDepth + 1], unused slots null; dims: L*F, hidden,
-// sigma_depth, color_hidden, color_depth, dir kind (0 SH, 1 frequency), SH
-// levels or bands, sigmoid. Returns a CUDA error code (0: launched).
-int ngp_net_fwd(int mode, const void* const* h, const void* const* layers, const int* dims,
-                int K, long long P, const void* dirs, long long dir_stride, const void* w,
-                void* rgb, long long rgb_stride, void* sigma, long long sigma_stride,
-                void* stream) {
-  if (K < 1 || K > kMaxExperts || P < 0) return (int)cudaErrorInvalidValue;
-  Net net = {};
+// The net from the entry points' arguments; 0, or an error for what no
+// parser flag reaches (a width or depth below 1, SH levels outside 1-5).
+int make_net(Net& net, int mode, const void* h, long long h_stride, const void* layers,
+             const int* dims, int K, long long P) {
+  if (mode < kSingle || mode > kDensity || K < 1 || P < 0) return (int)cudaErrorInvalidValue;
+  net = Net{};
+  net.mode = mode;
   net.K = K;
   net.in_dim = dims[0];
   net.hidden = dims[1];
@@ -867,41 +1284,85 @@ int ngp_net_fwd(int mode, const void* const* h, const void* const* layers, const
   net.dir_kind = dims[5];
   net.dir_param = dims[6];
   net.sigmoid = dims[7];
-  net.enc_dim = net.dir_kind == 0 ? net.dir_param * net.dir_param : 3 * (2 * net.dir_param + 1);
-  if (net.in_dim < 1 || net.in_dim > kMaxIn || net.hidden < 1 || net.hidden > kMaxWidth ||
-      net.color_hidden < 1 || net.color_hidden > kMaxWidth || net.sigma_depth < 1 ||
-      net.sigma_depth > kMaxDepth || net.color_depth < 1 || net.color_depth > kMaxDepth ||
-      1 + kGeo + net.enc_dim > kMaxIn || (net.dir_kind == 0 && net.dir_param > 5))
+  if (net.in_dim < 1 || net.hidden < 1 || net.color_hidden < 1 || net.sigma_depth < 1 ||
+      net.color_depth < 1 || net.dir_param < 0 ||
+      (net.dir_kind == 0 && (net.dir_param < 1 || net.dir_param > kMaxShLevels)))
     return (int)cudaErrorInvalidValue;
-  const void* const* L = layers;
-  for (int k = 0; k < K; ++k, L += 2 * kSlots) {
-    Expert& e = net.e[k];
-    e.h = static_cast<const float*>(h[k]);
-    auto at = [&](int slot) {
-      return Layer{static_cast<const float*>(L[2 * slot]),
-                   static_cast<const float*>(L[2 * slot + 1])};
-    };
-    for (int l = 0; l < kMaxDepth; ++l) e.trunk[l] = at(l);
-    e.sigma = at(kMaxDepth);
-    e.geo = at(kMaxDepth + 1);
-    for (int c = 0; c <= kMaxDepth; ++c) e.color[c] = at(kMaxDepth + 2 + c);
-  }
+  net.enc_dim = net.dir_kind == 0 ? net.dir_param * net.dir_param : 3 * (2 * net.dir_param + 1);
+  net.nl = net.sigma_depth + 1 + (mode == kDensity ? 0 : net.color_depth + 1);
+  net.nslots = net.sigma_depth + net.color_depth + 3;
+  net.h = static_cast<const float*>(h);
+  net.h_stride = h_stride;
+  net.layers = static_cast<const Layer*>(layers);
+  net.P = P;
+  net.W = width_class(net);
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The constants the Python wrapper checks against its own.
+void ngp_net_limits(int* out) {
+  out[0] = kGeo;
+  out[1] = kMaxShLevels;
+  out[2] = kClassWidth;
+}
+
+// The scratch bytes a launch of ngp_net_fwd with these arguments needs
+// (0 where the network takes a class; the wide path's block count times
+// its two activation buffers), or -1 (a CUDA error code's negation below).
+long long ngp_net_scratch_bytes(int mode, const int* dims, int K, long long P) {
+  Net net;
+  int err = make_net(net, mode, nullptr, 0, nullptr, dims, K, P);
+  if (err) return -(long long)err;
+  if (net.W != 0 || P == 0) return 0;
+  long long grid = 0;
+  err = wide_grid(net, grid);
+  if (err) return -(long long)err;
+  return 4 * grid * net.scratch_block;
+}
+
+// mode: 0 single, 1 sigma_blend, 2 linear_blend, 3 density. h: the K
+// experts' features, expert k's (P, L*F) rows at h + k * h_stride floats;
+// layers: a device array of K * (sigma_depth + color_depth + 3) (w, b)
+// pointer pairs, each expert's trunk, sigma, geo and colour layers (the
+// last one included) in turn; dims: L*F, hidden, sigma_depth, color_hidden,
+// color_depth, dir kind (0 SH, 1 frequency), SH levels or bands, sigmoid;
+// scratch: ngp_net_scratch_bytes' bytes (the wide path). Returns a CUDA
+// error code (0: launched).
+int ngp_net_fwd(int mode, const void* h, long long h_stride, const void* layers, const int* dims,
+                int K, long long P, const void* dirs, long long dir_stride, const void* w,
+                void* rgb, long long rgb_stride, void* sigma, long long sigma_stride,
+                void* scratch, long long scratch_bytes, void* stream) {
+  Net net;
+  int err = make_net(net, mode, h, h_stride, layers, dims, K, P);
+  if (err) return err;
   net.dirs = static_cast<const float*>(dirs);
   net.w = mode == kSingle ? nullptr : static_cast<const float*>(w);
   net.rgb = mode == kDensity ? nullptr : static_cast<float*>(rgb);
   net.sigma = static_cast<float*>(sigma);
-  net.P = P;
   net.dir_stride = dir_stride;
   net.rgb_stride = rgb_stride;
   net.sigma_stride = sigma_stride;
   if (P == 0) return 0;
-  const int width = net.hidden > net.color_hidden ? net.hidden : net.color_hidden;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (net.W == 0) {
+    long long grid = 0;
+    err = wide_grid(net, grid);
+    if (err) return err;
+    if (scratch == nullptr || scratch_bytes < 4 * grid * net.scratch_block)
+      return (int)cudaErrorInvalidValue;
+    net.scratch = static_cast<float*>(scratch);
+    ngp_net_wide_kernel<<<(unsigned)grid, threads_for(0), slab_bytes(net, net.S), s>>>(net);
+    return (int)cudaGetLastError();
+  }
   switch (mode) {
-    case kSingle: return launch_width<kSingle>(net, width, s);
-    case kSigmaBlend: return launch_width<kSigmaBlend>(net, width, s);
-    case kLinearBlend: return launch_width<kLinearBlend>(net, width, s);
-    case kDensity: return launch_width<kDensity>(net, width, s);
+    case kSingle: return launch_class<kSingle>(net, s);
+    case kSigmaBlend: return launch_class<kSigmaBlend>(net, s);
+    case kLinearBlend: return launch_class<kLinearBlend>(net, s);
+    case kDensity: return launch_class<kDensity>(net, s);
   }
   return (int)cudaErrorInvalidValue;
 }

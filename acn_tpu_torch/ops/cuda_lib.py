@@ -13,6 +13,12 @@ memory, spills) is kept beside the library as ``<lib>.log``. ``defines``
 library; only ``scripts/bench_segscan.py`` asks for one, to choose the tile
 by measurement. ``build_all`` starts one ``nvcc`` per source at once.
 
+What a launch needs beyond its scalars lives on the card: ``to_device``
+copies a small host table there from pinned memory on the current stream
+(no host wait), and ``device_table`` keeps such tables of pointers, keyed
+by their values, so that a launch whose pointers repeat (a model's weights
+in serving) copies nothing.
+
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -24,8 +30,11 @@ import os
 import shutil
 import subprocess
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: PKG / "csrc" / f"{name}.cu" for name in ("segscan", "hashgrid", "ngp_net")}
@@ -128,3 +137,36 @@ def build_log(defines: Sequence[str] = (), source: str = "segscan") -> str:
     """ptxas's report from the library's build."""
     p = Path(f"{library_path(defines, source)}.log")
     return p.read_text() if p.exists() else ""
+
+
+def to_device(values: Sequence, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` as a 1-D tensor of ``dtype`` on ``device``: staged in
+    pinned host memory and copied on the current stream without a host
+    wait (PyTorch's host allocator keeps the staging block until the copy
+    has run)."""
+    return torch.tensor(list(values), dtype=dtype).pin_memory().to(device, non_blocking=True)
+
+
+TABLES_KEPT = 256
+_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+
+
+def device_table(ptrs: Sequence[int], device) -> torch.Tensor:
+    """The pointers ``ptrs`` as an int64 table on ``device``: the kept one
+    with these values, or a new one (``to_device``). A table is a function
+    of its values alone, so a freed and reused pointer cannot make a kept
+    table wrong; the least recently used beyond ``TABLES_KEPT`` are dropped.
+    Used from a stream other than the one that made it, the table is marked
+    as in use there (``record_stream``), so that dropping it cannot free it
+    under a launch."""
+    key = (str(device), tuple(ptrs))
+    t = _TABLES.get(key)
+    if t is None:
+        t = to_device(ptrs, torch.int64, device)
+        _TABLES[key] = t
+        if len(_TABLES) > TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+        t.record_stream(torch.cuda.current_stream(t.device))
+    return t

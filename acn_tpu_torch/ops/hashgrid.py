@@ -21,7 +21,8 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/hashgrid.cu``), built by
 ``ops/cuda_lib.py`` and called through ``ctypes``; the source has the
 design: a group of lanes per (point, level), each lane one 16-byte piece of
 the row, so a warp reads and adds whole rows, and the cotangent sums the
-lanes that share a row before one of them adds. Both recompute the cell and
+lanes that share a row before one of them adds (F = 1, 2, 4, 8, 16; any
+other F takes a general kernel of each direction). Both recompute the cell and
 the weights from x01, so nothing but x01 is kept between the forward and
 the backward. The x cotangent, asked for only when x01 needs a gradient
 (never in training), stays PyTorch: ``hash_cell_bwd_x``.
@@ -36,6 +37,15 @@ Bits: the kernels round every step where PyTorch's eager ops round it, so
 the cell, the row and the weights are the plain version's bits, in float32
 and in bfloat16; only the order of the sums (the eight corners, and the
 atomic adds of the backward) is free.
+
+They take every F ≥ 1 and every level count: the per-level constants live
+on the card, uploaded once per (config, x01 type, card), and the forward's
+table pointers are a small device table cached by value
+(``cuda_lib.device_table``), copied from pinned memory on the stream
+without a host wait; the cotangent's tables are row blocks of one
+allocation, passed as its base and each level's offset. Only
+``log2_hashmap_size`` is bounded (1 to 31): a level of 2³² rows of 8·F
+values could not fit on a card at any F.
 
 Dispatch is by device and by nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. ``HashCellBwdTables``
@@ -59,8 +69,7 @@ from acn_tpu_torch.ops import cuda_lib
 # Instant-NGP 3D spatial hash primes.
 HASH_PRIMES = (1, 2654435761, 805459861)
 INTERPOLATIONS = ("Linear", "Smoothstep", "Nearest")
-FEATURES = (2, 4, 8)  # features per level the kernels are built for
-MAX_LEVELS = 32  # csrc/hashgrid.cu's kMaxLevels, checked when loaded
+FEATURES = (1, 2, 4, 8, 16)  # F with a kernel of their own; any other F: the general one
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # corner sign per axis in packing order (dz fastest): +1 where the corner
@@ -222,25 +231,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures on a loaded library: pointers and the stream as
     ``c_void_p`` (a bare int would be cut to 32 bits)."""
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    levels = [ctypes.POINTER(ctypes.c_longlong), i, ctypes.POINTER(ctypes.c_float),
-              ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, ll]
-    lib.hash_cell_fwd.argtypes = [vp, i, ctypes.POINTER(vp), *levels, vp, vp]
+    levels = [vp, vp, vp, i, i, i, i, ll]  # scale, res, dense; L, F, log2, interp; n
+    lib.hash_cell_fwd.argtypes = [vp, i, vp, i, *levels, vp, vp]
     lib.hash_cell_fwd.restype = i
-    lib.hash_cell_bwd_tables.argtypes = [vp, i, vp, ctypes.POINTER(vp), *levels, vp]
+    lib.hash_cell_bwd_tables.argtypes = [vp, i, vp, vp, vp, ll, i, *levels, vp]
     lib.hash_cell_bwd_tables.restype = i
-    lib.hash_cell_max_levels.argtypes = []
-    lib.hash_cell_max_levels.restype = i
     return lib
 
 
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = bind(cuda_lib.load("hashgrid"))
-        if lib.hash_cell_max_levels() != MAX_LEVELS:
-            raise RuntimeError("csrc/hashgrid.cu and ops/hashgrid.py disagree on "
-                               "the largest number of levels")
-        _LIB = lib
+        _LIB = bind(cuda_lib.load("hashgrid"))
     return _LIB
 
 
@@ -255,32 +257,49 @@ def level_rows(cfg) -> tuple:
 def _consts(cfg, x_dtype: torch.dtype) -> types.SimpleNamespace:
     """What the kernels take that depends on the config and x01's type
     alone: the per-level scale (resolution rounded to x01's type),
-    resolution and dense flag and the ladder's rows as ctypes arrays, the
-    scalar arguments after them, the row width. Refuses a config the
-    kernels do not take."""
+    resolution and dense flag, the ladder's rows, the scalar arguments, the
+    row width. Refuses only what no card could hold (``log2_hashmap_size``
+    above 31) or no kernel knows (the interpolation, F or L below 1)."""
     if cfg.interpolation not in INTERPOLATIONS:
         raise ValueError(f"unknown interpolation {cfg.interpolation!r}")
-    if cfg.features_per_level not in FEATURES or not 1 <= cfg.levels <= MAX_LEVELS:
-        raise ValueError(f"the hash kernels take F in {FEATURES} and 1 to {MAX_LEVELS} "
-                         f"levels, got F {cfg.features_per_level}, {cfg.levels} levels")
-    if not 1 <= cfg.log2_hashmap_size <= 31:
-        raise ValueError(f"the hash kernels take log2_hashmap_size 1 to 31, got "
+    if cfg.features_per_level < 1 or cfg.levels < 1:
+        raise ValueError(f"the hash kernels take F and levels from 1, got F "
+                         f"{cfg.features_per_level}, {cfg.levels} levels")
+    if cfg.log2_hashmap_size < 1:
+        raise ValueError(f"the hash kernels take log2_hashmap_size from 1, got "
                          f"{cfg.log2_hashmap_size}")
+    if cfg.log2_hashmap_size > 31:
+        raise ValueError(f"the hash kernels take log2_hashmap_size up to 31, got "
+                         f"{cfg.log2_hashmap_size}: a level of 2^32 rows of "
+                         f"{8 * cfg.features_per_level} values fits on no card")
     L, F = cfg.levels, cfg.features_per_level
-    res = [int(r) for r in cfg.level_resolutions()]
-    rows = level_rows(cfg)
+    res = tuple(int(r) for r in cfg.level_resolutions())
     return types.SimpleNamespace(
-        x_bf16=_DTYPES[x_dtype], rows=rows, rows_arr=(ctypes.c_longlong * L)(*rows),
-        width=8 * F, out_dim=L * F,
-        scale=(ctypes.c_float * L)(*[_res_as(r, x_dtype) for r in res]),
-        res=(ctypes.c_int * L)(*res),
-        dense=(ctypes.c_int * L)(*[int(_is_dense(cfg, l)) for l in range(L)]),
+        x_bf16=_DTYPES[x_dtype], rows=level_rows(cfg), width=8 * F,
+        out_dim=L * F, scale=tuple(_res_as(r, x_dtype) for r in res), res=res,
+        dense=tuple(int(_is_dense(cfg, l)) for l in range(L)),
         tail=(L, F, cfg.log2_hashmap_size, INTERPOLATIONS.index(cfg.interpolation)))
 
 
 @functools.lru_cache(maxsize=None)
-def _rows_arr(nrows: tuple):
-    return (ctypes.c_longlong * len(nrows))(*nrows)
+def _level_consts(cfg, x_dtype: torch.dtype, device: torch.device) -> tuple:
+    """The per-level (scale, resolution, dense flag) on ``device``: three
+    tensors, uploaded once without a host wait and kept."""
+    c = _consts(cfg, x_dtype)
+    return (cuda_lib.to_device(c.scale, torch.float32, device),
+            cuda_lib.to_device(c.res, torch.int32, device),
+            cuda_lib.to_device(c.dense, torch.int32, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_offsets(nrows: tuple, width: int, device: torch.device) -> torch.Tensor:
+    """Each level's first value in the cotangent's one allocation
+    (``_alloc_tables``), on ``device``."""
+    offs, at = [], 0
+    for r in nrows:
+        offs.append(at * width)
+        at += r
+    return cuda_lib.to_device(offs, torch.int64, device)
 
 
 def _check_x(x01: torch.Tensor, what: str) -> None:
@@ -297,8 +316,7 @@ def _check_tables(tables, c: types.SimpleNamespace, device: int, what: str):
     """Refuse tables the kernels do not take: one per level, float32 or
     bfloat16, all of one type, contiguous, on ``device`` (an index, as
     ``Tensor.get_device`` gives it), (at least the ladder's rows, 8·F),
-    16-byte aligned. Returns (their type, their pointers as a ctypes
-    array)."""
+    16-byte aligned. Returns (their type, their pointers)."""
     if len(tables) != len(c.rows):
         raise ValueError(f"{what}: {len(tables)} tables for {len(c.rows)} levels")
     dtype = tables[0].dtype
@@ -317,7 +335,7 @@ def _check_tables(tables, c: types.SimpleNamespace, device: int, what: str):
         if ptr % 16:
             raise ValueError(f"{what}: table {l} is not 16-byte aligned")
         ptrs.append(ptr)
-    return dtype, (ctypes.c_void_p * len(ptrs))(*ptrs)
+    return dtype, ptrs
 
 
 def _alloc_tables(nrows: Sequence[int], width: int, dtype: torch.dtype, device) -> list:
@@ -361,13 +379,16 @@ def hash_cell_fwd_kernel(tables, x01: torch.Tensor, cfg,
                          f"(contiguous {out.is_contiguous()}), want contiguous {dtype} "
                          f"{shape} on {x01.device}")
     n = x01.numel() // 3
+    if n == 0:
+        return out
+    lvl = _level_consts(cfg, x01.dtype, x01.device)
+    ptr_table = cuda_lib.device_table(ptrs, x01.device)
     err = _on_stream(x01, lambda s: lib.hash_cell_fwd(
-        x01.data_ptr(), c.x_bf16, ptrs, c.rows_arr, _DTYPES[dtype], c.scale, c.res,
-        c.dense, *c.tail, n, out.data_ptr(), s))
+        x01.data_ptr(), c.x_bf16, ptr_table.data_ptr(), _DTYPES[dtype],
+        *(t.data_ptr() for t in lvl), *c.tail, n, out.data_ptr(), s))
     if err != 0:
         raise RuntimeError(f"hash_cell_fwd kernel launch failed: CUDA error {err}")
-    if n:  # no points launch nothing
-        hash_cell_fwd_kernel.launches += 1
+    hash_cell_fwd_kernel.launches += 1  # no points launched nothing (above)
     return out
 
 
@@ -393,12 +414,14 @@ def hash_cell_bwd_tables_kernel(x01: torch.Tensor, g: torch.Tensor, cfg,
                          f"{tuple(g.shape)} on {g.device}")
     nrows = tuple(int(r) for r in nrows)
     grads = _alloc_tables(nrows, c.width, dtype, g.device)
-    _, ptrs = _check_tables(grads, c, x01.get_device(), what)
+    _check_tables(grads, c, x01.get_device(), what)
     lib = _library()
     n = x01.numel() // 3
+    lvl = _level_consts(cfg, x01.dtype, x01.device)
+    offs = _row_offsets(nrows, c.width, x01.device)
     err = _on_stream(x01, lambda s: lib.hash_cell_bwd_tables(
-        x01.data_ptr(), c.x_bf16, g.data_ptr(), ptrs, _rows_arr(nrows), _DTYPES[dtype],
-        c.scale, c.res, c.dense, *c.tail, n, s))
+        x01.data_ptr(), c.x_bf16, g.data_ptr(), grads[0].data_ptr(), offs.data_ptr(),
+        sum(nrows), _DTYPES[dtype], *(t.data_ptr() for t in lvl), *c.tail, n, s))
     if err != 0:
         raise RuntimeError(f"hash_cell_bwd_tables kernel launch failed: CUDA error {err}")
     hash_cell_bwd_tables_kernel.launches += 1

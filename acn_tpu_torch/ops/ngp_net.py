@@ -34,7 +34,16 @@ multiply-add): within ≈ 1e-7 of a full f32 product, the tolerance of the
 plain f32 network unchanged. Each expert runs only on the points whose
 routing weight is not 0. The routing weights w (P, K) come from the plain
 ``container.routing_weights``; the K hash encodes write into one (K, P, L·F)
-buffer (``hash_encode(..., out=)``).
+buffer (``hash_encode(..., out=)``), which the kernel reads at a stride.
+
+It takes every expert configuration ``acn_tpu`` accepts: any number of
+experts, widths and depths, hash features and direction encodings (only
+``geo_feat_dim`` 15 and SH levels 1 to 5, which no flag changes, are
+fixed). Networks up to 128 wide run in two width classes; wider ones take
+the kernel's wide path, one launch a call too, with a scratch buffer
+(``scratch_bytes``) the wrapper allocates: the one thing memory bounds
+beyond the weights. The experts' layer pointers are a device table
+(``cuda_lib.device_table``), kept while they repeat.
 
 The plain version (``ngp_net_plain``) is the composition the port ran
 before the kernel: ``apply_mlp``, ``trunc_exp``, the direction encoding,
@@ -68,12 +77,10 @@ from acn_tpu_torch.ops import cuda_lib
 from acn_tpu_torch.ops.hashgrid import _on_stream
 
 MODES = ("single", "sigma_blend", "linear_blend", "density")
-# what csrc/ngp_net.cu takes (its constants, checked when it is loaded)
-MAX_EXPERTS = 16
-MAX_DEPTH = 4
-MAX_WIDTH = 128
-MAX_IN = 64  # hash features L·F, and geo + direction encoding
-GEO = 15
+# csrc/ngp_net.cu's constants, checked when it is loaded
+GEO = 15  # geo_feat_dim (build_model_configs fixes it)
+MAX_SH_LEVELS = 5  # what sh_encode takes
+CLASS_WIDTH = 128  # wider networks take the wide path
 DIR_KINDS = ("spherical", "frequency")
 
 # ================================================================ plain
@@ -155,80 +162,85 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_lib.load("ngp_net")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ngp_net_fwd.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(vp),
-                                    ctypes.POINTER(i), i, ll, vp, ll, vp, vp, ll, vp, ll, vp]
+        lib.ngp_net_fwd.argtypes = [i, vp, ll, vp, ctypes.POINTER(i), i, ll, vp, ll, vp, vp, ll,
+                                    vp, ll, vp, ll, vp]
         lib.ngp_net_fwd.restype = i
+        lib.ngp_net_scratch_bytes.argtypes = [i, ctypes.POINTER(i), i, ll]
+        lib.ngp_net_scratch_bytes.restype = ll
         lib.ngp_net_limits.argtypes = [ctypes.POINTER(i)]
         lib.ngp_net_limits.restype = None
-        got = (i * 5)()
+        got = (i * 3)()
         lib.ngp_net_limits(got)
-        if tuple(got) != (MAX_EXPERTS, MAX_DEPTH, MAX_WIDTH, MAX_IN, GEO):
+        if tuple(got) != (GEO, MAX_SH_LEVELS, CLASS_WIDTH):
             raise RuntimeError("csrc/ngp_net.cu and ops/ngp_net.py disagree on the "
-                               f"limits: {tuple(got)}")
+                               f"constants: {tuple(got)}")
         _LIB = lib
     return _LIB
 
 
-SUPPORTED = (f"hidden and color_hidden 1 to {MAX_WIDTH}, sigma_depth and color_depth 1 to "
-             f"{MAX_DEPTH}, hash features L·F 1 to {MAX_IN}, geo_feat_dim {GEO}, "
-             f"dir_encoding 'spherical' with sh_levels 1 to 5 or 'frequency' with "
-             f"{GEO} + 3·(2·freq_pe_dim + 1) ≤ {MAX_IN}, 1 to {MAX_EXPERTS} experts, "
-             "float32")
+SUPPORTED = (f"every width, depth, L·F and expert count from 1, geo_feat_dim {GEO}, "
+             f"dir_encoding 'spherical' with sh_levels 1 to {MAX_SH_LEVELS} or 'frequency' "
+             "with freq_pe_dim from 0, float32")
 
 
 def check_config(cfg, K: int = 1) -> None:
     """Refuse an expert config (``NGPConfig``) the kernel does not take,
-    naming the supported set."""
+    naming the supported set: only what no parser flag reaches (widths,
+    depths or K below 1, ``geo_feat_dim`` other than 15, SH levels outside
+    1 to 5, an unknown direction encoding)."""
     why = []
-    if not (1 <= cfg.hidden <= MAX_WIDTH and 1 <= cfg.color_hidden <= MAX_WIDTH):
+    if min(cfg.hidden, cfg.color_hidden) < 1:
         why.append(f"hidden {cfg.hidden}, color_hidden {cfg.color_hidden}")
-    if not (1 <= cfg.sigma_depth <= MAX_DEPTH and 1 <= cfg.color_depth <= MAX_DEPTH):
+    if min(cfg.sigma_depth, cfg.color_depth) < 1:
         why.append(f"sigma_depth {cfg.sigma_depth}, color_depth {cfg.color_depth}")
-    if not 1 <= cfg.hash.out_dim <= MAX_IN:
+    if cfg.hash.out_dim < 1:
         why.append(f"L·F {cfg.hash.out_dim}")
     if cfg.geo_feat_dim != GEO:
         why.append(f"geo_feat_dim {cfg.geo_feat_dim}")
     if cfg.dir_encoding not in DIR_KINDS:
         why.append(f"dir_encoding {cfg.dir_encoding!r}")
-    elif cfg.dir_encoding == "spherical" and not 1 <= cfg.sh_levels <= 5:
+    elif cfg.dir_encoding == "spherical" and not 1 <= cfg.sh_levels <= MAX_SH_LEVELS:
         why.append(f"sh_levels {cfg.sh_levels}")
-    elif cfg.dir_encoding == "frequency" and not (
-            cfg.freq_pe_dim >= 0 and GEO + cfg.dir_enc_dim <= MAX_IN):
+    elif cfg.dir_encoding == "frequency" and cfg.freq_pe_dim < 0:
         why.append(f"freq_pe_dim {cfg.freq_pe_dim}")
-    if not 1 <= K <= MAX_EXPERTS:
+    if K < 1:
         why.append(f"{K} experts")
     if why:
         raise ValueError(f"the NGP network kernel does not take {', '.join(why)}; it "
                          f"takes {SUPPORTED}")
 
 
-def _layers(params, cfg) -> list:
-    """An expert's (w, b) pairs in the kernel's slot order: the trunk's
-    ``MAX_DEPTH`` slots, σ head, geo head, the colour MLP's
-    ``MAX_DEPTH + 1``; unused slots None."""
-    trunk = list(params["sigma_trunk"]) + [None] * (MAX_DEPTH - cfg.sigma_depth)
-    color = list(params["color_mlp"]) + [None] * (MAX_DEPTH - cfg.color_depth)
-    return trunk + [params["sigma_head"], params["geo_head"]] + color
+def wide(cfg, mode: str) -> bool:
+    """Whether ``mode`` at ``cfg`` takes the kernel's wide path: a width the
+    network carries above ``CLASS_WIDTH`` (hidden, L·F, and but for
+    ``density`` the colour MLP's width and input)."""
+    widths = [cfg.hidden, cfg.hash.out_dim]
+    if mode != "density":
+        widths += [cfg.color_hidden, 1 + GEO + cfg.dir_enc_dim]
+    return max(widths) > CLASS_WIDTH
+
+
+def _layers(params) -> list:
+    """An expert's layers in the kernel's slot order: the trunk, σ head,
+    geo head, the colour MLP (its last layer included)."""
+    return (list(params["sigma_trunk"]) + [params["sigma_head"], params["geo_head"]]
+            + list(params["color_mlp"]))
 
 
 def _expert_ptrs(params, cfg, device, what: str) -> list:
-    """The expert's 2·SLOTS weight and bias pointers, after checking every
-    tensor: float32, contiguous, on ``device``, of the config's shape."""
+    """The expert's weight and bias pointers in slot order, after checking
+    every tensor: float32, contiguous, on ``device``, of the config's shape."""
     L, H, CH = cfg.hash.out_dim, cfg.hidden, cfg.color_hidden
-    shapes = ([(L if l == 0 else H, H) for l in range(cfg.sigma_depth)]
-              + [None] * (MAX_DEPTH - cfg.sigma_depth) + [(H, 1), (H, GEO)]
+    shapes = ([(L if l == 0 else H, H) for l in range(cfg.sigma_depth)] + [(H, 1), (H, GEO)]
               + [(GEO + cfg.dir_enc_dim if c == 0 else CH, CH) for c in range(cfg.color_depth)]
-              + [(CH, 3)] + [None] * (MAX_DEPTH - cfg.color_depth))
+              + [(CH, 3)])
     if len(params["sigma_trunk"]) != cfg.sigma_depth or \
             len(params["color_mlp"]) != cfg.color_depth + 1:
         raise ValueError(f"{what}: {len(params['sigma_trunk'])} trunk and "
                          f"{len(params['color_mlp'])} colour layers for sigma_depth "
                          f"{cfg.sigma_depth}, color_depth {cfg.color_depth}")
     ptrs = []
-    for layer, shape in zip(_layers(params, cfg), shapes):
-        if layer is None:
-            ptrs += [None, None]
-            continue
+    for layer, shape in zip(_layers(params), shapes):
         for t, want in ((layer["w"], shape), (layer["b"], shape[1:])):
             if t.dtype != torch.float32 or t.device != device or not t.is_contiguous() \
                     or tuple(t.shape) != want:
@@ -239,30 +251,50 @@ def _expert_ptrs(params, cfg, device, what: str) -> list:
     return ptrs
 
 
+def _dims(cfg) -> ctypes.Array:
+    return (ctypes.c_int * 8)(cfg.hash.out_dim, cfg.hidden, cfg.sigma_depth, cfg.color_hidden,
+                              cfg.color_depth, DIR_KINDS.index(cfg.dir_encoding),
+                              cfg.sh_levels if cfg.dir_encoding == "spherical"
+                              else cfg.freq_pe_dim, int(bool(cfg.use_sigmoid_rgb)))
+
+
+def scratch_bytes(mode: str, cfg, K: int, P: int) -> int:
+    """The bytes of scratch a launch needs: 0 in the width classes; on the
+    wide path, its blocks' two activation buffers each (the card's SMs
+    bound the blocks, so at most 132 × 2 × 16 × 128 × the widest layer's
+    tiles × 4 bytes on an H100)."""
+    if not wide(cfg, mode):
+        return 0
+    got = _library().ngp_net_scratch_bytes(MODES.index(mode), _dims(cfg), K, P)
+    if got < 0:
+        raise RuntimeError(f"ngp_net scratch plan failed: CUDA error {-got}")
+    return int(got)
+
+
 def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Tensor],
                    experts: Sequence[dict], cfg):
     """Launch the kernel on the current stream; arguments and results as
-    ``ngp_net_plain``'s. h: (K, P, L·F) float32 contiguous, or K contiguous
-    (P, L·F) tensors; d: (P, 3) float32 whose rows may be strided (a view
-    of a (P, 6) xd); w: (P, K) float32 contiguous; every tensor on one card.
-    Adds one to ``ngp_net_kernel.launches`` per launch (none for P = 0)."""
+    ``ngp_net_plain``'s. h: one (K, P, L·F) float32 contiguous tensor (read
+    at a stride); d: (P, 3) float32 whose rows may be strided (a view of a
+    (P, 6) xd); w: (P, K) float32 contiguous; every tensor on one card.
+    Adds one to ``ngp_net_kernel.launches`` per launch (none for P = 0).
+    Raises, naming the bytes, where the wide path's scratch does not fit on
+    the card."""
     what = "the NGP network kernel"
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}, want one of {MODES}")
     K = len(experts)
     check_config(cfg, K)
-    if len(h) != K:
-        raise ValueError(f"{what}: {len(h)} feature sets for {K} experts")
-    dev = h[0].device
+    if not isinstance(h, torch.Tensor) or len(h) != K:
+        raise ValueError(f"{what}: features must be one (K, P, L·F) tensor for {K} experts")
+    dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"{what} needs tensors on a CUDA device, got {dev}")
     L = cfg.hash.out_dim
-    P = int(h[0].shape[0])
-    for hk in h:
-        if hk.dtype != torch.float32 or hk.device != dev or not hk.is_contiguous() \
-                or tuple(hk.shape) != (P, L):
-            raise ValueError(f"{what}: features {hk.dtype} {tuple(hk.shape)} on {hk.device}, "
-                             f"want contiguous float32 ({P}, {L}) on {dev}")
+    P = int(h.shape[1]) if h.dim() == 3 else -1
+    if h.dtype != torch.float32 or not h.is_contiguous() or tuple(h.shape) != (K, P, L):
+        raise ValueError(f"{what}: features {h.dtype} {tuple(h.shape)} on {h.device}, "
+                         f"want contiguous float32 ({K}, P, {L}) on {dev}")
     blend = mode in ("sigma_blend", "linear_blend") or (mode == "density" and w is not None)
     if mode == "single" and K != 1:
         raise ValueError(f"{what}: mode single takes one expert, got {K}")
@@ -294,16 +326,21 @@ def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Te
         result = s_out
     if P == 0:
         return result
-    dims = (ctypes.c_int * 8)(L, cfg.hidden, cfg.sigma_depth, cfg.color_hidden,
-                              cfg.color_depth, DIR_KINDS.index(cfg.dir_encoding),
-                              cfg.sh_levels if cfg.dir_encoding == "spherical"
-                              else cfg.freq_pe_dim, int(bool(cfg.use_sigmoid_rgb)))
     lib = _library()
-    err = _on_stream(h[0], lambda s: lib.ngp_net_fwd(
-        MODES.index(mode), (ctypes.c_void_p * K)(*[hk.data_ptr() for hk in h]),
-        (ctypes.c_void_p * len(ptrs))(*ptrs), dims, K, P,
+    need = scratch_bytes(mode, cfg, K, P)
+    scratch = None
+    if need:
+        try:
+            scratch = torch.empty((need // 4,), dtype=torch.float32, device=dev)
+        except torch.cuda.OutOfMemoryError as e:
+            raise torch.cuda.OutOfMemoryError(
+                f"{what}: the wide path's scratch needs {need} bytes on {dev}: {e}") from e
+    table = cuda_lib.device_table(ptrs, dev)
+    err = _on_stream(h, lambda s: lib.ngp_net_fwd(
+        MODES.index(mode), h.data_ptr(), P * L, table.data_ptr(), _dims(cfg), K, P,
         None if d is None else d.data_ptr(), 0 if d is None else d.stride(0),
-        w.data_ptr() if blend else None, rgb, rgb_s, sig, sig_s, s))
+        w.data_ptr() if blend else None, rgb, rgb_s, sig, sig_s,
+        None if scratch is None else scratch.data_ptr(), need, s))
     if err != 0:
         raise RuntimeError(f"ngp_net kernel launch failed: CUDA error {err}")
     ngp_net_kernel.launches += 1

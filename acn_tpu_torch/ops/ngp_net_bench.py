@@ -4,8 +4,9 @@ phase 15 of ``chip_smoke.py`` share.
 
 * Config: ``toy.train_occ_config``'s expert (hash features L·F = 32, σ
   trunk 64 wide and 2 deep, colour MLP 64 wide and 2 deep, SH of 4 levels)
-  and its 4 quadrant experts, layer weights from torch's Linear init
-  (seed), hash features N(0, 1).
+  and its 4 quadrant experts, or (``name``) one of ``toy.FLAG_SETS``'
+  configurations over it, with ``toy.expert_layout``'s experts; layer
+  weights from torch's Linear init (seed), hash features N(0, 1).
 * Point sets: ``random``, points uniform in the scene box with directions
   N(0, 1), one row in 97 a zero direction; ``rays``, the packed samples of
   the dense frame's budget march (the union of the experts' grids over the
@@ -58,9 +59,12 @@ SIZES = (983_040, 32_768)  # a dense serving chunk; a support march
 ROUTED_P = 4_000_000  # a routed chunk (chunk_points), one expert
 
 
-def config():
-    """(the container config, the expert config) of the smoke's model."""
+def config(name: str = "smoke"):
+    """(the container config, the expert config) of the smoke's model, or
+    of a ``toy.FLAG_SETS`` configuration over it."""
     cfg = toy.train_occ_config()[0]
+    if name != "smoke":
+        cfg = toy.flag_config(cfg, **toy.FLAG_SETS[name])
     return cfg, cfg.expert
 
 
@@ -114,15 +118,15 @@ def random_xd(P: int, gen: torch.Generator) -> torch.Tensor:
     return torch.cat([x, d], dim=1)
 
 
-def inputs(set_name: str, P: int, K: int, gen: torch.Generator):
+def inputs(set_name: str, P: int, K: int, gen: torch.Generator, name: str = "smoke"):
     """(h (K, P, L·F), xd (P, 6), w (P, K)) of a point set on the card."""
-    cfg, ecfg = config()
+    cfg, ecfg = config(name)
     if set_name == "random":
         xd = random_xd(P, gen)
     else:
         xd = hb.budget_march(None if P == SIZES[0] else hb.SUPPORT_RAYS)[0]["xd"].contiguous()
         assert xd.shape[0] == P, (set_name, xd.shape)
-    cents = torch.from_numpy(toy.quadrant_layout(cfg.num_submodules)[1]).to(xd.device)
+    cents = torch.from_numpy(toy.expert_layout(cfg.num_submodules)[1]).to(xd.device)
     w = cont.routing_weights(cents[:K], xd[:, :3], cfg.cluster_2d, cfg.boundary_margin)
     h = torch.randn((K, P, ecfg.hash.out_dim), generator=gen, device=xd.device)
     return h, xd, w.contiguous()
@@ -205,21 +209,21 @@ def call_args(mode, h, xd, w, experts):
 
 
 def time_case(mode, set_name, P, gen, experts, plain: bool = True, kernel=None,
-              ins=None) -> dict:
+              ins=None, name: str = "smoke") -> dict:
     """Card ms per call of the kernel (``kernel``: ``ngp_net_kernel``, or
     None on a tree without it), the plain network and the ``mm`` chain at
-    one (mode, point set, P), on ``ins`` (``inputs``' (h, xd, w)) or new
-    inputs; the bounds; the kernel's host µs."""
-    cfg, ecfg = config()
+    one (mode, point set, P) of config ``name``, on ``ins`` (``inputs``'
+    (h, xd, w)) or new inputs; the bounds; the kernel's host µs."""
+    cfg, ecfg = config(name)
     K = len(experts)
-    h, xd, w = ins if ins is not None else inputs(set_name, P, K, gen)
+    h, xd, w = ins if ins is not None else inputs(set_name, P, K, gen, name)
     hh, d, ww, ee = call_args(mode, h, xd, w, experts)
     kk = 1 if mode == "single" else K
     work = 4 * P * (kk * ecfg.hash.out_dim + 6 + K)
     copies = hb.copies_for(work)
     clone = lambda t: None if t is None else t.clone()
     runs = [(hh, d, ww)] + [(hh.clone(), clone(d), clone(ww)) for _ in range(copies - 1)]
-    row = {"mode": mode, "set": set_name, "P": P, "K": kk, "copies": copies,
+    row = {"config": name, "mode": mode, "set": set_name, "P": P, "K": kk, "copies": copies,
            **bounds_ms(mode, P, kk, w if ww is not None else w[:, :1], ecfg)}
     if kernel is not None:
         row["ms"] = hb.device_ms([lambda a=a: kernel(mode, a[0], a[1], a[2], ee, ecfg)

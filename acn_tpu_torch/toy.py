@@ -39,6 +39,8 @@ through the box, random colors.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import types
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -107,6 +109,40 @@ def train_occ_config() -> Tuple[ContainerConfig, types.SimpleNamespace, OccConfi
     return cfg, P, occ_cfg
 
 
+# Parser flags over configs/train_occ.json that the network and hash
+# kernels' first versions refused (chip_smoke.py phase 16): K above 16, L·F
+# above 64, an odd F over more than 32 levels, F = 1, and the vanilla
+# expert's trunk (hidden 256, depth 8) as an NGP expert.
+FLAG_SETS = {
+    "k25": {"num_submodules": 25},
+    "l16f8": {"hash_levels": 16, "hash_features": 8},
+    "l40f3": {"hash_levels": 40, "hash_features": 3},
+    "f1": {"hash_levels": 16, "hash_features": 1},
+    "wide": {"dim_hidden": 256, "sigma_depth": 8, "color_hidden": 128, "color_depth": 5},
+}
+
+
+def flag_config(cfg: ContainerConfig, **flags) -> ContainerConfig:
+    """``cfg`` with parser flags applied as ``runner.build_model_configs``
+    maps them onto an NGP container: ``num_submodules``, ``dim_hidden``,
+    ``sigma_depth``, ``color_hidden``, ``color_depth``, ``hash_levels``,
+    ``hash_features``."""
+    known = {"num_submodules", "dim_hidden", "sigma_depth", "color_hidden", "color_depth",
+             "hash_levels", "hash_features"}
+    if set(flags) - known:
+        raise ValueError(f"flag_config takes {sorted(known)}, got {sorted(flags)}")
+    e = cfg.expert
+    h = dataclasses.replace(e.hash, levels=flags.get("hash_levels", e.hash.levels),
+                            features_per_level=flags.get("hash_features",
+                                                         e.hash.features_per_level))
+    e = dataclasses.replace(e, hidden=flags.get("dim_hidden", e.hidden),
+                            sigma_depth=flags.get("sigma_depth", e.sigma_depth),
+                            color_hidden=flags.get("color_hidden", e.color_hidden),
+                            color_depth=flags.get("color_depth", e.color_depth), hash=h)
+    return dataclasses.replace(cfg, num_submodules=flags.get("num_submodules",
+                                                             cfg.num_submodules), expert=e)
+
+
 def quadrant_layout(K: int = 4) -> Tuple[np.ndarray, np.ndarray]:
     """(expert AABBs (K, 2, 3), centroids (K, 3)) of the 2×2 city grid."""
     assert K == 4, "the quadrant layout has 4 experts"
@@ -138,8 +174,9 @@ def random_occ_states(expert_aabbs: np.ndarray, occ_cfg: OccConfig,
 
 def serving_model(cfg: ContainerConfig, seed: int = 0, device=None) -> Container:
     """Random weights (CPU generator from ``seed``, then moved, so every
-    device gets the same bits) over the quadrant layout."""
-    boxes, cents = quadrant_layout(cfg.num_submodules)
+    device gets the same bits) over ``expert_layout`` (the quadrants at
+    K = 4)."""
+    boxes, cents = expert_layout(cfg.num_submodules)
     gen = torch.Generator().manual_seed(seed)
     model = init_container(cfg, torch.from_numpy(cents), torch.from_numpy(boxes),
                            torch.from_numpy(SCENE_AABB), generator=gen)
@@ -310,13 +347,31 @@ def camera_ray_stores(K: int = 4, cams: int = 32, H: int = 192, W: int = 256,
 
 def expert_layout(K: int) -> Tuple[np.ndarray, np.ndarray]:
     """(expert AABBs (K, 2, 3), centroids (K, 3)): the 2×2 quadrants for
-    K = 4, two halves of the y axis (the same ~10 % overlap) for K = 2."""
+    K = 4, two halves of the y axis (the same ~10 % overlap) for K = 2, and
+    for any other K a grid of ny × nz cells over (y, z), ny the largest
+    divisor of K up to √K (5 × 5 at K = 25), each box its cell grown by a
+    tenth of the cell's side into its neighbours, each centroid its
+    cell's centre, x whole."""
     if K == 4:
         return quadrant_layout(K)
-    assert K == 2, "the layouts have 2 or 4 experts"
-    boxes = np.asarray([[[-1.0, -1.0, -1.0], [1.0, 0.1, 1.0]],
-                        [[-1.0, -0.1, -1.0], [1.0, 1.0, 1.0]]], np.float32)
-    return boxes, np.asarray([[0.0, -0.55, 0.0], [0.0, 0.55, 0.0]], np.float32)
+    if K == 2:
+        boxes = np.asarray([[[-1.0, -1.0, -1.0], [1.0, 0.1, 1.0]],
+                            [[-1.0, -0.1, -1.0], [1.0, 1.0, 1.0]]], np.float32)
+        return boxes, np.asarray([[0.0, -0.55, 0.0], [0.0, 0.55, 0.0]], np.float32)
+    ny = max(d for d in range(1, math.isqrt(K) + 1) if K % d == 0)
+    nz = K // ny
+    boxes, cents = [], []
+    for iy in range(ny):
+        for iz in range(nz):
+            lo, hi = [-1.0], [1.0]
+            for i, n in ((iy, ny), (iz, nz)):
+                a, b = -1.0 + 2.0 * i / n, -1.0 + 2.0 * (i + 1) / n
+                grow = 0.1 * (b - a)
+                lo.append(max(-1.0, a - grow))
+                hi.append(min(1.0, b + grow))
+            boxes.append([lo, hi])
+            cents.append([0.0, -1.0 + (2 * iy + 1) / ny, -1.0 + (2 * iz + 1) / nz])
+    return np.asarray(boxes, np.float32), np.asarray(cents, np.float32)
 
 
 def _write_view(split_dir: Path, name: str, rng: np.random.Generator, box: np.ndarray,

@@ -287,7 +287,28 @@ Phases, each printing one JSON line and each fatal on failure:
    the loop, the runner's and the tools' ``--op train`` (steps and
    occupancy updates) are recorded; with ``--profile`` the dense and
    routed frames' profiles give the kernel's mean time and share of busy;
-16. the kernels line, then the card's ``nvidia-smi`` line, then the result
+16. every expert configuration ``acn_tpu`` accepts that the kernels' first
+   versions refused (``toy.FLAG_SETS``: flags over
+   ``configs/train_occ.json``, random weights from seed 16): ``k25``
+   (``--num_submodules 25``, ``toy.expert_layout``'s 5 × 5 grid), ``l16f8``
+   (L·F 128), ``l40f3`` (40 levels of F = 3: the general hash kernels, a
+   ragged level group), ``f1`` (F = 1) and ``wide`` (σ trunk 256 × 8,
+   colour 128 × 5: the network kernel's wide path). Each: a warm, a timed
+   and a downloaded ``Renderer.render_image`` frame at 1080 × 1920
+   (``wide`` at the viewer's 480 × 853) and, for ``k25``, routed ones, the
+   timed frame launching the scan, the network kernel once and the hash
+   forward K times (routed: once) per chunk, the host waiting below once
+   per chunk in the third (dense: downloaded; routed: on the card, then
+   one more downloaded), each downloaded frame finite; ``render_rays``
+   on the card against the CPU as phase 4 holds it; for ``l40f3`` and
+   ``f1`` a warm and a timed FoMAML budget step (bf16: the hash forward
+   and cotangent in training, 108 + 108 scans); ms per frame and step with
+   the card's name and power limit. Phases 14 and 15 hold each kernel
+   against its plain version at these configurations (the hash grids at a
+   serving chunk in float32 and a support march in bfloat16, every network
+   mode at a dense chunk of random points, the ``wide`` one within rtol 3e-4
+   (``NET_WIDE_RTOL``)), with times, under ``flag_shapes``;
+17. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -3926,7 +3947,9 @@ def hash_kernel_entries(hk: dict, smi: str) -> list:
          "max_abs_err": fwd["fwd_max_abs_err"], "ms": fwd["fwd_ms"], "host_us": fwd["fwd_host_us"],
          "plain_ms": fwd["fwd_plain_ms"], "bound_ms": fwd["fwd_bound_ms"],
          "library_ms": fwd["fwd_library_ms"],
-         "shapes": [{k: r[k] for k in keys("fwd")} for r in hk["shapes"]], **common},
+         "shapes": [{k: r[k] for k in keys("fwd")} for r in hk["shapes"]],
+         "flag_shapes": [{k: r[k] for k in ["config", "levels", "F"] + keys("fwd")}
+                         for r in hk["flag_shapes"]], **common},
         {"name": "hash_cell_bwd_tables", "replaces": "acn_tpu/models/encodings.py:444 (no TPU "
          "kernel: _saved_bwd's table half, plain XLA)",
          "launches": sum(c[1] for c in HASH_BY_PATH.values()),
@@ -3936,7 +3959,9 @@ def hash_kernel_entries(hk: dict, smi: str) -> list:
          "ms": bwd["bwd_ms"], "host_us": bwd["bwd_host_us"], "plain_ms": bwd["bwd_plain_ms"],
          "bound_ms": bwd["bwd_bound_ms"], "library_ms": bwd["bwd_library_ms"],
          "double_backward": hk["double_backward"],
-         "shapes": [{k: r[k] for k in keys("bwd")} for r in hk["shapes"]], **common},
+         "shapes": [{k: r[k] for k in keys("bwd")} for r in hk["shapes"]],
+         "flag_shapes": [{k: r[k] for k in ["config", "levels", "F"] + keys("bwd")}
+                         for r in hk["flag_shapes"]], **common},
     ]
 
 
@@ -4047,6 +4072,33 @@ def phase_hash(torch, toy) -> dict:
             del tables
             torch.cuda.empty_cache()
 
+    # the hash grids of phase 16's configurations (L·F 128, 40 levels of
+    # F = 3, F = 1): random points at a serving chunk in float32 and a
+    # support march in bfloat16, each kernel against its plain version, timed
+    flag_shapes = []
+    for cname in HASH_FLAG_CONFIGS:
+        fcfg = hb.hash_config(cname)
+        frows = [fcfg.level_rows(l) for l in range(fcfg.levels)]
+        ftabs = [(torch.rand((r, 8 * fcfg.features_per_level), generator=gen, device="cuda")
+                  * 2 - 1) * 1e-3 for r in frows]
+        for name, P, x32, g32 in hb.point_sets(fcfg, ("random",), gen):
+            if P not in HASH_P[:2]:
+                continue
+            dt = torch.float32 if P == HASH_P[0] else torch.bfloat16
+            x, g = x32.to(dt), g32.to(dt)
+            tables = [t.to(dt) for t in ftabs]
+            row = {"config": cname, "levels": fcfg.levels, "F": fcfg.features_per_level,
+                   "set": name, "P": P, "dtype": row_dtype(dt),
+                   **check_hash_kernels(torch, hg, tables, x, g, fcfg, frows,
+                                        f"{cname} {name} P {P} {row_dtype(dt)}"),
+                   **hb.time_kernels(tables, x, g, fcfg, frows)}
+            flag_shapes.append(row)
+            emit({"phase": "hash_kernels", **row})
+            del tables, x, g, x32, g32
+            torch.cuda.empty_cache()
+        del ftabs
+        torch.cuda.empty_cache()
+
     # h and the corner, exactly: Nearest picks one corner with weight 1 from
     # a table whose row r holds 8·r + c in corner c
     near = dataclasses.replace(hcfg, interpolation="Nearest")
@@ -4110,14 +4162,190 @@ def phase_hash(torch, toy) -> dict:
           "double_backward": double, "phase_s": time.perf_counter() - t_start})
     del tabs, grads, dg, out
     torch.cuda.empty_cache()
-    return {"shapes": shapes, "double_backward": double}
+    return {"shapes": shapes, "flag_shapes": flag_shapes, "double_backward": double}
 
 
 NET_RTOL, NET_ATOL = 1e-5, 1e-6  # kernel against plain f32: the products' sum order
+# the wide expert (σ trunk 256 × 8): float32 itself drifts from float64 over
+# its depth, tests/test_torch_ngp_net.py's WIDE_RTOL and its derivation
+NET_WIDE_RTOL = 3e-4
+HASH_FLAG_CONFIGS = ("l16f8", "l40f3", "f1")  # phase 16's hash grids other than the smoke's
+
+
+# ---------------------------------------------------------------- phase 16
+
+CONFIG_FRAMES = {"wide": LIVE_PREVIEW}  # the wide expert's frames at the viewer's size
+CONFIG_STEPS = ("l40f3", "f1")  # a budget step each: the bf16 hash kernels at F = 3 and 1
+CONFIG_CPU_RAYS = 2048  # card against CPU, as phase 4
+
+
+def config_vs_cpu(torch, Renderer, cfg, P, occ_cfg, model, model_cpu, occ, cam, Hf,
+                  Wf) -> dict:
+    """Phase 4 at ``cfg``: ``render_rays`` on the card against the CPU on
+    ``CONFIG_CPU_RAYS`` of the frame's rays, at the config's alpha
+    threshold and at 0 with the σ-head bias at +2 (in place, on both
+    models), within phase 4's tolerances."""
+    from acn_tpu_torch.pipelines.renderer import _pinhole_block_rays
+
+    args = [torch.from_numpy(np.asarray(a, np.float32)) for a in
+            (cam["c2w"], cam["intrinsics"], cam["aabb"])]
+    rays = _pinhole_block_rays(Hf, Wf, *args, torch.tensor([-np.inf, np.inf]),
+                               0.0, 0.0).numpy()
+    rays = rays[np.random.default_rng(0).choice(len(rays), CONFIG_CPU_RAYS, replace=False)]
+    occ_cpu = {k: v.cpu() for k, v in occ.items()}
+    atol, rtol = 1e-4, 1e-4  # phase 4's
+    out = {}
+    for case, thre, bias in (("alpha_thre_cfg", occ_cfg.alpha_thre, None),
+                             ("alpha_thre_0_bias_2", 0.0, 2.0)):
+        if bias is not None:
+            with torch.no_grad():
+                model.experts["sigma_head"]["b"].fill_(bias)
+                model_cpu.experts["sigma_head"]["b"].fill_(bias)
+        oc = dataclasses.replace(occ_cfg, alpha_thre=thre)
+        gpu = Renderer(cfg, P, oc, chunk_rays=CONFIG_CPU_RAYS).render_rays(
+            model, occ, rays, with_stats=True)
+        cpu = Renderer(cfg, P, oc, chunk_rays=CONFIG_CPU_RAYS, device="cpu").render_rays(
+            model_cpu, occ_cpu, rays, with_stats=True)
+        errs = {k: float(np.abs(g - c).max()) for k, g, c in
+                zip(("rgb", "depth", "acc", "wmax", "went"), gpu, cpu)}
+        check(all(np.allclose(g, c, atol=atol, rtol=rtol) for g, c in zip(gpu[:4], cpu[:4])),
+              f"card vs CPU render_rays disagree at {case}: {errs}")
+        out[case] = {"max_abs_err": errs, "max_acc": float(cpu[2].max())}
+    check(out["alpha_thre_0_bias_2"]["max_acc"] > 0.5, "the opaque case composited nothing")
+    return {"rays": CONFIG_CPU_RAYS, "atol": atol, "rtol": rtol, **out}
+
+
+def phase_configs(torch, segscan, toy, Renderer) -> dict:
+    """Every expert configuration (module docstring, phase 16). Returns the
+    scan's (forward, reverse) launches of each path."""
+    import copy
+
+    from acn_tpu_torch.pipelines.offline_stage import train_step as ts
+
+    net = _ngp_net()
+    cfg0, P, occ_cfg = toy.train_occ_config()
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    counted = {}
+    for name, flags in toy.FLAG_SETS.items():
+        t_cfg = time.perf_counter()
+        cfg = toy.flag_config(cfg0, **flags)
+        K = cfg.num_submodules
+        torch.cuda.empty_cache()
+        model_cpu = toy.serving_model(cfg, seed=16, device="cpu")  # the twin of phase 4's check
+        model = copy.deepcopy(model_cpu).to("cuda")
+        boxes, _ = toy.expert_layout(K)
+        occ = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
+        renderer = Renderer(cfg, P, occ_cfg)
+        Hf, Wf = CONFIG_FRAMES.get(name, (H, W))
+        cam = toy.overhead_camera(Hf, Wf)
+        chunks = -(-Hf // (renderer.chunk_rays // Wf))
+        row = {"phase": "configs", "config": name, "flags": flags, "K": K, "H": Hf, "W": Wf,
+               "wide_path": net.wide(cfg.expert, "sigma_blend"),
+               "hash_table_mb": 4e-6 * sum(int(p.numel()) for p in model.experts["hash_table"])}
+        frames = [("dense", chunks, K,
+                   lambda **kw: renderer.render_image(model, occ, H=Hf, W=Wf, **cam, **kw))]
+        if name == "k25":
+            rects = renderer.routed_rects(boxes, cam["c2w"], cam["intrinsics"], Hf, Wf, 32)
+            frames.append(("routed", len(renderer.routed_dispatch(rects, Wf, True)), 1,
+                           lambda **kw: renderer.render_image_routed(model, occ, H=Hf, W=Wf,
+                                                                     **cam, **kw)))
+        for kind, dispatched, per_chunk, frame in frames:
+            frame(download=False)  # warm
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(download=False)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            scans, (fwd, bwd, nl) = _scan_counts(segscan), _kernel_counts()
+            path = f"{name}_{kind}_frame"
+            note_hash(path, trains=False)
+            counted[path] = scans
+            check(scans == (dispatched, 0) and nl == dispatched and fwd == per_chunk * nl,
+                  f"{path}: scan {scans}, network {nl}, hash forward {fwd} launches; want "
+                  f"({dispatched}, 0), {dispatched} and {per_chunk} × {dispatched}")
+            # the host's waits in a third frame: the dense one downloaded (its
+            # download waits once, at the end); a routed frame stitches its
+            # chunks on the host, so it is counted on the card and downloaded
+            # after
+            dense = kind == "dense"
+            out, syncs, sites = host_syncs(torch, lambda: frame(download=dense))
+            check(syncs < dispatched, f"{path}: {syncs} host syncs in a frame of {dispatched} "
+                  f"chunks at {sites}")
+            rgb, depth, acc = out if dense else frame()
+            check(rgb.shape == (Hf, Wf, 3) and np.isfinite(rgb).all()
+                  and np.isfinite(depth).all() and np.isfinite(acc).all(),
+                  f"{path}: the frame is not finite or has the wrong shape")
+            row[f"{kind}_frame"] = {"chunks": dispatched, "ms": ms, "net_launches": nl,
+                                    "hash_fwd_launches": fwd, "scan_launches": scans[0],
+                                    "host_syncs": syncs, "host_sync_sites": sites}
+        row["vs_cpu"] = config_vs_cpu(torch, Renderer, cfg, P, occ_cfg, model, model_cpu, occ,
+                                      cam, Hf, Wf)
+        del model_cpu
+        if name in CONFIG_STEPS:
+            T, S, Q = int(P.batch_size), int(P.support_rays), int(P.query_rays)
+            per_step = K * T * (int(P.inner_iter) + 1)
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in toy.training_batch(K, T, S, Q, seed=0).items()}
+            opt, state = toy.init_train_state(model, P)
+            step = ts.make_meta_train_step(cfg, P, opt, occ_cfg)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            state, _ = step(state, batch, occ, gen)  # warm
+            _zero_scan_counts(segscan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, occ, gen)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            scans, counts = _scan_counts(segscan), _kernel_counts()
+            path = f"{name}_budget_step"
+            note_hash(path, trains=True)
+            counted[path] = scans
+            m = {k: float(v.detach().float().mean()) for k, v in metrics.items()}
+            check(scans == (per_step, per_step) and all(np.isfinite(v) for v in m.values()),
+                  f"{path}: scan launches {scans}, want {per_step} of each; metrics {m}")
+            row["budget_step"] = {"ms": step_ms, "scan_launches": scans,
+                                  "hash_launches": counts[:2], "net_launches": counts[2],
+                                  "use_amp": bool(P.use_amp), "loss_out": m["loss_out"]}
+            del batch, opt, state, step
+        row.update(config_s=time.perf_counter() - t_cfg, nvidia_smi=smi)
+        emit(row)
+        del model, occ, renderer
+        torch.cuda.empty_cache()
+    emit({"phase": "configs_done", "configs": list(toy.FLAG_SETS),
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return counted
+
+
+def net_case(torch, net, nb, mode, set_name, P, gen, experts, ins, name, rtol) -> dict:
+    """One (mode, point set, P) of config ``name``: the kernel against its
+    plain version within rtol / ``NET_ATOL``, every output finite; the
+    times and bounds of ``ngp_net_bench.time_case``."""
+    args = nb.call_args(mode, *ins, experts)
+    ecfg = nb.config(name)[1]
+    got = net.ngp_net_kernel(mode, *args, ecfg)
+    want = net.ngp_net_plain(mode, *args, ecfg)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    # the largest excess over atol + rtol·|plain| (≤ 0 passes)
+    excess = max(float(((g - w).abs() - NET_ATOL - rtol * w.abs()).max())
+                 for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    check(finite and excess <= 0.0,
+          f"ngp_net {name} {mode} {set_name} P {P}: max |kernel − plain| {err}, over the "
+          f"tolerance by {excess}, finite {finite}")
+    del got, want
+    return {"max_abs_err": err, "tolerance_excess": excess, "rtol": rtol,
+            **nb.time_case(mode, set_name, P, gen, experts, kernel=net.ngp_net_kernel,
+                           ins=ins, name=name)}
 
 
 def phase_net(torch) -> dict:
     """The network kernel (module docstring, phase 15)."""
+    from acn_tpu_torch import toy
     from acn_tpu_torch.ops import ngp_net_bench as nb
 
     net = _ngp_net()
@@ -4130,32 +4358,31 @@ def phase_net(torch) -> dict:
     for set_name, P in cases:
         ins = nb.inputs(set_name, P, 4, gen)
         for mode in (nb.MODES if P != nb.ROUTED_P else ("single",)):
-            args = nb.call_args(mode, *ins, experts)
-            got = net.ngp_net_kernel(mode, *args, ecfg)
-            want = net.ngp_net_plain(mode, *args, ecfg)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            # the largest excess over atol + rtol·|plain| (≤ 0 passes)
-            excess = max(float(((g - w).abs() - NET_ATOL - NET_RTOL * w.abs()).max())
-                         for g, w in zip(got, want))
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            check(finite and excess <= 0.0,
-                  f"ngp_net {mode} {set_name} P {P}: max |kernel − plain| {err}, over the "
-                  f"tolerance by {excess}, finite {finite}")
-            del got, want
-            row = {"max_abs_err": err, "tolerance_excess": excess,
-                   **nb.time_case(mode, set_name, P, gen, experts, kernel=net.ngp_net_kernel,
-                                  ins=ins)}
+            row = net_case(torch, net, nb, mode, set_name, P, gen, experts, ins, "smoke",
+                           NET_RTOL)
             shapes.append(row)
             emit({"phase": "net_kernel", **row})
         del ins
         torch.cuda.empty_cache()
-    emit({"phase": "net_checks", "cases": len(shapes), "rtol": NET_RTOL, "atol": NET_ATOL,
-          "max_abs_err": max(r["max_abs_err"] for r in shapes),
+    # phase 16's configurations: every mode on the random points of a dense
+    # serving chunk against the plain network, all timed
+    flag_shapes = []
+    for name in toy.FLAG_SETS:
+        cfg, fcfg = nb.config(name)
+        fexperts = nb.net_params(fcfg, cfg.num_submodules, seed=15)
+        ins = nb.inputs("random", nb.SIZES[0], cfg.num_submodules, gen, name)
+        for mode in nb.MODES:
+            row = net_case(torch, net, nb, mode, "random", nb.SIZES[0], gen, fexperts, ins, name,
+                           NET_WIDE_RTOL if name == "wide" else NET_RTOL)
+            flag_shapes.append(row)
+            emit({"phase": "net_kernel", **row})
+        del ins, fexperts
+        torch.cuda.empty_cache()
+    emit({"phase": "net_checks", "cases": len(shapes) + len(flag_shapes), "rtol": NET_RTOL,
+          "wide_rtol": NET_WIDE_RTOL, "atol": NET_ATOL,
+          "max_abs_err": max(r["max_abs_err"] for r in shapes + flag_shapes),
           "phase_s": time.perf_counter() - t_start})
-    return {"shapes": shapes}
+    return {"shapes": shapes, "flag_shapes": flag_shapes}
 
 
 def net_kernel_entry(nk: dict, smi: str) -> dict:
@@ -4187,7 +4414,9 @@ def net_kernel_entry(nk: dict, smi: str) -> dict:
                           "larger; f32_fma_bound_ms: the same flops at 67 TFLOP/s f32",
             "timing": "card ms per call over a run of calls between one pair of CUDA events, "
                       "cycling over copies of the inputs that exceed the L2; host µs apart",
-            "shapes": [{k: r[k] for k in keys} for r in nk["shapes"]], "nvidia_smi": smi}
+            "shapes": [{k: r[k] for k in keys} for r in nk["shapes"]],
+            "flag_shapes": [{k: r[k] for k in ("config", "rtol") + keys}
+                            for r in nk["flag_shapes"]], "nvidia_smi": smi}
 
 
 def row_dtype(dt) -> str:
@@ -4246,6 +4475,7 @@ def main() -> int:
     fwd_tools, rev_tools = phase_tools(torch, segscan, toy, args.profile)
     hk = phase_hash(torch, toy)
     nk = phase_net(torch)
+    configs = phase_configs(torch, segscan, toy, Renderer)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -4267,7 +4497,8 @@ def main() -> int:
     by_path = lambda i: {**{name: c[i] for name, c in serve.items()},
                          **{f"m9_{name}": c[i] for name, c in m9.items()},
                          **{name: c[i] for name, c in mesh.items()},
-                         **{f"viewer_{name}": c[i] for name, c in live.items()}}
+                         **{f"viewer_{name}": c[i] for name, c in live.items()},
+                         **{name: c[i] for name, c in configs.items()}}
     common = {"route": "cuda", "source": "acn_tpu_torch/csrc/segscan.cu",
               "bound_ms": k["bound_ms"], "bound_by": "bytes", "library_ms": None,
               "library_note": "no single PyTorch call computes a segmented scan"}
@@ -4276,7 +4507,8 @@ def main() -> int:
          "launches": (fwd_render + fwd_train + fwd_reg + fwd_loop + fwd_rtrain + fwd_reval
                       + sum(c[0] for c in serve.values())
                       + sum(c[0] for c in m9.values()) + sum(c[0] for c in mesh.values())
-                      + sum(c[0] for c in live.values()) + fwd_tools),
+                      + sum(c[0] for c in live.values()) + fwd_tools
+                      + sum(c[0] for c in configs.values())),
          "launches_by_path": {"render_image": fwd_render, "train_step": fwd_train,
                               "regime_schedule": fwd_reg, "meta_trainer": fwd_loop,
                               "runner_train": fwd_rtrain, "runner_eval": fwd_reval,
@@ -4292,7 +4524,8 @@ def main() -> int:
          "launches": (rev_render + rev_train + rev_reg + rev_loop + rev_rtrain + rev_reval
                       + sum(c[1] for c in serve.values())
                       + sum(c[1] for c in m9.values()) + sum(c[1] for c in mesh.values())
-                      + sum(c[1] for c in live.values()) + rev_tools),
+                      + sum(c[1] for c in live.values()) + rev_tools
+                      + sum(c[1] for c in configs.values())),
          "launches_by_path": {"render_image": rev_render, "train_step": rev_train,
                               "regime_schedule": rev_reg, "meta_trainer": rev_loop,
                               "runner_train": rev_rtrain, "runner_eval": rev_reval,

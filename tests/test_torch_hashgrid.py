@@ -4,7 +4,8 @@ and its ``jax.vjp``; ``HashCellBwdTables`` as a function with a gradient;
 the CUDA kernels against the plain versions on the card (``requires_cuda``).
 
 The same numpy inputs, made from a seed, go through both packages at micro
-shapes (4 levels, 2^12 rows, a few hundred points), x01 and tables in
+shapes (4 levels, 2^12 rows, a few hundred points; F = 1, 2, 3, 4, 8 and 16,
+and 37 levels), x01 and tables in
 float32 or bfloat16, every interpolation, dense levels on and off, with
 points on cell faces of every level and at 1 − 1e-6 (1.0 in bfloat16: the
 cell ``res``, clipped on a dense level, hashed on the others). JAX runs op by
@@ -63,25 +64,28 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _cfg_kw(F=2, interpolation="Linear", dense=True):
-    # resolutions 16, 101, 645, 4095 (4096 in bf16); level 0 dense when on
-    return dict(levels=4, min_res=16, max_res=4096, log2_hashmap_size=12,
+def _cfg_kw(F=2, interpolation="Linear", dense=True, levels=4):
+    # 4 levels: resolutions 16, 101, 645, 4095 (4096 in bf16); level 0 dense
+    # when on
+    return dict(levels=levels, min_res=16, max_res=4096, log2_hashmap_size=12,
                 features_per_level=F, layout="cell", dense_levels=dense,
                 interpolation=interpolation)
 
 
-def _points(cfg, n=320, seed=0):
+def _points(cfg, n=None, seed=0):
     """Random points, cell faces k/res of every level and k/64, the clamp
-    ends: where floor and the fraction could round apart."""
+    ends: where floor and the fraction could round apart (320 points at 4
+    levels, 32 more a level above)."""
     rng = np.random.default_rng(seed)
-    x = rng.random((n, 3)).astype(np.float32)
     res = cfg.level_resolutions()
+    b = 32 * len(res)
+    x = rng.random((n or b + 192, 3)).astype(np.float32)
     for i, r in enumerate(res):
         x[32 * i:32 * (i + 1)] = (rng.integers(0, r + 1, (32, 3)) / r).astype(np.float32)
-    x[128:160] = (rng.integers(0, 65, (32, 3)) / 64.0).astype(np.float32)
-    x[160:176] = np.float32(1 - 1e-6)
-    x[176:184] = np.float32(1e-6)
-    x[184:192, 0] = np.float32(1 - 1e-6)  # one axis at the end
+    x[b:b + 32] = (rng.integers(0, 65, (32, 3)) / 64.0).astype(np.float32)
+    x[b + 32:b + 48] = np.float32(1 - 1e-6)
+    x[b + 48:b + 56] = np.float32(1e-6)
+    x[b + 56:b + 64, 0] = np.float32(1 - 1e-6)  # one axis at the end
     return x
 
 
@@ -93,8 +97,8 @@ def _tables(cfg, seed=1):
             .astype(np.float32) for l in range(cfg.levels)]
 
 
-def _both(xt, tt, F, interpolation, dense, seed=0):
-    kw = _cfg_kw(F, interpolation, dense)
+def _both(xt, tt, F, interpolation, dense, seed=0, levels=4):
+    kw = _cfg_kw(F, interpolation, dense, levels)
     cfg_t, cfg_j = tenc.HashGridConfig(**kw), JHashGridConfig(**kw)
     x = _points(cfg_t, seed=seed)
     tabs = _tables(cfg_t, seed=seed + 1)
@@ -128,7 +132,31 @@ def _magnitudes(cfg, x, tables, g):
 @pytest.mark.parametrize("interpolation", INTERPOLATIONS)
 @pytest.mark.parametrize("xt,tt,F", TYPES)
 def test_plain_matches_jax_saved_forward_and_vjp(xt, tt, F, interpolation, dense):
-    cfg_t, cfg_j, (x, tabs, g), (jx, jtabs, jg) = _both(xt, tt, F, interpolation, dense)
+    _hold_plain_to_jax(*_both(xt, tt, F, interpolation, dense), tt)
+
+
+# F with a kernel of its own beside 2, 4 and 8 (1: one bf16 lane a row; 16:
+# 32 f32 lanes, 4 a corner), an odd F (the general kernels: a corner
+# straddles 16-byte pieces), and 37 levels (a ragged last group of 4, above
+# the 32 that the kernels' parameters once held)
+F_AND_LEVELS = [(1, 4), (16, 4), (3, 4), (3, 37)]
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("xt,tt", [("float32", "float32"), ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("F,levels", F_AND_LEVELS)
+def test_plain_matches_jax_at_every_f_and_level_count(F, levels, xt, tt, dense):
+    """The plain forward and table cotangent against ``acn_tpu``'s at F =
+    1, 3 and 16 and at 37 levels, dense and hashed levels, float32 and
+    bfloat16: the tolerances of the kernels' widths before."""
+    _hold_plain_to_jax(*_both(xt, tt, F, "Linear", dense, levels=levels), tt)
+
+
+def _hold_plain_to_jax(cfg_t, cfg_j, torch_in, jax_in, tt):
+    """The cell decisions bit-equal, then the plain versions against
+    ``_hash_encode_cell_saved`` and its VJP (module docstring's
+    tolerances)."""
+    (x, tabs, g), (jx, jtabs, jg) = torch_in, jax_in
     for l in range(cfg_t.levels):  # the cell decisions: bit-equal
         h_t, frac_t = hg._cell_index(x, cfg_t, l)
         _, h_j, frac_j = jenc._cell_level_lookup(jtabs, jx, cfg_j, l)
@@ -240,7 +268,7 @@ def test_cached_launch_constants_equal_fresh_ones(x_dtype, interpolation, dense)
         assert list(c.scale) == [hg._res_as(r, x_dtype) for r in res]
         assert list(c.res) == res
         assert list(c.dense) == [int(hg._is_dense(cfg, l)) for l in range(L)]
-        assert c.rows == tuple(cfg.level_rows(l) for l in range(L)) == tuple(c.rows_arr)
+        assert c.rows == tuple(cfg.level_rows(l) for l in range(L))
         assert c.tail == (L, 4, cfg.log2_hashmap_size, INTERPOLATIONS.index(interpolation))
         assert (c.x_bf16, c.width, c.out_dim) == (int(x_dtype == torch.bfloat16), 32, 4 * L)
     assert hg.level_rows(cfg) == cached.rows
@@ -249,11 +277,21 @@ def test_cached_launch_constants_equal_fresh_ones(x_dtype, interpolation, dense)
 
 
 def test_launch_constants_refuse_configs_the_kernels_do_not_take():
-    for kw in (dict(features_per_level=3), dict(levels=33), dict(log2_hashmap_size=0),
-               dict(interpolation="Cubic")):
+    """F = 3 and 33 levels, once refused, are taken now with every F and
+    level count (1, 16, 37 levels); a log2_hashmap_size of 0, or above 31
+    (no card holds 2^32 rows), and an unknown interpolation are refused."""
+    for kw in (dict(features_per_level=3), dict(levels=33), dict(features_per_level=1),
+               dict(features_per_level=16), dict(features_per_level=5, levels=37)):
+        cfg = tenc.HashGridConfig(**{**_cfg_kw(), **kw})
+        c = hg._consts.__wrapped__(cfg, torch.float32)
+        assert (c.width, c.out_dim) == (8 * cfg.features_per_level, cfg.out_dim)
+    for kw in (dict(log2_hashmap_size=0), dict(interpolation="Cubic")):
         cfg = tenc.HashGridConfig(**{**_cfg_kw(), **kw})
         with pytest.raises(ValueError):
             hg._consts.__wrapped__(cfg, torch.float32)
+    cfg = tenc.HashGridConfig(**{**_cfg_kw(), "log2_hashmap_size": 32})
+    with pytest.raises(ValueError, match="fits on no card"):
+        hg._consts.__wrapped__(cfg, torch.float32)
 
 
 def test_table_checks_refuse_what_the_kernels_do_not_take():
@@ -283,7 +321,7 @@ def test_table_checks_refuse_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("F", [2, 4, 8, 1, 3, 16])
 def test_cotangent_tables_are_separate_aligned_blocks_of_one_allocation(F, dtype):
     nrows = (4096, 42875, 131072, 3)
     tables = hg._alloc_tables(nrows, 8 * F, dtype, "cpu")
@@ -426,19 +464,19 @@ def _card_pair(xt, tt, F, P, levels=4, seed=9):
             g.to(dev, getattr(torch, tt)))
 
 
-def _most_adds(h: torch.Tensor, real: torch.Tensor, nrows: int) -> torch.Tensor:
+def _most_adds(h: torch.Tensor, real: torch.Tensor, nrows: int, run: int = 32) -> torch.Tensor:
     """(nrows,) float: at most how many adds the cotangent kernel makes into
     each row of a level, from the points' rows h and which of them carry a
-    nonzero cotangent: one a point, but one for a warp's 32 points (32
-    aligned points, as the kernel's warps take a level) that all carry one
-    and all fall in the row (their runs end together and are summed
-    first)."""
+    nonzero cotangent: one a point, but one for ``run`` aligned points that
+    all carry one and all fall in the row: a warp's 32 where F has a kernel
+    of its own (their runs end together and are summed first), a thread's
+    8 in the general kernel."""
     h, real = h.reshape(-1).cpu(), real.reshape(-1).cpu()
     n = torch.bincount(h[real], minlength=nrows).float()
-    whole = h.numel() // 32 * 32
-    seg, seg_real = h[:whole].view(-1, 32), real[:whole].view(-1, 32)
+    whole = h.numel() // run * run
+    seg, seg_real = h[:whole].view(-1, run), real[:whole].view(-1, run)
     one_row = (seg == seg[:, :1]).all(1) & seg_real.all(1)
-    return n - 31 * torch.bincount(seg[one_row, 0], minlength=nrows).float()
+    return n - (run - 1) * torch.bincount(seg[one_row, 0], minlength=nrows).float()
 
 
 def _hold_to_plain(cfg, x, tabs, g):
@@ -457,8 +495,9 @@ def _hold_to_plain(cfg, x, tabs, g):
         assert all(not bool(t.any()) for t in got_t)
         return []
     F = cfg.features_per_level
+    run = 32 if F in hg.FEATURES else 8
     adds = [_most_adds(hg._cell_index(x, cfg, l)[0], (g[:, l * F:(l + 1) * F] != 0).any(-1),
-                       nrows[l]) for l in range(cfg.levels)]
+                       nrows[l], run) for l in range(cfg.levels)]
     if tabs[0].dtype == torch.float32:
         assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
         for a, b in zip(got_t, hg.hash_cell_bwd_tables_plain(x, g, cfg, nrows, dtypes)):
@@ -477,12 +516,12 @@ def _hold_to_plain(cfg, x, tabs, g):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("levels", [4, 3])
+@pytest.mark.parametrize("levels", [4, 3, 37])
 @pytest.mark.parametrize("P", [0, 1, 63, 65, 1000])
 @pytest.mark.parametrize("tt", ["float32", "bfloat16"])
 def test_kernels_at_ragged_and_empty_point_counts_on_card(tt, P, levels):
     """P off the block's points (64 at 4 levels a block), one point, none;
-    3 levels leave a block's level group short."""
+    3 and 37 levels leave a block's level group short."""
     _card()
     cfg, x, tabs, g = _card_pair("float32", tt, 4, P, levels=levels)
     before = hg.launch_counts()
@@ -491,18 +530,32 @@ def test_kernels_at_ragged_and_empty_point_counts_on_card(tt, P, levels):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("F", [2, 4, 8, 1, 16, 3, 5, 31])
 @pytest.mark.parametrize("xt,tt", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                    ("float32", "bfloat16"), ("bfloat16", "float32")])
 def test_every_row_width_on_card(xt, tt, F):
     """Rows of 64, 128 and 256 bytes in float32 (4, 8, 16 lanes a task; at
-    F = 8 a corner spans two lanes), 32, 64 and 128 in bfloat16."""
+    F = 8 a corner spans two lanes), 32, 64 and 128 in bfloat16; F = 1 (one
+    bf16 lane a task, 8 corners a lane) and 16 (32 f32 lanes, a corner over
+    4); and the general kernels at F = 3, 5 and 31 (a corner straddles
+    16-byte pieces, a bf16x2 pair two corners; 31 f32 rows of 992 bytes,
+    16 staged at a time)."""
     _card()
     _hold_to_plain(*_card_pair(xt, tt, F, 777))
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("F", [2, 4, 8])
+@pytest.mark.parametrize("F", [3, 16])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_many_levels_on_card(tt, F):
+    """37 levels (ten groups of 4, the last of 1), the general kernel and
+    a kernel of its own, over a few blocks of points."""
+    _card()
+    _hold_to_plain(*_card_pair("float32", tt, F, 300, levels=37))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("F", [2, 4, 8, 1, 16])
 @pytest.mark.parametrize("tt", ["float32", "bfloat16"])
 def test_a_warp_of_points_in_one_row_is_summed_first_on_card(tt, F):
     """96 neighbouring points in one level-0 cell (ray order on a coarse

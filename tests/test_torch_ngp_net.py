@@ -14,10 +14,24 @@ with ``convert``. Tolerances, with their reasons:
   operand split into two TF32 parts, the small × small product dropped) in
   its own order, cuBLAS in full f32 in another; everything else rounds as
   the plain ops do. ``test_3xtf32_products_match_plain_and_jax`` emulates
-  the split on the CPU and holds it to the same tolerance.
+  the split on the CPU and holds it to the same tolerance,
+  ``test_3xtf32_tile_order_matches_plain_and_jax`` the kernel's order too
+  (each 8-input tile's products summed, then added in input order);
+* card, the ``wide`` expert (σ trunk 256 × 8, colour 128 × 5): rtol 3e-4
+  / atol 1e-6 (``WIDE_RTOL``). Over 8 layers of 256, float32 itself drifts
+  from float64: with weights that keep the activations' scale (gain 2.45
+  over torch's init) and features ×10 or ×20, σ's pre-activation reaches
+  tens and σ = exp(z) carries z's absolute error as its relative one. On
+  the CPU, over 6 seeds of 1,024 points, plain f32 lay 3.2e-5 to 7.2e-5
+  (relative) from float64 below the clamp, the emulated kernel order
+  (``_mm_3xtf32_tiles``) 2.0e-5 to 5.2e-5, and the two up to 1.17e-4 from
+  each other: 1e-5 cannot hold, 3e-4 leaves a margin of 2.5
+  (``test_wide_tolerance_from_the_emulation_against_float64`` keeps one of
+  those draws).
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +45,7 @@ from acn_tpu.models.container import ContainerConfig as JContainerConfig
 from acn_tpu.models.encodings import HashGridConfig as JHashGridConfig
 from acn_tpu.models.ngp import NGPConfig as JNGPConfig
 from acn_tpu.nerfs import render_occ as jrocc
-from acn_tpu_torch import convert
+from acn_tpu_torch import convert, toy
 from acn_tpu_torch.models import container as tcont
 from acn_tpu_torch.models import ngp as tngp
 from acn_tpu_torch.models import nn as tnn
@@ -43,6 +57,7 @@ from acn_tpu_torch.ops import ngp_net
 from test_torch_models import SMALL_HASH
 
 RTOL, ATOL = 1e-5, 1e-6
+WIDE_RTOL = 3e-4  # the wide expert, kernel against plain f32 (module docstring)
 
 # (hidden, color_hidden, sigma_depth, color_depth, dir_encoding, sh_levels or
 # freq_pe_dim, boundary_margin): every SH level count asked for and the
@@ -68,31 +83,46 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _jexpert(hidden, color_hidden, sd, cd, enc, lv):
+def _jexpert(hidden, color_hidden, sd, cd, enc, lv, hash_kw=()):
     kw = dict(sh_levels=lv) if enc == "spherical" else dict(freq_pe_dim=lv)
     return JNGPConfig(hidden=hidden, color_hidden=color_hidden, sigma_depth=sd,
                       color_depth=cd, dir_encoding=enc,
-                      hash=JHashGridConfig(**SMALL_HASH), **kw)
+                      hash=JHashGridConfig(**{**SMALL_HASH, **dict(hash_kw)}), **kw)
 
+
+# configurations the kernel's first versions refused, each (conf as in
+# CONFIGS, K, hash overrides over SMALL_HASH): 20 experts; width 160 at
+# depth 5 (the wide path); L·F 128 (the 128 class by its input) and 256
+WIDER = {
+    "K20": ((16, 16, 2, 2, "spherical", 4, 1.1), 20, ()),
+    "w160d5": ((160, 160, 5, 5, "spherical", 4, 1.1), 4, ()),
+    "lf128": ((32, 32, 2, 2, "spherical", 4, 1.1), 4,
+              (("levels", 16), ("features_per_level", 8))),
+    "lf256": ((32, 32, 2, 2, "spherical", 4, 1.1), 4,
+              (("levels", 16), ("features_per_level", 16))),
+}
 
 _SCENES = {}
 
 
-def _scene(conf, K=4, seed=0):
+def _scene(conf, K=4, seed=0, hash_kw=()):
     """K experts in both packages with one set of weights: (jcfg, jvars,
     tcfg, model on the CPU). The port's init (torch's Linear init, hash
     tables ×100 so that the features, not the biases, set the outputs)
-    carried to JAX with ``convert.to_jax_variables``."""
-    key = (conf, K, seed)
+    carried to JAX with ``convert.to_jax_variables``. Up to 4 experts take
+    the quadrants, more ``toy.expert_layout``'s grid."""
+    key = (conf, K, seed, hash_kw)
     if key not in _SCENES:
         *expert, margin = conf
         jcfg = JContainerConfig(num_submodules=K, boundary_margin=margin, cluster_2d=True,
-                                use_bg_nerf=False, expert=_jexpert(*expert))
+                                use_bg_nerf=False, expert=_jexpert(*expert, hash_kw))
         boxes = np.asarray([[[-1.0, -1.0 if iy < 0 else -0.1, -1.0 if iz < 0 else -0.1],
                              [1.0, 0.1 if iy < 0 else 1.0, 0.1 if iz < 0 else 1.0]]
                             for iy in (-1, 1) for iz in (-1, 1)][:K], np.float32)
         cents = np.asarray([[0.0, 0.5 * iy, 0.5 * iz] for iy in (-1, 1)
                             for iz in (-1, 1)][:K], np.float32)
+        if K > 4:
+            boxes, cents = toy.expert_layout(K)
         gaabb = np.array([[-1, -1, -1], [1, 1, 1]], np.float32)
         tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
         model = tcont.init_container(tcfg, *map(torch.from_numpy, (cents, boxes, gaabb)),
@@ -118,12 +148,12 @@ def _np(t):
 _JAX_WANT = {}
 
 
-def _jax_want(conf, mode, k=2):
+def _jax_want(conf, mode, k=2, K=4, hash_kw=()):
     """acn_tpu's function in ``mode`` on ``_xd()`` (cached: the tests of
     the plain version and of the 3xTF32 emulation share it)."""
-    key = (conf, mode, k)
+    key = (conf, mode, k, K, hash_kw)
     if key not in _JAX_WANT:
-        jcfg, jvars, _, _ = _scene(conf)
+        jcfg, jvars, _, _ = _scene(conf, K, hash_kw=hash_kw)
         xd = _xd()
         jv = jax.tree.map(jnp.asarray, jvars)
         jp = jax.tree.map(lambda a: a[k], jv["params"]["experts"])
@@ -144,10 +174,10 @@ def _jax_want(conf, mode, k=2):
     return _JAX_WANT[key]
 
 
-def _port_outputs(conf, mode, k=2, entry=True):
+def _port_outputs(conf, mode, k=2, entry=True, K=4, hash_kw=()):
     """``ngp_net_plain`` in ``mode`` on ``_xd()`` and, with ``entry``, the
     port's entry point that takes it under ``torch.no_grad``."""
-    _, _, tcfg, model = _scene(conf)
+    _, _, tcfg, model = _scene(conf, K, hash_kw=hash_kw)
     xt = torch.from_numpy(_xd())
     ecfg = tcfg.expert
     with torch.no_grad():
@@ -188,6 +218,17 @@ def test_plain_matches_jax(conf, mode):
         np.testing.assert_allclose(_np(g), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", list(WIDER))
+def test_plain_matches_jax_at_wider_configs(name, mode):
+    """The same at 20 experts, width 160 at depth 5, and L·F 128 and 256."""
+    conf, K, hash_kw = WIDER[name]
+    want = _jax_want(conf, mode, K=K, hash_kw=hash_kw)
+    for g in _port_outputs(conf, mode, K=K, hash_kw=hash_kw):
+        assert g.shape == want.shape
+        np.testing.assert_allclose(_np(g), want, rtol=RTOL, atol=ATOL)
+
+
 # ---------------------------------------------------------------- 3xTF32
 
 
@@ -210,8 +251,25 @@ def _mm_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (xs.to(d) @ wb.to(d) + xb.to(d) @ ws.to(d) + xb.to(d) @ wb.to(d)).to(x.dtype)
 
 
-def _linear_3xtf32(p, x: torch.Tensor) -> torch.Tensor:
-    y = _mm_3xtf32(x, p["w"].to(x.dtype))  # the bias after the sum, as (x @ w) + b
+def _mm_3xtf32_tiles(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_mm_3xtf32`` in the kernel's order, every width class and the
+    wide path alike: each input tile of 8 gives a partial, its 24 TF32
+    products summed exactly and rounded once (the mma's own accumulation is
+    not round to nearest: an approximation of its bits), and the partials
+    are added to a float32 sum from 0 in input order, one rounded add each."""
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    d = torch.float64
+    acc = torch.zeros((*x.shape[:-1], w.shape[1]), dtype=x.dtype)
+    for k0 in range(0, x.shape[-1], 8):
+        k = slice(k0, k0 + 8)
+        acc = acc + (xs[..., k].to(d) @ wb[k].to(d) + xb[..., k].to(d) @ ws[k].to(d)
+                     + xb[..., k].to(d) @ wb[k].to(d)).to(x.dtype)
+    return acc
+
+
+def _linear_3xtf32(p, x: torch.Tensor, mm=_mm_3xtf32) -> torch.Tensor:
+    y = mm(x, p["w"].to(x.dtype))  # the bias after the sum, as (x @ w) + b
     return y + p["b"].to(x.dtype) if "b" in p else y
 
 
@@ -230,6 +288,61 @@ def test_3xtf32_products_match_plain_and_jax(conf, monkeypatch):
         assert emu.shape == want.shape and np.isfinite(emu).all()
         np.testing.assert_allclose(emu, _np(plain[mode]), rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(emu, want, rtol=RTOL, atol=ATOL)
+
+
+TILE_CASES = {**{"-".join(map(str, c)): (c, 4, ()) for c in CONFIGS}, **WIDER}
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_3xtf32_tile_order_matches_plain_and_jax(name, monkeypatch):
+    """The network with every layer product as ``_mm_3xtf32_tiles`` (the
+    split and the kernel's order of sums, in the width classes and on the
+    wide path), in every mode, against the plain f32 network and against
+    acn_tpu's functions, within the f32 tolerances."""
+    conf, K, hash_kw = TILE_CASES[name]
+    kw = dict(K=K, hash_kw=hash_kw)
+    plain = {mode: _port_outputs(conf, mode, entry=False, **kw)[0] for mode in MODES}
+    monkeypatch.setattr(tnn, "apply_linear",
+                        lambda p, x: _linear_3xtf32(p, x, mm=_mm_3xtf32_tiles))
+    for mode in MODES:
+        emu = _np(_port_outputs(conf, mode, entry=False, **kw)[0])
+        want = _jax_want(conf, mode, **kw)
+        assert emu.shape == want.shape and np.isfinite(emu).all()
+        np.testing.assert_allclose(emu, _np(plain[mode]), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(emu, want, rtol=RTOL, atol=ATOL)
+
+
+def _wide_cfg():
+    """The ``wide`` expert of ``toy.FLAG_SETS`` over the smoke's."""
+    return toy.flag_config(toy.train_occ_config()[0], **toy.FLAG_SETS["wide"]).expert
+
+
+def test_wide_tolerance_from_the_emulation_against_float64():
+    """``WIDE_RTOL``'s derivation (module docstring): the ``wide`` expert
+    with weights ×2.45 over torch's init (the activations keep their
+    scale) and features N(0, 10²), 4 experts, 256 points. Plain f32 and the
+    emulated kernel order each lie about as far from float64 (both above
+    1e-5, below 1e-4, relative, in σ); their distance exceeds the default
+    tolerance and stays within half of ``WIDE_RTOL``."""
+    cfg = _wide_cfg()
+    experts, h, d, w = _net_inputs(cfg, 4, 256, 16, "cpu", gain=2.45, feature_scale=10.0)
+    T = lambda o: o if isinstance(o, tuple) else (o,)
+    rel = lambda a, b: max(float(((x.double() - y.double()).abs()
+                                  / (y.double().abs() + 1e-6)).max()) for x, y in zip(T(a), T(b)))
+    plain = ngp_net.ngp_net_plain("sigma_blend", h, d, w, experts, cfg)
+    f64 = ngp_net.ngp_net_plain("sigma_blend", h.double(), d.double(), w.double(),
+                                [tnn.tree_map(lambda t: t.double(), e) for e in experts], cfg)
+    real = tnn.apply_linear
+    try:
+        tnn.apply_linear = lambda p, x: _linear_3xtf32(p, x, mm=_mm_3xtf32_tiles)
+        emu = ngp_net.ngp_net_plain("sigma_blend", h, d, w, experts, cfg)
+    finally:
+        tnn.apply_linear = real
+    plain_err, emu_err, apart = rel(plain, f64), rel(emu, f64), rel(emu, plain)
+    assert 1e-5 < plain_err < 1e-4 and 1e-5 < emu_err < 1e-4, (plain_err, emu_err)
+    assert RTOL < apart <= WIDE_RTOL / 2, apart
+    for x, y in zip(T(emu), T(plain)):
+        torch.testing.assert_close(x, y, rtol=WIDE_RTOL, atol=ATOL)
 
 
 def test_tf32_rounding_on_chosen_bit_patterns():
@@ -290,6 +403,11 @@ def _ngp_cfg(**over):
     return NGPConfig(**kw)
 
 
+# the refusals of the kernel's first versions that no longer stand: every
+# width, depth, L·F, frequency band count and expert count from 1 is taken
+TAKEN_NOW = {"hidden 129", "color_depth 5", "L·F 68", "freq_pe_dim 8", "17 experts"}
+
+
 @pytest.mark.parametrize("over,K,word", [
     (dict(hidden=129), 1, "hidden 129"),
     (dict(color_hidden=0), 1, "color_hidden 0"),
@@ -303,7 +421,14 @@ def _ngp_cfg(**over):
     ({}, 17, "17 experts"),
 ])
 def test_config_checks_refuse_what_the_kernel_does_not_take(over, K, word):
-    with pytest.raises(ValueError, match="it takes hidden and color_hidden") as e:
+    """What no parser flag reaches is refused, naming the supported set (a
+    width or depth of 0, geo_feat_dim 16, SH levels 6, an unknown
+    encoding); what the first versions refused beyond that (``TAKEN_NOW``)
+    is taken."""
+    if word in TAKEN_NOW:
+        ngp_net.check_config(_ngp_cfg(**over), K)
+        return
+    with pytest.raises(ValueError, match="it takes every width, depth") as e:
         ngp_net.check_config(_ngp_cfg(**over), K)
     assert word in str(e.value)
 
@@ -312,8 +437,81 @@ def test_config_checks_take_the_smoke_and_the_limits():
     for cfg, K in [(_ngp_cfg(), 4), (_ngp_cfg(hidden=128, color_hidden=1, sigma_depth=4,
                                               color_depth=1, sh_levels=5), 16),
                    (_ngp_cfg(dir_encoding="frequency", freq_pe_dim=7,
-                             hash=HashGridConfig(levels=32, features_per_level=2)), 1)]:
+                             hash=HashGridConfig(levels=32, features_per_level=2)), 1),
+                   (_ngp_cfg(hidden=160, color_hidden=160, sigma_depth=5, color_depth=5), 20),
+                   (_ngp_cfg(hash=HashGridConfig(levels=32, features_per_level=8)), 3)]:
         ngp_net.check_config(cfg, K)
+
+
+@pytest.mark.parametrize("name", ["k25", "l16f8", "l40f3", "f1", "wide", "K20", "w160d5",
+                                  "lf256", "F1", "F3", "F16", "L37"])
+def test_every_parser_config_is_taken_by_the_kernels(name):
+    """The configurations of ``toy.FLAG_SETS`` (chip_smoke.py phase 16) and
+    of these tests (20 experts, width 160 at depth 5, L·F 256, F = 1, 3, 16,
+    37 levels), built from parser flags by ``runner.build_model_configs``
+    (which ``toy.flag_config`` matches): neither the network's
+    ``check_config`` nor the hash kernels' constants refuse them. Which
+    path the network takes: the wide one exactly above 128."""
+    from acn_tpu_torch import runner
+    from acn_tpu_torch.ops import hashgrid as hg
+
+    flags = {**toy.FLAG_SETS, "K20": {"num_submodules": 20},
+             "w160d5": {"dim_hidden": 160, "color_hidden": 160, "sigma_depth": 5,
+                        "color_depth": 5},
+             "lf256": {"hash_levels": 16, "hash_features": 16},
+             "F1": {"hash_features": 1}, "F3": {"hash_features": 3},
+             "F16": {"hash_features": 16}, "L37": {"hash_levels": 37}}[name]
+    cfg0, P, _ = toy.train_occ_config()
+    cfg = toy.flag_config(cfg0, **flags)
+    args = dict(num_submodules=4, dim_hidden=64, sigma_depth=2, color_hidden=64,
+                color_depth=2, hash_levels=8, hash_features=4, log2_hashmap_size=20,
+                max_res=4096, hash_dense_levels=True, nerf_variant="instant",
+                dir_encoding="spherical", bm=1.05, no_bg_nerf=False, bg_hidden=32,
+                bg_encoding=cfg0.bg_encoding)
+    built = runner.build_model_configs(
+        types.SimpleNamespace(**{**args, **flags}),
+        {"boundary_margin": 1.05, "cluster_2d": True})
+    assert built == cfg
+    ngp_net.check_config(cfg.expert, cfg.num_submodules)
+    for dt in (torch.float32, torch.bfloat16):
+        c = hg._consts.__wrapped__(cfg.expert.hash, dt)
+        assert c.out_dim == cfg.expert.hash.out_dim
+    widths = [cfg.expert.hidden, cfg.expert.color_hidden, cfg.expert.hash.out_dim,
+              1 + ngp_net.GEO + cfg.expert.dir_enc_dim]
+    assert ngp_net.wide(cfg.expert, "sigma_blend") == (max(widths) > 128)
+
+
+def _small_container(K):
+    """The smoke's container config with K experts at micro widths (its
+    tables would take 427 MB at full size)."""
+    cfg = toy.train_occ_config()[0]
+    e = cfg.expert
+    e = dataclasses.replace(e, hidden=8, color_hidden=8, hash=dataclasses.replace(
+        e.hash, levels=2, log2_hashmap_size=6, max_res=32))
+    return dataclasses.replace(cfg, num_submodules=K, expert=e)
+
+
+def test_serving_model_keeps_the_quadrants_and_takes_any_expert_count():
+    """``toy.serving_model`` at K = 4 gives the bits it gave over
+    ``quadrant_layout`` (its weights, boxes and centroids); at K = 25 it
+    builds over ``expert_layout``'s 5 × 5 grid, whose boxes cover the scene
+    and hold their centroids."""
+    cfg = _small_container(4)
+    boxes, cents = toy.quadrant_layout(4)
+    want = tcont.init_container(cfg, torch.from_numpy(cents), torch.from_numpy(boxes),
+                                torch.from_numpy(toy.SCENE_AABB),
+                                generator=torch.Generator().manual_seed(3))
+    got = toy.serving_model(cfg, seed=3, device="cpu")
+    a, b = got.state_dict(), want.state_dict()
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    boxes, cents = toy.expert_layout(25)
+    assert boxes.shape == (25, 2, 3) and cents.shape == (25, 3)
+    assert (boxes[:, 0] <= cents).all() and (cents <= boxes[:, 1]).all()
+    assert (boxes[:, 0] >= -1).all() and (boxes[:, 1] <= 1).all()
+    assert sorted(set(boxes[:, 0, 1].round(6))) == sorted(set((boxes[:, 0, 2]).round(6)))
+    model = toy.serving_model(_small_container(25), seed=0, device="cpu")
+    assert model.expert_aabbs.shape == (25, 2, 3)
+    torch.testing.assert_close(model.expert_aabbs, torch.from_numpy(boxes))
 
 
 def test_kernel_refuses_cpu_tensors_and_unknown_modes():
@@ -417,10 +615,12 @@ def _card():
     return "cuda"
 
 
-def _net_inputs(cfg, K, P, seed, dev, sigma_shift=0.0, margin=1.1):
-    """K experts' layer weights (torch's Linear init), hash features of the
-    init's scale ×1e3, directions with zero rows, routing weights of random
-    points (one-hot at margin 1): all on ``dev``."""
+def _net_inputs(cfg, K, P, seed, dev, sigma_shift=0.0, margin=1.1, gain=1.0,
+                feature_scale=1.0):
+    """K experts' layer weights (torch's Linear init, then ×``gain``),
+    hash features N(0, ``feature_scale``²), directions with zero rows,
+    routing weights of random points (one-hot at margin 1): all on
+    ``dev``."""
     gen = torch.Generator().manual_seed(seed)
     experts = []
     for _ in range(K):
@@ -432,10 +632,10 @@ def _net_inputs(cfg, K, P, seed, dev, sigma_shift=0.0, margin=1.1):
                                        + [cfg.color_hidden] * cfg.color_depth + [3],
                                        generator=gen)}
         p["sigma_head"]["b"] = p["sigma_head"]["b"] - 1.0 + sigma_shift
-        experts.append(tnn.tree_map(lambda t: t.to(dev), p))
+        experts.append(tnn.tree_map(lambda t: (t * gain).to(dev), p))
     rng = np.random.default_rng(seed)
     L = cfg.hash.out_dim
-    h = torch.from_numpy(rng.normal(size=(K, P, L)).astype(np.float32)).to(dev)
+    h = torch.from_numpy((feature_scale * rng.normal(size=(K, P, L))).astype(np.float32)).to(dev)
     d = torch.from_numpy(rng.normal(size=(P, 6)).astype(np.float32)).to(dev)
     d[::7, 3:6] = 0.0
     cents = torch.from_numpy(rng.uniform(-1, 1, (K, 3)).astype(np.float32)).to(dev)
@@ -444,14 +644,14 @@ def _net_inputs(cfg, K, P, seed, dev, sigma_shift=0.0, margin=1.1):
     return experts, h, d[:, 3:6], w
 
 
-def _close(got, want):
+def _close(got, want, rtol=RTOL):
     for g, t in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.shape == t.shape
-        torch.testing.assert_close(g, t, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(g, t, rtol=rtol, atol=ATOL)
 
 
-def _run_modes(cfg, K, P, seed, **kw):
+def _run_modes(cfg, K, P, seed, rtol=RTOL, **kw):
     dev = _card()
     experts, h, d, w = _net_inputs(cfg, K, P, seed, dev, **kw)
     before = ngp_net.launch_counts()
@@ -462,7 +662,7 @@ def _run_modes(cfg, K, P, seed, **kw):
     for mode, hh, dd, ww, ee in calls:
         got = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
         torch.cuda.synchronize()
-        _close(got, ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg))
+        _close(got, ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg), rtol)
     assert ngp_net.launch_counts() - before == (len(calls) if P else 0)
 
 
@@ -551,36 +751,66 @@ def test_kernel_takes_one_hot_weights_in_random_order_on_card():
 
 
 SLAB_MAX, SLAB_MIN = 1024, 256  # kSlabMax, kSlabMin of csrc/ngp_net.cu
+WIDE_SLAB_MAX = 4096  # kWideSlabMax
+SLICE_LAND, SLICE_SPLIT = 8 * 8 * 68 + 64, 128 * 8 * 8 + 64  # the wide path's slice
+
+
+def _width_class(cfg, mode):
+    """csrc/ngp_net.cu's ``width_class``: 64 or 128 where every width the
+    network carries fits, else 0 (the wide path)."""
+    widths = [cfg.hidden, cfg.hash.out_dim]
+    if mode != "density":
+        widths += [cfg.color_hidden, 1 + ngp_net.GEO + cfg.dir_enc_dim]
+    return 64 if max(widths) <= 64 else 128 if max(widths) <= 128 else 0
+
+
+def _shapes(cfg, mode, W):
+    """``layer_shapes``: (kt, nt) of each staged layer at width class W."""
+    tiles = lambda n: (n + 7) // 8
+    hid = W // 8 if W else tiles(cfg.hidden)
+    col = W // 8 if W else tiles(cfg.color_hidden)
+    shapes = [(tiles(cfg.hash.out_dim if l == 0 else cfg.hidden), hid)
+              for l in range(cfg.sigma_depth)] + [(tiles(cfg.hidden), tiles(1 + ngp_net.GEO))]
+    if mode != "density":
+        shapes += ([(tiles(1 + ngp_net.GEO + cfg.dir_enc_dim), col)]
+                   + [(tiles(cfg.color_hidden), col)] * (cfg.color_depth - 1)
+                   + [(tiles(cfg.color_hidden), 1)])
+    return shapes
 
 
 def _slab(cfg, mode, P, smem, sms):
     """The points a slab that ``plan()`` in csrc/ngp_net.cu takes for this
     net, mode and P on a card of ``smem`` bytes of shared memory a block and
-    ``sms`` SMs: the weights' staged images (f32 landing and split), then
-    as many points as fit beside them, fewer where the call has less than a
-    full slab an SM. Its arithmetic, step for step."""
+    ``sms`` SMs: the layers' shapes, the expert's pointer table and the
+    weights' staged images (f32 landing and split; on the wide path one
+    slice), then as many points as
+    fit beside them, fewer where the call has less than a full slab an SM.
+    Its arithmetic, step for step."""
     tiles = lambda n: (n + 7) // 8
-    nt = (64 if max(cfg.hidden, cfg.color_hidden) <= 64 else 128) // 8
-    density = mode == "density"
-    shapes = [(tiles(cfg.hash.out_dim if l == 0 else cfg.hidden), nt)
-              for l in range(cfg.sigma_depth)] + [(tiles(cfg.hidden), tiles(1 + ngp_net.GEO))]
-    if not density:
-        shapes += ([(tiles(1 + ngp_net.GEO + cfg.dir_enc_dim), nt)]
-                   + [(tiles(cfg.color_hidden), nt)] * (cfg.color_depth - 1)
-                   + [(tiles(cfg.color_hidden), 1)])
+    W = _width_class(cfg, mode)
+    shapes = _shapes(cfg, mode, W)
     land = [8 * kt * (8 * n + 4) + 8 * n for kt, n in shapes]
     split = [128 * kt * n + 8 * n for kt, n in shapes]
-    enc = 0 if density else 8 * tiles(1 + ngp_net.GEO + cfg.dir_enc_dim) - 16 + 2
+    enc = 0 if mode == "density" else 8 * tiles(1 + ngp_net.GEO + cfg.dir_enc_dim) - 16 + 2
     per_point = 4 * (enc + 4) + 3
+    # the shapes, then the staged expert's (w, b) pointers (16 bytes a slot)
+    shape_floats = (5 * len(shapes) + 3) // 4 * 4 + 4 * (cfg.sigma_depth + cfg.color_depth + 3)
 
     def beside(floats):
-        if 4 * floats + 32 * per_point > smem:
+        wbytes = 4 * (floats + shape_floats)
+        if wbytes + 32 * per_point > smem:
             return 0
-        return min((smem - 4 * floats) // per_point // 32 * 32, SLAB_MAX)
+        return min((smem - wbytes) // per_point // 32 * 32, WIDE_SLAB_MAX if W == 0 else SLAB_MAX)
 
-    S = beside(sum(land) + sum(split))
-    if S < SLAB_MIN and beside(max(land) + max(split)) > S:
-        S = beside(max(land) + max(split))
+    if W == 0:
+        S = beside(SLICE_LAND + SLICE_SPLIT)
+        if S:  # whole rounds of slabs over one block an SM
+            rounds = -(-P // (S * sms))
+            S = min(S, (-(-P // (rounds * sms)) + 31) // 32 * 32)
+    else:
+        S = beside(sum(land) + sum(split))
+        if S < SLAB_MIN and beside(max(land) + max(split)) > S:
+            S = beside(max(land) + max(split))
     fill = (-(-P // sms) + 31) // 32 * 32
     return min(S, max(SLAB_MIN, fill))
 
@@ -650,6 +880,93 @@ def test_kernel_is_deterministic_on_card():
     dev = _card()
     cfg = _ngp_cfg()
     experts, h, d, w = _net_inputs(cfg, 4, 50_000, 10, dev)
+    for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts) + [
+            ("single", h[:1], d, None, experts[:1])]:
+        a = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        b = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y), mode
+
+
+# every expert configuration: more experts, wider and deeper networks, wider
+# inputs; the wide path (above 128) at its tile, pass and slab edges
+
+
+def _wider_card_cfg(name):
+    """(expert config, K, rtol) of a card case: 20 and 25 experts, depth 6
+    at 128 (the class streams it), L·F 128 (the 128 class by its input), and
+    on the wide path width 160 at depth 5, L·F 256, 20 frequency bands (a
+    colour input of 139) and the ``wide`` expert at its own tolerance."""
+    return {
+        "K20": (_ngp_cfg(), 20, RTOL),
+        "K25": (_ngp_cfg(hidden=32, color_hidden=32), 25, RTOL),
+        "depth6_128": (_ngp_cfg(hidden=128, color_hidden=96, sigma_depth=6, color_depth=6), 3,
+                       RTOL),
+        "lf128": (_ngp_cfg(hash=HashGridConfig(levels=16, features_per_level=8)), 4, RTOL),
+        "w160d5": (_ngp_cfg(hidden=160, color_hidden=160, sigma_depth=5, color_depth=5), 4,
+                   RTOL),
+        "lf256": (_ngp_cfg(hash=HashGridConfig(levels=16, features_per_level=16)), 3, RTOL),
+        "freq20": (_ngp_cfg(dir_encoding="frequency", freq_pe_dim=20), 2, RTOL),
+        "wide": (_wide_cfg(), 4, WIDE_RTOL),
+    }[name]
+
+
+WIDER_CARD = ["K20", "K25", "depth6_128", "lf128", "w160d5", "lf256", "freq20", "wide"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [1, 1_000, 70_000])
+@pytest.mark.parametrize("name", WIDER_CARD)
+def test_kernel_matches_plain_at_every_expert_configuration_on_card(name, P):
+    cfg, K, rtol = _wider_card_cfg(name)
+    _run_modes(cfg, K, P, seed=P + K, rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+def test_wide_kernel_matches_plain_where_float32_drifts_on_card():
+    """The ``wide`` expert with the weights and features of
+    ``test_wide_tolerance_from_the_emulation_against_float64`` (σ in the
+    tens of its exponent), within ``WIDE_RTOL``."""
+    _run_modes(_wide_cfg(), 4, 5_000, seed=16, rtol=WIDE_RTOL, gain=2.45, feature_scale=10.0)
+
+
+WIDE_EDGES = ["1", "15", "17", "pass+1", "min_slab+1", "full_slabs+1"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("edge", WIDE_EDGES)
+def test_wide_path_at_tile_pass_and_slab_edges_on_card(edge):
+    """The wide path (width 160) at a partial tile, one point past a pass of
+    16 tiles (256 points), two slabs of the least size, and one point past
+    a full slab on every SM, each mode at its own slab as ``plan()`` sizes
+    it."""
+    dev = _card()
+    cfg = _ngp_cfg(hidden=160, color_hidden=136, sigma_depth=3, color_depth=3)
+    props = torch.cuda.get_device_properties(dev)
+    smem, sms = props.shared_memory_per_block_optin, props.multi_processor_count
+    for mode, blend in (("single", False), ("density", False), ("sigma_blend", True),
+                        ("linear_blend", True), ("density", True)):
+        assert _width_class(cfg, mode) == 0
+        full = _slab(cfg, mode, 1 << 40, smem, sms)
+        P = {"1": 1, "15": 15, "17": 17, "pass+1": 257, "min_slab+1": SLAB_MIN + 1,
+             "full_slabs+1": full * sms + 1}[edge]
+        experts, h, d, w = _net_inputs(cfg, 4 if blend else 1, P, 30 + WIDE_EDGES.index(edge),
+                                       dev, margin=1.05)
+        args = (h, None if mode == "density" else d, w if blend else None, experts)
+        _close(ngp_net.ngp_net_kernel(mode, *args, cfg), ngp_net.ngp_net_plain(mode, *args, cfg))
+
+
+@pytest.mark.requires_cuda
+def test_wide_path_is_deterministic_and_sizes_its_scratch_on_card():
+    """Two launches of the wide path give the same bits; its scratch is two
+    buffers of 16 tiles × the widest layer's tiles × 32 lanes × 16 bytes a
+    block, a block an SM at most."""
+    dev = _card()
+    cfg = _ngp_cfg(hidden=256, color_hidden=128, sigma_depth=3, color_depth=2)
+    experts, h, d, w = _net_inputs(cfg, 4, 50_000, 40, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ngp_net.scratch_bytes("sigma_blend", cfg, 4, 50_000) <= sms * 2 * 16 * 32 * 32 * 16
+    assert ngp_net.scratch_bytes("sigma_blend", _ngp_cfg(), 4, 50_000) == 0
     for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts) + [
             ("single", h[:1], d, None, experts[:1])]:
         a = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
