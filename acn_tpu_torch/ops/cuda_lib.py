@@ -1,17 +1,18 @@
 """Build and load the port's CUDA kernel libraries.
 
-Each source in ``csrc/`` (``SOURCES``: ``segscan.cu``, ``hashgrid.cu``,
-``ngp_net.cu``) is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with a
-plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). A library is built at first use into
-``acn_tpu_torch/_build/`` (listed in ``.gitignore``), named by its source's
-name and a hash of the source and its flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. ptxas's report (registers, shared
+Each library of ``SOURCES`` is compiled by ``nvcc`` for ``sm_90a`` from its
+sources in ``csrc/`` into a shared object with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds): ``segscan``
+holds the segmented passes over the packed sample buffer (``segscan.cu``,
+the scan, and ``composite.cu``, the composite, which scans the
+transmittance itself), ``hashgrid`` and ``ngp_net`` one source each. A
+library is built at first use into ``acn_tpu_torch/_build/`` (listed in
+``.gitignore``), named by the library and a hash of its sources and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is. ptxas's report (registers, shared
 memory, spills) is kept beside the library as ``<lib>.log``. ``defines``
 (``-D`` macros: the scan's tile extents) builds a variant beside the default
 library; only ``scripts/bench_segscan.py`` asks for one, to choose the tile
-by measurement. ``build_all`` starts one ``nvcc`` per source at once.
+by measurement. ``build_all`` starts one ``nvcc`` per library at once.
 
 What a launch needs beyond its scalars lives on the card: ``to_device``
 copies a small host table there from pinned memory on the current stream
@@ -37,7 +38,9 @@ from typing import Dict, Sequence
 import torch
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = {name: PKG / "csrc" / f"{name}.cu" for name in ("segscan", "hashgrid", "ngp_net")}
+CSRC = PKG / "csrc"
+SOURCES = {"segscan": (CSRC / "segscan.cu", CSRC / "composite.cu"),
+           "hashgrid": (CSRC / "hashgrid.cu",), "ngp_net": (CSRC / "ngp_net.cu",)}
 BUILD_DIR = PKG / "_build"
 
 NVCC_FLAGS = [
@@ -61,7 +64,7 @@ def _flags(defines: Sequence[str]) -> list:
 
 
 def library_path(defines: Sequence[str] = (), source: str = "segscan") -> Path:
-    digest = hashlib.sha256(SOURCES[source].read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES[source])
                             + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{source}-{digest.hexdigest()[:12]}.so"
 
@@ -75,7 +78,7 @@ def _start(defines: Sequence[str], source: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     proc = subprocess.Popen(
-        [_nvcc(), *_flags(defines), "-o", str(tmp), str(SOURCES[source])],
+        [_nvcc(), *_flags(defines), "-o", str(tmp), *map(str, SOURCES[source])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
 

@@ -11,8 +11,8 @@ Phases, each printing one JSON line and each fatal on failure:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the CUDA kernel libraries from the sources in ``acn_tpu_torch/csrc``
-   (``segscan.cu``, ``hashgrid.cu``, ``ngp_net.cu``: one ``nvcc`` each,
-   started together);
+   (``segscan.cu`` with ``composite.cu``, ``hashgrid.cu``, ``ngp_net.cu``:
+   one ``nvcc`` a library, started together);
 2. kernel: each kernel against its plain PyTorch version on the card, on
    edge cases and at the serving shape, forward, backward through autograd
    and the reverse kernel directly, on an unaligned view, on two streams at
@@ -23,11 +23,12 @@ Phases, each printing one JSON line and each fatal on failure:
    one's backward, 2 + 1 launches, against the plain versions;
 3. main path: full 1080×1920 frames of the ``configs/train_occ.json`` model
    (random weights from a seed) through ``Renderer.render_image``, with the
-   kernel's launch count held to chunks × frames and the host's waits for
-   the card in one frame (PyTorch's sync debug mode) held below one per
-   chunk;
-4. main path vs CPU: ``render_rays`` on the card (kernel) against
-   ``render_rays`` on the CPU (plain scan) on 2,048 rays of that frame, at
+   composite kernel's launch count held to chunks × frames (neither scan
+   kernel runs: the composite scans the transmittance itself) and the
+   host's waits for the card in one frame (PyTorch's sync debug mode) held
+   below one per chunk;
+4. main path vs CPU: ``render_rays`` on the card (kernels) against
+   ``render_rays`` on the CPU (plain versions) on 2,048 rays of that frame, at
    the config's alpha threshold and at alpha threshold 0 with the σ-head
    bias raised to +2 (so the scan sees opaque samples);
 5. train step: four FoMAML meta-training steps (one warm, three timed) of
@@ -90,9 +91,9 @@ Phases, each printing one JSON line and each fatal on failure:
    then packed-budget after the switch, every budget step launching 108 +
    108 scans and no other step any, and ``last`` and ``step4`` carry grids
    and optimizer; (c) ``--op eval --configPath configs/eval.json --prefix
-   last --tto 0,2,0 --test_batch_size 4`` on that run: the forward scan
+   last --tto 0,2,0 --test_batch_size 4`` on that run: the composite kernel
    launched once per chunk of every frame (chunks × 8 views × 3 settings)
-   and the reverse never, PSNR and SSIM finite with SSIM in [-1, 1], the
+   and the scan never, PSNR and SSIM finite with SSIM in [-1, 1], the
    TTO losses finite, and the two ``tto=0`` legs' scores bit-equal (the base
    weights are restored between settings); (d) card against CPU: one
    float32 TTO step of ``last`` on 1,024 rays with injected draws (loss,
@@ -102,28 +103,30 @@ Phases, each printing one JSON line and each fatal on failure:
    phase 3's model and grids (σ-head bias +2, as phase 4 leaves it) and
    phase 8's run (its directory removed at the end): (a) 1080p routed frames (``render_image_routed``, the 4
    quadrant experts' rects): one warm, two timed, one downloaded, the
-   forward scan launched once per dispatched chunk and the reverse never;
+   composite kernel launched once per dispatched chunk and the scan never;
    with every expert set to expert 0's weights, box and grid, the routed
    frame equals the dense ``render_image`` one within 0.02 in rgb and acc
    (the tolerances of ``tests/test_renderer_routed.py:50-68``); a 64 × 96
    routed frame on the card against the CPU (u8 rgb within 1/255, f16
    depth/acc rtol 1e-3); (b) ``render_image(active_module=k)`` per expert
-   at budget 32 (a scan per chunk), budget 0 (none) and with
+   at budget 32 (a composite launch per chunk), budget 0 (none) and with
    ``occ_render_s_coarse`` 32, and the range pre-pass's mean kept share of
    each ray; (c) ``--op bake`` of phase 8's ``last`` at ``--bake_resolution
    256`` (the flag's default 512 cut for time), timed; ``load_baked`` gives
    back the table and grid bit for bit; ``bake_field`` at 24³ (chunk 24³)
    with SH 0 and SH 1 on the card against the CPU, f32 atol 1e-5 / rtol
    1e-5; (d) 1080p ``BakedRenderer`` frames at budget 24, with the range
-   pre-pass of 32 bins, and at budget 0 (a scan per chunk, none at 0); a
+   pre-pass of 32 bins, and at budget 0 (a composite launch per chunk, none
+   at 0, no scan); a
    64 × 96 baked frame on the card against the CPU; (e) ``--op eval
    --baked_asset --tto 0,2``: finite PSNR and SSIM, the ``tto=2`` leg
    rendered without adaptation (``acn_tpu``'s log line) and scored as
-   ``tto=0`` within 1e-3 dB and 1e-4 SSIM per view (atomic sums may move a
-   pixel by one u8 step between two renders), scans as the merged
-   ``occ_budget_per_ray`` says; (f) ``--op
+   ``tto=0`` within 1e-3 dB and 1e-4 SSIM per view, the difference printed
+   (expected 0: the composite kernel sums in one fixed order, where the
+   ``index_add_`` before it added with atomics), composite launches as the
+   merged ``occ_budget_per_ray`` says; (f) ``--op
    video --video_frames 8``, live and baked: a file of 8 frames, the
-   encoder named, a scan per chunk per frame on budget paths;
+   encoder named, a composite launch per chunk per frame on budget paths;
 10. M9 at ``configs/train_occ.json``'s width (K 4, T 3, S 1,024, Q 512, 8
    inner steps, bf16, budget 32) on phase 3's model and grids, draws from a
    seeded generator: (a) second-order MAML, a warm and two timed steps,
@@ -131,7 +134,9 @@ Phases, each printing one JSON line and each fatal on failure:
    204 reverse (108 would mean the double backward never ran), every group
    moved, the peak memory; one float32 episode (inner 2, 256 rays) on the
    card against the CPU, and its gradient farther from FoMAML's than from
-   the CPU's; (b) Reptile: 108 + 96 launches, the optimizer untouched,
+   the CPU's; (b) Reptile: 96 + 96 scans and K·T = 12 composite launches
+   (its query losses are not differentiated, so the composite kernel
+   takes them), the optimizer untouched,
    expert 0 moved by P.lr·mean(fast − θ) against a recomputation with the
    same salts, within a limit that two planted faults (Σ not divided by T,
    the last task alone) exceed; (c) FoMAML with ``--fim``: 108 + 108, the Fisher state of an
@@ -152,7 +157,8 @@ Phases, each printing one JSON line and each fatal on failure:
    ``MESH_LOSS_FLOOR``), per parameter group, in loss and in gradient
    norm, and two planted faults (draws keyed one expert off, the task
    mean's 1/T lost) must fail that bound; a 1080p frame through the
-   fan-out against the plain frame within one u8 step, both timed in
+   fan-out (a composite launch a chunk) against the plain frame within one
+   u8 step, both timed in
    turns; (b) two spawned ranks sharing the card over gloo, E = 2: a warm
    and two timed sharded steps, each rank launching 54 + 54 scans a step
    (summed over the ranks: 108 + 108); the first step against (a)'s first
@@ -172,8 +178,8 @@ Phases, each printing one JSON line and each fatal on failure:
    ``last`` and phase 9's baked table: (a) ``build_context(P, "view")`` of
    ``configs/view.json`` and a ``Controller``; 480 × 853 previews (the size
    the viewer renders) through ``render_frame`` at preview and at full
-   samples in rgb, depth and opacity, each launching the forward scan once
-   per chunk, and one from the baked table; (b) a continual batch of 8 views
+   samples in rgb, depth and opacity, each launching the composite kernel
+   once per chunk and no scan, and one from the baked table; (b) a continual batch of 8 views
    of 192 × 256 (``toy.write_continual_batch``, PNG, ``update_dataset.py``'s
    layout) that ``verify_continual_batch_dir`` accepts; (c)
    ``set_mode("runtime_adapt")`` and ``start(target_steps=16)``, previews
@@ -296,8 +302,9 @@ Phases, each printing one JSON line and each fatal on failure:
    colour 128 × 5: the network kernel's wide path). Each: a warm, a timed
    and a downloaded ``Renderer.render_image`` frame at 1080 × 1920
    (``wide`` at the viewer's 480 × 853) and, for ``k25``, routed ones, the
-   timed frame launching the scan, the network kernel once and the hash
-   forward K times (routed: once) per chunk, the host waiting below once
+   timed frame launching the composite kernel and the network kernel once
+   and the hash forward K times (routed: once) per chunk and no scan, the
+   host waiting below once
    per chunk in the third (dense: downloaded; routed: on the card, then
    one more downloaded), each downloaded frame finite; ``render_rays``
    on the card against the CPU as phase 4 holds it; for ``l40f3`` and
@@ -308,7 +315,29 @@ Phases, each printing one JSON line and each fatal on failure:
    serving chunk in float32 and a support march in bfloat16, every network
    mode at a dense chunk of random points, the ``wide`` one within rtol 3e-4
    (``NET_WIDE_RTOL``)), with times, under ``flag_shapes``;
-17. the kernels line, then the card's ``nvidia-smi`` line, then the result
+17. the packed composite kernel (``ops/composite.py``, ``csrc/composite.cu``):
+   against its plain version all in PyTorch (the scan's plain version, on
+   the card) within rtol and atol 1e-5 on every output, every output finite
+   and a second launch bit-equal, on the hand-made layouts of
+   ``ops/composite_bench.py`` (rays with no samples, rays of 256 and 600
+   samples, the ray overflow cuts at B and the rays dropped whole, a pad
+   tail, one continuing ray 0's id, N = 1, a ragged B, unaligned strided
+   views) at alpha threshold 0 and 0.05, with and without a background and
+   the stats, and on two real chunks (a background and the stats): the
+   dense frame's budget march (N = 30,720, B = 983,040) and a routed chunk
+   (125,000 rays of the frame, B = 4,000,000); NaN in the dense chunk's
+   pad slots changes no bit of the output; a NaN σ in a real slot of every
+   1,000th ray of it makes those rays' outputs NaN (wmax too) and no
+   other's, equal to the plain version on the CPU; at both chunks the card time
+   per call of the kernel, the plain version, the parent's composition (the
+   scan kernel and ``index_add_``) and the library chain (the scan kernel
+   and ``torch.segment_reduce``, timed only), beside the byte bound of
+   their real samples. Every main path above counts the composite kernel's
+   launches from 0 and holds them: once a packed chunk and no scan on
+   every serving path (the dense, routed, single-expert, baked, budget-0
+   (0) and mesh frames, ``--op eval``, ``--op video``, the viewer's
+   frames), 0 on every training path whose loss is differentiated;
+18. the kernels line, then the card's ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -694,19 +723,19 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     launches = segscan.seg_excl_sum_kernel.launches
     rev_launches = segscan.seg_excl_rsum_kernel.launches
+    comp_launches = _composite().launch_counts()
     frames = 6
     hash_fwd, _ = note_hash("render_image", trains=False)
-    check(launches == chunks * frames,
-          f"seg_excl_sum launched {launches} times, want {chunks} chunks × "
-          f"{frames} frames")
-    check(rev_launches == 0, f"seg_excl_rsum launched {rev_launches} times in "
-          f"{frames} frames, want 0: serving takes no gradient")
+    # one composite launch a chunk, which scans the transmittance itself:
+    # neither scan kernel runs in serving
+    check_packed("render_image", (launches, rev_launches), chunks * frames)
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all()
           and np.isfinite(depth).all() and np.isfinite(acc).all(),
           "the frame is not finite or has the wrong shape")
     emit({"phase": "main_path", "H": H, "W": W, "rays_per_chunk": rows * W,
           "packed_samples_per_chunk": rows * W * int(P.occ_budget_per_ray),
           "chunks_per_frame": chunks, "frames": frames,
+          "composite_launches": comp_launches,
           "seg_excl_sum_launches": launches,
           "seg_excl_rsum_launches": rev_launches,
           "hash_fwd_launches_per_frame": hash_fwd / frames,
@@ -737,18 +766,18 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
                                           row_limit=40)
         (Path(profile_dir) / "frame_kernels.txt").write_text(table)
         print(table, flush=True)
-        # the scan kernel in place, between the ops that make its input and
-        # read its output (the table above may cut it off)
-        scan = [e for e in prof.key_averages() if "seg_scan_kernel" in e.key]
-        scan_us = sum(getattr(e, "device_time_total", 0)
-                      or getattr(e, "cuda_time_total", 0) for e in scan)
-        scan_n = sum(e.count for e in scan)
+        # the composite kernel in place, between the ops that make its input
+        # and read its output (the table above may cut it off)
+        ck = [e for e in prof.key_averages() if "composite_packed_kernel" in e.key]
+        ck_us = sum(getattr(e, "device_time_total", 0)
+                    or getattr(e, "cuda_time_total", 0) for e in ck)
+        ck_n = sum(e.count for e in ck)
         emit({"phase": "profile", "frame_wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
               "kernel_launches": sum(e.count for e in prof.key_averages()
                                      if e.key == "cudaLaunchKernel"),
-              "scan_kernel_launches": scan_n,
-              "scan_kernel_mean_us": scan_us / max(scan_n, 1),
+              "composite_kernel_launches": ck_n,
+              "composite_kernel_mean_us": ck_us / max(ck_n, 1),
               "hash_kernels": hash_kernel_times(prof, busy_ms),
               "ngp_net_kernel": net_kernel_times(prof, busy_ms)})
     return model, occ, cam, (launches, rev_launches), frame_ms
@@ -773,8 +802,9 @@ def phase_vs_cpu(torch, toy, Renderer, model, occ, cam, P=None, phase="main_path
     occ_cpu = {k: v.cpu() for k, v in occ.items()}
     out = {}
     # tolerance: f32 MLP products sum in another order in cuBLAS than on the
-    # CPU (~1e-6 relative per layer), exp/log differ by an ulp, and
-    # index_add_ accumulates with atomics on the card
+    # CPU (~1e-6 relative per layer), exp/log differ by an ulp, and the
+    # composite kernel sums each ray in another order than the plain
+    # composition on the CPU
     atol, rtol = 1e-4, 1e-4
     for name, thre, bias in (("alpha_thre_cfg", occ_cfg.alpha_thre, None),
                              ("alpha_thre_0_bias_2", 0.0, 2.0)):
@@ -1029,7 +1059,7 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
                          segscan.seg_excl_rsum_kernel.launches))
         hash_counts.append(_kernel_counts())
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in (0, 1, 2)))
+    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in range(4)))
     check(all(l == (per_step, per_step) for l in launches),
           f"scan kernel launches per step (forward, reverse) {launches}, want "
           f"{per_step} of each")
@@ -1125,16 +1155,18 @@ def _scan_counts(segscan):
 
 
 def _zero_scan_counts(segscan) -> None:
-    """Every kernel's count to 0: the scan's, the hash encode's and the
-    network's."""
+    """Every kernel's count to 0: the scan's, the hash encode's, the
+    network's and the composite's."""
     segscan.seg_excl_sum_kernel.launches = 0
     segscan.seg_excl_rsum_kernel.launches = 0
     _zero_hash_and_net()
 
 
 def _zero_hash_and_net() -> None:
+    """The counts of every kernel but the scan to 0."""
     _hashgrid().zero_launch_counts()
     _ngp_net().zero_launch_counts()
+    _composite().zero_launch_counts()
 
 
 def _hashgrid():
@@ -1149,30 +1181,42 @@ def _ngp_net():
     return ngp_net
 
 
+def _composite():
+    from acn_tpu_torch.ops import composite
+
+    return composite
+
+
 def _kernel_counts() -> tuple:
-    """(hash forward, hash cotangent, network) launches since the counters
-    were last set to 0."""
-    return (*_hashgrid().launch_counts(), _ngp_net().launch_counts())
+    """(hash forward, hash cotangent, network, composite) launches since the
+    counters were last set to 0."""
+    return (*_hashgrid().launch_counts(), _ngp_net().launch_counts(),
+            _composite().launch_counts())
 
 
 # the hash encode kernels' launches on each main path: (forward, table
-# cotangent), and the network kernel's, read just after the path ran,
-# counted from 0 just before it
+# cotangent), the network kernel's and the composite kernel's, read just
+# after the path ran, counted from 0 just before it
 HASH_BY_PATH: dict = {}
 NET_BY_PATH: dict = {}
+COMP_BY_PATH: dict = {}
 
 
-def note_hash(path: str, trains: bool, counts=None, net=None) -> tuple:
-    """Record a main path's hash-kernel and network-kernel launches (the
-    counters now, or ``counts``: (hash forward, hash cotangent, network))
-    and fail unless the path launched the hash forward kernel, the
-    cotangent kernel exactly when it trains, and the network kernel as
-    ``net`` says: "serves" (> 0; the default of a path that does not
-    train), "none" (0; the default of one that trains: the kernel has no
-    backward, and a training step's network runs under autograd or in bf16)
-    or "any" (a path that trains and serves, such as a loop with its
-    occupancy updates: recorded, not held)."""
-    fwd, bwd, nl = _kernel_counts() if counts is None else counts
+def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tuple:
+    """Record a main path's hash-kernel, network-kernel and composite-kernel
+    launches (the counters now, or ``counts``: (hash forward, hash
+    cotangent, network, composite)) and fail unless the path launched the
+    hash forward kernel, the cotangent kernel exactly when it trains, the
+    network kernel as ``net`` says: "serves" (> 0; the default of a path
+    that does not train), "none" (0; the default of one that trains: the
+    kernel has no backward, and a training step's network runs under
+    autograd or in bf16) or "any" (a path that trains and serves, such as a
+    loop with its occupancy updates: recorded, not held), and the composite
+    kernel as ``comp`` says, in the same words: "none" is the default of a
+    path that only trains (its composite is differentiated), "any" of every
+    other (a serving path holds its count to its chunks with
+    ``check_packed``)."""
+    fwd, bwd, nl, cl = _kernel_counts() if counts is None else counts
     check(fwd > 0 and (bwd > 0) == trains,
           f"{path}: the hash encode kernels launched {fwd} forward and {bwd} "
           f"cotangent, want forward > 0 and cotangent {'> 0' if trains else '0'}")
@@ -1180,10 +1224,34 @@ def note_hash(path: str, trains: bool, counts=None, net=None) -> tuple:
     check(net == "any" or (nl > 0) == (net == "serves"),
           f"{path}: the network kernel launched {nl} times, want "
           f"{'> 0' if net == 'serves' else '0'}")
+    comp = comp or ("none" if trains and net == "none" else "any")
+    check(comp == "any" or (cl > 0) == (comp == "serves"),
+          f"{path}: the composite kernel launched {cl} times, want "
+          f"{'> 0' if comp == 'serves' else '0'}")
     old = HASH_BY_PATH.get(path, (0, 0))
     HASH_BY_PATH[path] = (old[0] + fwd, old[1] + bwd)
     NET_BY_PATH[path] = NET_BY_PATH.get(path, 0) + nl
+    note_comp(path, cl)
     return fwd, bwd
+
+
+def note_comp(path: str, n=None) -> int:
+    """Record a main path's composite launches (the counter now, or ``n``);
+    ``note_hash`` does it for every path that encodes, this for the baked
+    paths, which never reach the encode."""
+    n = _composite().launch_counts() if n is None else n
+    COMP_BY_PATH[path] = COMP_BY_PATH.get(path, 0) + n
+    return n
+
+
+def check_packed(path: str, scans, want: int, n=None) -> None:
+    """Fail unless a serving path launched the composite kernel ``want``
+    times (once a packed chunk; the counter now, or ``n``) and the scan not
+    at all: the composite kernel does the transmittance scan itself."""
+    n = _composite().launch_counts() if n is None else n
+    check(n == want and tuple(scans) == (0, 0),
+          f"{path}: the composite kernel launched {n} times and the scan "
+          f"{tuple(scans)}, want {want} and (0, 0)")
 
 
 def update_card_vs_cpu(torch, occ_grid, nn, cfg, occ_cfg, model) -> dict:
@@ -1273,7 +1341,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     boxes, _ = toy.quadrant_layout(K)
     occ10 = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
     counted = {"fwd": 0, "rev": 0}
-    hashed = [0, 0, 0]
+    hashed = [0, 0, 0, 0]
 
     def steps(step, occ, n):
         """``n`` steps of ``step`` from the running state: (ms per step,
@@ -1429,8 +1497,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     renderer.render_image(model, occ, H=H, W=W, download=False, **cam)
     frame_ms = 1e3 * (time.perf_counter() - t0)
     note_hash("budget0_frames", trains=False)
-    check(_scan_counts(segscan) == (0, 0),
-          f"the budget-0 renderer launched scan kernels {_scan_counts(segscan)}")
+    check_packed("budget0_frames", _scan_counts(segscan), 0)
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
           and np.isfinite(acc).all(), "the budget-0 frame is not finite or misshapen")
     rows = renderer.chunk_rays // W
@@ -1909,7 +1976,7 @@ def phase_runner(torch, segscan, toy) -> dict:
             "eval.json", "--checkpoint_path", str(run), "--prefix", "last", "--tto",
             RUNNER_TTO, "--test_batch_size", "4", "--fname", str(RUNNER_DIR / "eval")))
         eval_s = time.perf_counter() - t0
-        eval_launches = _scan_counts(segscan)
+        eval_launches, eval_comp = _scan_counts(segscan), _composite().launch_counts()
         note_hash("runner_eval", True, net="serves")
     finally:
         dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws = saved
@@ -1960,9 +2027,9 @@ def phase_runner(torch, segscan, toy) -> dict:
     rows = max(Renderer(cfg, P, occ_cfg, device="cuda").chunk_rays // RUNNER_IMAGE[1], 1)
     chunks = -(-RUNNER_IMAGE[0] // rows)
     ttos = [int(t) for t in RUNNER_TTO.split(",")]
-    check(eval_launches == (chunks * n_val * len(ttos), 0),
-          f"the eval launched the scan {eval_launches}, want {chunks} chunks × {n_val} "
-          f"views × {len(ttos)} settings forward and 0 reverse")
+    # the composite kernel once a chunk of every frame: chunks × views ×
+    # settings; its TTO steps composite no packed samples
+    check_packed("runner_eval", eval_launches, chunks * n_val * len(ttos), eval_comp)
     for r in res:
         for v in r["views"]:
             check(np.isfinite(v["psnr"]) and abs(v["ssim"]) <= 1.0 + 1e-6,
@@ -1979,6 +2046,7 @@ def phase_runner(torch, segscan, toy) -> dict:
           "frame_ms": [v["frame_ms"] for r in res for v in r["views"]],
           "ssim_ms": [v["ssim_ms"] for r in res for v in r["views"]],
           "tto_step_ms": 1e3 * sum(r["adapt_s"] for r in res) / max(tto_steps, 1),
+          "composite_launches": eval_comp,
           "scan_launches": {"forward": eval_launches[0], "reverse": eval_launches[1]},
           "tto0_legs_equal": True})
 
@@ -2095,10 +2163,9 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
     rgb, depth, acc = routed()
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     counted["routed_frames"] = _scan_counts(segscan)
+    routed_comp = _composite().launch_counts()
     note_hash("routed_frames", trains=False)
-    check(counted["routed_frames"] == (4 * len(plan), 0),
-          f"4 routed frames launched the scan {counted['routed_frames']}, want "
-          f"{len(plan)} chunks × 4 forward and 0 reverse")
+    check_packed("routed_frames (4 frames)", counted["routed_frames"], 4 * len(plan))
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
           and np.isfinite(acc).all(), "the routed frame is not finite or misshapen")
     if profile_dir:
@@ -2130,6 +2197,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
           "mean_frame_ms": statistics.mean(frame_ms), "frame_ms_with_download": e2e_ms,
           "dense_frame_ms_phase3": dense_ms,
           "routed_over_dense": statistics.mean(frame_ms) / statistics.mean(dense_ms),
+          "composite_launches": routed_comp,
           "scan_launches": {"forward": counted["routed_frames"][0],
                             "reverse": counted["routed_frames"][1]},
           "identical_experts_vs_dense_max_err": tie_err, "atol": ROUTED_ATOL,
@@ -2149,9 +2217,10 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
               for k in range(cfg.num_submodules)]
         counted[f"single_expert_{name}"] = got = _scan_counts(segscan)
         note_hash(f"single_expert_{name}", trains=False)
-        want = (0 if name == "budget0" else chunks * cfg.num_submodules, 0)
-        check(got == want, f"single-expert {name} frames launched the scan {got}, want {want}")
+        want = 0 if name == "budget0" else chunks * cfg.num_submodules
+        check_packed(f"single_expert_{name}", got, want)
         single[name] = {"frame_ms_by_expert": ms, "chunks_per_frame": chunks,
+                        "composite_launches": want,
                         "scan_launches": {"forward": got[0], "reverse": got[1]}}
     rays = _pinhole_block_rays(H, W, *(torch.as_tensor(np.asarray(cam[k], np.float32),
                                                        device="cuda")
@@ -2233,12 +2302,13 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
         ms = _timed(torch, lambda: frame(download=False), 1 if name == "budget0" else 2)
         counted[f"baked_{name}"] = got = _scan_counts(segscan)
         n = 1 + len(ms)
-        want = (0 if name == "budget0" else chunks * n, 0)
-        check(got == want, f"baked {name} frames launched the scan {got}, want {want}")
+        want = 0 if name == "budget0" else chunks * n
+        check_packed(f"baked_{name}", got, want, note_comp(f"baked_{name}"))
         rgb, _, acc = frame()
         check(np.isfinite(rgb).all() and np.isfinite(acc).all(), f"baked {name} frame")
         baked[name] = {"warm_frame_ms": warm[0], "frame_ms": ms, "chunks_per_frame": chunks,
                        "rays_per_chunk": br.rows(W) * W,
+                       "composite_launches": want,
                        "scan_launches": {"forward": got[0], "reverse": got[1]},
                        "mean_acc": float(acc.mean())}
     if profile_dir:
@@ -2261,19 +2331,22 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
                                  "--baked_asset", path, "--tto", "0,2",
                                  "--fname", str(RUNNER_DIR / "eval_baked")))
     counted["runner_eval_baked"] = got = _scan_counts(segscan)
+    eval_comp = note_comp("runner_eval_baked")
     Pe = runner.parse_args(_run_flags("eval.json", "--checkpoint_path", str(run),
                                       "--prefix", "last"))
     budget = int(getattr(Pe, "occ_budget_per_ray", 0) or 0)
     br = baking.BakedRenderer(asset, budget_per_ray=budget, chunk_points=int(Pe.chunk_points))
     n_val = RUNNER_CAMERAS[1]
     chunks = -(-RUNNER_IMAGE[0] // br.rows(RUNNER_IMAGE[1]))
-    want = (chunks * n_val * 2 if budget else 0, 0)
-    check(got == want, f"the baked eval launched the scan {got}, want {want} (budget {budget})")
+    check_packed(f"runner_eval_baked (budget {budget})", got,
+                 chunks * n_val * 2 if budget else 0, eval_comp)
     for r in res:
         check(np.isfinite(r["psnr"]) and np.isfinite(r["ssim"]), f"baked eval tto={r['tto']}")
-    # the tto=2 leg is the tto=0 leg rendered again: on the card the packed
-    # composite's index_add_ adds with atomics, so a frame may differ in its
-    # last bits (and a pixel on a u8 rounding edge by one step) between renders
+    # the tto=2 leg is the tto=0 leg rendered again. The composite kernel
+    # sums every ray in one fixed order (the index_add_ it replaced added
+    # with atomics, and two renders differed in their last bits), so the two
+    # are expected to be equal; the check keeps the old bounds and the line
+    # reports the difference
     d_psnr, d_ssim = (max(abs(a[key] - b[key]) for a, b in zip(res[0]["views"], res[1]["views"]))
                       for key in ("psnr", "ssim"))
     check(res[1]["tto_losses"] == [] and d_psnr <= 1e-3 and d_ssim <= 1e-4,
@@ -2287,8 +2360,10 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
           "march": "packed budget" if budget else "strided (budget 0)",
           "psnr": [r["psnr"] for r in res], "ssim": [r["ssim"] for r in res],
           "frame_ms": [v["frame_ms"] for r in res for v in r["views"]],
+          "composite_launches": eval_comp,
           "scan_launches": {"forward": got[0], "reverse": got[1]},
           "tto2_minus_tto0_max_abs": {"psnr": d_psnr, "ssim": d_ssim},
+          "tto2_equals_tto0": d_psnr == 0.0 and d_ssim == 0.0,
           "tto2_adapted": False, "logged": line})
 
     # (f) --op video, live and baked
@@ -2304,6 +2379,9 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
         counted[f"runner_video_{name}"] = got = _scan_counts(segscan)
         if name == "live":
             note_hash("runner_video_live", trains=False)
+        else:
+            note_comp("runner_video_baked")
+        video_comp = _composite().launch_counts()
         n = _gif_or_mp4_frames(out)
         check(Path(out).exists() and n == VIDEO_FRAMES,
               f"--op video ({name}) wrote {out} with {n} frames, want {VIDEO_FRAMES}")
@@ -2315,11 +2393,12 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
             chunks = -(-RUNNER_IMAGE[0] // baking.BakedRenderer(
                 asset, budget_per_ray=budget or 24,
                 chunk_points=int(Pe.chunk_points)).rows(RUNNER_IMAGE[1]))
-        want = (chunks * VIDEO_FRAMES if budget or name == "baked" else 0, 0)
-        check(got == want, f"--op video ({name}) launched the scan {got}, want {want}")
+        check_packed(f"runner_video_{name}", got,
+                     chunks * VIDEO_FRAMES if budget or name == "baked" else 0, video_comp)
         video[name] = {"path": Path(out).name, "frames": n, "wall_s": wall,
                        "encoder": "imageio libx264 (MP4)" if out.endswith(".mp4")
                        else "Pillow (GIF)", "chunks_per_frame": chunks,
+                       "composite_launches": video_comp,
                        "scan_launches": {"forward": got[0], "reverse": got[1]}}
     emit({"phase": "serving_video", **video, "phase9_s": time.perf_counter() - t_phase})
     del asset
@@ -2430,7 +2509,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     batch_np = toy.training_batch(K, T, S, Q, seed=0)
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     occ = {k: v.cuda() for k, v in occ_cpu.items()}
-    launches = {}
+    launches, comp_launches = {}, {}
 
     def with_(**over):
         return types.SimpleNamespace(**{**vars(P), **over})
@@ -2460,9 +2539,13 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
             hash_counts.append(_kernel_counts())
         peak = torch.cuda.max_memory_allocated() / 1e6
         launches[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
+        comp_launches[name] = [c[3] for c in hash_counts]
         if name and getattr(getattr(cfg_.expert, "hash", None), "layout", "") == "cell":
+            # Reptile's query losses are not differentiated (no_grad): their
+            # composite is the kernel's
             note_hash(f"m9_{name}", True, tuple(sum(c[i] for c in hash_counts)
-                                                for i in (0, 1, 2)))
+                                                for i in range(4)),
+                      comp="serves" if getattr(P_, "algo", "") == "reptile" else None)
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()),
               f"{name}: a metric is not finite: {m}")
@@ -2541,8 +2624,11 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     P_r = with_(algo="reptile", lr=REPTILE_OUTER_LR)
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_r, 1, draws=replay_salts,
                                                            name="reptile")
-    check(counts == [(first_order, K * T * I)],
-          f"Reptile scan launches {counts}, want ({first_order}, {K * T * I})")
+    # the K·T query losses run under no_grad: the composite kernel, not the
+    # scan, composites them
+    check(counts == [(K * T * I, K * T * I)] and comp_launches["reptile"] == [K * T],
+          f"Reptile scan launches {counts} and composite {comp_launches['reptile']}, want "
+          f"({K * T * I}, {K * T * I}) and {K * T}")
     check(int(state["opt_state"]["count"]) == 0 and float(m["grad_norm"]) == 0.0,
           f"Reptile moved the optimizer: count {int(state['opt_state']['count'])}")
     loss_fn, prep = ts.make_episode_loss(cfg, P_r, occ_cfg)
@@ -2588,6 +2674,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
                                                        launches.pop("reptile_timed")))
     emit({"phase": "m9_reptile", "step_ms": ms_r[1:], "warm_step_ms": ms_r[0],
           "vs_fomaml": ms_r[1] / fomaml_ms, "launches_per_step": counts_r[-1],
+          "composite_launches_per_step": comp_launches["reptile_timed"][-1],
           "outer_lr": REPTILE_OUTER_LR, "expert0_move": move,
           "expert0_distance_over_move": ratio,
           "planted_fault_distance_over_move": planted, "rtol": REPTILE_RECOMPUTE_RTOL,
@@ -3089,7 +3176,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
 
         run_a = mesh_run(MESH_STEPS)
         note_hash("mesh_one_rank_step", True,
-                  tuple(sum(c[i] for c in run_a["hash"]) for i in (0, 1, 2)))
+                  tuple(sum(c[i] for c in run_a["hash"]) for i in range(4)))
         check(all(c == (per_step, per_step) for c in run_a["launches"]),
               f"one-rank mesh step launches {run_a['launches']}, want {per_step} + {per_step}")
         launches["mesh_one_rank_step"] = tuple(sum(c[i] for c in run_a["launches"])
@@ -3119,7 +3206,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
                                                         draws=sky, **cam)
         frame(), frame(rmesh)  # warm
         frame_ms = {"plain": [], "mesh": []}
-        mesh_counts_f = [0, 0]
+        mesh_counts_f, mesh_comp = [0, 0], 0
         for name in ("plain", "mesh", "mesh", "plain"):
             _zero_scan_counts(segscan)
             torch.cuda.synchronize()
@@ -3131,10 +3218,10 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             else:
                 mesh_frame = out
                 mesh_counts_f = [a + b for a, b in zip(mesh_counts_f, _scan_counts(segscan))]
+                mesh_comp += _composite().launch_counts()
                 note_hash("mesh_one_rank_frame", trains=False)
         chunks = -(-H // (renderer.chunk_rays // W))
-        check(mesh_counts_f == [2 * chunks, 0],
-              f"(a) fan-out frames launched {mesh_counts_f}, want {chunks} a frame")
+        check_packed("(a) two fan-out frames", mesh_counts_f, 2 * chunks, mesh_comp)
         launches["mesh_one_rank_frame"] = tuple(mesh_counts_f)
         err = float(np.abs(mesh_frame[0] - plain_frame[0]).max())
         check(err <= U8_STEP, f"(a) fan-out frame vs plain frame: max |Δrgb| {err}")
@@ -3183,7 +3270,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     launches["mesh_two_rank_step"] = tuple(
         sum(l["summed"][i] for l in r0["step"]["launches"]) for i in (0, 1))
     note_hash("mesh_two_rank_step", True, tuple(
-        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in (0, 1, 2)))
+        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in range(4)))
     def got_b(run):
         m = run["metrics"]
         return {"cmp": _update_cmp(torch, run["update"], ref_update),
@@ -3207,11 +3294,10 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     launches["mesh_two_rank_frame"] = tuple(
         sum(r["frame"]["launches"][i] for r in ranks) for i in (0, 1))
     note_hash("mesh_two_rank_frame", False,
-              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in (0, 1, 2)))
+              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in range(4)))
     n_disp = -(-H // (2 * (renderer.chunk_rays // W)))  # dispatches of 2 × rows
-    check(launches["mesh_two_rank_frame"] == (2 * 2 * n_disp, 0),
-          f"(b) two timed frames over 2 ranks launched {launches['mesh_two_rank_frame']}, "
-          f"want {2 * n_disp} a frame over both")
+    check_packed("(b) two timed frames over 2 ranks", launches["mesh_two_rank_frame"],
+                 2 * 2 * n_disp, sum(r["frame"]["hash"][3] for r in ranks))
     emit({"phase": "mesh_two_ranks", "backend": "gloo", "mesh": [2, 1],
           "note": "two ranks share one card: correctness, not a scaling number",
           "step_ms": [r["step"]["ms"] for r in ranks], "loss": sound["loss"],
@@ -3376,8 +3462,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
                 view_ms[name] = 1e3 * (time.perf_counter() - t0)
                 got = _scan_counts(segscan)
                 note_hash("viewer_frames", trains=False)
-                check(got == (chunks, 0), f"(a) a {name} frame launched {got}, want "
-                      f"({chunks}, 0): one forward scan per chunk")
+                check_packed(f"(a) a {name} frame", got, chunks)
                 view_counts = [view_counts[0] + got[0], view_counts[1] + got[1]]
                 # depth and opacity may be flat where the field is faint
                 check(img.dtype == np.uint8 and img.shape == (H, W, 3)
@@ -3401,7 +3486,8 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         del ctx["baked_renderer"]
         state.use_baked = False
         emit({"phase": "live_view", "H": H, "W": W, "chunks_per_frame": chunks,
-              "scan_launches_per_frame": chunks, "frame_ms": view_ms, "frame_std": frame_std,
+              "composite_launches_per_frame": chunks, "frame_ms": view_ms,
+              "frame_std": frame_std,
               "preview_idle_ms": idle_ms, "baked_preview_ms": baked_ms,
               "depth_colormap": state.depth_colormap, "nvidia_smi": smi})
 
@@ -3467,7 +3553,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         controller._thread.join(timeout=60)
         check(not controller._thread.is_alive(), "(c) the loop thread did not end")
         renderer.render_image = real_render
-        live_counts = _scan_counts(segscan)
+        live_counts, live_comp = _scan_counts(segscan), _composite().launch_counts()
         note_hash("viewer_live_frames_and_tto", True, net="serves")
         check(controller.last_error is None, f"(c) the loop failed:\n{controller.last_error}")
         check(live.steps == LIVE_STEPS and len(metrics) == LIVE_STEPS,
@@ -3481,9 +3567,9 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         check(not torn, f"(c) frames {torn} of {len(reads)} read a snapshot that changed")
         seen = len({tuple(a.tolist()) for a, _ in reads})
         check(seen >= 2, f"(c) every frame read the same snapshot ({seen})")
-        check(live_counts == (chunks * len(reads), 0),
-              f"(c) the live run launched {live_counts}, want {chunks} per frame and none "
-              f"for the {LIVE_STEPS} TTO steps")
+        # a composite launch per chunk of every frame, none for the TTO steps
+        check_packed(f"(c) the live run ({len(reads)} frames, {LIVE_STEPS} TTO steps)",
+                     live_counts, chunks * len(reads), live_comp)
         counted["live_frames"] = live_counts
         with live.get_render_params() as (published, _):
             check(_state_equal(torch, published, live.model),
@@ -4258,13 +4344,14 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
             frame(download=False)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
-            scans, (fwd, bwd, nl) = _scan_counts(segscan), _kernel_counts()
+            scans, (fwd, bwd, nl, cl) = _scan_counts(segscan), _kernel_counts()
             path = f"{name}_{kind}_frame"
             note_hash(path, trains=False)
             counted[path] = scans
-            check(scans == (dispatched, 0) and nl == dispatched and fwd == per_chunk * nl,
-                  f"{path}: scan {scans}, network {nl}, hash forward {fwd} launches; want "
-                  f"({dispatched}, 0), {dispatched} and {per_chunk} × {dispatched}")
+            check_packed(path, scans, dispatched, cl)
+            check(nl == dispatched and fwd == per_chunk * nl,
+                  f"{path}: network {nl}, hash forward {fwd} launches; want "
+                  f"{dispatched} and {per_chunk} × {dispatched}")
             # the host's waits in a third frame: the dense one downloaded (its
             # download waits once, at the end); a routed frame stitches its
             # chunks on the host, so it is counted on the card and downloaded
@@ -4278,7 +4365,8 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
                   and np.isfinite(depth).all() and np.isfinite(acc).all(),
                   f"{path}: the frame is not finite or has the wrong shape")
             row[f"{kind}_frame"] = {"chunks": dispatched, "ms": ms, "net_launches": nl,
-                                    "hash_fwd_launches": fwd, "scan_launches": scans[0],
+                                    "hash_fwd_launches": fwd, "composite_launches": cl,
+                                    "scan_launches": scans[0],
                                     "host_syncs": syncs, "host_sync_sites": sites}
         row["vs_cpu"] = config_vs_cpu(torch, Renderer, cfg, P, occ_cfg, model, model_cpu, occ,
                                       cam, Hf, Wf)
@@ -4307,6 +4395,7 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
                   f"{path}: scan launches {scans}, want {per_step} of each; metrics {m}")
             row["budget_step"] = {"ms": step_ms, "scan_launches": scans,
                                   "hash_launches": counts[:2], "net_launches": counts[2],
+                                  "composite_launches": counts[3],
                                   "use_amp": bool(P.use_amp), "loss_out": m["loss_out"]}
             del batch, opt, state, step
         row.update(config_s=time.perf_counter() - t_cfg, nvidia_smi=smi)
@@ -4419,6 +4508,157 @@ def net_kernel_entry(nk: dict, smi: str) -> dict:
                             for r in nk["flag_shapes"]], "nvidia_smi": smi}
 
 
+# ---------------------------------------------------------------- phase 17
+
+COMPOSITE_CHUNKS = {"dense_chunk": (30_720, 983_040), "routed_chunk": (125_000, 4_000_000)}
+
+
+def composite_cases(torch, device="cuda", chunks: bool = True) -> dict:
+    """name → (σ, rgb, samples, N, bg): every hand-made layout of
+    ``ops/composite_bench.py`` (seed 0), and with ``chunks`` the real dense
+    and routed chunks (``composite_bench.chunk``), each checked to have its
+    (N, B)."""
+    from acn_tpu_torch.ops import composite_bench as cb
+
+    out = {name: cb.tensors(c, device) for name, c in cb.cases().items()}
+    if chunks:
+        for name, kind in (("dense_chunk", "dense"), ("routed_chunk", "routed")):
+            out[name] = cb.chunk(kind, device=device)
+            got = (out[name][3], int(out[name][0].shape[0]))
+            check(got == COMPOSITE_CHUNKS[name], f"{name}: (N, B) {got}, want "
+                  f"{COMPOSITE_CHUNKS[name]}")
+    return out
+
+
+def phase_composite(torch, smi) -> dict:
+    """The composite kernel (module docstring, phase 17): against its plain
+    version on every case, two launches bit-equal, NaN in the dense chunk's
+    pad slots never read, a NaN σ in its real slots kept; times at the two
+    chunks."""
+    from acn_tpu_torch import toy
+    from acn_tpu_torch.ops import composite_bench as cb
+    from acn_tpu_torch.ops import segscan
+
+    comp = _composite()
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    thre_cfg = float(toy.train_occ_config()[2].alpha_thre)
+    cases = composite_cases(torch)
+    results, worst = {}, 0.0
+    for name, (sig, rgb, smp, N, bg) in cases.items():
+        res = {"N": N, "B": int(sig.shape[0]), "real": cb.n_real(smp), "max_abs_err": 0.0,
+               "calls": 0}
+        for thre in (0.0, 0.05):
+            for with_bg in (True, False):
+                for stats in (True, False):
+                    if name in COMPOSITE_CHUNKS and not (with_bg and stats):
+                        continue  # a chunk as serving calls it: a background and the stats
+                    b = bg if with_bg else None
+                    got = comp.composite_kernel(sig, rgb, smp, N, b, thre, stats)
+                    again = comp.composite_kernel(sig, rgb, smp, N, b, thre, stats)
+                    want = comp.composite_plain(sig, rgb, smp, N, b, thre, stats,
+                                                scan=segscan.seg_excl_sum_plain)
+                    torch.cuda.synchronize()
+                    err = cb.max_abs_err(got, want)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(cb.outputs(got), cb.outputs(again)))
+                    check(cb.within_tol(got, want) and same,
+                          f"composite {name} alpha_thre {thre} bg {with_bg} stats {stats}: "
+                          f"max |kernel − plain| {err} (rtol, atol 1e-5), two launches "
+                          f"bit-equal {same}")
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                    res["calls"] += 1
+        worst = max(worst, res["max_abs_err"])
+        results[name] = res
+    # the dense chunk's pad slots (43 % of it) hold NaN: the kernel never
+    # reads them, so its output keeps every bit
+    sig, rgb, smp, N, bg = cases["dense_chunk"]
+    real = smp["slot_real"]
+    clean = comp.composite_kernel(sig, rgb, smp, N, bg, thre_cfg)
+    nan = float("nan")
+    dirty = {**smp, "t0_b": smp["t0_b"].masked_fill(~real, nan),
+             "t1_b": smp["t1_b"].masked_fill(~real, nan)}
+    got = comp.composite_kernel(sig.masked_fill(~real, nan),
+                                rgb.masked_fill(~real[:, None], nan), dirty, N, bg, thre_cfg)
+    torch.cuda.synchronize()
+    pads_unread = all(torch.equal(x, y) for x, y in zip(cb.outputs(got), cb.outputs(clean)))
+    check(pads_unread, "composite: NaN in the dense chunk's pad slots changed the output")
+    del clean, dirty, got
+    # a NaN σ in a real slot (a diverged field) at the middle sample of
+    # every 1,000th ray that has samples: those rays' outputs are NaN, wmax
+    # too, as in the plain version (run on the CPU, whose "amax" keeps a
+    # NaN), and no other ray's
+    starts = smp["ray_start"]
+    ends = torch.cat([starts[1:], torch.full((1,), cb.n_real(smp), device=starts.device)])
+    ends = torch.minimum(ends, torch.tensor(int(sig.shape[0]), device=starts.device))
+    hit = torch.nonzero(ends > starts).flatten()[::1000]
+    sig_nan = sig.clone()
+    sig_nan[(starts[hit] + ends[hit]) // 2] = nan
+    got = comp.composite_kernel(sig_nan, rgb, smp, N, bg)  # α threshold 0 keeps a NaN α
+    want = comp.composite_plain(sig_nan.cpu(), rgb.cpu(), {k: v.cpu() for k, v in smp.items()},
+                                N, bg.cpu())
+    torch.cuda.synchronize()
+    bad = torch.zeros(N, dtype=torch.bool)
+    bad[hit.cpu()] = True
+    nan_rays_only = all(
+        torch.equal(torch.isnan(a.cpu()) if a.dim() == 1 else torch.isnan(a.cpu()).all(1), bad)
+        for a in cb.outputs(got))
+    nan_matches = all(torch.allclose(a.cpu(), b, equal_nan=True, **cb.TOL)
+                      for a, b in zip(cb.outputs(got), cb.outputs(want)))
+    check(nan_rays_only and nan_matches and len(hit) > 0,
+          f"composite: a NaN σ in {len(hit)} real slots of the dense chunk: NaN in those rays "
+          f"only {nan_rays_only}, equal to the plain version {nan_matches}")
+    del sig_nan, got, want
+    shapes = []
+    for name in COMPOSITE_CHUNKS:
+        sig, rgb, smp, N, bg = cases[name]
+        row = {"chunk": name, "alpha_thre": thre_cfg,
+               **cb.time_case(sig, rgb, smp, N, bg, alpha_thre=thre_cfg),
+               "max_abs_err": results[name]["max_abs_err"]}
+        shapes.append(row)
+        torch.cuda.empty_cache()
+    del cases
+    torch.cuda.empty_cache()
+    out = {"phase": "composite", "cases": results, "max_abs_err": worst,
+           "tolerance": cb.TOL, "two_launches_bit_equal": True,
+           "pad_slots_unread": pads_unread, "nan_density_rays": len(hit),
+           "nan_density_matches_plain": nan_matches and nan_rays_only, "shapes": shapes,
+           "phase_s": time.perf_counter() - t_start, "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
+def composite_kernel_entry(ck: dict, smi: str) -> dict:
+    """The kernels line's entry of the composite kernel: launches summed over
+    the main paths (``COMP_BY_PATH``); times at a dense chunk, the routed
+    chunk's under ``shapes``."""
+    at = next(r for r in ck["shapes"] if r["chunk"] == "dense_chunk")
+    keys = ("chunk", "N", "B", "n_real", "ms", "host_us", "plain_ms", "parent_ms",
+            "library_ms", "bound_ms", "bound_every_slot_ms", "bound_by", "max_abs_err")
+    return {"name": "composite_packed", "route": "cuda",
+            "source": "acn_tpu_torch/csrc/composite.cu",
+            "replaces": "acn_tpu/nerfs/render.py:143 (no TPU kernel: the Pallas scan at "
+                        "acn_tpu/ops/segscan.py:180 plus XLA segment sums)",
+            "launches": sum(COMP_BY_PATH.values()), "launches_by_path": dict(COMP_BY_PATH),
+            "max_abs_err": ck["max_abs_err"], "ms": at["ms"], "host_us": at["host_us"],
+            "plain_ms": at["plain_ms"], "parent_ms": at["parent_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": "bytes",
+            "bound_every_slot_ms": at["bound_every_slot_ms"],
+            "library_ms": at["library_ms"],
+            "library_note": "a chain, not the same function: the elementwise ops, the scan "
+                            "kernel and torch.segment_reduce sum and max over the ray "
+                            "lengths; no single PyTorch call computes the composite",
+            "plain_note": "plain_ms: the plain version all in PyTorch (the scan's plain "
+                          "version); parent_ms: the composition the port ran before the "
+                          "kernel (the scan kernel and index_add_)",
+            "bound_note": "bound_ms: 24 B a real sample, 8 + 12 B a ray read, 28 B a ray "
+                          "written, over 3.35 TB/s; bound_every_slot_ms: the same over "
+                          "every slot of B",
+            "timing": "card ms per call over a run of calls between one pair of CUDA events, "
+                      "cycling over copies of the inputs that exceed the L2; host µs apart",
+            "shapes": [{k: r[k] for k in keys} for r in ck["shapes"]], "nvidia_smi": smi}
+
+
 def row_dtype(dt) -> str:
     return str(dt).split(".")[-1]
 
@@ -4476,6 +4716,7 @@ def main() -> int:
     hk = phase_hash(torch, toy)
     nk = phase_net(torch)
     configs = phase_configs(torch, segscan, toy, Renderer)
+    ck = phase_composite(torch, smi)
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -4486,7 +4727,9 @@ def main() -> int:
     # sub-phase; phase 11's sharded steps and fan-out frames, summed over the
     # ranks; phase 12's viewer frames, live frames, TTO steps and meta-train
     # runner steps; phase 13's --op train and step breakdown), each counted
-    # from 0 just before its path was driven. ms,
+    # from 0 just before its path was driven; since the composite kernel
+    # (phase 17) every serving path launches it once a packed chunk and the
+    # scan's forward not at all. ms,
     # plain_ms and bound_ms at the serving chunk (B = 983,040);
     # "train_shapes" holds the same at the training step's B = 32,768 and
     # 16,384, "double_backward" phase 2's second derivative at 32,768.
@@ -4539,6 +4782,7 @@ def main() -> int:
                           for sh in train["shapes"]], **common},
         *hash_kernel_entries(hk, smi),
         net_kernel_entry(nk, smi),
+        composite_kernel_entry(ck, smi),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
