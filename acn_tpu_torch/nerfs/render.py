@@ -17,18 +17,22 @@ input, and its second derivative at an opaque sample (1 − α + 1e-10 =
 1e-10) is 0 where JAX's is not; this one divides by nothing and is twice
 differentiable, as second-order MAML needs.
 
-``composite_packed`` dispatches (``ops/composite.py``): on every serving
-path (float32 on the card, no gradient recorded) one launch of the
-composite kernel, which sums each ray in one fixed order with no atomics;
-otherwise the plain composition, where JAX's dropping scatter-add /
-scatter-max (``.at[rid].add(..., mode="drop")``) becomes ``index_add_`` /
-``scatter_reduce_`` into a target with one spill row at the end that is
-sliced off (on the card ``index_add_`` accumulates with atomics, so the last
-bits of its sums may change from run to run). The plain composition is
-differentiable in the densities and colors: the gradient flows through
-``index_add_``, ``torch.where(real, …)``, ``log(1 − α + 1e-10)`` and
-``seg_excl_sum``, whose backward on a CUDA tensor is one launch of the
-reverse scan kernel.
+``composite_packed`` dispatches (``ops/composite.py``, ``takes``): float32
+on the card with no gradient recorded (every serving path) is one launch of
+the composite kernel; a recorded gradient without the stats (every budget
+training loss) is ``composite_autograd``, the same forward kernel and one
+launch of its backward kernel (under ``create_graph`` a VJP of the plain
+composition, so that MAML's second derivative runs the scan's double
+backward); both sum each ray in one fixed order with no atomics. Otherwise
+(the CPU, or a gradient with the stats) the plain composition, where JAX's
+dropping scatter-add / scatter-max (``.at[rid].add(..., mode="drop")``)
+becomes ``index_add_`` / ``scatter_reduce_`` into a target with one spill
+row at the end that is sliced off (on the card ``index_add_`` accumulates
+with atomics, so the last bits of its sums may change from run to run). The
+plain composition is differentiable in the densities, colors and
+background: the gradient flows through ``index_add_``, ``torch.where(real,
+…)``, ``log(1 − α + 1e-10)`` and ``seg_excl_sum``, whose backward on a CUDA
+tensor is one launch of the reverse scan kernel.
 """
 
 from __future__ import annotations
@@ -101,17 +105,24 @@ def composite_packed(
     transmittance as a segmented log-space scan, weights, and every B→N sum
     (``ops/composite.py`` states the function).
 
-    Float32 CUDA tensors with no gradient being recorded
-    (``ops.composite.takes``: every serving path) take the composite kernel,
-    one launch; everything else the plain composition (``ops.composite.composite_plain``, its scan
-    this module's ``seg_excl_sum``: the scan kernel on the card;
-    differentiable in the densities and colors).
+    Float32 CUDA tensors (``ops.composite.takes``) take the kernels: with no
+    gradient being recorded (every serving path) the composite kernel, one
+    launch; recording one without the stats (the budget training loss)
+    ``ops.composite.composite_autograd``, the forward kernel and, in the
+    backward, the backward kernel (under ``create_graph`` the plain
+    composition's VJP). Everything else takes the plain composition
+    (``ops.composite.composite_plain``, its scan this module's
+    ``seg_excl_sum``: the scan kernel on the card; differentiable in the
+    densities, colors and background).
 
     Returns (rgb_map (N,3), depth (N,), acc (N,), extras {wmax, went}).
     ``with_stats=False`` leaves the extras out (an empty dict): the training
     loss does not read them.
     """
-    if packed.takes(sigmas_b, rgbs_b, samples):
+    if packed.takes(sigmas_b, rgbs_b, samples, with_stats):
+        if torch.is_grad_enabled():
+            return packed.composite_autograd(sigmas_b, rgbs_b, samples, n_rays, bg_rgb,
+                                             alpha_thre, scan=seg_excl_sum)
         return packed.composite_kernel(sigmas_b, rgbs_b, samples, n_rays, bg_rgb,
                                        alpha_thre, with_stats)
     return packed.composite_plain(sigmas_b, rgbs_b, samples, n_rays, bg_rgb,

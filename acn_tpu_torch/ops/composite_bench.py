@@ -10,7 +10,9 @@
   warp steps (256 samples, and 600 as with ``occ_render_s_coarse``), the
   ray that overflow cuts at B and the rays dropped whole after it, a pad
   tail, a pad tail that continues ray 0's id, N = 1, a B that is a multiple
-  of nothing, and the inputs as unaligned strided views (``views``).
+  of nothing, the inputs as unaligned strided views (``views``), and 300
+  rays of 0 to 3 samples (``short_rays``: many rays a warp step, many
+  warps, one-sample rays).
   Densities are exponential with some negative, zero, opaque (``OPAQUE``)
   and zero-width (swapped) samples; colours and backgrounds uniform.
 * Chunks (``chunk``): ``dense``, the packed budget march of toy's overhead
@@ -33,6 +35,19 @@
 * Bound: bytes (``composite.bytes_moved``): 24 a real sample, 8 a ray (12
   more with a background) read, 28 a ray written, over 3.35 TB/s; the
   figure over every slot of B beside it.
+* Backward (``time_backward_case``): at a training episode's support and
+  query march (``TRAIN_CHUNKS``: 1,024 and 512 rays drawn from the frame, B
+  = 32,768 and 16,384) and at the dense chunk, with random cotangents on
+  rgb, depth and acc (``cotangents``): the backward kernel, its plain
+  version (the formulas in PyTorch, the scans' plain versions), the
+  parent's differentiated composition (``composite_plain`` with the scan
+  kernel under autograd, forward and backward: what a training loss ran
+  before) beside the kernels' forward and backward through
+  ``composite_autograd``; no PyTorch call computes it (``library_ms``
+  null). Bound ``composite.bytes_moved_backward``. ``GRAD_TOL``: rtol
+  1e-5 and an atol of 1e-5 of each gradient's largest magnitude, around a
+  float64 evaluation of the plain version (the plain float32 version lies
+  within 7.2e-7 of it on the hand-made layouts).
 """
 
 from __future__ import annotations
@@ -46,8 +61,10 @@ from acn_tpu_torch.ops import segscan
 from acn_tpu_torch.ops.bench_gather_scatter import HBM_BYTES_PER_S
 
 LAYOUTS = ("empty_rays", "long_rays", "overflow", "pad_tail", "pad_after_ray0", "one_ray",
-           "ragged", "views")
+           "ragged", "views", "short_rays")
 CHUNKS = {"dense": (30_720, 983_040), "routed": (125_000, 4_000_000)}  # (N, B)
+TRAIN_CHUNKS = {"support": (1_024, 32_768), "query": (512, 16_384)}  # (N, B)
+GRAD_TOL = {"rtol": 1e-5, "atol_of_max": 1e-5}
 ROUTED_RAYS = 125_000
 TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_torch_march_render.py's
 # an opaque sample's σ: σ·dt ≈ 10, α = 1 − 5e-5. At α = 1 exactly, jitted
@@ -79,6 +96,10 @@ def _counts(name: str, rng) -> tuple:
     if name in ("ragged", "views"):
         c = rng.integers(0, 50, 37)
         return c, 1009
+    if name == "short_rays":  # many warps of rays of 0 to 3 samples, one every 7th
+        c = rng.integers(0, 4, 300)
+        c[::7] = 1
+        return c, int(c.sum()) + 40
     raise ValueError(f"unknown layout {name!r}, want one of {LAYOUTS}")
 
 
@@ -156,8 +177,11 @@ def cases(seed: int = 0) -> dict:
 
 def chunk(kind: str, seed: int = 17, device="cuda") -> tuple:
     """(σ, rgb, samples, N, bg) of a real chunk (module docstring) on the
-    card: σ exponential (mean 20), rgb and bg uniform, from a seed."""
-    s, _ = hb.budget_march(None if kind == "dense" else ROUTED_RAYS, 0, device)
+    card: σ exponential (mean 20), rgb and bg uniform, from a seed. ``kind``
+    is one of ``CHUNKS`` or ``TRAIN_CHUNKS``."""
+    rays = {"dense": None, "routed": ROUTED_RAYS,
+            **{k: n for k, (n, _) in TRAIN_CHUNKS.items()}}[kind]
+    s, _ = hb.budget_march(rays, 0, device)
     N = int(s["ray_start"].shape[0])
     B = int(s["t0_b"].shape[0])
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -260,3 +284,95 @@ def within_tol(got: tuple, want: tuple) -> bool:
     every one finite."""
     return all(bool(torch.isfinite(a).all()) and torch.allclose(
         a.float().cpu(), b.float().cpu(), **TOL) for a, b in zip(outputs(got), outputs(want)))
+
+
+def cotangents(N: int, seed: int = 29, device="cuda") -> tuple:
+    """(g_rgb (N, 3), g_depth (N,), g_acc (N,)): standard normal, from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((N, 3), generator=gen, device=device),
+            torch.randn((N,), generator=gen, device=device),
+            torch.randn((N,), generator=gen, device=device))
+
+
+def backward_f64(sig, rgb, samples, N, bg, alpha_thre, acc, g) -> tuple:
+    """The plain backward in float64 on the inputs' device: the reference
+    both the kernel and the float32 plain version are held to."""
+    d = lambda t: None if t is None else t.double()
+    s64 = {k: d(v) if v.is_floating_point() else v for k, v in samples.items()}
+    return comp.composite_backward_plain(d(sig), d(rgb), s64, N, d(bg), alpha_thre, d(acc),
+                                         *(d(x) for x in g))
+
+
+def grad_err(got: tuple, want: tuple) -> float:
+    """The largest |difference| of the gradients over each one's largest
+    magnitude (None where a gradient is absent)."""
+    out = 0.0
+    for a, b in zip(got, want):
+        if a is None or b is None or not b.numel():
+            continue
+        scale = max(float(b.abs().max()), 1e-30)
+        out = max(out, float((a.double() - b.double()).abs().max()) / scale)
+    return out
+
+
+def grads_within_tol(got: tuple, want: tuple) -> bool:
+    """Every gradient finite and within ``GRAD_TOL`` of the reference."""
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            return False
+        if a is None or not b.numel():
+            continue
+        atol = GRAD_TOL["atol_of_max"] * float(b.abs().max())
+        if not (bool(torch.isfinite(a).all()) and torch.allclose(
+                a.double(), b.double(), rtol=GRAD_TOL["rtol"], atol=atol)):
+            return False
+    return True
+
+
+def backward_bounds_ms(samples: dict, N: int, bg: bool) -> dict:
+    B = int(samples["t0_b"].shape[0])
+    nb = comp.bytes_moved_backward(n_real(samples), B, N, bg)
+    return {"bytes": nb, "bound_ms": 1e3 * nb / HBM_BYTES_PER_S, "bound_by": "bytes"}
+
+
+def time_backward_case(sig, rgb, samples, N, bg, alpha_thre: float = 0.0) -> dict:
+    """Card ms per call of the backward kernel, its plain version, the
+    parent's differentiated composition (forward and backward) and the
+    kernels' forward and backward through autograd, each over copies of the
+    inputs that span 4 × the L2; the backward kernel's host µs per call;
+    the byte bound."""
+    bounds = backward_bounds_ms(samples, N, bg is not None)
+    copies = hb.copies_for(bounds["bytes"])
+    clone = lambda s: {k: v.clone() for k, v in samples.items()}
+    runs = [(sig, rgb, samples, bg)] + [(sig.clone(), rgb.clone(), clone(samples),
+                                         None if bg is None else bg.clone())
+                                        for _ in range(copies - 1)]
+    g = cotangents(N, device=sig.device)
+    accs = [comp.composite_kernel(a[0], a[1], a[2], N, a[3], alpha_thre, False)[2]
+            for a in runs]
+    bwd = lambda a, acc: comp.composite_backward_kernel(a[0], a[1], a[2], N, a[3],
+                                                        alpha_thre, acc, *g)
+
+    def through_autograd(a, fn):
+        x = a[0].detach().requires_grad_()
+        y = a[1].detach().requires_grad_()
+        b = None if a[3] is None else a[3].detach().requires_grad_()
+        out = fn(x, y, a[2], N, b, alpha_thre)
+        loss = sum((o * gi).sum() for o, gi in zip(out[:3], g))
+        torch.autograd.grad(loss, [t for t in (x, y, b) if t is not None])
+
+    parent = lambda x, y, s, n, b, t: comp.composite_plain(x, y, s, n, b, t, False,
+                                                           scan=segscan.seg_excl_sum)
+    row = {"N": N, "B": int(sig.shape[0]), "n_real": n_real(samples), "copies": copies,
+           **bounds,
+           "ms": hb.device_ms([lambda a=a, c=c: bwd(a, c) for a, c in zip(runs, accs)]),
+           "host_us": hb.host_us(lambda: bwd(runs[0], accs[0]), 200),
+           "plain_ms": hb.device_ms([lambda a=a, c=c: comp.composite_backward_plain(
+               a[0], a[1], a[2], N, a[3], alpha_thre, c, *g) for a, c in zip(runs, accs)]),
+           "parent_fwd_bwd_ms": hb.device_ms([lambda a=a: through_autograd(a, parent)
+                                              for a in runs]),
+           "kernels_fwd_bwd_ms": hb.device_ms([lambda a=a: through_autograd(
+               a, comp.composite_autograd) for a in runs]),
+           "library_ms": None}
+    del runs, accs
+    return row

@@ -3,16 +3,18 @@
 Each library of ``SOURCES`` is compiled by ``nvcc`` for ``sm_90a`` from its
 sources in ``csrc/`` into a shared object with a plain C interface and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds): ``segscan``
-holds the segmented passes over the packed sample buffer (``segscan.cu``,
-the scan, and ``composite.cu``, the composite, which scans the
-transmittance itself), ``hashgrid`` and ``ngp_net`` one source each. A
+(the scan), ``composite`` (the packed composite, forward and backward),
+``hashgrid`` and ``ngp_net``, one source each, so that an edit to one
+source rebuilds its library alone. A
 library is built at first use into ``acn_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by the library and a hash of its sources and flags,
 so an edited source is rebuilt and an unchanged one is loaded as it is. ptxas's report (registers, shared
 memory, spills) is kept beside the library as ``<lib>.log``. ``defines``
 (``-D`` macros: the scan's tile extents) builds a variant beside the default
 library; only ``scripts/bench_segscan.py`` asks for one, to choose the tile
-by measurement. ``build_all`` starts one ``nvcc`` per library at once.
+by measurement. ``build_all`` starts one ``nvcc`` per library at once and
+waits for all; ``start_all`` starts them and returns, and each library's
+``finish`` (or its first ``load``) waits for its own.
 
 What a launch needs beyond its scalars lives on the card: ``to_device``
 copies a small host table there from pinned memory on the current stream
@@ -25,6 +27,7 @@ Nothing here runs at import time: the CPU tests import every module.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -39,7 +42,7 @@ import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-SOURCES = {"segscan": (CSRC / "segscan.cu", CSRC / "composite.cu"),
+SOURCES = {"segscan": (CSRC / "segscan.cu",), "composite": (CSRC / "composite.cu",),
            "hashgrid": (CSRC / "hashgrid.cu",), "ngp_net": (CSRC / "ngp_net.cu",)}
 BUILD_DIR = PKG / "_build"
 
@@ -49,6 +52,7 @@ NVCC_FLAGS = [
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_PENDING: Dict[str, object] = {}  # source → a build start_all started, not yet waited for
 
 
 def _nvcc() -> str:
@@ -99,21 +103,51 @@ def _finish(started) -> float:
 
 
 def build(defines: Sequence[str] = (), source: str = "segscan") -> float:
-    """Compile the library unless it is built already. Returns the build's
-    wall seconds (0.0 when it was built); raises with nvcc's output if the
-    build fails."""
+    """Compile the library unless it is built already (waiting for the build
+    ``start_all`` started, if any). Returns the build's wall seconds (0.0
+    when it was built); raises with nvcc's output if the build fails."""
+    if not defines and source in _PENDING:
+        return finish(source)
     return _finish(_start(defines, source))
+
+
+def start_all() -> None:
+    """Start one nvcc for every source's default library not built yet, all
+    together, and return at once: ``finish``, ``build`` or ``load`` waits
+    for a library's own build, so work that needs only the libraries
+    finished first runs while the others build."""
+    if not _PENDING:
+        atexit.register(_cancel_pending)
+    for name in SOURCES:
+        if name not in _PENDING:
+            _PENDING[name] = _start((), name)
+
+
+def _cancel_pending() -> None:
+    """At exit: end the builds nobody waited for (a run that failed early)."""
+    for started in _PENDING.values():
+        if started is not None and started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+            Path(started[1]).unlink(missing_ok=True)
+    _PENDING.clear()
+
+
+def finish(source: str) -> float:
+    """Wait for ``source``'s build that ``start_all`` started: its wall
+    seconds (0.0 if none was started); raises if it failed."""
+    return _finish(_PENDING.pop(source, None))
 
 
 def build_all() -> Dict[str, float]:
     """Build every source's default library, one nvcc each, all started
     together. Returns each build's wall seconds (0.0 where it was built);
     raises if any build fails, after all have ended."""
-    started = {name: _start((), name) for name in SOURCES}
+    start_all()
     seconds, failed = {}, []
-    for name, s in started.items():
+    for name in SOURCES:
         try:
-            seconds[name] = _finish(s)
+            seconds[name] = finish(name)
         except RuntimeError as e:
             failed.append(str(e))
     if failed:

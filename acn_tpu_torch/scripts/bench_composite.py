@@ -1,8 +1,8 @@
-"""Time the packed composite kernel (``csrc/composite.cu``) and the frames
-it serves, on one CUDA card.
+"""Time the packed composite kernels (``csrc/composite.cu``) and the frames
+they serve, on one CUDA card.
 
-    python -m acn_tpu_torch.scripts.bench_composite [--what kernel,frames]
-        [--frames 3] [--profile DIR]
+    python -m acn_tpu_torch.scripts.bench_composite
+        [--what kernel,backward,frames] [--frames 3] [--profile DIR]
     PYTHONPATH=<tree> python acn_tpu_torch/scripts/bench_composite.py --what frames
 
 ``kernel``: at the two chunks of ``ops/composite_bench.py`` (the dense
@@ -16,6 +16,13 @@ the library chain (the scan kernel and ``torch.segment_reduce``; timed
 only), each a run of calls between one pair of CUDA events over copies of
 the inputs that exceed the L2; the kernel's host µs per call; the byte
 bound of the real samples, and over every slot.
+
+``backward``: the backward kernel at a training episode's support and
+query march and at the dense chunk (``composite_bench.time_backward_case``):
+one JSON line each with its largest difference from the plain version in
+float64 (over each gradient's largest magnitude), the card ms of the
+kernel, its plain version, the parent's differentiated composition and the
+kernels' forward and backward through autograd, and the byte bound.
 
 ``frames``: the smoke's scene (``configs/train_occ.json``'s model from seed
 0, toy's 10 % grids, its overhead camera) at 1080 × 1920: a warm and
@@ -88,6 +95,28 @@ def bench_kernel(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+def bench_backward(smi: str) -> None:
+    from acn_tpu_torch.ops import composite_bench as cb
+
+    comp = _composite()
+    if not hasattr(comp, "composite_backward_kernel"):
+        print(json.dumps({"backward": None, "note": "this tree has no backward kernel",
+                          "nvidia_smi": smi}), flush=True)
+        return
+    for kind in ("support", "query", "dense"):
+        sig, rgb, s, N, bg = cb.chunk(kind)
+        acc = comp.composite_kernel(sig, rgb, s, N, bg, 0.0, False)[2]
+        g = cb.cotangents(N)
+        got = comp.composite_backward_kernel(sig, rgb, s, N, bg, 0.0, acc, *g)
+        want = cb.backward_f64(sig, rgb, s, N, bg, 0.0, acc, g)
+        row = {"shape": kind, "alpha_thre": 0.0, "grad_err": cb.grad_err(got, want),
+               "within_tol": cb.grads_within_tol(got, want), "tol": cb.GRAD_TOL,
+               **cb.time_backward_case(sig, rgb, s, N, bg)}
+        print(json.dumps({**row, "nvidia_smi": smi}), flush=True)
+        del sig, rgb, s, bg, got, want
+        torch.cuda.empty_cache()
+
+
 def _dev_us(e) -> float:
     return getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
 
@@ -119,7 +148,7 @@ def _profile(fn, profile_dir: str, name: str) -> dict:
     return {"frame_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in avgs if e.key == "cudaLaunchKernel"),
-            "composite_kernel": in_place("composite_packed_kernel"),
+            "composite_kernel": in_place("composite_"),
             "scan_kernel": in_place("seg_scan_kernel"),
             "top_ops_device_ms": {e.key[:70]: 1e-3 * _dev_us(e) for e in top[:TOP_OPS]}}
 
@@ -187,7 +216,7 @@ def bench_frames(args, smi: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--what", default="kernel,frames")
+    ap.add_argument("--what", default="kernel,backward,frames")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--profile", default="", metavar="DIR")
     args = ap.parse_args()
@@ -199,6 +228,8 @@ def main() -> int:
     what = set(args.what.split(","))
     if "kernel" in what:
         bench_kernel(smi)
+    if "backward" in what:
+        bench_backward(smi)
     if "frames" in what:
         bench_frames(args, smi)
     print(smi, flush=True)

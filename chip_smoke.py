@@ -11,8 +11,11 @@ Phases, each printing one JSON line and each fatal on failure:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the build of
    the CUDA kernel libraries from the sources in ``acn_tpu_torch/csrc``
-   (``segscan.cu`` with ``composite.cu``, ``hashgrid.cu``, ``ngp_net.cu``:
-   one ``nvcc`` a library, started together);
+   (``segscan.cu``, ``composite.cu``, ``hashgrid.cu``, ``ngp_net.cu``: one
+   ``nvcc`` a library, started together); phases 2, 17 and 14, which need
+   only the scan's, the composite's and the hash encode's libraries, run in
+   that order as soon as theirs is built, while the network's compiles,
+   and the rest after it (the phases keep their numbers);
 2. kernel: each kernel against its plain PyTorch version on the card, on
    edge cases and at the serving shape, forward, backward through autograd
    and the reverse kernel directly, on an unaligned view, on two streams at
@@ -35,12 +38,14 @@ Phases, each printing one JSON line and each fatal on failure:
    that model through ``make_meta_train_step`` in the packed-budget regime,
    bf16 compute, 3 tasks of 1,024 support and 512 query rays per expert,
    draws from a seeded generator on the card; every metric finite, every parameter
-   moved, the optimizer's count at 4, and the scan's forward and reverse
-   kernels each launched K·T·(inner_iter + 1) = 108 times per step; the
-   host's waits for the card in one step; both kernels against their plain
-   versions, and timed, on the segments of a real support and query march
-   (B = 32,768 and 16,384); one episode's loss and gradient on the card
-   (kernels) against the CPU (plain scans) in float32; and that episode in
+   moved, the optimizer's count at 4, and the composite's forward and
+   backward kernels each launched K·T·(inner_iter + 1) = 108 times per step
+   and the scan's never (every loss composites in the kernels); the
+   host's waits for the card in one step; the scan's kernels against their
+   plain versions, and timed, on the segments of a real support and query
+   march (B = 32,768 and 16,384); one episode's loss and gradient on the
+   card (kernels) against the CPU (plain versions) in float32, at the
+   tolerances of ``check_card_vs_cpu_f32``; and that episode in
    bf16, as the step runs it, on the card against the CPU and against
    float32 on the card (loss, and each parameter group's gradient as one
    vector, in length and direction);
@@ -60,19 +65,21 @@ Phases, each printing one JSON line and each fatal on failure:
    budget-0 renderer (strided march, ``render_rays_occ``): ``render_rays``
    on the card against the CPU, a warm 1080p frame and a timed one. The
    stratified and strided steps and the budget-0 renderer must launch no
-   scan kernel; the budget step after the switch 108 forward and 108
-   reverse;
+   scan or composite kernel; the budget step after the switch the
+   composite's kernels 108 times each way and no scan;
 7. the training loop, ``meta_trainer``, at full width on a synthetic
-   dataset: per expert 32 cameras of 192 × 256 pixels over its quadrant
-   (``toy.camera_ray_stores``, 1,572,864 rays), routed to 5 × 5 micro-cells,
+   dataset: per expert 8 cameras of 192 × 256 pixels over its quadrant
+   (``toy.camera_ray_stores``, 393,216 rays; 32 cameras before, cut for
+   the smoke's time), routed to 5 × 5 micro-cells,
    sampled on the card (``make_device_batch_fn`` over the pools of
    ``build_device_pools``), grids premarked from the same cameras; a model
    whose density varies over the grid (``LOOP_*``); the schedule cut to 12
    steps (warm-up 3, update every 2, the switch after 2 readings, eval every
    4 on one test task, a step save every 6), then a resume from ``step6``
    for two steps. It fails unless the steps run stratified, strided, then
-   budget after the switch, with 0 scan launches in the first two and 108 +
-   108 in each budget step; the card's sampler gives the CPU's ids on the
+   budget after the switch, with no scan or composite launch in the first
+   two and 108 + 108 composite launches and no scan in each budget step
+   (the eval renders stratified); the card's sampler gives the CPU's ids on the
    same draws and never a padded ray, support and query apart; ``best``,
    ``step6``, ``step12`` and ``last`` are written, and ``best``, ``step6``
    and ``last`` reload bit for bit (``last`` equal to the run's end); the
@@ -81,15 +88,19 @@ Phases, each printing one JSON line and each fatal on failure:
    its non-log step waits for the card no more often than phase 5's bare
    step; every metric finite;
 8. the runner on a dataset on disk, at ``configs/train_occ.json``'s width:
-   (a) ``toy.write_dataset_dir`` writes 32 train and 8 val views of
+   (a) ``toy.write_dataset_dir`` writes 16 train (32 before; cut for the
+   smoke's time) and 8 val views of
    192 × 256 over the 4 quadrants (PNGs, zipped masks) into
    ``logs/chip_smoke_runner/``; (b) ``runner.main`` runs ``--op train`` with
-   ``configs/train_occ.json`` cut to 8 steps (warm-up 2, the switch after 1
+   ``configs/train_occ.json`` cut to 6 steps (8 before; cut for the smoke's
+   time; its ray stores built in-process, ``--num_workers 1``: a process
+   pool spawned for each expert's images cost ≈ 50 s) (warm-up 2, the switch after 1
    reading, eval and save every 4, the grids rebuilt every 2 steps: the
    runner's update interval is patched, it has no flag), building the ray
    stores and routes afresh; it fails unless the run trains stratified,
    then packed-budget after the switch, every budget step launching 108 +
-   108 scans and no other step any, and ``last`` and ``step4`` carry grids
+   108 composites and no scan and no other step either, and ``last`` and
+   ``step4`` carry grids
    and optimizer; (c) ``--op eval --configPath configs/eval.json --prefix
    last --tto 0,2,0 --test_batch_size 4`` on that run: the composite kernel
    launched once per chunk of every frame (chunks × 8 views × 3 settings)
@@ -125,23 +136,30 @@ Phases, each printing one JSON line and each fatal on failure:
    (expected 0: the composite kernel sums in one fixed order, where the
    ``index_add_`` before it added with atomics), composite launches as the
    merged ``occ_budget_per_ray`` says; (f) ``--op
-   video --video_frames 8``, live and baked: a file of 8 frames, the
+   video --video_frames 4`` (8 before, cut for the smoke's time), live and
+   baked: a file of 4 frames, the
    encoder named, a composite launch per chunk per frame on budget paths;
 10. M9 at ``configs/train_occ.json``'s width (K 4, T 3, S 1,024, Q 512, 8
    inner steps, bf16, budget 32) on phase 3's model and grids, draws from a
-   seeded generator: (a) second-order MAML, a warm and two timed steps,
-   each launching the scan K·T·(2·inner_iter + 1) = 204 times forward and
-   204 reverse (108 would mean the double backward never ran), every group
-   moved, the peak memory; one float32 episode (inner 2, 256 rays) on the
+   seeded generator: (a) second-order MAML, a warm and a timed step (two
+   timed before; cut for the smoke's time),
+   each launching the composite's forward and backward kernels K·T·(inner_iter
+   + 1) = 108 times each (each inner step's ``create_graph`` backward
+   differentiates the plain composition again; the outer gradient reaches
+   every loss's output through its cotangent), and the scan 2·K·T·inner_iter
+   = 192 times forward and 192 reverse (none would mean the double backward
+   never ran), every group moved, the peak
+   memory; one float32 episode (inner 2, 256 rays) on the
    card against the CPU, and its gradient farther from FoMAML's than from
-   the CPU's; (b) Reptile: 96 + 96 scans and K·T = 12 composite launches
-   (its query losses are not differentiated, so the composite kernel
-   takes them), the optimizer untouched,
+   the CPU's; (b) Reptile: no scan, 108 composite forward launches and 96
+   backward (its K·T = 12 query losses are not differentiated), the
+   optimizer untouched,
    expert 0 moved by P.lr·mean(fast − θ) against a recomputation with the
    same salts, within a limit that two planted faults (Σ not divided by T,
-   the last task alone) exceed; (c) FoMAML with ``--fim``: 108 + 108, the Fisher state of an
-   episode finite; (d) ``train_chunk_rays`` 256 on the budget config: no
-   scan (each chunk marches strided, as in ``acn_tpu``); (e) AdamW and SGD,
+   the last task alone) exceed; (c) FoMAML with ``--fim``: 108 + 108
+   composites and no scan, the Fisher state of an episode finite; (d)
+   ``train_chunk_rays`` 256 on the budget config: no scan or composite
+   (each chunk marches strided, as in ``acn_tpu``); (e) AdamW and SGD,
    a step each, the checkpoint reloaded bit for bit; (f) the vanilla expert
    at the runner's width (hidden 256, depth 8): a budget step,
    ``render_rays`` on the card against the CPU, one occupancy update pass;
@@ -151,8 +169,8 @@ Phases, each printing one JSON line and each fatal on failure:
    ``configs/train_occ.json``'s width on phase 5's step and phase 3's model
    and frame: (a) one rank over NCCL through a one-rank ``Mesh``: two plain
    budget steps from one state (their distance is what the card's atomic
-   sums give), then a warm and two timed sharded steps, 108 + 108 scans
-   each; the first lies no farther from the first plain step than
+   sums give), then a warm and a timed sharded step (two timed before; cut
+   for the smoke's time), 108 + 108 composites and no scan each; the first lies no farther from the first plain step than
    ``MESH_FACTOR`` × the two plain steps' distance (floors ``MESH_FLOOR``,
    ``MESH_LOSS_FLOOR``), per parameter group, in loss and in gradient
    norm, and two planted faults (draws keyed one expert off, the task
@@ -160,8 +178,8 @@ Phases, each printing one JSON line and each fatal on failure:
    fan-out (a composite launch a chunk) against the plain frame within one
    u8 step, both timed in
    turns; (b) two spawned ranks sharing the card over gloo, E = 2: a warm
-   and two timed sharded steps, each rank launching 54 + 54 scans a step
-   (summed over the ranks: 108 + 108); the first step against (a)'s first
+   and a timed sharded step (two timed before), each rank launching 54 +
+   54 composites and no scan a step (summed over the ranks: 108 + 108); the first step against (a)'s first
    within the same bound around it, and two planted faults (the world's
    all-reduces skipped; rank 1's draws keyed by its local expert) must fail
    it; a 1080p frame by row blocks against (a)'s plain frame within one u8
@@ -169,7 +187,8 @@ Phases, each printing one JSON line and each fatal on failure:
    card show correctness, not a scaling number; (c) ``python -m
    acn_tpu_torch --op train --mesh_experts 2 --num_processes 2`` as two
    processes (a TCP rendezvous on localhost) on a small dataset from
-   ``toy.write_dataset_dir``, 4 steps through the regime switch: step lines
+   ``toy.write_dataset_dir``, 3 steps through the regime switch (4 before,
+   cut for the smoke's time): step lines
    from rank 0 only, one ``last``, which the single-process port restores
    with every key and shape; ms per step and per frame, collectives and
    their bytes per step, and the card's name and power limit, printed;
@@ -200,8 +219,8 @@ Phases, each printing one JSON line and each fatal on failure:
 13. the host tooling (``acn_tpu_torch/scripts``, ``acn_tpu_torch/ops``) at
    the reference scene's width (the drz set: 2048 × 1536 views, 4 experts in a
    2 × 2 grid, boundary margin 1.1): (a) ``create_clusters`` (256 samples
-   per ray, ``--center_pixels --scene_scale 1.1``) routes 16 + 4 views of
-   2048 × 1536 over the 4 quadrants (``toy.write_dataset_dir``'s cameras,
+   per ray, ``--center_pixels --scene_scale 1.1``) routes 4 + 2 views of
+   2048 × 1536 (16 + 4 before; cut for the smoke's time) over the 4 quadrants (``toy.write_dataset_dir``'s cameras,
    metadata at that size beside 64 × 48 PNGs) on the card: every image has a
    mask per expert, every expert a sample and a box inside the global box;
    ms per image, its host share (ray generation, zipping) and the time
@@ -212,16 +231,18 @@ Phases, each printing one JSON line and each fatal on failure:
    two processes sharing the card (``--rank 1`` and ``--rank 0`` of
    ``--world_size 2``), run beside (c)-(e) and read before (f): masks byte
    for byte and ``scene_boxes.pt`` equal to (a)'s; (c) ``log_mask_info`` (overlap above 0), ``log_dataset_info``
-   (16 + 4 views) and ``visualize_clustering``'s arrays (the region map's 4
+   (4 + 2 views) and ``visualize_clustering``'s arrays (the region map's 4
    cells and overlap band, one overlay), no figure drawn; (d) a ``toy`` set
    of 8 + 2 views of 96 × 128 whose masks ``create_clusters`` rewrites, then
-   ``runner.main`` ``--op train`` of ``configs/train_occ.json`` for 4 steps
-   through the regime switch (K·T·(inner_iter + 1) = 108 + 108 scans per
-   budget step, none otherwise) and ``summarize_run --json`` on its
+   ``runner.main`` ``--op train`` of ``configs/train_occ.json`` for 3 steps
+   (4 before, cut for the smoke's time)
+   through the regime switch (K·T·(inner_iter + 1) = 108 + 108 composites
+   and no scan per budget step, neither otherwise) and ``summarize_run --json`` on its
    ``log.txt``: every step and eval line parsed; (e) ``convert_reference_ckpt``
    on a reference-style state dict of a full-width corner-layout model (4
    experts, L16 F2, 2^20 rows per level): every converted leaf equal to the
-   source's, and ``render_rays`` of 2,048 rays of both on the card within
+   source's, and ``render_rays`` of 512 rays (2,048 before, cut for the
+   smoke's time) of both on the card within
    one u8 step in rgb and 1e-5 in acc; (f) ``bench_gather_scatter`` (every
    figure with the card's name and power limit), ``bench_step_breakdown
    --iters 1 --profile`` (``bench.py``'s scale, strided: no scan) and
@@ -301,28 +322,30 @@ Phases, each printing one JSON line and each fatal on failure:
    ragged level group), ``f1`` (F = 1) and ``wide`` (σ trunk 256 × 8,
    colour 128 × 5: the network kernel's wide path). Each: a warm, a timed
    and a downloaded ``Renderer.render_image`` frame at 1080 × 1920
-   (``wide`` at the viewer's 480 × 853) and, for ``k25``, routed ones, the
+   (``wide`` at the viewer's 480 × 853; ``k25`` at 270 × 1920, a quarter
+   of the rows, cut for the smoke's time) and, for ``k25``, routed ones, the
    timed frame launching the composite kernel and the network kernel once
    and the hash forward K times (routed: once) per chunk and no scan, the
    host waiting below once
    per chunk in the third (dense: downloaded; routed: on the card, then
    one more downloaded), each downloaded frame finite; ``render_rays``
-   on the card against the CPU as phase 4 holds it; for ``l40f3`` and
+   on the card against the CPU as phase 4 holds it (on 512 rays, 2,048
+   before; cut for the smoke's time); for ``l40f3`` and
    ``f1`` a warm and a timed FoMAML budget step (bf16: the hash forward
-   and cotangent in training, 108 + 108 scans); ms per frame and step with
+   and cotangent in training, 108 + 108 composites, no scan); ms per frame and step with
    the card's name and power limit. Phases 14 and 15 hold each kernel
    against its plain version at these configurations (the hash grids at a
    serving chunk in float32 and a support march in bfloat16, every network
    mode at a dense chunk of random points, the ``wide`` one within rtol 3e-4
    (``NET_WIDE_RTOL``)), with times, under ``flag_shapes``;
-17. the packed composite kernel (``ops/composite.py``, ``csrc/composite.cu``):
-   against its plain version all in PyTorch (the scan's plain version, on
+17. the packed composite kernels (``ops/composite.py``, ``csrc/composite.cu``):
+   the forward against its plain version all in PyTorch (the scan's plain version, on
    the card) within rtol and atol 1e-5 on every output, every output finite
    and a second launch bit-equal, on the hand-made layouts of
    ``ops/composite_bench.py`` (rays with no samples, rays of 256 and 600
    samples, the ray overflow cuts at B and the rays dropped whole, a pad
    tail, one continuing ray 0's id, N = 1, a ragged B, unaligned strided
-   views) at alpha threshold 0 and 0.05, with and without a background and
+   views, 300 rays of 0 to 3 samples) at alpha threshold 0 and 0.05, with and without a background and
    the stats, and on two real chunks (a background and the stats): the
    dense frame's budget march (N = 30,720, B = 983,040) and a routed chunk
    (125,000 rays of the frame, B = 4,000,000); NaN in the dense chunk's
@@ -332,13 +355,29 @@ Phases, each printing one JSON line and each fatal on failure:
    per call of the kernel, the plain version, the parent's composition (the
    scan kernel and ``index_add_``) and the library chain (the scan kernel
    and ``torch.segment_reduce``, timed only), beside the byte bound of
-   their real samples. Every main path above counts the composite kernel's
-   launches from 0 and holds them: once a packed chunk and no scan on
-   every serving path (the dense, routed, single-expert, baked, budget-0
-   (0) and mesh frames, ``--op eval``, ``--op video``, the viewer's
-   frames), 0 on every training path whose loss is differentiated;
-18. the kernels line, then the card's ``nvidia-smi`` line, then the result
-   line ``{"ok": true, "device": {...}}``.
+   their real samples. The backward kernel
+   against its plain version in float64 (rtol 1e-5 and an atol of 1e-5 of
+   each gradient's largest magnitude, ``composite_bench.GRAD_TOL``), a
+   second launch bit-equal, on every hand-made layout at alpha threshold 0
+   and 0.05, with and without a background, on rgb's cotangent alone and
+   on rgb's, depth's and acc's; at a training episode's support and query
+   march (B = 32,768 and 16,384, σ and rgb the columns of one (B, 4)
+   buffer) and at the dense chunk, where NaN in the pad slots changes no
+   bit; ``composite_packed`` under autograd at the support march: one
+   forward and one backward launch, no scan, its gradient within the same
+   tolerance; the card time per call of the backward kernel, its plain
+   version, the parent's differentiated composition (forward and backward)
+   and the kernels' forward and backward through autograd, beside the byte
+   bound. Every main path above counts the composite kernels' launches from
+   0 and holds them: the forward once a packed chunk and no scan on every
+   serving path (the dense, routed, single-expert, baked, budget-0 (0) and
+   mesh frames, ``--op eval``, ``--op video``, the viewer's frames), and
+   the backward never there; forward and backward once a differentiated
+   loss on every budget training path (phases 5-8, 10, 11, 13, 16: the
+   FoMAML, Reptile and MAML counts stated there);
+18. a timing line (each phase's seconds), the kernels line, then the card's
+   ``nvidia-smi`` line, then the result line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 Imports nothing of JAX.
@@ -723,7 +762,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     launches = segscan.seg_excl_sum_kernel.launches
     rev_launches = segscan.seg_excl_rsum_kernel.launches
-    comp_launches = _composite().launch_counts()
+    comp_launches = _comp_fwd()
     frames = 6
     hash_fwd, _ = note_hash("render_image", trains=False)
     # one composite launch a chunk, which scans the transmittance itself:
@@ -768,7 +807,7 @@ def phase_main_path(torch, segscan, toy, Renderer, profile_dir):
         print(table, flush=True)
         # the composite kernel in place, between the ops that make its input
         # and read its output (the table above may cut it off)
-        ck = [e for e in prof.key_averages() if "composite_packed_kernel" in e.key]
+        ck = [e for e in prof.key_averages() if "composite_fwd_kernel" in e.key]
         ck_us = sum(getattr(e, "device_time_total", 0)
                     or getattr(e, "cuda_time_total", 0) for e in ck)
         ck_n = sum(e.count for e in ck)
@@ -928,9 +967,9 @@ def check_card_vs_cpu_f32(torch, got, want, n_tables, what) -> dict:
 
 def episode_card_vs_cpu(torch, toy, ts, nn, model_cpu, occ_cpu, batch_np) -> dict:
     """One episode's loss and gradient, 256 rays, one salt, the σ-head bias at
-    +2 so that the transmittance (and with it the reverse scan) carries weight:
-    float32 on the card (scan kernels) against float32 on the CPU (plain
-    scans); the bf16 episode (``use_amp``, the path the step runs) on the card
+    +2 so that the transmittance (and with it the composite's backward)
+    carries weight: float32 on the card (the composite kernels) against
+    float32 on the CPU (plain versions); the bf16 episode (``use_amp``, the path the step runs) on the card
     against the same on the CPU, and against the float32 one on the card."""
     cfg, P, occ_cfg = toy.train_occ_config()
     rays, rgbs = batch_np["support_rays"][0, 0, :256], batch_np["support_rgbs"][0, 0, :256]
@@ -1055,14 +1094,13 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
         torch.cuda.synchronize()
         if i:
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        launches.append((segscan.seg_excl_sum_kernel.launches,
-                         segscan.seg_excl_rsum_kernel.launches))
+        launches.append(_train_counts(segscan))
         hash_counts.append(_kernel_counts())
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in range(4)))
-    check(all(l == (per_step, per_step) for l in launches),
-          f"scan kernel launches per step (forward, reverse) {launches}, want "
-          f"{per_step} of each")
+    note_hash("train_step", True, tuple(sum(c[i] for c in hash_counts) for i in range(5)))
+    check(all(l == budget_want(per_step) for l in launches),
+          f"launches per step (scan forward, reverse, composite forward, backward) "
+          f"{launches}, want {budget_want(per_step)}")
     check(syncs < per_step, f"{syncs} host syncs in a step of {per_step} "
           f"episode losses at {sites}")
     m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
@@ -1106,6 +1144,7 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
           "rays_per_s": rays_per_step / (1e-3 * statistics.mean(step_ms)),
           "fwd_launches_per_step": launches[-1][0],
           "rev_launches_per_step": launches[-1][1],
+          "composite_launches_per_step": launches[-1][2:],
           "hash_launches_per_step": hash_counts[-1],
           "syncs_per_step": syncs, "sync_sites": sites, "peak_mem_mb": peak_mb,
           "metrics": {k: v.tolist() for k, v in m.items()},
@@ -1119,16 +1158,16 @@ def phase_train_step(torch, segscan, bench, toy, model_cpu, occ_cpu, profile_dir
             torch, lambda: step(state, batch, occ, gen), profile_dir, "train_step")
         scan = {}
         for e in prof.key_averages():
-            if "seg_scan_kernel" in e.key:
+            if "seg_scan_kernel" in e.key or "composite_" in e.key:
                 us = (getattr(e, "device_time_total", 0)
                       or getattr(e, "cuda_time_total", 0))
                 scan[e.key[:120]] = {"launches": e.count,
                                      "mean_us": us / max(e.count, 1)}
         emit({"phase": "train_step_profile", "step_wall_ms": wall_ms,
               "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-              "kernel_launches": n_launch, "scan_kernels": scan,
+              "kernel_launches": n_launch, "scan_and_composite_kernels": scan,
               "hash_kernels": hash_kernel_times(prof, busy_ms),
-              "scan_share_of_busy": 1e-3 * sum(
+              "scan_and_composite_share_of_busy": 1e-3 * sum(
                   v["launches"] * v["mean_us"] for v in scan.values()) / busy_ms})
     return {"launches": (sum(l[0] for l in launches), sum(l[1] for l in launches)),
             "steps": len(launches), "shapes": shapes, "syncs": syncs,
@@ -1152,6 +1191,23 @@ UPDATE_JITTER_SEEDS = (3, 4, 5, 6)
 
 def _scan_counts(segscan):
     return (segscan.seg_excl_sum_kernel.launches, segscan.seg_excl_rsum_kernel.launches)
+
+
+def _train_counts(segscan) -> tuple:
+    """(scan forward, scan reverse, composite forward, composite backward)
+    launches since the counters were last set to 0."""
+    return (*_scan_counts(segscan), *_composite().launch_counts())
+
+
+def budget_want(per_step: int) -> tuple:
+    """A first-order budget step's ``_train_counts``: every differentiated
+    loss composites in the forward and backward kernels, and no scan runs."""
+    return (0, 0, per_step, per_step)
+
+
+def _comp_fwd() -> int:
+    """The composite forward kernel's launches since the counter was set to 0."""
+    return _composite().launch_counts()[0]
 
 
 def _zero_scan_counts(segscan) -> None:
@@ -1188,18 +1244,19 @@ def _composite():
 
 
 def _kernel_counts() -> tuple:
-    """(hash forward, hash cotangent, network, composite) launches since the
-    counters were last set to 0."""
+    """(hash forward, hash cotangent, network, composite forward, composite
+    backward) launches since the counters were last set to 0."""
     return (*_hashgrid().launch_counts(), _ngp_net().launch_counts(),
-            _composite().launch_counts())
+            *_composite().launch_counts())
 
 
 # the hash encode kernels' launches on each main path: (forward, table
-# cotangent), the network kernel's and the composite kernel's, read just
-# after the path ran, counted from 0 just before it
+# cotangent), the network kernel's and the composite kernels' (forward,
+# backward), read just after the path ran, counted from 0 just before it
 HASH_BY_PATH: dict = {}
 NET_BY_PATH: dict = {}
 COMP_BY_PATH: dict = {}
+COMP_BWD_BY_PATH: dict = {}
 
 
 def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tuple:
@@ -1212,11 +1269,12 @@ def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tupl
     kernel has no backward, and a training step's network runs under
     autograd or in bf16) or "any" (a path that trains and serves, such as a
     loop with its occupancy updates: recorded, not held), and the composite
-    kernel as ``comp`` says, in the same words: "none" is the default of a
-    path that only trains (its composite is differentiated), "any" of every
-    other (a serving path holds its count to its chunks with
-    ``check_packed``)."""
-    fwd, bwd, nl, cl = _kernel_counts() if counts is None else counts
+    kernel as ``comp`` says, in the same words ("any" by default: a serving
+    path holds its count to its chunks with ``check_packed``, a training
+    step to its losses with ``budget_want``), and the composite backward
+    kernel only where it trains. ``counts``: (hash forward, hash cotangent,
+    network, composite forward, composite backward)."""
+    fwd, bwd, nl, cl, cbl = _kernel_counts() if counts is None else counts
     check(fwd > 0 and (bwd > 0) == trains,
           f"{path}: the hash encode kernels launched {fwd} forward and {bwd} "
           f"cotangent, want forward > 0 and cotangent {'> 0' if trains else '0'}")
@@ -1224,14 +1282,17 @@ def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tupl
     check(net == "any" or (nl > 0) == (net == "serves"),
           f"{path}: the network kernel launched {nl} times, want "
           f"{'> 0' if net == 'serves' else '0'}")
-    comp = comp or ("none" if trains and net == "none" else "any")
+    comp = comp or "any"
     check(comp == "any" or (cl > 0) == (comp == "serves"),
           f"{path}: the composite kernel launched {cl} times, want "
           f"{'> 0' if comp == 'serves' else '0'}")
+    check(trains or cbl == 0, f"{path}: the composite backward kernel launched {cbl} "
+          f"times on a path that does not train")
     old = HASH_BY_PATH.get(path, (0, 0))
     HASH_BY_PATH[path] = (old[0] + fwd, old[1] + bwd)
     NET_BY_PATH[path] = NET_BY_PATH.get(path, 0) + nl
     note_comp(path, cl)
+    COMP_BWD_BY_PATH[path] = COMP_BWD_BY_PATH.get(path, 0) + cbl
     return fwd, bwd
 
 
@@ -1239,7 +1300,7 @@ def note_comp(path: str, n=None) -> int:
     """Record a main path's composite launches (the counter now, or ``n``);
     ``note_hash`` does it for every path that encodes, this for the baked
     paths, which never reach the encode."""
-    n = _composite().launch_counts() if n is None else n
+    n = _comp_fwd() if n is None else n
     COMP_BY_PATH[path] = COMP_BY_PATH.get(path, 0) + n
     return n
 
@@ -1248,7 +1309,7 @@ def check_packed(path: str, scans, want: int, n=None) -> None:
     """Fail unless a serving path launched the composite kernel ``want``
     times (once a packed chunk; the counter now, or ``n``) and the scan not
     at all: the composite kernel does the transmittance scan itself."""
-    n = _composite().launch_counts() if n is None else n
+    n = _comp_fwd() if n is None else n
     check(n == want and tuple(scans) == (0, 0),
           f"{path}: the composite kernel launched {n} times and the scan "
           f"{tuple(scans)}, want {want} and (0, 0)")
@@ -1341,11 +1402,11 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
     boxes, _ = toy.quadrant_layout(K)
     occ10 = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
     counted = {"fwd": 0, "rev": 0}
-    hashed = [0, 0, 0, 0]
+    hashed = [0, 0, 0, 0, 0]
 
     def steps(step, occ, n):
         """``n`` steps of ``step`` from the running state: (ms per step,
-        scan launches per step, the last metrics as numpy)."""
+        ``_train_counts`` per step, the last metrics as numpy)."""
         nonlocal state
         ms, launches, metrics = [], [], None
         for _ in range(n):
@@ -1355,7 +1416,7 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
             state, metrics = step(state, batch, occ, gen)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-            launches.append(_scan_counts(segscan))
+            launches.append(_train_counts(segscan))
             counted["fwd"] += launches[-1][0]
             counted["rev"] += launches[-1][1]
             hashed[:] = [a + b for a, b in zip(hashed, _kernel_counts())]
@@ -1365,15 +1426,15 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
 
     def summary(ms, launches, m, peak):
         return {"step_ms": ms, "rays_per_s": [rays_per_step / (1e-3 * t) for t in ms],
-                "scan_launches_per_step": launches, "peak_mem_mb": peak,
+                "scan_and_composite_launches_per_step": launches, "peak_mem_mb": peak,
                 "loss_total": float(m["loss_total"]), "occ_overflow": float(m["occ_overflow"])}
 
     # (a) the warm-up: stratified, no occupancy
     torch.cuda.reset_peak_memory_stats()
     step_strat = ts.make_meta_train_step(cfg, P, opt, None)
     ms, launches, m = steps(step_strat, tr.dummy_occ_states(K, "cuda"), 2)
-    check(all(l == (0, 0) for l in launches),
-          f"the stratified step launched scan kernels {launches}, want none")
+    check(all(l == (0, 0, 0, 0) for l in launches),
+          f"the stratified step launched scan or composite kernels {launches}, want none")
     strat = summary(ms, launches, m, torch.cuda.max_memory_allocated() / 1e6)
     emit({"phase": "regimes_stratified", "ray_samples": int(P.ray_samples), **strat})
 
@@ -1423,8 +1484,8 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
         readings.append(float(m["occ_overflow"]))
         fired.append(ctl.observe(readings[-1]))
     auto = summary(auto_ms, auto_launches, m, torch.cuda.max_memory_allocated() / 1e6)
-    check(all(l == (0, 0) for l in auto_launches),
-          f"the strided step launched scan kernels {auto_launches}, want none")
+    check(all(l == (0, 0, 0, 0) for l in auto_launches),
+          f"the strided step launched scan or composite kernels {auto_launches}, want none")
     check([r > ctl.thresh for r in readings] == [b != budget for b in schedule],
           f"would-be overflow readings {readings} at report budgets {schedule}: want "
           f"above {ctl.thresh} at budget 2 only")
@@ -1432,12 +1493,13 @@ def phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu, profile_dir
           f"AutoRegime fired {fired} on readings {readings}")
     ms, launches, m = steps(ts.make_meta_train_step(cfg, P, opt, occ_cfg, budget_override=0),
                             occ_upd, 1)
-    check(launches == [(0, 0)], f"the strided step launched scan kernels {launches}")
+    check(launches == [(0, 0, 0, 0)],
+          f"the strided step launched scan or composite kernels {launches}")
     on_updated = summary(ms, launches, m, None)
     ms, launches, m = steps(ts.make_meta_train_step(cfg, P, opt, occ_cfg), occ10, 1)
-    check(launches == [(per_step, per_step)],
+    check(launches == [budget_want(per_step)],
           f"the budget step after the switch launched {launches}, want "
-          f"{per_step} forward and {per_step} reverse")
+          f"{budget_want(per_step)} (scans, composites)")
     after_switch = summary(ms, launches, m, None)
     check(state["step"] == 2 + len(schedule) + 2, f"the schedule took {state['step']} steps")
     note_hash("regime_schedule", True, tuple(hashed))
@@ -1523,7 +1585,7 @@ LOOP_HASH_SCALE = 3e4
 LOOP_SIGMA_GAIN = 4.0
 LOOP_SIGMA_SHIFT = -4.0
 LOOP_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_loop"
-LOOP_CAMERAS, LOOP_IMAGE = 32, (192, 256)  # per expert; (H, W)
+LOOP_CAMERAS, LOOP_IMAGE = 8, (192, 256)  # per expert (32 before; cut for time); (H, W)
 DEV = "cuda"
 
 
@@ -1542,7 +1604,7 @@ class _LoopProbe:
     def mark(self, what):
         if self.sync:
             self.torch.cuda.synchronize()
-        self.marks.append((what, time.perf_counter(), _scan_counts(self.segscan),
+        self.marks.append((what, time.perf_counter(), _train_counts(self.segscan),
                            sum("synchroniz" in str(w.message) for w in self.caught)))
 
     def step(self):
@@ -1562,16 +1624,16 @@ class _LoopProbe:
         return self.draws.eval(n)
 
     def per_step(self):
-        """Per step: (ms from its mark to the next mark, scan launches and
-        host waits from its mark to the next step's)."""
+        """Per step: (ms from its mark to the next mark, ``_train_counts``
+        and host waits from its mark to the next step's)."""
         steps = [i for i, m in enumerate(self.marks) if m[0] == "step"]
         bounds = steps[1:] + [len(self.marks) - 1]
         out = []
         for i, j in zip(steps, bounds):
             (_, t0, c0, s0), (_, t1, _, _) = self.marks[i], self.marks[i + 1]
             _, _, c1, s1 = self.marks[j]
-            out.append({"ms": 1e3 * (t1 - t0), "launches": (c1[0] - c0[0], c1[1] - c0[1]),
-                        "syncs": s1 - s0})
+            out.append({"ms": 1e3 * (t1 - t0),
+                        "launches": tuple(b - a for a, b in zip(c0, c1)), "syncs": s1 - s0})
         return out
 
     def spans(self, what):
@@ -1726,9 +1788,9 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
           and regimes[first["budget"]:] == ["budget"] * (12 - first["budget"]),
           f"regimes {regimes}, switched after step {rec['switched_at']}")
     for r, s in zip(regimes, steps):
-        want = (per_step, per_step) if r == "budget" else (0, 0)
-        check(s["launches"] == want, f"a {r} step launched scan kernels {s['launches']}, "
-              f"want {want}")
+        want = budget_want(per_step) if r == "budget" else (0, 0, 0, 0)
+        check(s["launches"] == want, f"a {r} step launched scan and composite kernels "
+              f"{s['launches']}, want {want}")
     overflow = [float(x["metrics"]["occ_overflow"]) for x in rec["steps"]]
     for x in rec["steps"]:
         check(all(np.isfinite(v).all() for v in x["metrics"].values()),
@@ -1799,7 +1861,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
           and all(x["regime"] == ("budget" if switched else x["regime"]) for x in rec2["steps"]),
           f"the resumed run's steps {rec2['steps']}")
     if switched:
-        check(all(s["launches"] == (per_step, per_step) for s in resumed),
+        check(all(s["launches"] == budget_want(per_step) for s in resumed),
               f"resumed budget steps launched {[s['launches'] for s in resumed]}")
     check(resumed[0]["syncs"] <= step_syncs,
           f"the non-log step 7 waited for the card {resumed[0]['syncs']} times, a bare "
@@ -1810,7 +1872,7 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
           "steps": [x["step"] for x in rec2["steps"]],
           "step_ms_no_sync": [s["ms"] for s in resumed],
           "host_syncs_non_log_step": resumed[0]["syncs"], "host_syncs_bare_step": step_syncs,
-          "scan_launches_per_step": [s["launches"] for s in resumed]})
+          "scan_and_composite_launches_per_step": [s["launches"] for s in resumed]})
     total = _scan_counts(segscan)
     note_hash("meta_trainer", True, net="any")
     del out, state2, model, pools
@@ -1822,8 +1884,8 @@ def phase_training_run(torch, segscan, toy, step_syncs) -> dict:
 
 
 RUNNER_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_runner"
-RUNNER_CAMERAS, RUNNER_IMAGE = (32, 8), (192, 256)  # (train, val) cameras; (H, W)
-RUNNER_STEPS = 8
+RUNNER_CAMERAS, RUNNER_IMAGE = (16, 8), (192, 256)  # (train, val) cameras (32 train before); (H, W)
+RUNNER_STEPS = 6  # 8 before, cut for the smoke's time: the switch, step4 and last remain
 RUNNER_TTO = "0,2,0"
 TTO_CHECK_RAYS = 1024
 
@@ -1964,7 +2026,8 @@ def phase_runner(torch, segscan, toy) -> dict:
         out = runner.main(_run_flags(
             "train_occ.json", "--fname", str(run),
             "--outer_steps", str(RUNNER_STEPS), "--occ_warmup", "2", "--occ_auto_patience", "1",
-            "--eval_step", "4", "--save_step", "4", "--print_step", "1"))
+            "--eval_step", "4", "--save_step", "4", "--print_step", "1",
+            "--num_workers", "1"))
         probes[-1].mark("end")
         train_s = time.perf_counter() - t0
         train_launches = _scan_counts(segscan)
@@ -1976,7 +2039,7 @@ def phase_runner(torch, segscan, toy) -> dict:
             "eval.json", "--checkpoint_path", str(run), "--prefix", "last", "--tto",
             RUNNER_TTO, "--test_batch_size", "4", "--fname", str(RUNNER_DIR / "eval")))
         eval_s = time.perf_counter() - t0
-        eval_launches, eval_comp = _scan_counts(segscan), _composite().launch_counts()
+        eval_launches, eval_comp = _scan_counts(segscan), _comp_fwd()
         note_hash("runner_eval", True, net="serves")
     finally:
         dataset.RAY_CACHE, tasks.ROUTE_CACHE, runner.build_occ_config, tr.LoopDraws = saved
@@ -1993,7 +2056,7 @@ def phase_runner(torch, segscan, toy) -> dict:
               RUNNER_STEPS - regimes.index("budget")),
           f"runner regimes {regimes}, switched after step {rec['switched_at']}")
     for r, st in zip(regimes, steps):
-        want = (per_step, per_step) if r == "budget" else (0, 0)
+        want = budget_want(per_step) if r == "budget" else (0, 0, 0, 0)
         check(st["launches"] == want, f"a {r} step of the runner launched {st['launches']}, "
               f"want {want}")
     for x in rec["steps"]:
@@ -2013,7 +2076,7 @@ def phase_runner(torch, segscan, toy) -> dict:
           "main_s": train_s, "regimes": regimes, "switched_after_step": rec["switched_at"],
           "step_ms": by_regime, "update_ms": probes[-1].spans("occ_update"),
           "eval_psnr": rec["eval_psnr"],
-          "scan_launches_per_step": [st["launches"] for st in steps],
+          "scan_and_composite_launches_per_step": [st["launches"] for st in steps],
           "scan_launches": {"forward": train_launches[0], "reverse": train_launches[1]}})
 
     # the eval: scan launches, scores, the reset between settings
@@ -2071,7 +2134,7 @@ def phase_runner(torch, segscan, toy) -> dict:
 SERVE_SMALL = (64, 96)  # the card-against-CPU frames
 BAKE_RES = 256  # --bake_resolution's default of 512, cut for the smoke's time
 BAKE_CHECK_RES = 24
-VIDEO_FRAMES = 8
+VIDEO_FRAMES = 4  # 8 before, cut for the smoke's time
 ROUTED_ATOL = 0.02  # tests/test_renderer_routed.py:50-68, rgb and acc
 
 
@@ -2163,7 +2226,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
     rgb, depth, acc = routed()
     e2e_ms = 1e3 * (time.perf_counter() - t0)
     counted["routed_frames"] = _scan_counts(segscan)
-    routed_comp = _composite().launch_counts()
+    routed_comp = _comp_fwd()
     note_hash("routed_frames", trains=False)
     check_packed("routed_frames (4 frames)", counted["routed_frames"], 4 * len(plan))
     check(rgb.shape == (H, W, 3) and np.isfinite(rgb).all() and np.isfinite(depth).all()
@@ -2281,7 +2344,8 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
               f"{bake_err[f'sh{sh}']}")
     del models
     emit({"phase": "serving_bake", "resolution": BAKE_RES,
-          "cut": "--bake_resolution 512 (the flag's default) cut to 256 for the smoke's time",
+          "cut": f"--bake_resolution 512 (the flag's default) cut to {BAKE_RES} for the "
+                 "smoke's time",
           "bake_s": bake_s, "save_baked_s": save_s[0],
           "table_mb": asset["table"].numel() * 4 / 2**20,
           "occupied": occupied, "occ_resolution": asset["occ_cfg"].resolution,
@@ -2381,7 +2445,7 @@ def phase_serving(torch, segscan, toy, model, occ, dense_ms, run, profile_dir) -
             note_hash("runner_video_live", trains=False)
         else:
             note_comp("runner_video_baked")
-        video_comp = _composite().launch_counts()
+        video_comp = _comp_fwd()
         n = _gif_or_mp4_frames(out)
         check(Path(out).exists() and n == VIDEO_FRAMES,
               f"--op video ({name}) wrote {out} with {n} frames, want {VIDEO_FRAMES}")
@@ -2535,7 +2599,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
             state, metrics = step(state, batch, occ, draws if draws is not None else gen)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-            counts.append(_scan_counts(segscan))
+            counts.append(_train_counts(segscan))
             hash_counts.append(_kernel_counts())
         peak = torch.cuda.max_memory_allocated() / 1e6
         launches[name] = tuple(sum(c[i] for c in counts) for i in (0, 1))
@@ -2544,7 +2608,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
             # Reptile's query losses are not differentiated (no_grad): their
             # composite is the kernel's
             note_hash(f"m9_{name}", True, tuple(sum(c[i] for c in hash_counts)
-                                                for i in range(4)),
+                                                for i in range(5)),
                       comp="serves" if getattr(P_, "algo", "") == "reptile" else None)
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
         check(all(np.isfinite(v).all() for v in m.values()),
@@ -2561,13 +2625,19 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
         nn.tree_map(note, start, model.params(), labels)
         return moved
 
-    # (a) second-order MAML, budget regime
-    want = K * T * (2 * I + 1)
+    # (a) second-order MAML, budget regime: each loss's forward is the
+    # composite kernel; each inner step's create_graph backward runs the plain
+    # composition again and differentiates it (a scan forward and reverse),
+    # and the outer backward runs the scan's double backward through it (one
+    # more of each) and, for every loss, the backward kernel: an inner
+    # loss's cotangent depends on its own rgb (the loss's curvature), so the
+    # outer gradient reaches its forward's output too
+    want = (2 * K * T * I, 2 * K * T * I, first_order, first_order)
     P_m = with_(algo="maml")
-    model, opt, state, ms, counts, m, start, peak = run_steps(cfg, P_m, 3, name="maml")
-    check(all(c == (want, want) for c in counts),
-          f"MAML scan launches per step (forward, reverse) {counts}, want {want} of "
-          f"each; {first_order} forward would mean the double backward never ran")
+    model, opt, state, ms, counts, m, start, peak = run_steps(cfg, P_m, 2, name="maml")
+    check(all(c == want for c in counts),
+          f"MAML launches per step (scan forward, reverse, composite forward, backward) "
+          f"{counts}, want {want}; no scan would mean the double backward never ran")
     moved = moved_groups(start, model, opt.labels)
     check(set(moved) == {"encoding", "sigma", "color", "background"} and all(moved.values()),
           f"MAML: parameter groups that moved: {moved}")
@@ -2613,6 +2683,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
           "fomaml_step_ms_phase5": fomaml_ms,
           "vs_fomaml": statistics.mean(ms[1:]) / fomaml_ms,
           "fwd_launches_per_step": counts[-1][0], "rev_launches_per_step": counts[-1][1],
+          "composite_launches_per_step": counts[-1][2:],
           "first_order_launches_per_step": first_order, "peak_mem_mb": peak,
           "episode_peak_above_start_mb": episode_mb,
           "loss_total": float(m["loss_total"]), "grad_norm": float(m["grad_norm"]),
@@ -2624,11 +2695,10 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     P_r = with_(algo="reptile", lr=REPTILE_OUTER_LR)
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_r, 1, draws=replay_salts,
                                                            name="reptile")
-    # the K·T query losses run under no_grad: the composite kernel, not the
-    # scan, composites them
-    check(counts == [(K * T * I, K * T * I)] and comp_launches["reptile"] == [K * T],
-          f"Reptile scan launches {counts} and composite {comp_launches['reptile']}, want "
-          f"({K * T * I}, {K * T * I}) and {K * T}")
+    # the K·T·I support losses composite forward and backward in the kernels,
+    # the K·T query losses (under no_grad) forward only
+    want = (0, 0, first_order, K * T * I)
+    check(counts == [want], f"Reptile launches (scans, composites) {counts}, want {want}")
     check(int(state["opt_state"]["count"]) == 0 and float(m["grad_norm"]) == 0.0,
           f"Reptile moved the optimizer: count {int(state['opt_state']['count'])}")
     loss_fn, prep = ts.make_episode_loss(cfg, P_r, occ_cfg)
@@ -2683,8 +2753,9 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     # (c) FoMAML with the Fisher-preconditioned inner loop
     P_f = with_(fim=True)
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_f, 2, name="fim")
-    check(all(c == (first_order, first_order) for c in counts),
-          f"FIM scan launches per step {counts}, want {first_order} of each")
+    check(all(c == budget_want(first_order) for c in counts),
+          f"FIM launches per step (scans, composites) {counts}, want "
+          f"{budget_want(first_order)}")
     fim_cfg = ts._fim_cfg_from(P_f)
     loss_fn, prep = ts.make_episode_loss(cfg, P_f, occ_cfg)
     expert0 = nn.tree_map(lambda a: a[0], model.params()["experts"])
@@ -2706,7 +2777,8 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     # (d) the chunked loss on the budget config: every chunk marches strided
     P_c = with_(train_chunk_rays=M9_CHUNK)
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_c, 1, name="chunked")
-    check(counts == [(0, 0)], f"the chunked budget step launched scans {counts}")
+    check(counts == [(0, 0, 0, 0)],
+          f"the chunked budget step launched scans or composites {counts}")
     emit({"phase": "m9_chunked", "train_chunk_rays": M9_CHUNK, "step_ms": ms,
           "launches_per_step": counts[-1], "loss_total": float(m["loss_total"])})
     del model, opt, state, start
@@ -2716,7 +2788,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     for name in ("adamw", "sgd"):
         P_o = with_(optimizer=name)
         model, opt, state, ms, counts, m, start, _ = run_steps(cfg, P_o, 1, name=name)
-        check(counts == [(first_order, first_order)], f"{name}: scan launches {counts}")
+        check(counts == [budget_want(first_order)], f"{name}: launches {counts}")
         run = M9_DIR / name
         t0 = time.perf_counter()
         tck.save_checkpoint(run, "last", model, opt_state=state["opt_state"],
@@ -2749,7 +2821,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     check(cfg_v.expert.hidden == 256 and cfg_v.expert.sigma_depth == 8,
           f"the runner's vanilla expert: {cfg_v.expert}")
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg_v, P, 1, name="vanilla")
-    check(counts == [(first_order, first_order)], f"vanilla: scan launches {counts}")
+    check(counts == [budget_want(first_order)], f"vanilla: launches {counts}")
     cam = toy.overhead_camera(H, W)
     from acn_tpu_torch.pipelines.renderer import _pinhole_block_rays
     rays = _pinhole_block_rays(H, W, *[torch.from_numpy(np.asarray(a, np.float32)) for a in
@@ -2797,7 +2869,7 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
     check(hcfg.layout == "corner" and hcfg.levels == 16 and hcfg.features_per_level == 2,
           f"the runner's corner grid: {hcfg}")
     model, opt, state, ms, counts, m, start, _ = run_steps(cfg_c, P, 1, name="corner")
-    check(counts == [(first_order, first_order)], f"corner: scan launches {counts}")
+    check(counts == [budget_want(first_order)], f"corner: launches {counts}")
     table = model.params()["experts"]["hash_table"][0].detach()
     x = torch.rand((4096, 3), generator=torch.Generator().manual_seed(6))
     gout = torch.randn((4096, hcfg.out_dim), generator=torch.Generator().manual_seed(7))
@@ -2836,7 +2908,8 @@ def phase_m9(torch, segscan, toy, occ_cpu, fomaml_ms) -> dict:
 
 MESH_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_mesh"
 MESH_BAKED_HW = (64, 96)
-MESH_STEPS = 3  # one warm, two timed
+MESH_STEPS = 2  # one warm, one timed (3 before, cut for the smoke's time)
+MESH_RUN_STEPS = 3  # (c)'s --op train through the switch (4 before, cut for time)
 # a mesh step against its reference step (the plain one for (a), (a)'s for
 # (b)): each parameter group's update, the loss and the gradient norm lie no
 # farther from the reference's than MESH_FACTOR × two plain steps' distance
@@ -3016,9 +3089,9 @@ def mesh_rank_11b(rank: int, n: int, a: dict) -> dict:
             torch.cuda.synchronize()
             pmesh.host_barrier()
             ms.append(1e3 * (time.perf_counter() - t0))
-            counts = torch.tensor(_scan_counts(segscan))
+            counts = torch.tensor(_train_counts(segscan))
             dist.all_reduce(counts, group=pmesh.host_group())  # summed over the ranks
-            launches.append({"this_rank": list(_scan_counts(segscan)),
+            launches.append({"this_rank": list(_train_counts(segscan)),
                              "summed": counts.tolist(),
                              "hash": list(_kernel_counts()),
                              "collectives": mesh.stats["collectives"] - c0["collectives"],
@@ -3116,7 +3189,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             t0 = time.perf_counter()
             state, m = step(state, b, o, gen)
             torch.cuda.synchronize()
-            return state, m, 1e3 * (time.perf_counter() - t0), _scan_counts(segscan)
+            return state, m, 1e3 * (time.perf_counter() - t0), _train_counts(segscan)
 
         start = None
         plain = []  # two plain steps from one state, one generator seed
@@ -3127,7 +3200,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             step = ts.make_meta_train_step(cfg, P, opt, occ_cfg)
             state, m, ms, c = timed_step(step, state, batch, occ_t,
                                          torch.Generator(device=dev).manual_seed(0))
-            check(c == (per_step, per_step), f"plain step launches {c}")
+            check(c == budget_want(per_step), f"plain step launches {c}")
             after = _group_vectors(torch, nn, model_p.params(), opt.labels)
             plain.append({"ms": ms, "loss": float(m["loss_total"]),
                           "grad_norm": float(m["grad_norm"]),
@@ -3176,9 +3249,10 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
 
         run_a = mesh_run(MESH_STEPS)
         note_hash("mesh_one_rank_step", True,
-                  tuple(sum(c[i] for c in run_a["hash"]) for i in range(4)))
-        check(all(c == (per_step, per_step) for c in run_a["launches"]),
-              f"one-rank mesh step launches {run_a['launches']}, want {per_step} + {per_step}")
+                  tuple(sum(c[i] for c in run_a["hash"]) for i in range(5)))
+        check(all(c == budget_want(per_step) for c in run_a["launches"]),
+              f"one-rank mesh step launches {run_a['launches']}, want "
+              f"{budget_want(per_step)}")
         launches["mesh_one_rank_step"] = tuple(sum(c[i] for c in run_a["launches"])
                                                for i in (0, 1))
         ref_a = {k: plain[0][k] for k in ("loss", "grad_norm")}
@@ -3218,7 +3292,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
             else:
                 mesh_frame = out
                 mesh_counts_f = [a + b for a, b in zip(mesh_counts_f, _scan_counts(segscan))]
-                mesh_comp += _composite().launch_counts()
+                mesh_comp += _comp_fwd()
                 note_hash("mesh_one_rank_frame", trains=False)
         chunks = -(-H // (renderer.chunk_rays // W))
         check_packed("(a) two fan-out frames", mesh_counts_f, 2 * chunks, mesh_comp)
@@ -3265,12 +3339,13 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     check(all(r["backend"] == "gloo" for r in ranks), "two ranks on one card must run gloo")
     for r in ranks:
         for l in r["step"]["launches"]:
-            check(l["this_rank"] == [per_step // 2] * 2 and l["summed"] == [per_step] * 2,
-                  f"(b) launches per step {l}, want {per_step // 2} + {per_step // 2} a rank")
+            check(l["this_rank"] == list(budget_want(per_step // 2))
+                  and l["summed"] == list(budget_want(per_step)),
+                  f"(b) launches per step {l}, want {budget_want(per_step // 2)} a rank")
     launches["mesh_two_rank_step"] = tuple(
         sum(l["summed"][i] for l in r0["step"]["launches"]) for i in (0, 1))
     note_hash("mesh_two_rank_step", True, tuple(
-        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in range(4)))
+        sum(l["hash"][i] for r in ranks for l in r["step"]["launches"]) for i in range(5)))
     def got_b(run):
         m = run["metrics"]
         return {"cmp": _update_cmp(torch, run["update"], ref_update),
@@ -3294,7 +3369,7 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     launches["mesh_two_rank_frame"] = tuple(
         sum(r["frame"]["launches"][i] for r in ranks) for i in (0, 1))
     note_hash("mesh_two_rank_frame", False,
-              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in range(4)))
+              tuple(sum(r["frame"]["hash"][i] for r in ranks) for i in range(5)))
     n_disp = -(-H // (2 * (renderer.chunk_rays // W)))  # dispatches of 2 × rows
     check_packed("(b) two timed frames over 2 ranks", launches["mesh_two_rank_frame"],
                  2 * 2 * n_disp, sum(r["frame"]["hash"][3] for r in ranks))
@@ -3320,7 +3395,8 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
                       "--configPath", str(Path(__file__).resolve().parent / "configs" /
                                           "train_occ.json"),
                       "--data_path", str(MESH_DIR / "data"), "--fname", str(run),
-                      "--outer_steps", "4", "--occ_warmup", "2", "--occ_auto_patience", "1",
+                      "--outer_steps", str(MESH_RUN_STEPS), "--occ_warmup", "2",
+                      "--occ_auto_patience", "1",
                       "--eval_step", "4", "--save_step", "4", "--print_step", "1",
                       "--mesh_experts", "2", "--num_processes", "2", "--process_id", str(i),
                       "--coordinator_address", f"127.0.0.1:{port}"]
@@ -3344,8 +3420,9 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
     check(codes == [0, 0], f"(c) two-process --op train exited {codes}:\n"
           + "\n".join(o[-3000:] for o in out))
     step_lines = [len(re.findall(r"\] step \d+/\d+ ", o)) for o in out]
-    check(step_lines[0] == 4 and step_lines[1] == 0,
-          f"(c) step lines per rank {step_lines}, want 4 from rank 0 and none from rank 1")
+    check(step_lines[0] == MESH_RUN_STEPS and step_lines[1] == 0,
+          f"(c) step lines per rank {step_lines}, want {MESH_RUN_STEPS} from rank 0 and "
+          f"none from rank 1")
     check("backend gloo" in out[0] and "switching to the global-budget marcher" in out[0],
           "(c) the run did not name its gloo backend or did not switch regime")
     check(sorted(p.name for p in MESH_DIR.iterdir() if p.name.startswith("train")) == ["train"]
@@ -3356,11 +3433,11 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
         "--data_path", str(MESH_DIR / "data"), "--checkpoint_path", str(run), "--prefix",
         "last", "--fname", str(MESH_DIR / "reload")]), "bench")
     n_keys = len(ctx["model"].state_dict())
-    check(ctx["step"] == 4 and ctx["occ_states"] is not None,
+    check(ctx["step"] == MESH_RUN_STEPS and ctx["occ_states"] is not None,
           f"(c) `last` reloads at step {ctx['step']}")
     del ctx
     shutil.rmtree(MESH_DIR, ignore_errors=True)
-    emit({"phase": "mesh_runner", "processes": 2, "mesh": [2, 1], "steps": 4,
+    emit({"phase": "mesh_runner", "processes": 2, "mesh": [2, 1], "steps": MESH_RUN_STEPS,
           "step_lines_per_rank": step_lines, "wall_s": runner_s,
           "last_reloaded_keys": n_keys, "phase_wall_s": time.perf_counter() - t_phase,
           "nvidia_smi": smi})
@@ -3553,7 +3630,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
         controller._thread.join(timeout=60)
         check(not controller._thread.is_alive(), "(c) the loop thread did not end")
         renderer.render_image = real_render
-        live_counts, live_comp = _scan_counts(segscan), _composite().launch_counts()
+        live_counts, live_comp = _scan_counts(segscan), _comp_fwd()
         note_hash("viewer_live_frames_and_tto", True, net="serves")
         check(controller.last_error is None, f"(c) the loop failed:\n{controller.last_error}")
         check(live.steps == LIVE_STEPS and len(metrics) == LIVE_STEPS,
@@ -3679,7 +3756,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
 # ---------------------------------------------------------------- phase 13
 
 TOOLS_DIR = Path(__file__).resolve().parent / "logs" / "chip_smoke_tools"
-DRZ_VIEWS, DRZ_IMAGE, DRZ_IMAGES = (16, 4), (1536, 2048), 187 + 62
+DRZ_VIEWS, DRZ_IMAGE, DRZ_IMAGES = (4, 2), (1536, 2048), 187 + 62  # (16, 4) before
 CLUSTER_SAMPLES = 256
 CLUSTER_FLAGS = ["--grid_dim", "2", "2", "--cluster_2d", "--boundary_margin", "1.1",
                  "--ray_samples", str(CLUSTER_SAMPLES), "--center_pixels", "--scene_scale",
@@ -3687,8 +3764,8 @@ CLUSTER_FLAGS = ["--grid_dim", "2", "2", "--cluster_2d", "--boundary_margin", "1
 ROUTE_CHECK = (2, 0.125)  # images and downscale of the card-against-CPU routing
 TIE_RTOL = 1e-5  # tests/test_torch_create_clusters.py: a sample this near a boundary
 BOX_ATOL = 4 * float(np.spacing(np.float32(2.0)))  # 4 ulps of the operands' scale
-TOOLS_STEPS = 4
-CONVERT_RAYS = 2048
+TOOLS_STEPS = 3  # 4 before, cut for the smoke's time
+CONVERT_RAYS = 512  # 2,048 before, cut for the smoke's time
 # the reference's pinned architecture (its {tag}.P): 4 experts, 64-wide MLPs,
 # the corner grid's 2^20 rows per level (L16 F2 by the parser's defaults)
 CONVERT_REF = {"num_submodules": 4, "sigma_depth": 2, "color_depth": 2, "dim_hidden": 64,
@@ -3753,7 +3830,7 @@ def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
         return res, out.getvalue()
 
     try:
-        # (a) create_clusters on the card over 16 + 4 metadata views of
+        # (a) create_clusters on the card over DRZ_VIEWS metadata views of
         # 2048 × 1536 (toy PNGs of 64 × 48 beside them; the tool reads none)
         _zero_scan_counts(segscan)
         n_tr, n_va = DRZ_VIEWS
@@ -3869,14 +3946,16 @@ def phase_tools(torch, segscan, toy, profile_dir) -> tuple:
         out = runner.main(train_argv, device=DEV)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        fwd, rev = _scan_counts(segscan)
+        got = _train_counts(segscan)
+        fwd, rev = got[:2]
         note_hash("host_tools_train", True, net="any")
         P = parse_args(train_argv)
         per_step = P.num_submodules * P.batch_size * (P.inner_iter + 1)  # 108
         regimes = [s["regime"] for s in out["loop"]["steps"]]
         n_budget = regimes.count("budget")
-        check(n_budget >= 1 and (fwd, rev) == (per_step * n_budget, per_step * n_budget),
-              f"(d) regimes {regimes}, scan launches {(fwd, rev)}, {per_step} per budget step")
+        check(n_budget >= 1 and got == budget_want(per_step * n_budget),
+              f"(d) regimes {regimes}, scan and composite launches {got}, "
+              f"{budget_want(per_step)} per budget step")
         counted = [fwd, rev]
         del out
         code, text = quiet(summarize_run.main, ["--json", str(run)])
@@ -4260,9 +4339,11 @@ HASH_FLAG_CONFIGS = ("l16f8", "l40f3", "f1")  # phase 16's hash grids other than
 
 # ---------------------------------------------------------------- phase 16
 
-CONFIG_FRAMES = {"wide": LIVE_PREVIEW}  # the wide expert's frames at the viewer's size
+# the wide expert's frames at the viewer's size; k25's (13,500 hash launches
+# and 14-18 s a 1080p frame) at a quarter of the rows, cut for the smoke's time
+CONFIG_FRAMES = {"wide": LIVE_PREVIEW, "k25": (270, 1920)}
 CONFIG_STEPS = ("l40f3", "f1")  # a budget step each: the bf16 hash kernels at F = 3 and 1
-CONFIG_CPU_RAYS = 2048  # card against CPU, as phase 4
+CONFIG_CPU_RAYS = 512  # card against CPU, as phase 4 (2,048 before; cut for time)
 
 
 def config_vs_cpu(torch, Renderer, cfg, P, occ_cfg, model, model_cpu, occ, cam, Hf,
@@ -4344,7 +4425,7 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
             frame(download=False)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
-            scans, (fwd, bwd, nl, cl) = _scan_counts(segscan), _kernel_counts()
+            scans, (fwd, bwd, nl, cl, _) = _scan_counts(segscan), _kernel_counts()
             path = f"{name}_{kind}_frame"
             note_hash(path, trains=False)
             counted[path] = scans
@@ -4386,16 +4467,18 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
             state, metrics = step(state, batch, occ, gen)
             torch.cuda.synchronize()
             step_ms = 1e3 * (time.perf_counter() - t0)
-            scans, counts = _scan_counts(segscan), _kernel_counts()
+            got, counts = _train_counts(segscan), _kernel_counts()
+            scans = got[:2]
             path = f"{name}_budget_step"
             note_hash(path, trains=True)
             counted[path] = scans
             m = {k: float(v.detach().float().mean()) for k, v in metrics.items()}
-            check(scans == (per_step, per_step) and all(np.isfinite(v) for v in m.values()),
-                  f"{path}: scan launches {scans}, want {per_step} of each; metrics {m}")
+            check(got == budget_want(per_step) and all(np.isfinite(v) for v in m.values()),
+                  f"{path}: scan and composite launches {got}, want {budget_want(per_step)}; "
+                  f"metrics {m}")
             row["budget_step"] = {"ms": step_ms, "scan_launches": scans,
                                   "hash_launches": counts[:2], "net_launches": counts[2],
-                                  "composite_launches": counts[3],
+                                  "composite_launches": counts[3:],
                                   "use_amp": bool(P.use_amp), "loss_out": m["loss_out"]}
             del batch, opt, state, step
         row.update(config_s=time.perf_counter() - t_cfg, nvidia_smi=smi)
@@ -4617,21 +4700,170 @@ def phase_composite(torch, smi) -> dict:
                "max_abs_err": results[name]["max_abs_err"]}
         shapes.append(row)
         torch.cuda.empty_cache()
+    bwd = composite_backward_checks(torch, cases, thre_cfg)
     del cases
     torch.cuda.empty_cache()
     out = {"phase": "composite", "cases": results, "max_abs_err": worst,
            "tolerance": cb.TOL, "two_launches_bit_equal": True,
            "pad_slots_unread": pads_unread, "nan_density_rays": len(hit),
            "nan_density_matches_plain": nan_matches and nan_rays_only, "shapes": shapes,
+           "backward": bwd,
            "phase_s": time.perf_counter() - t_start, "nvidia_smi": smi}
     emit(out)
     return out
 
 
+def composite_backward_checks(torch, cases: dict, thre_cfg: float) -> dict:
+    """The composite backward kernel (phase 17): against its plain version
+    in float64 on every hand-made layout, alpha threshold 0 and 0.05, with
+    and without a background, on rgb's cotangent alone and on all three;
+    at a training episode's support and query march (σ and rgb the columns
+    of one (B, 4) buffer, as the network gives them, threshold 0, as the
+    loss calls it) and at the dense chunk; two launches bit-equal; NaN in
+    the dense chunk's pad slots unread; the autograd Function through
+    ``composite_packed`` at the support march, one launch each way and no
+    scan; times beside the byte bound."""
+    from acn_tpu_torch.nerfs import render as trender
+    from acn_tpu_torch.ops import composite_bench as cb
+    from acn_tpu_torch.ops import segscan
+
+    comp = _composite()
+
+    def held(what, got, again, want):
+        same = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+        err = cb.grad_err(got, want)
+        check(cb.grads_within_tol(got, want) and same,
+              f"composite backward {what}: largest |kernel − plain float64| {err} of the "
+              f"largest gradient ({cb.GRAD_TOL}), two launches bit-equal {same}")
+        return err
+
+    layouts, worst = {}, 0.0
+    for name, (sig, rgb, smp, N, bg) in cases.items():
+        if name in COMPOSITE_CHUNKS:
+            continue
+        res = {"calls": 0, "grad_err": 0.0, "plain_f32_grad_err": 0.0}
+        for thre in (0.0, 0.05):
+            for with_bg in (True, False):
+                b = bg if with_bg else None
+                acc = comp.composite_kernel(sig, rgb, smp, N, b, thre, False)[2]
+                for which in ("rgb", "all"):
+                    g = cb.cotangents(N, seed=res["calls"], device="cuda")
+                    g = (g[0], None, None) if which == "rgb" else g
+                    args = (sig, rgb, smp, N, b, thre, acc, *g)
+                    got = comp.composite_backward_kernel(*args)
+                    again = comp.composite_backward_kernel(*args)
+                    want = cb.backward_f64(*args[:7], g)
+                    err = held(f"{name} alpha_thre {thre} bg {with_bg} {which}", got, again,
+                               want)
+                    plain = comp.composite_backward_plain(*args)
+                    res["grad_err"] = max(res["grad_err"], err)
+                    res["plain_f32_grad_err"] = max(res["plain_f32_grad_err"],
+                                                    cb.grad_err(plain, want))
+                    res["calls"] += 1
+        worst = max(worst, res["grad_err"])
+        layouts[name] = res
+    shapes = []
+    for kind in ("support", "query", "dense"):
+        if kind == "dense":
+            sig, rgb, smp, N, bg = cases["dense_chunk"]
+            thre = thre_cfg
+        else:
+            sig, rgb, smp, N, bg = cb.chunk(kind)
+            buf = torch.cat([rgb, sig[:, None]], dim=1)  # the network's (B, 4)
+            sig, rgb, thre = buf[:, 3], buf[:, :3], 0.0
+        check((N, int(sig.shape[0])) == {**cb.TRAIN_CHUNKS, "dense": cb.CHUNKS["dense"]}[kind],
+              f"backward {kind}: (N, B) {(N, int(sig.shape[0]))}")
+        acc = comp.composite_kernel(sig, rgb, smp, N, bg, thre, False)[2]
+        g = cb.cotangents(N)
+        args = (sig, rgb, smp, N, bg, thre, acc, *g)
+        got = comp.composite_backward_kernel(*args)
+        want = cb.backward_f64(*args[:7], g)
+        err = held(kind, got, comp.composite_backward_kernel(*args), want)
+        row = {"shape": kind, "alpha_thre": thre, "grad_err": err,
+               "plain_f32_grad_err": cb.grad_err(comp.composite_backward_plain(*args), want)}
+        if kind == "dense":  # NaN in every pad slot's inputs: never read
+            real = smp["slot_real"]
+            nan = float("nan")
+            dirty = {**smp, "t0_b": smp["t0_b"].masked_fill(~real, nan),
+                     "t1_b": smp["t1_b"].masked_fill(~real, nan)}
+            got_nan = comp.composite_backward_kernel(
+                sig.masked_fill(~real, nan), rgb.masked_fill(~real[:, None], nan), dirty, N, bg,
+                thre, acc, *g)
+            row["pad_slots_unread"] = all(torch.equal(x, y) for x, y in zip(got, got_nan))
+            check(row["pad_slots_unread"],
+                  "composite backward: NaN in the dense chunk's pad slots changed a gradient")
+            del dirty, got_nan
+        if kind == "support":  # the Function, as the training loss calls it
+            x = buf.detach().clone().requires_grad_()
+            xb = bg.detach().clone().requires_grad_()
+            _zero_scan_counts(segscan)
+            out = trender.composite_packed(x[:, 3], x[:, :3], smp, N, bg_rgb=xb,
+                                           with_stats=False)
+            dx, db = torch.autograd.grad(sum((o * gi).sum() for o, gi in zip(out[:3], g)),
+                                         (x, xb))
+            torch.cuda.synchronize()
+            launched = _train_counts(segscan)
+            fn_err = cb.grad_err((dx[:, 3], dx[:, :3], db), want)
+            check(launched == (0, 0, 1, 1)
+                  and cb.grads_within_tol((dx[:, 3], dx[:, :3], db), want),
+                  f"composite_packed under autograd: launches (scans, composites) {launched}, "
+                  f"want (0, 0, 1, 1); gradient {fn_err} of the largest off")
+            row.update(autograd_launches=launched, autograd_grad_err=fn_err)
+            del x, xb, out, dx, db
+        worst = max(worst, err)
+        row.update(cb.time_backward_case(sig, rgb, smp, N, bg, alpha_thre=thre))
+        shapes.append(row)
+        del got, want, acc
+        torch.cuda.empty_cache()
+    return {"layouts": layouts, "grad_err": worst, "tolerance": cb.GRAD_TOL,
+            "two_launches_bit_equal": True, "shapes": shapes}
+
+
+def composite_kernel_entries(ck: dict, smi: str) -> list:
+    """The kernels line's entries of the composite kernels: the forward's and
+    the backward's."""
+    return [composite_kernel_entry(ck, smi), composite_backward_entry(ck, smi)]
+
+
+def composite_backward_entry(ck: dict, smi: str) -> dict:
+    """The backward kernel's entry: launches summed over the main paths
+    (``COMP_BWD_BY_PATH``); times at a training episode's support march,
+    the query march's and the dense chunk's under ``shapes``."""
+    b = ck["backward"]
+    at = next(r for r in b["shapes"] if r["shape"] == "support")
+    keys = ("shape", "N", "B", "n_real", "alpha_thre", "ms", "host_us", "plain_ms",
+            "parent_fwd_bwd_ms", "kernels_fwd_bwd_ms", "library_ms", "bound_ms", "bound_by",
+            "grad_err", "plain_f32_grad_err")
+    return {"name": "composite_packed_backward", "route": "cuda",
+            "source": "acn_tpu_torch/csrc/composite.cu",
+            "replaces": "acn_tpu/ops/segscan.py:251 (the Pallas scan's backward _bwd, the "
+                        "same kernel on the reversed cotangent) plus XLA's transposed segment "
+                        "sums, through acn_tpu/nerfs/render.py:143",
+            "launches": sum(COMP_BWD_BY_PATH.values()),
+            "launches_by_path": dict(COMP_BWD_BY_PATH),
+            "max_abs_err": b["grad_err"], "ms": at["ms"], "host_us": at["host_us"],
+            "plain_ms": at["plain_ms"], "parent_fwd_bwd_ms": at["parent_fwd_bwd_ms"],
+            "kernels_fwd_bwd_ms": at["kernels_fwd_bwd_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call computes the composite's gradient",
+            "max_abs_err_note": "the largest |kernel − plain float64| of each gradient over "
+                                "its largest magnitude, over every case",
+            "plain_note": "plain_ms: the backward's formulas in PyTorch (the scans' plain "
+                          "versions); parent_fwd_bwd_ms: the differentiated composition the "
+                          "port ran before the kernel (the scan kernel, index_add_, "
+                          "autograd), forward and backward; kernels_fwd_bwd_ms: the forward "
+                          "and backward kernels through autograd",
+            "bound_note": "bound_ms: 24 B read and 16 written a real sample, 17 B a pad slot, "
+                          "32 B a ray and 24 more with a background, over 3.35 TB/s",
+            "timing": "card ms per call over a run of calls between one pair of CUDA events, "
+                      "cycling over copies of the inputs that exceed the L2; host µs apart",
+            "shapes": [{k: r[k] for k in keys} for r in b["shapes"]], "nvidia_smi": smi}
+
+
 def composite_kernel_entry(ck: dict, smi: str) -> dict:
-    """The kernels line's entry of the composite kernel: launches summed over
-    the main paths (``COMP_BY_PATH``); times at a dense chunk, the routed
-    chunk's under ``shapes``."""
+    """The kernels line's entry of the composite forward kernel: launches
+    summed over the main paths (``COMP_BY_PATH``); times at a dense chunk,
+    the routed chunk's under ``shapes``."""
     at = next(r for r in ck["shapes"] if r["chunk"] == "dense_chunk")
     keys = ("chunk", "N", "B", "n_real", "ms", "host_us", "plain_ms", "parent_ms",
             "library_ms", "bound_ms", "bound_every_slot_ms", "bound_by", "max_abs_err")
@@ -4685,38 +4917,75 @@ def main() -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    build_s = cuda_lib.build_all()  # one nvcc per source, started together
+    cuda_lib.start_all()  # one nvcc per source, started together
+    phase_s, build_s = {}, {}
+    clock = [t0]  # phase 1 from the build's start
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
+    # the kernel checks that need only the libraries built first run while
+    # the network's (the longest build) compiles: phase 2 on the scan's,
+    # 17 on the composite's, 14 on the hash encode's; "1_device" is the
+    # time spent waiting for builds
+    build_s["segscan"] = cuda_lib.finish("segscan")
+    lap("1_device")
+    k = phase_kernel(torch, segscan, bench_segscan)
+    lap("2_kernel")
+    build_s["composite"] = cuda_lib.finish("composite")
+    lap("1_device")
+    ck = phase_composite(torch, smi)
+    lap("17_composite")
+    build_s["hashgrid"] = cuda_lib.finish("hashgrid")
+    lap("1_device")
+    hk = phase_hash(torch, toy)
+    lap("14_hash")
+    build_s["ngp_net"] = cuda_lib.finish("ngp_net")
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_wall_s": time.perf_counter() - t0,
           "ptxas": {name: cuda_lib.build_log(source=name) for name in cuda_lib.SOURCES}})
-
-    k = phase_kernel(torch, segscan, bench_segscan)
+    lap("1_device")
     model, occ, cam, (fwd_render, rev_render), dense_ms = phase_main_path(
         torch, segscan, toy, Renderer, args.profile)
+    lap("3_main_path")
     occ_cpu = phase_vs_cpu(torch, toy, Renderer, model, occ, cam)
+    lap("4_vs_cpu")
     cfg = toy.train_occ_config()[0]
     model_cpu = toy.serving_model(cfg, seed=0, device="cpu")
     train = phase_train_step(torch, segscan, bench_segscan, toy, model_cpu,
                              occ_cpu, args.profile)
+    lap("5_train_step")
     regimes = phase_regimes(torch, segscan, toy, Renderer, model_cpu, occ_cpu,
                             args.profile)
+    lap("6_regimes")
     del model_cpu
     loop = phase_training_run(torch, segscan, toy, train["syncs"])
+    lap("7_loop")
     run8 = phase_runner(torch, segscan, toy)
+    lap("8_runner")
     serve, baked_path = phase_serving(torch, segscan, toy, model, occ, dense_ms, run8["run"],
                                       args.profile)
+    lap("9_serving")
     m9 = phase_m9(torch, segscan, toy, occ_cpu, train["mean_step_ms"])
+    lap("10_m9")
     del occ_cpu
     mesh = phase_mesh(torch, segscan, toy, model, occ)
+    lap("11_mesh")
     del model, occ
     live = phase_live(torch, segscan, toy, run8["run"], baked_path)
+    lap("12_live")
     fwd_tools, rev_tools = phase_tools(torch, segscan, toy, args.profile)
-    hk = phase_hash(torch, toy)
+    lap("13_tools")
     nk = phase_net(torch)
+    lap("15_net")
     configs = phase_configs(torch, segscan, toy, Renderer)
-    ck = phase_composite(torch, smi)
+    lap("16_configs")
+    emit({"phase": "timing", "phase_s": phase_s, "total_s": sum(phase_s.values()),
+          "nvidia_smi": smi})
 
     # launches: the counters as read after the main paths' runs (6 frames;
     # the sum over the 4 training steps; the sum over phase 6's steps and
@@ -4782,7 +5051,7 @@ def main() -> int:
                           for sh in train["shapes"]], **common},
         *hash_kernel_entries(hk, smi),
         net_kernel_entry(nk, smi),
-        composite_kernel_entry(ck, smi),
+        *composite_kernel_entries(ck, smi),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -115,16 +115,18 @@ def test_ssim_on_the_card_stays_in_range():
 def test_an_eval_frame_launches_the_scan_once_per_chunk(eval_run, in_tmp):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from acn_tpu_torch.ops import segscan
+    from acn_tpu_torch.ops import composite, segscan
 
     ctx = trunner.build_context(tparse(_eval_argv(eval_run, "--fname", "card")), "eval",
                                 device="cuda")
     md = ctx["test_metadata"][0]
-    before = segscan.seg_excl_sum_kernel.launches
+    counts = lambda: (composite.launch_counts()[0], segscan.seg_excl_sum_kernel.launches)
+    before = counts()
     res = trt.runtime_evaluate({**ctx, "test_metadata": [md]}, 0)
     from acn_tpu_torch.pipelines.renderer import Renderer
 
     rows = max(Renderer(ctx["cfg"], ctx["P"], ctx["occ_cfg"], device="cuda").chunk_rays
                // md.W, 1)
-    assert segscan.seg_excl_sum_kernel.launches - before == -(-md.H // rows)
+    # the composite kernel once a chunk; it scans the transmittance itself
+    assert tuple(b - a for a, b in zip(before, counts())) == (-(-md.H // rows), 0)
     assert np.isfinite(res["psnr"])

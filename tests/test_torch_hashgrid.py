@@ -35,6 +35,8 @@ table[r, c·F + f] = 8·r + c exactly (h and the corner); the double backward
 against the plain versions.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -244,12 +246,71 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_types():
 
 def test_each_source_builds_its_own_library():
     paths = {name: cuda_lib.library_path(source=name) for name in cuda_lib.SOURCES}
-    assert set(paths) == {"segscan", "hashgrid", "ngp_net"}
+    assert set(paths) == {"segscan", "composite", "hashgrid", "ngp_net"}
     assert paths["segscan"].name.startswith("libsegscan-")
+    assert paths["composite"].name.startswith("libcomposite-")
     assert paths["hashgrid"].name.startswith("libhashgrid-")
     assert paths["ngp_net"].name.startswith("libngp_net-")
     assert paths["segscan"] == cuda_lib.library_path()  # the scan's default
     assert cuda_lib.library_path(("SEGSCAN_ITEMS=4",)) != paths["segscan"]
+
+
+FAKE_NVCC = """#!/bin/sh
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; shift; fi
+  shift
+done
+sleep "${FAKE_NVCC_SLEEP:-0.2}"
+echo "ptxas info    : fake"
+: > "$out"
+"""
+
+
+def _fake_nvcc(tmp_path, monkeypatch, sleep: str):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "_PENDING", {})
+    monkeypatch.setenv("FAKE_NVCC_SLEEP", sleep)
+
+
+def test_start_all_builds_in_the_background_and_each_waits_for_its_own(
+        tmp_path, monkeypatch):
+    """``start_all`` returns before any build ends; ``finish`` waits for one
+    library, ``build`` (what ``load`` calls) for a started one rather than
+    starting a second nvcc, and ``build_all`` then finds every library
+    built (no nvcc, 0 s)."""
+    _fake_nvcc(tmp_path, monkeypatch, "0.5")
+    t0 = time.perf_counter()
+    cuda_lib.start_all()
+    assert time.perf_counter() - t0 < 0.4
+    assert set(cuda_lib._PENDING) == set(cuda_lib.SOURCES)
+    assert cuda_lib.finish("segscan") > 0.3
+    assert cuda_lib.library_path(source="segscan").exists()
+    assert cuda_lib.build(source="composite") > 0.3
+    assert "composite" not in cuda_lib._PENDING
+    assert "ptxas info" in cuda_lib.build_log(source="composite")
+    first = cuda_lib.build_all()  # waits for the two still building
+    assert first["segscan"] == first["composite"] == 0.0
+    assert first["hashgrid"] > 0.3 and first["ngp_net"] > 0.3
+    assert cuda_lib.build_all() == dict.fromkeys(cuda_lib.SOURCES, 0.0)
+    assert all(cuda_lib.library_path(source=n).exists() for n in cuda_lib.SOURCES)
+    assert not cuda_lib._PENDING
+    assert not list((tmp_path / "build").glob("*.tmp*"))
+
+
+def test_builds_nobody_waited_for_end_at_exit(tmp_path, monkeypatch):
+    """A run that fails before waiting for its builds leaves no nvcc behind
+    and no library or temporary output."""
+    _fake_nvcc(tmp_path, monkeypatch, "30")
+    cuda_lib.start_all()
+    procs = [s[0] for s in cuda_lib._PENDING.values()]
+    cuda_lib._cancel_pending()
+    assert all(p.poll() is not None for p in procs) and not cuda_lib._PENDING
+    assert not list((tmp_path / "build").iterdir())
 
 
 @pytest.mark.parametrize("dense", [True, False])

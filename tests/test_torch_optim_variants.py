@@ -29,8 +29,8 @@ from acn_tpu_torch.models.nn import tree_leaves
 from acn_tpu_torch.utils import checkpoint as tck
 from acn_tpu_torch.utils import msgpack_tree
 from acn_tpu_torch.utils import optim as toptim
-from test_torch_train_step import (_leaves, _opt_case, _tt, make_P, micro_scene,
-                                   optax_to_port, port_to_optax)
+from test_torch_train_step import _leaves, _tt, make_P, micro_scene, optax_to_port, port_to_optax
+from test_torch_train_step_parts import _opt_case
 from torch_m9_util import one_thread  # noqa: F401  (pytestmark uses it)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
