@@ -49,14 +49,26 @@
 // 8 x 4 and 0.0188 at 32 x 1, and a flat pass of 4 to 16 rays a warp with
 // segmented scans over the warp 0.0215-0.036 ms (a warp a ray: 0.0207).
 //
-// Backward design: one warp a ray, two walks of 32 slots a step. The first,
-// from the ray's start, scans the log-transmittance and keeps T in d sigma's
-// own slot; the second, from the ray's end, re-reads the sample, takes T
-// back, and sums S by a reverse shuffle scan with the carry from the ray's
-// end, as the plain reverse scan sums it (never as a total minus a prefix,
-// which cancels where late weights are tiny). Blocks past the rays write the
-// zeros of the pad slots. A sample is read twice; the second read finds it
-// in L2 at a training episode's size.
+// Backward design. At a support march (1,024 rays of 32 slots) the first
+// design, a warp a ray with two walks, filled 12 % of the card's warp slots
+// and was bound by a chain of memory round trips (read a sample, store T
+// into d sigma, read the sample again, load T back). Still a warp a ray, a
+// lane a sample, a step 32 samples of the ray, kBwdWarps = 4 warps a block;
+// now a ray's last kKeep = 2 steps (64 samples) stay in registers: each of
+// their samples is read once, and the prefix scan (T, as the forward
+// computes it) and the suffix scan (S) run on the registers of that read.
+// S is summed from the ray's end, as the plain reverse scan sums it (never
+// as a total minus a prefix, which cancels where late weights are tiny): by
+// a reverse shuffle scan over the warp, with the carry of the steps after.
+// A longer ray walks its earlier steps twice: the first walk, from its
+// start, carries the log-transmittance and stores T of those steps in
+// d sigma's own slot; the second, from the ray's end, re-reads their
+// samples and T. Each walk loads its next step before it computes the
+// current one, so that a long ray's loads overlap its scans. Chosen by
+// sweeps on an H100 (PERF.md) at the marches training sends (1,024 to
+// 4,000 rays, latency-bound): the forward's 16 lanes x 2 samples left too
+// few warps to hide a step's latency (0.0120-0.0132 ms at a support march
+// against 0.0083). Blocks past the rays write the zeros of the pad slots.
 //
 // Both: every sum in one fixed order, no atomics, so two launches on the
 // same inputs give the same bits. A slot past a ray's end (the pad tail, the
@@ -73,10 +85,12 @@
 
 namespace {
 
-constexpr int kItems = 2;   // consecutive samples a lane a step, forward
-constexpr int kLanes = 16;  // lanes a ray, forward
-constexpr int kWarps = 8;   // warps a block
+constexpr int kItems = 2;   // consecutive samples a lane a step
+constexpr int kLanes = 16;  // lanes a ray
+constexpr int kWarps = 8;   // warps a block, forward
 constexpr int kThreads = 32 * kWarps;
+constexpr int kBwdWarps = 4;  // warps a block, backward: a warp a ray
+constexpr int kKeep = 2;      // a ray's last steps (of 32 samples) kept in registers
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Inputs {
@@ -281,19 +295,71 @@ __global__ void __launch_bounds__(kThreads) composite_fwd_kernel(const FwdArgs a
   if (valid && sub == 0) write_ray<STATS>(a, r, s_r, s_g, s_b, s_d, s_a, s_e, s_m);
 }
 
-__device__ __forceinline__ float lane_rscan_add(float v, int lane) {
+// Inclusive reverse scan over the lanes of a width-`width` group: lane l
+// adds lanes l+1, l+2, ... of its group, in a fixed order.
+__device__ __forceinline__ float lane_rscan_add(float v, int sub, int width) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const float u = __shfl_down_sync(kFull, v, d);
-    if (lane + d < 32) v = __fadd_rn(v, u);
+    if (d >= width) break;
+    const float u = __shfl_down_sync(kFull, v, d, width);
+    if (sub + d < width) v = __fadd_rn(v, u);
   }
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) composite_bwd_kernel(const BwdArgs a) {
+// A sample's inputs as read: sigma, t0, t1 and its colour.
+struct Raw {
+  float sg, u0, u1, c0, c1, c2;
+};
+
+// One sample as the backward keeps it: alpha, e, dt, clip_half_ties' share,
+// whether alpha was cut, and u = g . (c - bg) + gd * t_mid + ga.
+struct Sample {
+  float alpha, e, dt, share, u;
+  bool cut;
+};
+
+struct Cotangent {
+  float g0, g1, g2, gd, ga;  // ga with acc's share of the background term
+};
+
+__device__ __forceinline__ Raw load_raw(const Inputs& p, long long i) {
+  Raw x;
+  x.sg = p.sigma[i * p.s_sigma];
+  x.u0 = p.t0[i * p.s_t0];
+  x.u1 = p.t1[i * p.s_t1];
+  const float* c = p.rgb + i * p.s_rgb;
+  x.c0 = c[0];
+  x.c1 = c[1];
+  x.c2 = c[2];
+  return x;
+}
+
+__device__ __forceinline__ Sample finish(const Inputs& p, const Cotangent& g, const Raw& x) {
+  Sample s;
+  s.alpha = sample_alpha(p, x.sg, x.u0, x.u1, s.dt, s.e, s.cut);
+  // clip_half_ties' share at sigma = 0, none below (NaN: 0, times NaN)
+  s.share = x.sg > 0.f ? 1.f : (x.sg == 0.f ? 0.5f : 0.f);
+  const float tmid = __fmul_rn(0.5f, __fadd_rn(x.u0, x.u1));
+  s.u = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(g.g0, x.c0), __fmul_rn(g.g1, x.c1)),
+                                      __fmul_rn(g.g2, x.c2)),
+                            __fmul_rn(g.gd, tmid)),
+                  g.ga);
+  return s;
+}
+
+// A warp a ray, a lane a sample, a step 32 samples of the ray (csrc note).
+// The first walk, from the ray's start, scans the log-transmittance as the
+// forward does; it keeps the ray's last kKeep steps (each sample as read,
+// and its T) in registers and stores T of the earlier steps in d_sigma's
+// own slots. The second walk, from the ray's end, takes the kept steps from
+// the registers and re-reads the earlier ones (their samples, and T from
+// d_sigma), and sums S by a reverse scan with the carry from the ray's end.
+// Each walk loads its next step before it computes the current one.
+__global__ void __launch_bounds__(32 * kBwdWarps) composite_bwd_kernel(const BwdArgs a) {
   const Inputs& p = a.p;
   if ((long long)blockIdx.x >= a.ray_blocks) {  // the pad slots' zeros
-    const long long i = ((long long)blockIdx.x - a.ray_blocks) * kThreads + threadIdx.x;
+    const long long i = ((long long)blockIdx.x - a.ray_blocks) * (32 * kBwdWarps) + threadIdx.x;
     if (i < p.B && !p.slot_real[i]) {
       a.d_sigma[i] = 0.f;
       a.d_rgb[3 * i] = a.d_rgb[3 * i + 1] = a.d_rgb[3 * i + 2] = 0.f;
@@ -301,85 +367,119 @@ __global__ void __launch_bounds__(kThreads) composite_bwd_kernel(const BwdArgs a
     return;
   }
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long r = (long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
   if (r >= p.n_rays) return;  // the whole warp leaves together
   const long long start = min(p.ray_start[r], p.B);
+  // warp-uniform: only the last ray reads slot_real
   const long long end = r + 1 < p.n_rays ? min(p.ray_start[r + 1], p.B) : real_end(p, start, lane);
+  const int steps = (int)((end - start + 31) / 32);
+  auto slot = [&](int st) { return start + (long long)st * 32 + lane; };
 
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+  Cotangent g = {0.f, 0.f, 0.f, 0.f, 0.f};
   if (a.g_rgb != nullptr) {
-    const float* g = a.g_rgb + r * a.s_g_rgb;
-    g0 = g[0];
-    g1 = g[a.s_g_rgb_c];
-    g2 = g[2 * a.s_g_rgb_c];
+    const float* gr = a.g_rgb + r * a.s_g_rgb;
+    g.g0 = gr[0];
+    g.g1 = gr[a.s_g_rgb_c];
+    g.g2 = gr[2 * a.s_g_rgb_c];
   }
-  const float gd = a.g_depth != nullptr ? a.g_depth[r * a.s_g_depth] : 0.f;
-  float ga = a.g_acc != nullptr ? a.g_acc[r * a.s_g_acc] : 0.f;
+  g.gd = a.g_depth != nullptr ? a.g_depth[r * a.s_g_depth] : 0.f;
+  g.ga = a.g_acc != nullptr ? a.g_acc[r * a.s_g_acc] : 0.f;
   if (p.bg != nullptr) {  // acc's share of the background term: -g . bg
     const float* b = p.bg + r * p.s_bg;
-    ga = __fsub_rn(ga, __fadd_rn(__fadd_rn(__fmul_rn(g0, b[0]), __fmul_rn(g1, b[1])),
-                                 __fmul_rn(g2, b[2])));
+    g.ga = __fsub_rn(g.ga, __fadd_rn(__fadd_rn(__fmul_rn(g.g0, b[0]), __fmul_rn(g.g1, b[1])),
+                                     __fmul_rn(g.g2, b[2])));
     if (a.d_bg != nullptr && lane == 0) {
       const float k = __fsub_rn(1.f, a.acc[r]);
-      a.d_bg[3 * r] = __fmul_rn(g0, k);
-      a.d_bg[3 * r + 1] = __fmul_rn(g1, k);
-      a.d_bg[3 * r + 2] = __fmul_rn(g2, k);
+      a.d_bg[3 * r] = __fmul_rn(g.g0, k);
+      a.d_bg[3 * r + 1] = __fmul_rn(g.g1, k);
+      a.d_bg[3 * r + 2] = __fmul_rn(g.g2, k);
     }
   }
 
-  // from the ray's start: T, kept in d_sigma's slot until the second walk
-  float carry = 0.f;
-  for (long long base = start; base < end; base += 32) {
-    const long long i = base + lane;
-    float lt = 0.f;
-    if (i < end) {
-      float dt, ex;
-      bool cut;
-      lt = logf(one_minus_eps(sample_alpha(p, p.sigma[i * p.s_sigma], p.t0[i * p.s_t0],
-                                           p.t1[i * p.s_t1], dt, ex, cut)));
-    }
-    const float incl = lane_scan_add(lt, lane);
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 0.f;
-    if (i < end) a.d_sigma[i] = expf(__fadd_rn(carry, excl));
-    carry = __fadd_rn(carry, __shfl_sync(kFull, incl, 31));
-  }
-
-  // from the ray's end: S, summed from the end, and the gradients
-  float s_carry = 0.f;
-  for (long long base = end > start ? start + ((end - 1 - start) / 32) * 32 : start - 1;
-       base >= start; base -= 32) {
-    const long long i = base + lane;
+  // from the ray's start: T as the forward computes it
+  Sample keep[kKeep];  // the ray's last steps, read once (keep[0] the last)
+  float keep_T[kKeep];
+  Raw next;  // the next step's sample, loaded a step ahead
+  if (steps > 0 && slot(0) < end) next = load_raw(p, slot(0));
+  float carry = 0.f;  // the ray's log-transmittance before this step
+  for (int st = 0; st < steps; ++st) {
+    const long long i = slot(st);
     const bool in = i < end;
-    float dt = 0.f, ex = 0.f, alpha = 0.f, T = 0.f, w = 0.f, u = 0.f, sg = 0.f;
-    bool cut = false;
+    const Raw cur = next;
+    if (st + 1 < steps && i + 32 < end) next = load_raw(p, i + 32);
+    Sample s;
+    float lt = 0.f;  // the sample's log-transmittance term
     if (in) {
-      sg = p.sigma[i * p.s_sigma];
-      const float u0 = p.t0[i * p.s_t0], u1 = p.t1[i * p.s_t1];
-      alpha = sample_alpha(p, sg, u0, u1, dt, ex, cut);
-      T = a.d_sigma[i];
-      w = __fmul_rn(alpha, T);
-      const float* c = p.rgb + i * p.s_rgb;
-      const float tmid = __fmul_rn(0.5f, __fadd_rn(u0, u1));
-      u = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(g0, c[0]), __fmul_rn(g1, c[1])),
-                                        __fmul_rn(g2, c[2])),
-                              __fmul_rn(gd, tmid)),
-                    ga);
+      s = finish(p, g, cur);
+      lt = logf(one_minus_eps(s.alpha));
     }
-    const float incl = lane_rscan_add(__fmul_rn(w, u), lane);
-    float S = __shfl_down_sync(kFull, incl, 1);
-    if (lane == 31) S = 0.f;
-    S = __fadd_rn(s_carry, S);
-    s_carry = __fadd_rn(s_carry, __shfl_sync(kFull, incl, 0));
+    const float v = lane_scan_add(lt, lane);  // the warp's inclusive scan
+    float before = __shfl_up_sync(kFull, v, 1);
+    before = __fadd_rn(carry, lane == 0 ? 0.f : before);
+    carry = __fadd_rn(carry, __shfl_sync(kFull, v, 31));
+    const int back = steps - 1 - st;  // steps after this one in the ray
     if (in) {
-      const float d_alpha = __fsub_rn(__fmul_rn(T, u), __fdiv_rn(S, one_minus_eps(alpha)));
-      // clip_half_ties' share at sigma = 0, none below (NaN: 0, times NaN)
-      const float share = sg > 0.f ? 1.f : (sg == 0.f ? 0.5f : 0.f);
-      a.d_sigma[i] = cut ? 0.f : __fmul_rn(__fmul_rn(__fmul_rn(d_alpha, ex), dt), share);
+      const float T = expf(before);
+      if (back >= kKeep) a.d_sigma[i] = T;
+#pragma unroll
+      for (int q = 0; q < kKeep; ++q) {
+        if (back == q) {
+          keep[q] = s;
+          keep_T[q] = T;
+        }
+      }
+    }
+  }
+
+  // from the ray's end: S, summed from the end, and the gradients; an
+  // earlier step's sample and T are loaded a step ahead
+  Raw prev;
+  float prev_T;
+  auto load_back = [&](int st) {
+    if (steps - 1 - st < kKeep) return;  // a kept step
+    const long long i = slot(st);
+    if (i < end) {
+      prev = load_raw(p, i);
+      prev_T = a.d_sigma[i];
+    }
+  };
+  if (steps > 0) load_back(steps - 1);
+  float s_carry = 0.f;
+  for (int st = steps - 1; st >= 0; --st) {
+    const long long i = slot(st);
+    const bool in = i < end;
+    const Raw cur = prev;
+    const float cur_T = prev_T;
+    if (st > 0) load_back(st - 1);
+    const int back = steps - 1 - st;
+    Sample s;
+    float T, w = 0.f;
+    if (in) {
+      if (back >= kKeep) {
+        s = finish(p, g, cur);
+        T = cur_T;
+      }
+#pragma unroll
+      for (int q = 0; q < kKeep; ++q) {
+        if (back == q) {
+          s = keep[q];
+          T = keep_T[q];
+        }
+      }
+      w = __fmul_rn(s.alpha, T);
+    }
+    const float v = lane_rscan_add(in ? __fmul_rn(w, s.u) : 0.f, lane, 32);
+    float S = __shfl_down_sync(kFull, v, 1);  // the warp's sum after this lane
+    S = __fadd_rn(s_carry, lane == 31 ? 0.f : S);
+    s_carry = __fadd_rn(s_carry, __shfl_sync(kFull, v, 0));
+    if (in) {
+      const float d_alpha =
+          __fsub_rn(__fmul_rn(T, s.u), __fdiv_rn(S, one_minus_eps(s.alpha)));
+      a.d_sigma[i] = s.cut ? 0.f : __fmul_rn(__fmul_rn(__fmul_rn(d_alpha, s.e), s.dt), s.share);
       float* d = a.d_rgb + 3 * i;
-      d[0] = __fmul_rn(w, g0);
-      d[1] = __fmul_rn(w, g1);
-      d[2] = __fmul_rn(w, g2);
+      d[0] = __fmul_rn(w, g.g0);
+      d[1] = __fmul_rn(w, g.g1);
+      d[2] = __fmul_rn(w, g.g2);
     }
   }
 }
@@ -424,15 +524,16 @@ int composite_bwd_f32(const float* sigma, long long s_sigma, const float* rgb, l
                       const float* g_acc, long long s_g_acc, float* d_sigma, float* d_rgb,
                       float* d_bg, void* stream) {
   if (n_rays < 0 || B < 0) return (int)cudaErrorInvalidValue;
-  const long long ray_blocks = (n_rays + kWarps - 1) / kWarps;
-  const long long blocks = ray_blocks + (B + kThreads - 1) / kThreads;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int threads = 32 * kBwdWarps;
   const BwdArgs a{{sigma, s_sigma, rgb, s_rgb, t0, s_t0, t1, s_t1, ray_start, slot_real, bg,
                    s_bg, n_rays, B, alpha_thre},
                   acc, g_rgb, s_g_rgb, s_g_rgb_c, g_depth, s_g_depth, g_acc, s_g_acc,
-                  d_sigma, d_rgb, d_bg, ray_blocks};
-  composite_bwd_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+                  d_sigma, d_rgb, d_bg, (n_rays + kBwdWarps - 1) / kBwdWarps};
+  // the ray blocks, then one block a `threads` slots for the pad slots' zeros
+  const long long blocks = a.ray_blocks + (B + threads - 1) / threads;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  composite_bwd_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,8 @@
 // acn_tpu_torch/ops/ngp_net.py, which holds the plain version.
 //
 // Bound: operations, on the tensor cores. Every layer product runs as
-// "3xTF32" on mma.sync.m16n8k8 (below): three TF32 products a multiply-add.
+// "3xTF32" on mma.sync.m16n8k8 (wgmma.m64n64k8 on the wide path; below):
+// three TF32 products a multiply-add.
 // At the smoke's widths (L*F 32, hidden 64, depth 2, colour 64 deep 2, SH 4
 // levels) a (point, expert) pair costs 13,440 multiply-adds (13,824 with the
 // tiles' padding), so 3 x 2 x 13,440 flops; at 495 TFLOP/s (dense TF32) a
@@ -82,26 +83,52 @@
 //   the network carries (hidden, color_hidden, L*F and the colour input,
 //   1 + 15 + the direction encoding). A hidden layer is computed at its
 //   class's width (zero columns past its own), its input at its own.
-// * Anything wider takes the wide path (ngp_net_wide_kernel, one launch a
-//   chunk too, mode a runtime argument): a warp cannot carry 16 points x W
-//   columns in registers there, nor a block a layer's split image in shared
-//   memory (at width 256, 512 KB). The slabs, the point lists, the direction
-//   encodings and the accumulators are the classes'; a pass takes 16 tiles
-//   of the list (one a warp), and its activations live in a global scratch
-//   buffer of the block's own, in the mma's fragment layout: a lane reads
-//   back only what it wrote, so the buffer needs no barrier. Each layer is
-//   computed in column blocks of 64, each summed over slices of 64 input
-//   rows; a slice of the split weights (32 KB) is the block's shared image,
-//   the next slice landing by cp.async while the current one computes. A
-//   warp loads a slice's 8 input fragments before its first mma (from L2
-//   or device memory: one latency a slice, not one an input tile). Each
-//   input tile's products still sum into a partial from 0, added with one
-//   rounded add in input order, so a layer's outputs are the classes' bits.
-//   A pass stages every weight of the expert, so the slab is as large as
-//   shared memory holds (lists that fill passes), evened over whole rounds
-//   of the grid. At the wide expert of chip_smoke.py (trunk 256 x 8, colour
-//   128 x 5: 541,696 multiply-adds a pair) a dense chunk of random points
-//   (1.02 M pairs) is bound at 6.7 ms by 3xTF32 operations.
+// * Anything wider takes the wide path, two launches a chunk (mode a
+//   runtime argument): a warp cannot carry 16 points x W columns in
+//   registers there, nor a block a layer's split image in shared memory (at
+//   width 256, 512 KB). The slabs, the point lists, the direction encodings
+//   and the accumulators are the classes'. What bounds it is the tensor
+//   cores (3xTF32 at the wide expert of chip_smoke.py, trunk 256 x 8, colour
+//   128 x 5: 541,696 multiply-adds a pair, a dense chunk of random points,
+//   1.02 M pairs, at least 6.7 ms) and the weights' path into shared memory;
+//   its design:
+//   - The split launch (ngp_net_split_kernel) writes every expert's layers
+//     once a call into a device buffer of TF32 big and small parts, in the
+//     layout wgmma reads (wide_index), with the classes' row permutation;
+//     nothing is kept across calls, so an in-place weight update is seen.
+//   - The network launch: one block an SM, two warpgroups, each a 64-point
+//     tile of the list (a pass: two tiles). Thread 0 streams the expert's
+//     split layers into a ring of kWideStages 16 KB stages by
+//     cp.async.bulk under mbarriers (full: landed; empty: read by all eight
+//     warps), kWideStages - 1 ahead of the stage it reads, one stage a k-step
+//     of 8 input rows by up to 256 output columns; both tiles read each
+//     stage, so the weights cross from L2 once every 128 points. A
+//     producer warp of its own was tried first: the compiler gives a block
+//     of 288 threads a warpgroup's registers for the 32 (168 a thread,
+//     spilling the sums), and the kernel ran slower than the mma.sync path
+//     it replaces (PERF.md).
+//   - The products are wgmma.m64n64k8 in TF32, A (the activations) from
+//     registers, B from the stage: each k-step a warpgroup splits its A
+//     fragment into big and small parts and, for each 64-column block, runs
+//     small.big, big.small and big.big into a partial from 0 (scale-d 0),
+//     added with one rounded add: each input tile's partial, as in the
+//     classes, so a layer's outputs are theirs to the mma's rounding. Two
+//     partials alternate, so that a block's add runs while the next block's
+//     products do. A warpgroup keeps up to 256 columns (4 blocks, 128
+//     registers a thread) of a layer's sum in registers.
+//   - The slab keeps only the accumulators and the list (18 bytes a point),
+//     so slabs are large and the lists fill their passes; a tile's
+//     direction encodings are computed at its heads layer into 64 rows of
+//     shared memory a warpgroup.
+//   - A tile's activations stay in shared memory (64 KB at width 256), in
+//     the fragment layout: each thread reads back only what it wrote, so a
+//     layer's outputs overwrite its inputs after the thread's last product
+//     (no barrier, one buffer). A network whose layers are wider than 256
+//     (more rounds of columns than registers hold) or whose buffers leave
+//     no room for a slab of kWideSlabMin keeps them in a scratch buffer of
+//     the block's in device memory instead, two per tile (a round's outputs
+//     must not overwrite what the next round reads): shared memory cannot
+//     hold them.
 // * The expert and layer tables are in device memory: the layer weights'
 //   pointers an array of K x slots (w, b) pairs that the wrapper keeps on
 //   the card (a block copies the row of the expert it stages next into
@@ -123,6 +150,7 @@
 // does.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <vector>
 
@@ -134,26 +162,21 @@ constexpr int kClassWidth = 128;  // the widest class; wider networks take the w
 constexpr int kSlabMax = 1024;  // points a slab, at most (the list indices are 16-bit)
 constexpr int kSlabMin = 256;   // one 16-point tile a warp of a 16-warp block
 // the wide path
-constexpr int kWideWarps = 16;
-constexpr int kWideTiles = 1;  // 16-point tiles a warp carries through a pass
-constexpr int kPassTiles = kWideWarps * kWideTiles;
-constexpr int kSliceK = 8;  // input tiles of a weight slice
-constexpr int kSliceN = 8;  // output tiles of a weight slice (a column block)
-constexpr int kSliceDs = 8 * kSliceN + 4;
-constexpr int kSliceLand = 8 * kSliceK * kSliceDs + 8 * kSliceN;    // floats, as it lands
-constexpr int kSliceSplit = 128 * kSliceK * kSliceN + 8 * kSliceN;  // floats, split
-// points a slab on the wide path, at most: a pass stages every weight of the
-// expert for its 16 tiles, so the slab is as large as shared memory holds
-// (1,920 points at the smoke's direction encoding), for lists that fill
-// whole passes
-constexpr int kWideSlabMax = 4096;
+constexpr int kWideWGs = 2;     // consumer warpgroups a block, a 64-point tile each
+constexpr int kWideThreads = kWideWGs * 128;
+constexpr int kRoundBlocks = 4;  // 64-column blocks a warpgroup sums in registers (256 columns)
+constexpr int kBlockFloats = 512;  // one TF32 part of a block's k-step of 8: 64 columns x 8 rows
+constexpr int kStageFloats = kRoundBlocks * 2 * kBlockFloats;  // a stage: 16 KB
+constexpr int kWideStages = 3;   // stages of the ring (4: +3 %, 5: +43 % on an H100)
+constexpr int kWideSlabMax = 4096;  // points a slab, at most
+constexpr int kWideSlabMin = 128;   // a pass: one tile a warpgroup
 
 enum Mode { kSingle = 0, kSigmaBlend = 1, kLinearBlend = 2, kDensity = 3 };
 
 // warps a block (above 64 wide, a thread's activations and accumulators
 // take twice the registers; 0: the wide path)
 __host__ __device__ constexpr int threads_for(int W) {
-  return W == 0 ? kWideWarps * 32 : W > 64 ? 8 * 32 : 16 * 32;
+  return W == 0 ? kWideThreads : W > 64 ? 8 * 32 : 16 * 32;
 }
 
 __host__ __device__ constexpr int tiles8(int n) { return (n + 7) / 8; }
@@ -186,8 +209,9 @@ struct Net {
   const float* w;       // (P, K) routing weights, or null
   float* rgb;           // rows rgb_stride apart, or null
   float* sigma;         // rows sigma_stride apart
-  float* scratch;       // wide path: scratch_block floats a block
-  long long P, h_stride, dir_stride, rgb_stride, sigma_stride, slabs, scratch_block;
+  const float* wsplit;  // wide path: the experts' split weights, wexpert floats each
+  float* scratch;       // wide path, spilled activations: scratch_block floats a block
+  long long P, h_stride, dir_stride, rgb_stride, sigma_stride, slabs, scratch_block, wexpert;
   int mode, K, in_dim, hidden, sigma_depth, color_hidden, color_depth;
   int dir_kind, dir_param, sigmoid, enc_dim;
   int W;               // width class: 64, 128, or 0 (the wide path)
@@ -195,7 +219,9 @@ struct Net {
   int streamed;        // 0: whole experts; 1: one layer at a time
   int land, split;     // floats of the landing and split buffers
   int S, ES;           // points a slab; floats a point's encoding row (even)
-  int KW;              // wide path: tiles of a scratch row (the widest layer)
+  int KW;              // wide path: 8-column tiles of an activation row (the widest layer)
+  int onchip;          // wide path: 1, activations in shared memory; 0, spilled
+  int ring_off, act_off, enc_off;  // wide path: floats into shared memory
 };
 
 __host__ __device__ inline void add_shape(Shape* s, int& n, int& limage, int& fimage, int in,
@@ -363,16 +389,6 @@ __device__ __forceinline__ void stage(float* dst, const Net& net, const Layer* t
 __device__ __forceinline__ void stage_expert(float* dst, const Net& net, const Layer* tab,
                                              const Shape* shp) {
   for (int l = 0; l < net.nl; ++l) stage(dst + shp[l].off, net, tab, l, shp);
-}
-
-// The wide path's slice (cb, ks) of layer l: input tiles [kSliceK ks, +
-// kSliceK) by output tiles [kSliceN cb, + kSliceN), zeros past the layer.
-__device__ __forceinline__ void stage_slice(float* dst, const Net& net, const Layer* tab, int l,
-                                            int cb, int ks) {
-  Part a, b;
-  parts_of(net, tab, l, a, b);
-  stage_layer(dst, a, b, Shape{kSliceK, kSliceN, kSliceDs, 0, 0}, 8 * kSliceK * ks,
-              8 * kSliceN * cb);
 }
 
 // A landed layer into its split B fragments (every thread of the block):
@@ -860,262 +876,474 @@ __global__ void __launch_bounds__(threads_for(W), 1) ngp_net_kernel(const __grid
 
 // ------------------------------------------------------------------ the wide path
 
-// c[u][j] (the warp's T tiles, the slice's output tiles j < nb) += the
-// products of input tiles [kt0, kt0 + kSliceK) below kt_n, in order: each
-// input tile's 24 products into a partial from 0 (three mma's in turn across
-// 4 output tiles, as dense issues them), added with one rounded add. in:
-// the pass's activations, tile u of the warp at (warp T + u) KW 32 float4s.
-template <int T>
-__device__ __forceinline__ void slice_products(float (&c)[T][kSliceN][4], const float4* in,
-                                               int KW, int kt0, int kt_n, int nb,
-                                               const float* frags, const bool (&act)[T]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint4* b = reinterpret_cast<const uint4*>(frags) + lane;
-  float4 af[T][kSliceK];  // the slice's input fragments, loaded together
-#pragma unroll
-  for (int kk = 0; kk < kSliceK; ++kk)
-#pragma unroll
-    for (int u = 0; u < T; ++u)
-      if (kt0 + kk < kt_n && act[u]) af[u][kk] = in[((warp * T + u) * KW + kt0 + kk) * 32 + lane];
-#pragma unroll
-  for (int kk = 0; kk < kSliceK; ++kk) {
-    if (kt0 + kk < kt_n) {
-#pragma unroll
-      for (int u = 0; u < T; ++u) {
-        if (!act[u]) continue;
-        const float4 a = af[u][kk];
-        unsigned ab[4], as[4];
-        split(a.x, ab[0], as[0]);
-        split(a.y, ab[1], as[1]);
-        split(a.z, ab[2], as[2]);
-        split(a.w, ab[3], as[3]);
-#pragma unroll
-        for (int n0 = 0; n0 < kSliceN; n0 += 4) {
-          if (n0 < nb) {
-            uint4 f[4];
-            float d[4][4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              f[j] = b[(kk * kSliceN + n0 + j) * 32];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma(d[j], as, f[j].x, f[j].y);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma(d[j], ab, f[j].z, f[j].w);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma(d[j], ab, f[j].x, f[j].y);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) c[u][n0 + j][i] = __fadd_rn(c[u][n0 + j][i], d[j][i]);
-          }
-        }
-      }
+// A layer of the wide path: kt input tiles of 8 rows, nb output blocks of 64
+// columns; its split image at off in an expert's (for each round of up to
+// kRoundBlocks blocks, each k-step: the round's blocks' big parts, then their
+// small parts, kBlockFloats each), its bias (64 nb floats) at bias.
+struct WShape {
+  int kt, nb, off, bias;
+};
+
+__host__ __device__ inline void add_wide(WShape* s, int& n, int& off, int in, int out) {
+  WShape& x = s[n++];
+  x.kt = tiles8(in);
+  x.nb = (out + 63) / 64;
+  x.off = off;
+  off += 2 * kBlockFloats * x.kt * x.nb;
+}
+
+// The wide path's layers, in layer_shapes' order and with its staged
+// inputs; returns the floats of an expert's split image.
+__host__ __device__ inline int wide_shapes(const Net& net, WShape* s) {
+  int n = 0, off = 0;
+  for (int l = 0; l < net.sigma_depth; ++l)
+    add_wide(s, n, off, l == 0 ? net.in_dim : net.hidden, net.hidden);
+  add_wide(s, n, off, net.hidden, 1 + kGeo);
+  if (net.mode != kDensity) {
+    add_wide(s, n, off, 1 + kGeo + net.enc_dim, net.color_hidden);
+    for (int c = 1; c < net.color_depth; ++c) add_wide(s, n, off, net.color_hidden, net.color_hidden);
+    add_wide(s, n, off, net.color_hidden, 3);
+  }
+  for (int l = 0; l < n; ++l) {
+    s[l].bias = off;
+    off += 64 * s[l].nb;
+  }
+  return off;
+}
+
+// Where element (row i, column j) of a layer lands in its split image, the
+// big part (the small one kBlockFloats x blocks-of-its-round later): the
+// k-step i / 8, k-slot t from row 2t and t + 4 from row 2t + 1 (as the
+// width classes read their weight rows), and wgmma's K-major layout without
+// swizzle: 8 x 4 core matrices of 128 bytes, k-halves 128 bytes apart
+// (LBO), 8-column groups 256 bytes apart (SBO).
+__host__ __device__ inline int wide_index(const WShape& s, int i, int j, int& round_blocks) {
+  const int o = i & 7, slot = (o & 1) ? 4 + (o >> 1) : o >> 1;
+  const int blk = j >> 6, r = blk / kRoundBlocks, b = blk - r * kRoundBlocks;
+  round_blocks = min(kRoundBlocks, s.nb - r * kRoundBlocks);
+  const int n = j & 63;
+  return s.off + 2 * kBlockFloats * (s.kt * kRoundBlocks * r + (i >> 3) * round_blocks) +
+         b * kBlockFloats + (n >> 3) * 64 + (slot >> 2) * 32 + (n & 7) * 4 + (slot & 3);
+}
+
+// Every expert's layers split once a call (grid: blocks x experts): each
+// weight into its TF32 big and small parts at wide_index, each bias as it
+// is; zeros past a layer's rows and columns.
+__global__ void __launch_bounds__(256) ngp_net_split_kernel(const __grid_constant__ Net net) {
+  extern __shared__ __align__(16) float smem[];
+  WShape* shp = reinterpret_cast<WShape*>(smem);
+  if (threadIdx.x == 0) wide_shapes(net, shp);
+  __syncthreads();
+  const int k = blockIdx.y;
+  const Layer* tab = net.layers + (long long)k * net.nslots;
+  float* img = const_cast<float*>(net.wsplit) + (long long)k * net.wexpert;
+  const int stride = gridDim.x * blockDim.x;
+  for (int l = 0; l < net.nl; ++l) {
+    const WShape s = shp[l];
+    Part a, b;
+    parts_of(net, tab, l, a, b);
+    const int cols = 64 * s.nb, n = 8 * s.kt * cols;
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
+      const int i = e / cols, j = e - i * cols;
+      const float* src = source(a, i, j);
+      if (src == nullptr && b.cols) src = source(b, i, j);
+      unsigned big, small;
+      split(src ? *src : 0.f, big, small);
+      int nbr;
+      const int at = wide_index(s, i, j, nbr);
+      img[at] = __uint_as_float(big);
+      img[at + nbr * kBlockFloats] = __uint_as_float(small);
+    }
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cols; j += stride) {
+      const float* src = j < a.col0 + a.cols ? a.b + (j - a.col0)
+                         : b.cols && j >= b.col0 && j < b.col0 + b.cols ? b.b + (j - b.col0)
+                                                                        : nullptr;
+      img[s.bias + j] = src ? *src : 0.f;
     }
   }
 }
 
-// Networks wider than 128 (the module note). One block an SM; every thread
-// of the block takes every slice's barriers.
-__global__ void __launch_bounds__(kWideWarps * 32, 1)
+// mbarriers, the bulk copy, wgmma (PTX ISA 8.0, sm_90a)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// A wait that has not ended after ~2^34 cycles (seconds) traps: a launch
+// error where a fault in the ring's order would otherwise hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// bytes from global src into shared dst, completing on bar's transaction count
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// B's descriptor: K-major, no swizzle, LBO 128 bytes, SBO 256 bytes
+__device__ __forceinline__ unsigned long long wgmma_desc(const float* p) {
+  return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4) | (128ull >> 4) << 16 |
+         (256ull >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of the warpgroup's committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+    "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= a b on 64 points x 64 columns x 8: a, the warp's A fragment in
+// registers (rows g, g + 8 of its 16; k-slots t, t + 4); b by descriptor;
+// d, the accumulator fragments of the 8 column tiles (rows g, g + 8,
+// columns 2t, 2t + 1 of each). scale_d 0: d = a b.
+__device__ __forceinline__ void wgmma64(float (&d)[32], const unsigned (&a)[4],
+                                        unsigned long long desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+#undef ACC8
+
+static_assert(kRoundBlocks == 4, "wide_kstep's dispatch takes rounds of 1 to 4 blocks");
+
+// One k-step of a round of NBR blocks: for each block the three products
+// into a partial from 0, added to the block's sum with one rounded add
+// while the next block's products run (two partials alternate). NBR is a
+// compile-time constant so that no wgmma, commit or wait sits under a
+// branch of its own: the compiler serializes every wgmma of a kernel where
+// one does.
+template <int NBR>
+__device__ __forceinline__ void wide_kstep(float (&c)[kRoundBlocks][32], float (&d)[2][32],
+                                           const unsigned (&ab)[4], const unsigned (&as)[4],
+                                           unsigned long long desc) {
+#pragma unroll
+  for (int b = 0; b <= NBR; ++b) {
+    if (b < NBR) {
+      const unsigned long long big = desc + b * (kBlockFloats * 4 / 16);
+      const unsigned long long small = desc + (NBR + b) * (kBlockFloats * 4 / 16);
+      wgmma_fence();
+      wgmma64(d[b & 1], as, big, 0);
+      wgmma64(d[b & 1], ab, small, 1);
+      wgmma64(d[b & 1], ab, big, 1);
+      wgmma_commit();
+    }
+    if (b >= 1) {
+      if (b < NBR)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) c[b - 1][i] = __fadd_rn(c[b - 1][i], d[(b - 1) & 1][i]);
+    }
+  }
+}
+
+// Where thread 0 stands in an expert's stream of stages: layers in order,
+// each its rounds of up to kRoundBlocks blocks, each round its k-steps, and
+// every pass the same again. next() gives the current stage's offset in the
+// expert's split image and its bytes, and steps on.
+struct StageCursor {
+  const WShape* shp;
+  int nl, l = 0, r = 0, j = 0;
+
+  __device__ __forceinline__ void next(int& off, unsigned& bytes) {
+    const WShape s = shp[l];
+    const int nbr = min(kRoundBlocks, s.nb - r * kRoundBlocks);
+    off = s.off + 2 * kBlockFloats * (s.kt * kRoundBlocks * r + j * nbr);
+    bytes = nbr * 2 * kBlockFloats * 4;
+    if (++j == s.kt) {
+      j = 0;
+      if (++r * kRoundBlocks >= s.nb) {
+        r = 0;
+        if (++l == nl) l = 0;
+      }
+    }
+  }
+};
+
+// Networks wider than 128 (the module note). One block an SM: two
+// warpgroups, each a 64-point tile of the list; thread 0 also streams the
+// split weights through the ring. Every thread takes the list's barriers.
+__global__ void __launch_bounds__(kWideThreads, 1)
 ngp_net_wide_kernel(const __grid_constant__ Net net) {
-  constexpr int NW = kWideWarps, T = kWideTiles;
   extern __shared__ __align__(16) float smem[];
   const int mode = net.mode, S = net.S, ES = net.ES, nch = S / 32, KW = net.KW;
   const bool density = mode == kDensity;
-  Shape* shp = reinterpret_cast<Shape*>(smem);
-  Layer* tab = reinterpret_cast<Layer*>(smem + shape_floats(net.nl));  // the expert's pointers
-  float* frags = smem + shape_floats(net.nl) + 4 * net.nslots;  // the slice the mma's read
-  float* landing = frags + kSliceSplit;        // the next slice, landing
-  float* enc = landing + kSliceLand;
-  float4* acc = reinterpret_cast<float4*>(enc + (density ? 0 : S * ES));
+  WShape* shp = reinterpret_cast<WShape*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 4 * net.nl);  // a stage landed
+  uint64_t* empty = full + kWideStages;                             // a stage read
+  float* ring = smem + net.ring_off;
+  float* enc = smem + net.enc_off;  // a tile's direction encodings, 64 rows a warpgroup
+  float4* acc = reinterpret_cast<float4*>(enc + (density ? 0 : kWideWGs * 64 * ES));
   unsigned* masks = reinterpret_cast<unsigned*>(acc + S);
   unsigned short* list = reinterpret_cast<unsigned short*>(masks + nch);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, w4 = warp & 3, g = lane >> 2, t = lane & 3;
   const int nl = net.nl, heads = net.sigma_depth, last = nl - 1;
-  // the block's two activation buffers; tile u of the warp at row w T + u
-  float4* const buf0 = reinterpret_cast<float4*>(net.scratch + blockIdx.x * net.scratch_block);
-  float4* const buf1 = buf0 + (long long)kPassTiles * KW * 32;
-  const Shape slice = {kSliceK, kSliceN, kSliceDs, 0, 0};
+  // the warpgroup's activations, a thread's own fragments at w4 KW 32 + lane:
+  // on chip one buffer, a layer's outputs over its inputs (a thread reads
+  // back only what it wrote, and writes after its last product); spilled,
+  // two in the block's scratch
+  const long long tile_f4 = 4LL * KW * 32;
+  float4* const buf_a = net.onchip
+      ? reinterpret_cast<float4*>(smem + net.act_off) + wg * tile_f4
+      : reinterpret_cast<float4*>(net.scratch + blockIdx.x * net.scratch_block) +
+            2 * wg * tile_f4;
+  float4* const buf_b = net.onchip ? buf_a : buf_a + tile_f4;
+  float* const enc_rows = enc + (wg * 64 + w4 * 16) * ES;  // the warp's 16 rows
 
-  if (threadIdx.x == 0) layer_shapes(net, shp);
+  if (threadIdx.x == 0) {
+    wide_shapes(net, shp);
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 4 * kWideWGs);  // a warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+  int per_pass = 0;  // stages of a pass
+  for (int l = 0; l < nl; ++l)
+    per_pass += (shp[l].nb + kRoundBlocks - 1) / kRoundBlocks * shp[l].kt;
 
+  unsigned it = 0;  // the ring's position, the same in every thread
   for (long long slab = blockIdx.x; slab < net.slabs; slab += gridDim.x) {
     const long long base = slab * S;
     const int n_here = (int)min((long long)S, net.P - base);
-    encode_slab(net, mode, base, n_here, enc, acc);
+    for (int i = threadIdx.x; i < S; i += blockDim.x) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int k = 0; k < net.K; ++k) {
-      ballots<NW>(net, k, base, n_here, masks);
+      ballots<kWideThreads / 32>(net, k, base, n_here, masks);
       __syncthreads();  // also: every warp is done with the previous expert
-      load_table(net, k, tab);
-      const int n_k = compact<NW>(nch, masks, list);
+      const int n_k = compact<kWideThreads / 32>(nch, masks, list);
       __syncthreads();
-      const int tiles = (n_k + 15) / 16;
-      if (tiles == 0) continue;
-      const int passes = (tiles + kPassTiles - 1) / kPassTiles;
-      stage_slice(landing, net, tab, 0, 0, 0);
-      cp_commit();
+      const int tiles = (n_k + 63) / 64;
+      const int passes = (tiles + kWideWGs - 1) / kWideWGs;
+      const int stages = passes * per_pass;
+      const float* wk = net.wsplit + (long long)k * net.wexpert;
+      const unsigned it0 = it;
+      // stage q of the expert into ring position it0 + q, once every warp
+      // has read what that position held (thread 0): kWideStages - 1 ahead,
+      // so that the warp that issues waits for the other warpgroup to finish
+      // the stage before the one it reads, not that one
+      StageCursor cursor{shp, nl};  // thread 0's: stages are issued in order
+      auto issue = [&](int q) {
+        const unsigned at = it0 + q;
+        const int st = at % kWideStages;
+        mbar_wait(empty + st, ((at / kWideStages) & 1) ^ 1);
+        int off;
+        unsigned bytes;
+        cursor.next(off, bytes);
+        bulk_load(ring + st * kStageFloats, wk + off, bytes, full + st);
+      };
+      if (threadIdx.x == 0)
+        for (int q = 0; q < kWideStages - 1 && q < stages; ++q) issue(q);
+      __syncwarp();
       const float* hk = net.h + k * net.h_stride;
       for (int pass = 0; pass < passes; ++pass) {
-        bool act[T], valid[T][2];
-        int slot[T][2];
+        const int tile = pass * kWideWGs + wg;
+        const bool active = tile < tiles;  // the warpgroup's
+        int slot[2];
+        bool valid[2];
 #pragma unroll
-        for (int u = 0; u < T; ++u) {
-          const int tile = pass * kPassTiles + warp * T + u;
-          act[u] = tile < tiles;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = tile * 16 + 8 * h + g;
-            valid[u][h] = act[u] && r < n_k;
-            slot[u][h] = valid[u][h] ? list[r] : 0;
-          }
+        for (int h = 0; h < 2; ++h) {
+          const int r = tile * 64 + w4 * 16 + 8 * h + g;
+          valid[h] = active && r < n_k;
+          slot[h] = valid[h] ? list[r] : 0;
         }
-        // layer 0's input: the feature rows, as A fragments
-#pragma unroll
-        for (int u = 0; u < T; ++u) {
-          if (!act[u]) continue;
-          const float* r0 = hk + (base + slot[u][0]) * net.in_dim;
-          const float* r1 = hk + (base + slot[u][1]) * net.in_dim;
+        float4* in = buf_a;
+        float4* out = buf_b;
+        if (active) {  // layer 0's input: the feature rows, as A fragments
+          const float* r0 = hk + (base + slot[0]) * net.in_dim;
+          const float* r1 = hk + (base + slot[1]) * net.in_dim;
           for (int kt = 0; kt < shp[0].kt; ++kt) {
             const int j = kt * 8 + 2 * t;
-            float4 a;
-            a.x = valid[u][0] && j < net.in_dim ? __ldg(r0 + j) : 0.f;
-            a.y = valid[u][1] && j < net.in_dim ? __ldg(r1 + j) : 0.f;
-            a.z = valid[u][0] && j + 1 < net.in_dim ? __ldg(r0 + j + 1) : 0.f;
-            a.w = valid[u][1] && j + 1 < net.in_dim ? __ldg(r1 + j + 1) : 0.f;
-            buf0[((warp * T + u) * KW + kt) * 32 + lane] = a;
+            float4 v;
+            v.x = valid[0] && j < net.in_dim ? __ldg(r0 + j) : 0.f;
+            v.y = valid[1] && j < net.in_dim ? __ldg(r1 + j) : 0.f;
+            v.z = valid[0] && j + 1 < net.in_dim ? __ldg(r0 + j + 1) : 0.f;
+            v.w = valid[1] && j + 1 < net.in_dim ? __ldg(r1 + j + 1) : 0.f;
+            in[(w4 * KW + kt) * 32 + lane] = v;
           }
         }
-        float sig[T][2], o[T][2][3];
+        float sig[2] = {0.f, 0.f}, o[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
         for (int l = 0; l < nl; ++l) {
-          const Shape s = shp[l];
-          const float4* in = (l & 1) ? buf1 : buf0;
-          float4* out = (l & 1) ? buf0 : buf1;
-          const int ncb = (s.nt + kSliceN - 1) / kSliceN, nks = (s.kt + kSliceK - 1) / kSliceK;
-          for (int cb = 0; cb < ncb; ++cb) {
-            const int nb = min(kSliceN, s.nt - cb * kSliceN);
-            float c[T][kSliceN][4];
+          const WShape s = shp[l];
+          float4* const mine = in + w4 * KW * 32 + lane;
+          float4* const outs = out + w4 * KW * 32 + lane;
+          for (int r = 0; r * kRoundBlocks < s.nb; ++r) {
+            const int nbr = min(kRoundBlocks, s.nb - r * kRoundBlocks);
+            float c[kRoundBlocks][32], d[2][32];
 #pragma unroll
-            for (int u = 0; u < T; ++u)
+            for (int i = 0; i < 32; ++i) {
+              d[0][i] = d[1][i] = 0.f;
 #pragma unroll
-              for (int j = 0; j < kSliceN; ++j)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) c[u][j][i] = 0.f;
-            for (int ks = 0; ks < nks; ++ks) {
-              cp_wait_all();
-              __syncthreads();  // the slice landed; every warp left the one before
-              split_layer(frags, landing, slice);
-              __syncthreads();  // the slice split; the landing buffer is free
-              // the next slice lands while this one computes: the layer's
-              // next, the next layer's first, or the next pass's first
-              int l2 = l, cb2 = cb, ks2 = ks + 1;
-              if (ks2 == nks) {
-                ks2 = 0;
-                if (++cb2 == ncb) {
-                  cb2 = 0;
-                  ++l2;
-                }
-              }
-              if (l2 < nl) stage_slice(landing, net, tab, l2, cb2, ks2);
-              else if (pass + 1 < passes) stage_slice(landing, net, tab, 0, 0, 0);
-              cp_commit();
-              slice_products<T>(c, in, KW, ks * kSliceK, s.kt, nb, frags, act);
+              for (int b = 0; b < kRoundBlocks; ++b) c[b][i] = 0.f;
             }
-            // the column block's bias (the same in every slice of it)
-            const float* bias = frags + 128 * kSliceK * kSliceN + 2 * t;
+            for (int j = 0; j < s.kt; ++j, ++it) {
+              const int st = it % kWideStages;
+              mbar_wait(full + st, (it / kWideStages) & 1);
+              if (active) {
+                // each input tile's 24 products into a partial from 0, added
+                // with one rounded add (as the width classes sum them); a
+                // block's partial is added while the next block's products run
+                const float4 a = mine[j * 32];
+                unsigned ab[4], as[4];
+                split(a.x, ab[0], as[0]);
+                split(a.y, ab[1], as[1]);
+                split(a.z, ab[2], as[2]);
+                split(a.w, ab[3], as[3]);
+                const unsigned long long desc = wgmma_desc(ring + st * kStageFloats);
+                switch (nbr) {
+                  case 1: wide_kstep<1>(c, d, ab, as, desc); break;
+                  case 2: wide_kstep<2>(c, d, ab, as, desc); break;
+                  case 3: wide_kstep<3>(c, d, ab, as, desc); break;
+                  default: wide_kstep<4>(c, d, ab, as, desc); break;
+                }
+              }
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty + st);  // this warp's products of the stage are done
+              if (threadIdx.x == 0 && it + kWideStages - 1 - it0 < (unsigned)stages)
+                issue((int)(it + kWideStages - 1 - it0));
+              __syncwarp();  // warp 0 whole again before its next wgmma
+            }
+            if (!active) continue;
+            // the round's bias, then its outputs
+            const float* bias = wk + s.bias + 64 * kRoundBlocks * r + 2 * t;
 #pragma unroll
-            for (int j = 0; j < kSliceN; ++j) {
-              if (j < nb) {
-                const float2 bv = *reinterpret_cast<const float2*>(bias + j * 8);
+            for (int b = 0; b < kRoundBlocks; ++b) {
+              if (b < nbr) {
 #pragma unroll
-                for (int u = 0; u < T; ++u) {
-                  c[u][j][0] = __fadd_rn(c[u][j][0], bv.x);
-                  c[u][j][1] = __fadd_rn(c[u][j][1], bv.y);
-                  c[u][j][2] = __fadd_rn(c[u][j][2], bv.x);
-                  c[u][j][3] = __fadd_rn(c[u][j][3], bv.y);
+                for (int q = 0; q < 8; ++q) {
+                  const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + 64 * b + 8 * q));
+                  c[b][4 * q] = __fadd_rn(c[b][4 * q], bv.x);
+                  c[b][4 * q + 1] = __fadd_rn(c[b][4 * q + 1], bv.y);
+                  c[b][4 * q + 2] = __fadd_rn(c[b][4 * q + 2], bv.x);
+                  c[b][4 * q + 3] = __fadd_rn(c[b][4 * q + 3], bv.y);
                 }
               }
             }
-#pragma unroll
-            for (int u = 0; u < T; ++u) {
-              if (!act[u]) continue;
-              float4* ou = out + (warp * T + u) * KW * 32 + lane;
-              if (l == heads) {  // sigma in column 0 (lane t = 0), geo in 1..15
-                sig[u][0] = expf(fminf(fmaxf(c[u][0][0], -88.f), 88.f));  // trunc_exp
-                sig[u][1] = expf(fminf(fmaxf(c[u][0][2], -88.f), 88.f));
-                if (density) continue;
-                if (t == 0) c[u][0][0] = c[u][0][2] = 0.f;  // the colour layer's zero row
-                ou[0] = make_float4(c[u][0][0], c[u][0][2], c[u][0][1], c[u][0][3]);
-                ou[32] = make_float4(c[u][1][0], c[u][1][2], c[u][1][1], c[u][1][3]);
-                // the direction encoding from column 16 of the colour input
-                const float* x0 = enc + slot[u][0] * ES - 16 + 2 * t;
-                const float* x1 = enc + slot[u][1] * ES - 16 + 2 * t;
-                for (int kt = 2; kt < shp[l + 1].kt; ++kt) {
-                  const float2 v0 = *reinterpret_cast<const float2*>(x0 + kt * 8);
-                  const float2 v1 = *reinterpret_cast<const float2*>(x1 + kt * 8);
-                  ou[kt * 32] = make_float4(v0.x, v1.x, v0.y, v1.y);
+            if (l == heads) {  // sigma in column 0 (lane t = 0), geo in 1..15
+              sig[0] = expf(fminf(fmaxf(c[0][0], -88.f), 88.f));  // trunc_exp
+              sig[1] = expf(fminf(fmaxf(c[0][2], -88.f), 88.f));
+              if (density) continue;
+              if (t == 0) c[0][0] = c[0][2] = 0.f;  // the colour layer's zero row
+              outs[0] = make_float4(c[0][0], c[0][2], c[0][1], c[0][3]);
+              outs[32] = make_float4(c[0][4], c[0][6], c[0][5], c[0][7]);
+              // the direction encoding from column 16 of the colour input:
+              // lanes 0-15 encode the warp's 16 rows (zeros to ES)
+              if (lane < 16) {
+                const int r = tile * 64 + w4 * 16 + lane;
+                float* row = enc_rows + lane * ES;
+                if (r < n_k) {
+                  const float* dd = net.dirs + (base + list[r]) * net.dir_stride;
+                  encode_dir(__ldg(dd), __ldg(dd + 1), __ldg(dd + 2), net.dir_kind,
+                             net.dir_param, row);
                 }
-              } else if (!density && l == last) {  // rgb: 3 of 8 columns
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  o[u][h][0] = c[u][0][2 * h];
-                  o[u][h][1] = c[u][0][2 * h + 1];
-                  o[u][h][2] = __shfl_sync(0xffffffffu, c[u][0][2 * h], (lane & ~3) | 1);
-#pragma unroll
-                  for (int j = 0; j < 3; ++j)
-                    if (net.sigmoid) o[u][h][j] = 1.f / (1.f + expf(-o[u][h][j]));
-                }
-              } else {  // a hidden layer, through ReLU, as the next one's input tiles
-#pragma unroll
-                for (int j = 0; j < kSliceN; ++j)
-                  if (j < nb)
-                    ou[(cb * kSliceN + j) * 32] =
-                        make_float4(fmaxf(c[u][j][0], 0.f), fmaxf(c[u][j][2], 0.f),
-                                    fmaxf(c[u][j][1], 0.f), fmaxf(c[u][j][3], 0.f));
+                for (int x = r < n_k ? net.enc_dim : 0; x < ES; ++x) row[x] = 0.f;
               }
+              __syncwarp();
+              const float* x0 = enc_rows + g * ES - 16 + 2 * t;
+              const float* x1 = x0 + 8 * ES;
+              for (int kt = 2; kt < shp[l + 1].kt; ++kt) {
+                const float2 v0 = *reinterpret_cast<const float2*>(x0 + kt * 8);
+                const float2 v1 = *reinterpret_cast<const float2*>(x1 + kt * 8);
+                outs[kt * 32] = make_float4(v0.x, v1.x, v0.y, v1.y);
+              }
+            } else if (!density && l == last) {  // rgb: 3 of 64 columns
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                o[h][0] = c[0][2 * h];
+                o[h][1] = c[0][2 * h + 1];
+                o[h][2] = __shfl_sync(0xffffffffu, c[0][2 * h], (lane & ~3) | 1);
+#pragma unroll
+                for (int x = 0; x < 3; ++x)
+                  if (net.sigmoid) o[h][x] = 1.f / (1.f + expf(-o[h][x]));
+              }
+            } else {  // a hidden layer, through ReLU, as the next one's input tiles
+#pragma unroll
+              for (int b = 0; b < kRoundBlocks; ++b)
+                if (b < nbr)
+#pragma unroll
+                  for (int q = 0; q < 8; ++q)
+                    outs[(8 * (kRoundBlocks * r + b) + q) * 32] =
+                        make_float4(fmaxf(c[b][4 * q], 0.f), fmaxf(c[b][4 * q + 2], 0.f),
+                                    fmaxf(c[b][4 * q + 1], 0.f), fmaxf(c[b][4 * q + 3], 0.f));
             }
           }
+          float4* const x = in;
+          in = out;
+          out = x;
         }
         // the expert's share into the points' accumulators (lane t = 0)
-        if (t == 0) {
+        if (t != 0) continue;
 #pragma unroll
-          for (int u = 0; u < T; ++u) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              if (!valid[u][h]) continue;
-              const int p = slot[u][h];
-              const float wk = net.w != nullptr ? __ldg(net.w + (base + p) * net.K + k) : 1.f;
-              const float sg = sig[u][h];
-              float4 A = acc[p];
-              if (mode == kSingle) {
-                A = make_float4(o[u][h][0], o[u][h][1], o[u][h][2], sg);
-              } else if (mode == kSigmaBlend) {
-                const float ws = __fmul_rn(wk, sg);
-                A.x = __fadd_rn(A.x, __fmul_rn(ws, o[u][h][0]));
-                A.y = __fadd_rn(A.y, __fmul_rn(ws, o[u][h][1]));
-                A.z = __fadd_rn(A.z, __fmul_rn(ws, o[u][h][2]));
-                A.w = __fadd_rn(A.w, ws);
-              } else if (mode == kLinearBlend) {
-                A.x = __fadd_rn(A.x, __fmul_rn(wk, o[u][h][0]));
-                A.y = __fadd_rn(A.y, __fmul_rn(wk, o[u][h][1]));
-                A.z = __fadd_rn(A.z, __fmul_rn(wk, o[u][h][2]));
-                A.w = __fadd_rn(A.w, __fmul_rn(wk, sg));
-              } else {
-                A.w = net.w != nullptr ? __fadd_rn(A.w, __fmul_rn(wk, sg)) : sg;
-              }
-              acc[p] = A;
-            }
+        for (int h = 0; h < 2; ++h) {
+          if (!valid[h]) continue;
+          const int p = slot[h];
+          const float wk_p = net.w != nullptr ? __ldg(net.w + (base + p) * net.K + k) : 1.f;
+          const float sg = sig[h];
+          float4 A = acc[p];
+          if (mode == kSingle) {
+            A = make_float4(o[h][0], o[h][1], o[h][2], sg);
+          } else if (mode == kSigmaBlend) {
+            const float ws = __fmul_rn(wk_p, sg);
+            A.x = __fadd_rn(A.x, __fmul_rn(ws, o[h][0]));
+            A.y = __fadd_rn(A.y, __fmul_rn(ws, o[h][1]));
+            A.z = __fadd_rn(A.z, __fmul_rn(ws, o[h][2]));
+            A.w = __fadd_rn(A.w, ws);
+          } else if (mode == kLinearBlend) {
+            A.x = __fadd_rn(A.x, __fmul_rn(wk_p, o[h][0]));
+            A.y = __fadd_rn(A.y, __fmul_rn(wk_p, o[h][1]));
+            A.z = __fadd_rn(A.z, __fmul_rn(wk_p, o[h][2]));
+            A.w = __fadd_rn(A.w, __fmul_rn(wk_p, sg));
+          } else {
+            A.w = net.w != nullptr ? __fadd_rn(A.w, __fmul_rn(wk_p, sg)) : sg;
           }
+          acc[p] = A;
         }
       }
     }
     __syncthreads();  // every expert's adds are in
     write_slab(net, mode, base, n_here, acc);
   }
-  cp_wait_all();
 }
 
 // ------------------------------------------------------------------ launch
@@ -1138,70 +1366,105 @@ DeviceLimits device_limits() {
 
 // A block's shared memory for a slab of S points.
 size_t slab_bytes(const Net& net, long long S) {
-  return 4 * (size_t)(shape_floats(net.nl) + 4 * net.nslots + net.land + net.split) +
+  if (net.W == 0)  // the wide path keeps a tile's encodings, not a slab's
+    return 4 * ((size_t)net.enc_off + (size_t)kWideWGs * 64 * net.ES) + 16 * (size_t)S +
+           4 * (size_t)(S / 32) + 2 * (size_t)S;
+  return 4 * (shape_floats(net.nl) + 4 * (size_t)net.nslots + net.land + net.split) +
          4 * (size_t)S * (net.ES + 4) + 4 * (size_t)(S / 32) + 2 * (size_t)S;
 }
 
-// The weight buffers and the slab: what fits in the block's shared memory,
-// or less where a call has fewer points than a full slab for each of the
-// sms. The classes keep an expert's whole split image (or, streamed, one
-// layer at a time); the wide path one slice, and sizes its scratch row.
-// Returns the bytes of shared memory of a full slab (the most a launch of
-// this net takes), or 0.
-size_t plan(Net& net, int smem_max, int sms) {
-  std::vector<Shape> shapes(net.nl);
-  layer_shapes(net, shapes.data());
-  int limage = 0, fimage = 0, lslot = 0, fslot = 0, kw = 0;
-  for (const Shape& s : shapes) {
-    const int lf = 8 * s.kt * s.ds + 8 * s.nt, ff = 128 * s.kt * s.nt + 8 * s.nt;
-    limage += lf;
-    fimage += ff;
-    lslot = lf > lslot ? lf : lslot;
-    fslot = ff > fslot ? ff : fslot;
-    kw = s.kt > kw ? s.kt : kw;
-    kw = s.nt > kw ? s.nt : kw;
-  }
-  const int density = net.mode == kDensity;
-  net.ES = density ? 0 : 8 * tiles8(1 + kGeo + net.enc_dim) - 16 + 2;
-  const size_t per_point = 4 * (size_t)(net.ES + 4) + 2 + 1;  // enc, acc, list, ballot
-  const long long cap = net.W == 0 ? kWideSlabMax : kSlabMax;
-  auto slab_beside = [&](int wfloats) -> long long {
-    const size_t wbytes = 4 * (size_t)(wfloats + shape_floats(net.nl) + 4 * net.nslots);
-    if (wbytes + 32 * per_point > (size_t)smem_max) return 0;
-    long long S = (long long)(((size_t)smem_max - wbytes) / per_point) / 32 * 32;
-    return S < cap ? S : cap;
-  };
-  net.streamed = 0;
-  long long S;
+// Fewer points a slab where a call has fewer than a full slab for each of
+// the sms (at least kSlabMin); on the wide path, whole rounds of slabs over
+// the blocks (one an SM), so that no round is a tail.
+long long fit_slab(const Net& net, long long S, int sms) {
   if (net.W == 0) {
-    net.land = kSliceLand;
-    net.split = kSliceSplit;
-    net.KW = kw;
-    net.scratch_block = 2LL * kPassTiles * kw * 128;
-    S = slab_beside(kSliceLand + kSliceSplit);
-  } else {
-    net.land = limage;
-    net.split = fimage;
-    S = slab_beside(limage + fimage);
-    if (S < kSlabMin && slab_beside(lslot + fslot) > S) {  // too small a slab beside an expert
-      net.streamed = 1;
-      net.land = lslot;
-      net.split = fslot;
-      S = slab_beside(lslot + fslot);
-    }
-  }
-  if (S == 0) return 0;
-  const size_t full = slab_bytes(net, S);
-  if (net.W == 0) {  // whole rounds of slabs over the blocks (one an SM): no tail round
     const long long rounds = (net.P + S * sms - 1) / (S * sms);
     const long long even = ((net.P + rounds * sms - 1) / (rounds * sms) + 31) / 32 * 32;
     if (even < S) S = even;
   }
   long long fill = ((net.P + sms - 1) / sms + 31) / 32 * 32;
   if (fill < kSlabMin) fill = kSlabMin;
-  if (fill < S) S = fill;
-  net.S = (int)S;
-  net.slabs = (net.P + S - 1) / S;
+  return fill < S ? fill : S;
+}
+
+// The wide path's shared memory: its layers' shapes and the ring's
+// barriers, the ring, the two warpgroups' activations where they stay on
+// chip (every layer at most kRoundBlocks blocks wide, and a slab of at least
+// kWideSlabMin beside them), and the slab. Sets the offsets, the scratch a
+// block needs where the activations spill, and the slab; returns the bytes
+// of a full slab, or 0.
+size_t wide_plan(Net& net, int smem_max, int sms) {
+  std::vector<WShape> shapes(net.nl);
+  net.wexpert = wide_shapes(net, shapes.data());
+  int kw = 0, fits = 1;
+  for (const WShape& s : shapes) {
+    kw = s.kt > kw ? s.kt : kw;
+    kw = 8 * s.nb > kw ? 8 * s.nb : kw;
+    if (s.nb > kRoundBlocks) fits = 0;
+  }
+  net.KW = kw;
+  net.ES = net.mode == kDensity ? 0 : 8 * tiles8(1 + kGeo + net.enc_dim) - 16 + 2;
+  const size_t per_point = 4 * 4 + 2 + 1;  // acc, list, ballot
+  net.ring_off = (4 * net.nl + 4 * kWideStages + 31) / 32 * 32;  // floats, 128-byte aligned
+  const size_t act = (size_t)kWideWGs * 4 * kw * 32 * 4;  // floats
+  const size_t enc = (size_t)kWideWGs * 64 * net.ES;      // floats: a tile's encodings
+  auto slab_beside = [&](size_t front) -> long long {
+    if (4 * front + 32 * per_point > (size_t)smem_max) return 0;
+    const long long S = (long long)((smem_max - 4 * front) / per_point) / 32 * 32;
+    return S < kWideSlabMax ? S : kWideSlabMax;
+  };
+  net.act_off = net.ring_off + kWideStages * kStageFloats;
+  net.onchip = fits && slab_beside(net.act_off + act + enc) >= kWideSlabMin;
+  net.enc_off = net.act_off + (net.onchip ? (int)act : 0);
+  net.scratch_block = net.onchip ? 0 : 2 * (long long)act;
+  const long long S = slab_beside(net.enc_off + enc);
+  if (S == 0) return 0;
+  const size_t full = slab_bytes(net, S);
+  net.S = (int)fit_slab(net, S, sms);
+  net.slabs = (net.P + net.S - 1) / net.S;
+  return full;
+}
+
+// The weight buffers and the slab of a width class: what fits in the
+// block's shared memory, or less (fit_slab). The classes keep an expert's
+// whole split image, or, streamed, one layer at a time. Returns the bytes
+// of shared memory of a full slab (the most a launch of this net takes), or
+// 0.
+size_t plan(Net& net, int smem_max, int sms) {
+  if (net.W == 0) return wide_plan(net, smem_max, sms);
+  std::vector<Shape> shapes(net.nl);
+  layer_shapes(net, shapes.data());
+  int limage = 0, fimage = 0, lslot = 0, fslot = 0;
+  for (const Shape& s : shapes) {
+    const int lf = 8 * s.kt * s.ds + 8 * s.nt, ff = 128 * s.kt * s.nt + 8 * s.nt;
+    limage += lf;
+    fimage += ff;
+    lslot = lf > lslot ? lf : lslot;
+    fslot = ff > fslot ? ff : fslot;
+  }
+  const int density = net.mode == kDensity;
+  net.ES = density ? 0 : 8 * tiles8(1 + kGeo + net.enc_dim) - 16 + 2;
+  const size_t per_point = 4 * (size_t)(net.ES + 4) + 2 + 1;  // enc, acc, list, ballot
+  auto slab_beside = [&](int wfloats) -> long long {
+    const size_t wbytes = 4 * (size_t)(wfloats + shape_floats(net.nl) + 4 * net.nslots);
+    if (wbytes + 32 * per_point > (size_t)smem_max) return 0;
+    long long S = (long long)(((size_t)smem_max - wbytes) / per_point) / 32 * 32;
+    return S < kSlabMax ? S : kSlabMax;
+  };
+  net.streamed = 0;
+  net.land = limage;
+  net.split = fimage;
+  long long S = slab_beside(limage + fimage);
+  if (S < kSlabMin && slab_beside(lslot + fslot) > S) {  // too small a slab beside an expert
+    net.streamed = 1;
+    net.land = lslot;
+    net.split = fslot;
+    S = slab_beside(lslot + fslot);
+  }
+  if (S == 0) return 0;
+  const size_t full = slab_bytes(net, S);
+  net.S = (int)fit_slab(net, S, sms);
+  net.slabs = (net.P + net.S - 1) / net.S;
   return full;
 }
 
@@ -1244,11 +1507,27 @@ int launch(Net& net, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The wide path's grid: its scratch takes net.scratch_block floats a block.
+// The wide path's grid (one block an SM).
 int wide_grid(Net& net, long long& grid) {
   static size_t set_for[64];
   static int blocks_for[64];
   return grid_of(net, ngp_net_wide_kernel, threads_for(0), set_for, blocks_for, grid);
+}
+
+// The bytes of the wide path's device buffer: every expert's split image,
+// then the spilled activations' scratch (0 where they stay on chip).
+long long wide_buffer_bytes(const Net& net, long long grid) {
+  return 4 * (net.K * net.wexpert + grid * net.scratch_block);
+}
+
+// The split launch: every expert's image into net.wsplit.
+int launch_split(const Net& net, cudaStream_t stream) {
+  const DeviceLimits d = device_limits();
+  if (d.sms == 0) return (int)cudaErrorInvalidDevice;
+  if (net.K > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(2 * d.sms + net.K - 1) / (unsigned)net.K, (unsigned)net.K);
+  ngp_net_split_kernel<<<grid, 256, sizeof(WShape) * net.nl, stream>>>(net);
+  return (int)cudaGetLastError();
 }
 
 // The width class: 64 or 128 where every width the network carries fits
@@ -1310,10 +1589,12 @@ void ngp_net_limits(int* out) {
   out[2] = kClassWidth;
 }
 
-// The scratch bytes a launch of ngp_net_fwd with these arguments needs
-// (0 where the network takes a class; the wide path's block count times
-// its two activation buffers), or -1 (a CUDA error code's negation below).
-long long ngp_net_scratch_bytes(int mode, const int* dims, int K, long long P) {
+// The bytes of the device buffer a launch of ngp_net_fwd with these
+// arguments takes (0 where the network takes a class; on the wide path the
+// experts' split weights, and the spilled activations of networks whose
+// activations do not fit on chip), or -1 (a CUDA error code's negation
+// below).
+long long ngp_net_wide_bytes(int mode, const int* dims, int K, long long P) {
   Net net;
   int err = make_net(net, mode, nullptr, 0, nullptr, dims, K, P);
   if (err) return -(long long)err;
@@ -1321,7 +1602,30 @@ long long ngp_net_scratch_bytes(int mode, const int* dims, int K, long long P) {
   long long grid = 0;
   err = wide_grid(net, grid);
   if (err) return -(long long)err;
-  return 4 * grid * net.scratch_block;
+  return wide_buffer_bytes(net, grid);
+}
+
+// The wide path's split launch alone, into out (K x the image's floats,
+// ngp_net_wide_image_floats): what ngp_net_fwd launches before the network,
+// for its tests and timing. Returns a CUDA error code.
+int ngp_net_wide_split(int mode, const void* layers, const int* dims, int K, void* out,
+                       void* stream) {
+  Net net;
+  int err = make_net(net, mode, nullptr, 0, layers, dims, K, 1);
+  if (err) return err;
+  std::vector<WShape> shapes(net.nl);
+  net.wexpert = wide_shapes(net, shapes.data());
+  net.wsplit = static_cast<const float*>(out);
+  return launch_split(net, static_cast<cudaStream_t>(stream));
+}
+
+// The floats of one expert's split image on the wide path.
+long long ngp_net_wide_image_floats(int mode, const int* dims) {
+  Net net;
+  int err = make_net(net, mode, nullptr, 0, nullptr, dims, 1, 1);
+  if (err) return -(long long)err;
+  std::vector<WShape> shapes(net.nl);
+  return wide_shapes(net, shapes.data());
 }
 
 // mode: 0 single, 1 sigma_blend, 2 linear_blend, 3 density. h: the K
@@ -1330,12 +1634,13 @@ long long ngp_net_scratch_bytes(int mode, const int* dims, int K, long long P) {
 // pointer pairs, each expert's trunk, sigma, geo and colour layers (the
 // last one included) in turn; dims: L*F, hidden, sigma_depth, color_hidden,
 // color_depth, dir kind (0 SH, 1 frequency), SH levels or bands, sigmoid;
-// scratch: ngp_net_scratch_bytes' bytes (the wide path). Returns a CUDA
-// error code (0: launched).
+// buf: ngp_net_wide_bytes' bytes (the wide path: the split launch writes
+// the weights there, then the network reads them). Returns a CUDA error
+// code (0: launched).
 int ngp_net_fwd(int mode, const void* h, long long h_stride, const void* layers, const int* dims,
                 int K, long long P, const void* dirs, long long dir_stride, const void* w,
                 void* rgb, long long rgb_stride, void* sigma, long long sigma_stride,
-                void* scratch, long long scratch_bytes, void* stream) {
+                void* buf, long long buf_bytes, void* stream) {
   Net net;
   int err = make_net(net, mode, h, h_stride, layers, dims, K, P);
   if (err) return err;
@@ -1352,9 +1657,12 @@ int ngp_net_fwd(int mode, const void* h, long long h_stride, const void* layers,
     long long grid = 0;
     err = wide_grid(net, grid);
     if (err) return err;
-    if (scratch == nullptr || scratch_bytes < 4 * grid * net.scratch_block)
+    if (buf == nullptr || buf_bytes < wide_buffer_bytes(net, grid))
       return (int)cudaErrorInvalidValue;
-    net.scratch = static_cast<float*>(scratch);
+    net.wsplit = static_cast<const float*>(buf);
+    net.scratch = static_cast<float*>(buf) + K * net.wexpert;
+    err = launch_split(net, s);
+    if (err) return err;
     ngp_net_wide_kernel<<<(unsigned)grid, threads_for(0), slab_bytes(net, net.S), s>>>(net);
     return (int)cudaGetLastError();
   }

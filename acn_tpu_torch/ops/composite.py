@@ -40,8 +40,12 @@ Design (the source has the detail). Forward: 16 lanes a ray, 2
 consecutive samples a lane, 32 samples of a ray a step, 2 rays a warp
 (chosen by measurement: a dense chunk's rays hold 18 samples on average), the lanes' log-transmittance
 scanned within the group and each lane's sums closed by a butterfly.
-Backward: one warp a ray, a walk from its start for T and one from its end
-for S, summed from the end as the plain reverse scan sums it. No atomics in either: every sum has
+Backward: a warp a ray, a lane a sample; a ray's last 64 samples are read
+once and kept in registers, T scanned forward and S (summed from the
+ray's end, as the plain reverse scan sums it) on them; a longer ray keeps
+T of its earlier steps in ∂σ's slots between a walk from its start and one
+from its end, each loading a step ahead (a training episode's march is
+latency-bound). No atomics in either: every sum has
 one fixed order, so two launches give the same bits (the ``index_add_``
 they replace did not). Slots past a ray's end (the pad tail, what overflow
 cut at B, rays dropped whole) are never read; only the last ray reads

@@ -12,7 +12,12 @@
   tail, a pad tail that continues ray 0's id, N = 1, a B that is a multiple
   of nothing, the inputs as unaligned strided views (``views``), and 300
   rays of 0 to 3 samples (``short_rays``: many rays a warp step, many
-  warps, one-sample rays).
+  warps, one-sample rays); and the kernels' step edges (a step is 32
+  samples of a ray; two rays a warp in the forward, one in the backward): rays of 0, 1, 31, 32, 33, 64 and 65
+  samples, each pair of a warp with an empty ray beside a one-, several-
+  or step-edge ray, the last ray 64 long before a pad tail
+  (``step_edges``), and overflow cutting a ray at B on a step edge, the
+  rays after it dropped (``step_overflow``).
   Densities are exponential with some negative, zero, opaque (``OPAQUE``)
   and zero-width (swapped) samples; colours and backgrounds uniform.
 * Chunks (``chunk``): ``dense``, the packed budget march of toy's overhead
@@ -36,8 +41,10 @@
   more with a background) read, 28 a ray written, over 3.35 TB/s; the
   figure over every slot of B beside it.
 * Backward (``time_backward_case``): at a training episode's support and
-  query march (``TRAIN_CHUNKS``: 1,024 and 512 rays drawn from the frame, B
-  = 32,768 and 16,384) and at the dense chunk, with random cotangents on
+  query march (``TRAIN_CHUNKS``, rays drawn from the frame, 32 slots a
+  ray: ``configs/train_occ.json``'s 1,024 and 512, B = 32,768 and 16,384,
+  and the reference scale's 4,000 and 2,000 of ``configs/train.json`` and
+  the CLI's defaults, B = 128,000 and 64,000) and at the dense chunk, with random cotangents on
   rgb, depth and acc (``cotangents``): the backward kernel, its plain
   version (the formulas in PyTorch, the scans' plain versions), the
   parent's differentiated composition (``composite_plain`` with the scan
@@ -61,9 +68,10 @@ from acn_tpu_torch.ops import segscan
 from acn_tpu_torch.ops.bench_gather_scatter import HBM_BYTES_PER_S
 
 LAYOUTS = ("empty_rays", "long_rays", "overflow", "pad_tail", "pad_after_ray0", "one_ray",
-           "ragged", "views", "short_rays")
+           "ragged", "views", "short_rays", "step_edges", "step_overflow")
 CHUNKS = {"dense": (30_720, 983_040), "routed": (125_000, 4_000_000)}  # (N, B)
-TRAIN_CHUNKS = {"support": (1_024, 32_768), "query": (512, 16_384)}  # (N, B)
+TRAIN_CHUNKS = {"support": (1_024, 32_768), "query": (512, 16_384),  # (N, B)
+                "support_4000": (4_000, 128_000), "query_2000": (2_000, 64_000)}
 GRAD_TOL = {"rtol": 1e-5, "atol_of_max": 1e-5}
 ROUTED_RAYS = 125_000
 TOL = {"rtol": 1e-5, "atol": 1e-5}  # tests/test_torch_march_render.py's
@@ -100,6 +108,12 @@ def _counts(name: str, rng) -> tuple:
         c = rng.integers(0, 4, 300)
         c[::7] = 1
         return c, int(c.sum()) + 40
+    if name == "step_edges":  # warps of (0, 1), (31, 0), (32, 33), (0, 64), (65, 0), (64)
+        c = np.array([0, 1, 31, 0, 32, 33, 0, 64, 65, 0, 64])
+        return c, int(c.sum()) + 20
+    if name == "step_overflow":  # ray 2 cut at B after 64 of its 65, rays 3 and 4 dropped
+        c = np.array([33, 40, 65, 10, 5])
+        return c, 33 + 40 + 64
     raise ValueError(f"unknown layout {name!r}, want one of {LAYOUTS}")
 
 
@@ -335,12 +349,20 @@ def backward_bounds_ms(samples: dict, N: int, bg: bool) -> dict:
     return {"bytes": nb, "bound_ms": 1e3 * nb / HBM_BYTES_PER_S, "bound_by": "bytes"}
 
 
+def floor_ms(device) -> float:
+    """Card ms per call of a one-element add by ``hb.device_ms``'s clock."""
+    one = torch.zeros(1, device=device)
+    return hb.device_ms([lambda: one.add_(1.0)])
+
+
 def time_backward_case(sig, rgb, samples, N, bg, alpha_thre: float = 0.0) -> dict:
     """Card ms per call of the backward kernel, its plain version, the
     parent's differentiated composition (forward and backward) and the
     kernels' forward and backward through autograd, each over copies of the
     inputs that span 4 × the L2; the backward kernel's host µs per call;
-    the byte bound."""
+    the byte bound; and ``floor_ms``, a one-element add by the same clock
+    (what a launch costs that moves nothing: at a support march the byte
+    bound lies far below it)."""
     bounds = backward_bounds_ms(samples, N, bg is not None)
     copies = hb.copies_for(bounds["bytes"])
     clone = lambda s: {k: v.clone() for k, v in samples.items()}
@@ -373,6 +395,7 @@ def time_backward_case(sig, rgb, samples, N, bg, alpha_thre: float = 0.0) -> dic
                                               for a in runs]),
            "kernels_fwd_bwd_ms": hb.device_ms([lambda a=a: through_autograd(
                a, comp.composite_autograd) for a in runs]),
+           "floor_ms": floor_ms(sig.device),
            "library_ms": None}
     del runs, accs
     return row

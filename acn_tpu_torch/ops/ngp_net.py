@@ -39,10 +39,16 @@ buffer (``hash_encode(..., out=)``), which the kernel reads at a stride.
 It takes every expert configuration ``acn_tpu`` accepts: any number of
 experts, widths and depths, hash features and direction encodings (only
 ``geo_feat_dim`` 15 and SH levels 1 to 5, which no flag changes, are
-fixed). Networks up to 128 wide run in two width classes; wider ones take
-the kernel's wide path, one launch a call too, with a scratch buffer
-(``scratch_bytes``) the wrapper allocates: the one thing memory bounds
-beyond the weights. The experts' layer pointers are a device table
+fixed). Networks up to 128 wide run in two width classes, one launch a
+call. Wider ones take the kernel's wide path, two launches a call: the
+split kernel writes every expert's weights, split into their TF32 parts,
+into a device buffer the wrapper allocates (``wide_bytes``), and the
+network kernel (``wgmma`` on 64-point tiles, the activations in shared
+memory) reads them; a network wider than 256, whose activations do not
+fit on chip, keeps them in a scratch part of the same buffer. Nothing is
+kept across calls, so a weight updated in place is seen by the next call.
+``wide_split_plain`` is the split's plain version, ``wide_split_kernel``
+the split launch alone. The experts' layer pointers are a device table
 (``cuda_lib.device_table``), kept while they repeat.
 
 The plain version (``ngp_net_plain``) is the composition the port ran
@@ -165,8 +171,12 @@ def _library() -> ctypes.CDLL:
         lib.ngp_net_fwd.argtypes = [i, vp, ll, vp, ctypes.POINTER(i), i, ll, vp, ll, vp, vp, ll,
                                     vp, ll, vp, ll, vp]
         lib.ngp_net_fwd.restype = i
-        lib.ngp_net_scratch_bytes.argtypes = [i, ctypes.POINTER(i), i, ll]
-        lib.ngp_net_scratch_bytes.restype = ll
+        lib.ngp_net_wide_bytes.argtypes = [i, ctypes.POINTER(i), i, ll]
+        lib.ngp_net_wide_bytes.restype = ll
+        lib.ngp_net_wide_image_floats.argtypes = [i, ctypes.POINTER(i)]
+        lib.ngp_net_wide_image_floats.restype = ll
+        lib.ngp_net_wide_split.argtypes = [i, vp, ctypes.POINTER(i), i, vp, vp]
+        lib.ngp_net_wide_split.restype = i
         lib.ngp_net_limits.argtypes = [ctypes.POINTER(i)]
         lib.ngp_net_limits.restype = None
         got = (i * 3)()
@@ -258,17 +268,129 @@ def _dims(cfg) -> ctypes.Array:
                               else cfg.freq_pe_dim, int(bool(cfg.use_sigmoid_rgb)))
 
 
-def scratch_bytes(mode: str, cfg, K: int, P: int) -> int:
-    """The bytes of scratch a launch needs: 0 in the width classes; on the
-    wide path, its blocks' two activation buffers each (the card's SMs
-    bound the blocks, so at most 132 × 2 × 16 × 128 × the widest layer's
-    tiles × 4 bytes on an H100)."""
+def wide_bytes(mode: str, cfg, K: int, P: int) -> int:
+    """The bytes of the device buffer a launch takes: 0 in the width
+    classes; on the wide path K experts' split images (``wide_shapes``),
+    and where the activations spill (a layer wider than 256), the blocks'
+    scratch, two buffers of 64 points × the widest layer a tile."""
     if not wide(cfg, mode):
         return 0
-    got = _library().ngp_net_scratch_bytes(MODES.index(mode), _dims(cfg), K, P)
+    got = _library().ngp_net_wide_bytes(MODES.index(mode), _dims(cfg), K, P)
     if got < 0:
-        raise RuntimeError(f"ngp_net scratch plan failed: CUDA error {-got}")
+        raise RuntimeError(f"ngp_net wide-path plan failed: CUDA error {-got}")
     return int(got)
+
+
+BLOCK = 64  # columns of a wide-path block (a wgmma's n)
+ROUND_BLOCKS = 4  # blocks a warpgroup sums in registers
+BLOCK_FLOATS = 512  # one TF32 part of a block's k-step: 64 columns × 8 rows
+
+
+def wide_shapes(mode: str, cfg) -> tuple:
+    """csrc/ngp_net.cu's ``wide_shapes``: each layer's (in, out, kt input
+    tiles of 8, nb output blocks of 64, image offset, bias offset) in
+    floats, and the floats of one expert's split image."""
+    ins_outs = ([(cfg.hash.out_dim if l == 0 else cfg.hidden, cfg.hidden)
+                 for l in range(cfg.sigma_depth)] + [(cfg.hidden, 1 + GEO)])
+    if mode != "density":
+        ins_outs += ([(1 + GEO + cfg.dir_enc_dim, cfg.color_hidden)]
+                     + [(cfg.color_hidden, cfg.color_hidden)] * (cfg.color_depth - 1)
+                     + [(cfg.color_hidden, 3)])
+    shapes, off = [], 0
+    for n_in, n_out in ins_outs:
+        kt, nb = -(-n_in // 8), -(-n_out // BLOCK)
+        shapes.append([n_in, n_out, kt, nb, off, 0])
+        off += 2 * BLOCK_FLOATS * kt * nb
+    for sh in shapes:
+        sh[5] = off
+        off += BLOCK * sh[3]
+    return [tuple(sh) for sh in shapes], off
+
+
+def tf32_plain(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of float32 x: round half away from zero at bit
+    13 of the int32 view (the sign bit apart, the pattern is the
+    magnitude), the 13 low bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _staged(params, cfg, mode: str) -> list:
+    """An expert's layers as the wide path stages them, (w (in, out), b
+    (out,)) each: the trunk, the heads [σ | geo], the colour MLP's first
+    layer behind a zero row (the heads' σ column), the rest of it."""
+    layers = [(p["w"], p["b"]) for p in params["sigma_trunk"]]
+    layers.append((torch.cat([params["sigma_head"]["w"], params["geo_head"]["w"]], 1),
+                   torch.cat([params["sigma_head"]["b"], params["geo_head"]["b"]])))
+    if mode != "density":
+        first = params["color_mlp"][0]
+        layers.append((torch.cat([first["w"].new_zeros((1, first["w"].shape[1])), first["w"]]),
+                       first["b"]))
+        layers += [(p["w"], p["b"]) for p in params["color_mlp"][1:]]
+    return layers
+
+
+def wide_split_plain(mode: str, experts: Sequence[dict], cfg) -> torch.Tensor:
+    """Plain version of the split kernel: (K, image floats) float32, each
+    expert's layers split into TF32 big and small parts (the bit patterns
+    of ``tf32_plain(w)`` and ``tf32_plain(w − big)``) at csrc/ngp_net.cu's
+    ``wide_index`` — the k-slot of row i of a k-step is i/2 for even i and
+    4 + i/2 for odd, and each (round of up to 4 blocks, k-step) holds its
+    blocks' big parts, then their small parts, 64 columns × 8 rows each in
+    wgmma's K-major layout (8 × 4 core matrices: row-halves 32 floats apart,
+    8-column groups 64) — then every bias; zeros past each layer."""
+    shapes, floats = wide_shapes(mode, cfg)
+    out = torch.zeros((len(experts), floats), dtype=torch.float32,
+                      device=experts[0]["sigma_trunk"][0]["w"].device)
+    for k, params in enumerate(experts):
+        for (n_in, n_out, kt, nb, off, boff), (w, b) in zip(shapes, _staged(params, cfg, mode)):
+            i = torch.arange(8 * kt, device=out.device)[:, None]
+            j = torch.arange(BLOCK * nb, device=out.device)[None, :]
+            full = torch.zeros((8 * kt, BLOCK * nb), dtype=torch.float32, device=out.device)
+            full[:n_in, :n_out] = w
+            big = tf32_plain(full)
+            small = tf32_plain(full - big)
+            o = i & 7
+            slot = torch.where((o & 1) == 1, 4 + (o >> 1), o >> 1)
+            blk = j >> 6
+            r = blk // ROUND_BLOCKS
+            nbr = torch.clamp(nb - ROUND_BLOCKS * r, max=ROUND_BLOCKS)
+            n = j & 63
+            at = (off + 2 * BLOCK_FLOATS * (kt * ROUND_BLOCKS * r + (i >> 3) * nbr)
+                  + (blk - ROUND_BLOCKS * r) * BLOCK_FLOATS + (n >> 3) * 64 + (slot >> 2) * 32
+                  + (n & 7) * 4 + (slot & 3))
+            out[k, at.reshape(-1)] = big.reshape(-1)
+            out[k, (at + nbr * BLOCK_FLOATS).reshape(-1)] = small.reshape(-1)
+            out[k, boff:boff + n_out] = b
+    return out
+
+
+def wide_split_kernel(mode: str, experts: Sequence[dict], cfg) -> torch.Tensor:
+    """The split kernel alone, on the current stream (what the wide path of
+    ``ngp_net_kernel`` launches before the network): ``wide_split_plain``'s
+    result, from the experts' tensors on one card. Adds one to
+    ``wide_split_kernel.launches``."""
+    what = "the NGP network's split kernel"
+    K = len(experts)
+    check_config(cfg, K)
+    dev = experts[0]["sigma_trunk"][0]["w"].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs tensors on a CUDA device, got {dev}")
+    ptrs = [p for e in experts for p in _expert_ptrs(e, cfg, dev, what)]
+    lib = _library()
+    floats = int(lib.ngp_net_wide_image_floats(MODES.index(mode), _dims(cfg)))
+    if floats < 0:
+        raise RuntimeError(f"ngp_net wide-path shapes failed: CUDA error {-floats}")
+    out = torch.empty((K, floats), dtype=torch.float32, device=dev)
+    table = cuda_lib.device_table(ptrs, dev)
+    err = _on_stream(out, lambda s: lib.ngp_net_wide_split(
+        MODES.index(mode), table.data_ptr(), _dims(cfg), K, out.data_ptr(), s))
+    if err != 0:
+        raise RuntimeError(f"ngp_net split kernel launch failed: CUDA error {err}")
+    wide_split_kernel.launches += 1
+    return out
+
+
+wide_split_kernel.launches = 0
 
 
 def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Tensor],
@@ -277,9 +399,9 @@ def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Te
     ``ngp_net_plain``'s. h: one (K, P, L·F) float32 contiguous tensor (read
     at a stride); d: (P, 3) float32 whose rows may be strided (a view of a
     (P, 6) xd); w: (P, K) float32 contiguous; every tensor on one card.
-    Adds one to ``ngp_net_kernel.launches`` per launch (none for P = 0).
-    Raises, naming the bytes, where the wide path's scratch does not fit on
-    the card."""
+    Adds one to ``ngp_net_kernel.launches`` per launch (none for P = 0),
+    and on the wide path one to ``wide_split_kernel.launches`` for the
+    split launch before it."""
     what = "the NGP network kernel"
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}, want one of {MODES}")
@@ -327,23 +449,19 @@ def ngp_net_kernel(mode: str, h, d: Optional[torch.Tensor], w: Optional[torch.Te
     if P == 0:
         return result
     lib = _library()
-    need = scratch_bytes(mode, cfg, K, P)
-    scratch = None
-    if need:
-        try:
-            scratch = torch.empty((need // 4,), dtype=torch.float32, device=dev)
-        except torch.cuda.OutOfMemoryError as e:
-            raise torch.cuda.OutOfMemoryError(
-                f"{what}: the wide path's scratch needs {need} bytes on {dev}: {e}") from e
+    need = wide_bytes(mode, cfg, K, P)
+    buf = torch.empty((need // 4,), dtype=torch.float32, device=dev) if need else None
     table = cuda_lib.device_table(ptrs, dev)
     err = _on_stream(h, lambda s: lib.ngp_net_fwd(
         MODES.index(mode), h.data_ptr(), P * L, table.data_ptr(), _dims(cfg), K, P,
         None if d is None else d.data_ptr(), 0 if d is None else d.stride(0),
         w.data_ptr() if blend else None, rgb, rgb_s, sig, sig_s,
-        None if scratch is None else scratch.data_ptr(), need, s))
+        None if buf is None else buf.data_ptr(), need, s))
     if err != 0:
         raise RuntimeError(f"ngp_net kernel launch failed: CUDA error {err}")
     ngp_net_kernel.launches += 1
+    if need:
+        wide_split_kernel.launches += 1
     return result
 
 
@@ -366,9 +484,15 @@ def takes(x: torch.Tensor) -> bool:
 
 
 def launch_counts() -> int:
-    """The kernel's launches since the counter was last set to 0."""
+    """The network kernel's launches since the counter was last set to 0."""
     return ngp_net_kernel.launches
+
+
+def split_launch_counts() -> int:
+    """The wide path's split launches since the counter was last set to 0."""
+    return wide_split_kernel.launches
 
 
 def zero_launch_counts() -> None:
     ngp_net_kernel.launches = 0
+    wide_split_kernel.launches = 0

@@ -2,7 +2,7 @@
 they serve, on one CUDA card.
 
     python -m acn_tpu_torch.scripts.bench_composite
-        [--what kernel,backward,frames] [--frames 3] [--profile DIR]
+        [--what kernel,backward,inplace,frames] [--frames 3] [--profile DIR]
     PYTHONPATH=<tree> python acn_tpu_torch/scripts/bench_composite.py --what frames
 
 ``kernel``: at the two chunks of ``ops/composite_bench.py`` (the dense
@@ -18,11 +18,24 @@ the inputs that exceed the L2; the kernel's host µs per call; the byte
 bound of the real samples, and over every slot.
 
 ``backward``: the backward kernel at a training episode's support and
-query march and at the dense chunk (``composite_bench.time_backward_case``):
+query march (``configs/train_occ.json``'s 1,024 and 512 rays, and the
+reference scale's 4,000 and 2,000 of ``configs/train.json`` and the CLI's
+defaults) and at the dense chunk (``composite_bench.time_backward_case``):
 one JSON line each with its largest difference from the plain version in
 float64 (over each gradient's largest magnitude), the card ms of the
 kernel, its plain version, the parent's differentiated composition and the
-kernels' forward and backward through autograd, and the byte bound.
+kernels' forward and backward through autograd, the byte bound, and a
+one-element add by the same clock (``floor_ms``: at a support march the
+byte bound lies far below a launch's own cost).
+
+``inplace``: one FoMAML budget step of ``bench.py``'s problem (K 4, T 3,
+S 1,024, Q 512, 8 inner steps) under ``torch.profiler``
+(``scripts/profile_step.py``'s ``run``): each launch's device time of the
+composite kernels in place (median, min, max, count) beside 64
+one-element adds profiled on their own after the step (the floor). To
+time another tree's kernels in place, run this tree's
+``scripts/profile_step.py --scale 4,3,1024,512,8 --regimes budget`` with
+that tree first on ``PYTHONPATH`` (its ``kernel_us``).
 
 ``frames``: the smoke's scene (``configs/train_occ.json``'s model from seed
 0, toy's 10 % grids, its overhead camera) at 1080 × 1920: a warm and
@@ -103,7 +116,7 @@ def bench_backward(smi: str) -> None:
         print(json.dumps({"backward": None, "note": "this tree has no backward kernel",
                           "nvidia_smi": smi}), flush=True)
         return
-    for kind in ("support", "query", "dense"):
+    for kind in (*cb.TRAIN_CHUNKS, "dense"):
         sig, rgb, s, N, bg = cb.chunk(kind)
         acc = comp.composite_kernel(sig, rgb, s, N, bg, 0.0, False)[2]
         g = cb.cotangents(N)
@@ -115,6 +128,15 @@ def bench_backward(smi: str) -> None:
         print(json.dumps({**row, "nvidia_smi": smi}), flush=True)
         del sig, rgb, s, bg, got, want
         torch.cuda.empty_cache()
+
+
+def bench_inplace(smi: str) -> None:
+    from acn_tpu_torch.scripts import profile_step
+
+    got = profile_step.run((4, 3, 1024, 512, 8), ("budget",), "cuda")
+    print(json.dumps({"inplace": "budget", "kernel_us": got["kernel_us"]["budget"],
+                      "composite_launches": got["composite_launches"]["budget"],
+                      "busy_ms": got["busy_ms"]["budget"], "nvidia_smi": smi}), flush=True)
 
 
 def _dev_us(e) -> float:
@@ -230,6 +252,8 @@ def main() -> int:
         bench_kernel(smi)
     if "backward" in what:
         bench_backward(smi)
+    if "inplace" in what:
+        bench_inplace(smi)
     if "frames" in what:
         bench_frames(args, smi)
     print(smi, flush=True)

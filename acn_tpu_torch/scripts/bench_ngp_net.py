@@ -2,7 +2,7 @@
 serves, on one CUDA card.
 
     python -m acn_tpu_torch.scripts.bench_ngp_net [--what kernel,frames]
-        [--no-plain] [--frames 3] [--profile DIR]
+        [--config NAME[,NAME]] [--no-plain] [--frames 3] [--profile DIR]
     PYTHONPATH=<tree> python acn_tpu_torch/scripts/bench_ngp_net.py
 
 ``kernel``: for each mode (``single``, ``sigma_blend``, ``linear_blend``,
@@ -15,7 +15,11 @@ library figure: no single PyTorch call computes the network), each a run
 of calls between one pair of CUDA events (the ``mm`` chain also with TF32
 allowed, then restored); the kernel's host µs per call; the bounds (the
 kernel's 3xTF32 operations at 495 TFLOP/s, the same flops at 67 TFLOP/s
-f32 beside them, bytes at 3.35 TB/s).
+f32 beside them, bytes at 3.35 TB/s). With ``--config`` (names of
+``toy.FLAG_SETS``, as phase 15 of ``chip_smoke.py`` takes them): each named
+configuration's experts instead, every mode on the random points of a
+dense chunk (983,040), the lines carrying ``config``; ``wide`` takes the
+kernel's wide path.
 
 ``frames``: the smoke's scene (``configs/train_occ.json``'s model from
 seed 0, toy's 10 % grids, its overhead camera) at 1080 × 1920: a warm and
@@ -23,7 +27,10 @@ seed 0, toy's 10 % grids, its overhead camera) at 1080 × 1920: a warm and
 of 32 samples a ray, the soft-MoE blend), then the σ-head bias set to +2
 (as ``chip_smoke.py`` phase 4 leaves it) and a warm and ``--frames`` timed
 routed frames (``render_image_routed``: each expert its own rectangle);
-ms per frame, the kernel's launches per frame. With ``--profile DIR`` one
+ms per frame, the kernel's launches per frame. With ``--config``: each
+named configuration's dense frame as phase 16 of ``chip_smoke.py`` renders
+it (``toy.flag_config``, seed 16, ``toy.expert_layout``; 480 × 853 for
+``wide``, 270 × 1920 for ``k25``, else 1080 × 1920). With ``--profile DIR`` one
 more frame of each under ``torch.profiler``: its busy and idle share, its
 kernel launches, the device time of the top ops and of the network
 kernel, the tables in DIR.
@@ -68,14 +75,27 @@ def bench_kernel(args, smi: str) -> None:
     from acn_tpu_torch.ops import ngp_net_bench as nb
 
     net = _net()
-    _, ecfg = nb.config()
     gen = torch.Generator(device="cuda").manual_seed(15)
+    kernel = None if net is None else net.ngp_net_kernel
+    if args.config:
+        for name in args.config.split(","):
+            cfg, ecfg = nb.config(name)
+            experts = nb.net_params(ecfg, cfg.num_submodules, seed=15)
+            ins = nb.inputs("random", nb.SIZES[0], cfg.num_submodules, gen, name)
+            for mode in nb.MODES:
+                row = nb.time_case(mode, "random", nb.SIZES[0], gen, experts,
+                                   plain=not args.no_plain, kernel=kernel, ins=ins, name=name)
+                print(json.dumps({**row, "config": name, "nvidia_smi": smi}), flush=True)
+            del ins, experts
+            torch.cuda.empty_cache()
+        return
+    _, ecfg = nb.config()
     experts = nb.net_params(ecfg, 4, seed=15)
     cases = [(m, s, P) for m in nb.MODES for s in nb.SETS for P in nb.SIZES]
     cases.append(("single", "random", nb.ROUTED_P))
     for mode, set_name, P in cases:
         row = nb.time_case(mode, set_name, P, gen, experts, plain=not args.no_plain,
-                           kernel=None if net is None else net.ngp_net_kernel)
+                           kernel=kernel)
         print(json.dumps({**row, "nvidia_smi": smi}), flush=True)
         torch.cuda.empty_cache()
 
@@ -116,8 +136,15 @@ def bench_frames(args, smi: str) -> None:
     H, W = 1080, 1920
     cfg, P, occ_cfg = toy.train_occ_config()
     torch.cuda.empty_cache()
-    model = toy.serving_model(cfg, seed=0, device="cuda")
-    boxes, _ = toy.quadrant_layout(cfg.num_submodules)
+    if args.config:  # one named configuration's dense frame, as phase 16 renders it
+        name = args.config.split(",")[0]
+        cfg = toy.flag_config(cfg, **toy.FLAG_SETS[name])
+        H, W = toy.FLAG_FRAMES.get(name, (H, W))
+        model = toy.serving_model(cfg, seed=16, device="cuda")
+        boxes, _ = toy.expert_layout(cfg.num_submodules)
+    else:
+        model = toy.serving_model(cfg, seed=0, device="cuda")
+        boxes, _ = toy.quadrant_layout(cfg.num_submodules)
     occ = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
     renderer = Renderer(cfg, P, occ_cfg)
     cam = toy.overhead_camera(H, W)
@@ -126,6 +153,8 @@ def bench_frames(args, smi: str) -> None:
         "routed": lambda: renderer.render_image_routed(model, occ, H=H, W=W, download=False,
                                                        **cam),
     }
+    if args.config:
+        del frames["routed"]
     for name, fn in frames.items():
         if name == "routed":
             with torch.no_grad():
@@ -140,7 +169,8 @@ def bench_frames(args, smi: str) -> None:
             fn()
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        row = {"frame": name, "H": H, "W": W, "frame_ms": ms,
+        row = {"frame": name, "config": args.config.split(",")[0] or "smoke", "H": H, "W": W,
+               "frame_ms": ms,
                "mean_frame_ms": statistics.mean(ms),
                "ngp_net_launches_per_frame": (None if net is None
                                               else net.launch_counts() / args.frames),
@@ -155,6 +185,7 @@ def main() -> int:
     ap.add_argument("--what", default="kernel,frames")
     ap.add_argument("--no-plain", action="store_true",
                     help="time the kernel alone (no plain network, no mm chain)")
+    ap.add_argument("--config", default="", help="names of toy.FLAG_SETS (module docstring)")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--profile", default="", metavar="DIR")
     args = ap.parse_args()

@@ -21,7 +21,12 @@ are the budget regime under Reptile and second-order MAML. Prints one JSON line 
 * ``scan_launches``, ``composite_launches``: the scan kernels' (forward,
   reverse) and the composite kernels' (forward, backward) counts over the
   profiled step;
-* ``graph_backwards``: the composite's ``create_graph`` route's count.
+* ``graph_backwards``: the composite's ``create_graph`` route's count;
+* ``kernel_us``: in place, each launch's device time (µs: median, min,
+  max, count) of the composite kernels (``composite_fwd_kernel``,
+  ``composite_bwd_kernel``) in the profiled step, and ``floor``: 64
+  one-element adds launched after it in a profile of their own, the device
+  time of a kernel that does nothing a launch can avoid (null on the CPU).
 
 The profiler observes the dispatcher without changing it (a
 ``TorchDispatchMode`` would: under one, torch's composite backward
@@ -59,6 +64,33 @@ def _zero_counts() -> None:
     composite.zero_launch_counts()
 
 
+FLOOR_LAUNCHES = 64
+IN_PLACE = ("composite_fwd_kernel", "composite_bwd_kernel")
+
+
+def _floor_events(device) -> list:
+    """The floor's device events: ``FLOOR_LAUNCHES`` one-element adds in a
+    profile of their own."""
+    one = torch.zeros(1, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(FLOOR_LAUNCHES):
+            one.add_(1.0)
+        _sync(device)
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _kernel_us(dev: list, floor: list) -> dict:
+    """Per-launch device µs of the ``IN_PLACE`` kernels and of the floor."""
+    def stats(evs):
+        us = sorted(e.time_range.elapsed_us() for e in evs)
+        return ({"median": float(np.median(us)), "min": us[0], "max": us[-1], "count": len(us)}
+                if us else None)
+
+    got = {k: stats([e for e in dev if k in e.name]) for k in IN_PLACE}
+    got["floor"] = stats(floor)
+    return got
+
+
 def run(scale=(4, 3, 64, 32, 8), regimes=REGIMES[:3], device=None, steps: int = 0) -> dict:
     device = resolve_device(device)
     K, T, S, Q, inner = scale
@@ -81,7 +113,7 @@ def run(scale=(4, 3, 64, 32, 8), regimes=REGIMES[:3], device=None, steps: int = 
     cuda = device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     keys = ("step_ms", "aten_events", "kernel_launches", "busy_ms", "scan_launches",
-            "composite_launches", "graph_backwards")
+            "composite_launches", "graph_backwards", "kernel_us")
     out = {k: {} for k in keys}
     for name in REGIMES:
         if name not in regimes:
@@ -116,9 +148,10 @@ def run(scale=(4, 3, 64, 32, 8), regimes=REGIMES[:3], device=None, steps: int = 
         out["aten_events"][name] = sum(e.count for e in avgs if e.key.startswith("aten::"))
         out["kernel_launches"][name] = (
             sum(e.count for e in avgs if e.key == "cudaLaunchKernel") if cuda else None)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA] if cuda else []
         out["busy_ms"][name] = (
-            1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA) if cuda else None)
+            1e-3 * sum(e.time_range.elapsed_us() for e in dev) if cuda else None)
+        out["kernel_us"][name] = _kernel_us(dev, _floor_events(device)) if cuda else None
         del model, opt, state, step_fn, prof
     return {**out, "scale": list(scale), "device": _card(device)}
 

@@ -120,6 +120,12 @@ FLAG_SETS = {
     "f1": {"hash_levels": 16, "hash_features": 1},
     "wide": {"dim_hidden": 256, "sigma_depth": 8, "color_hidden": 128, "color_depth": 5},
 }
+LIVE_PREVIEW = (480, 853)  # the viewer's preview: 480 rows at a 16:9 aspect
+# (H, W) of a FLAG_SETS configuration's dense frame where it is not 1080p
+# (chip_smoke.py phase 16, scripts/bench_ngp_net.py --config): the wide
+# expert's at the viewer's preview size; k25's (13,500 hash launches and
+# 14-18 s a 1080p frame) at a quarter of the rows, cut for the smoke's time.
+FLAG_FRAMES = {"wide": LIVE_PREVIEW, "k25": (270, 1920)}
 
 
 def flag_config(cfg: ContainerConfig, **flags) -> ContainerConfig:

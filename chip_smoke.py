@@ -313,7 +313,16 @@ Phases, each printing one JSON line and each fatal on failure:
    meta-train steps) did not (its network runs under autograd, or in bf16);
    the loop, the runner's and the tools' ``--op train`` (steps and
    occupancy updates) are recorded; with ``--profile`` the dense and
-   routed frames' profiles give the kernel's mean time and share of busy;
+   routed frames' profiles give the kernel's mean time and share of busy.
+   The wide path (networks above 128 wide: ``wgmma`` on 64-point tiles)
+   is held in every mode within rtol 3e-4 at point counts about a tile
+   and a pass (63, 64, 65, 129, 449), with an expert whose list is empty
+   or one point, and at width 264 (activations spilled to the block's
+   scratch), one split launch a network launch; its split kernel
+   (``ngp_net.wide_split_kernel``) bit-equal to ``wide_split_plain`` and
+   timed beside its byte bound; every main path counts the split
+   launches (``SPLIT_BY_PATH``: one before each wide network launch, 14 a
+   ``wide`` frame);
 16. every expert configuration ``acn_tpu`` accepts that the kernels' first
    versions refused (``toy.FLAG_SETS``: flags over
    ``configs/train_occ.json``, random weights from seed 16): ``k25``
@@ -345,7 +354,8 @@ Phases, each printing one JSON line and each fatal on failure:
    ``ops/composite_bench.py`` (rays with no samples, rays of 256 and 600
    samples, the ray overflow cuts at B and the rays dropped whole, a pad
    tail, one continuing ray 0's id, N = 1, a ragged B, unaligned strided
-   views, 300 rays of 0 to 3 samples) at alpha threshold 0 and 0.05, with and without a background and
+   views, 300 rays of 0 to 3 samples, rays of 0, 1, 31, 32, 33, 64 and 65
+   samples beside empty ones, overflow cutting a ray on a step edge) at alpha threshold 0 and 0.05, with and without a background and
    the stats, and on two real chunks (a background and the stats): the
    dense frame's budget march (N = 30,720, B = 983,040) and a routed chunk
    (125,000 rays of the frame, B = 4,000,000); NaN in the dense chunk's
@@ -361,14 +371,18 @@ Phases, each printing one JSON line and each fatal on failure:
    second launch bit-equal, on every hand-made layout at alpha threshold 0
    and 0.05, with and without a background, on rgb's cotangent alone and
    on rgb's, depth's and acc's; at a training episode's support and query
-   march (B = 32,768 and 16,384, σ and rgb the columns of one (B, 4)
-   buffer) and at the dense chunk, where NaN in the pad slots changes no
+   march (``configs/train_occ.json``'s 1,024 and 512 rays, B = 32,768 and
+   16,384, and the reference scale's 4,000 and 2,000, B = 128,000 and
+   64,000; σ and rgb the columns of one (B, 4) buffer) and at the dense
+   chunk, where NaN in the pad slots changes no
    bit; ``composite_packed`` under autograd at the support march: one
    forward and one backward launch, no scan, its gradient within the same
    tolerance; the card time per call of the backward kernel, its plain
    version, the parent's differentiated composition (forward and backward)
    and the kernels' forward and backward through autograd, beside the byte
-   bound. Every main path above counts the composite kernels' launches from
+   bound and a one-element add by the same clock (``floor_ms``: what a
+   launch costs at a support march, where the byte bound lies far below
+   it). Every main path above counts the composite kernels' launches from
    0 and holds them: the forward once a packed chunk and no scan on every
    serving path (the dense, routed, single-expert, baked, budget-0 (0) and
    mesh frames, ``--op eval``, ``--op video``, the viewer's frames), and
@@ -1255,6 +1269,7 @@ def _kernel_counts() -> tuple:
 # backward), read just after the path ran, counted from 0 just before it
 HASH_BY_PATH: dict = {}
 NET_BY_PATH: dict = {}
+SPLIT_BY_PATH: dict = {}  # the wide path's split launches (one before each wide network launch)
 COMP_BY_PATH: dict = {}
 COMP_BWD_BY_PATH: dict = {}
 
@@ -1272,9 +1287,13 @@ def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tupl
     kernel as ``comp`` says, in the same words ("any" by default: a serving
     path holds its count to its chunks with ``check_packed``, a training
     step to its losses with ``budget_want``), and the composite backward
-    kernel only where it trains. ``counts``: (hash forward, hash cotangent,
-    network, composite forward, composite backward)."""
+    kernel only where it trains; the wide path's split kernel at most once
+    a network launch. ``counts``: (hash forward, hash cotangent, network,
+    composite forward, composite backward), from a process whose network
+    is never wide."""
     fwd, bwd, nl, cl, cbl = _kernel_counts() if counts is None else counts
+    split = _ngp_net().split_launch_counts() if counts is None else 0
+    check(split <= nl, f"{path}: {split} split launches for {nl} network launches")
     check(fwd > 0 and (bwd > 0) == trains,
           f"{path}: the hash encode kernels launched {fwd} forward and {bwd} "
           f"cotangent, want forward > 0 and cotangent {'> 0' if trains else '0'}")
@@ -1291,6 +1310,7 @@ def note_hash(path: str, trains: bool, counts=None, net=None, comp=None) -> tupl
     old = HASH_BY_PATH.get(path, (0, 0))
     HASH_BY_PATH[path] = (old[0] + fwd, old[1] + bwd)
     NET_BY_PATH[path] = NET_BY_PATH.get(path, 0) + nl
+    SPLIT_BY_PATH[path] = SPLIT_BY_PATH.get(path, 0) + split
     note_comp(path, cl)
     COMP_BWD_BY_PATH[path] = COMP_BWD_BY_PATH.get(path, 0) + cbl
     return fwd, bwd
@@ -3446,7 +3466,6 @@ def phase_mesh(torch, segscan, toy, model, occ) -> dict:
 
 # ---------------------------------------------------------------- phase 12
 
-LIVE_PREVIEW = (480, 853)  # the viewer's preview: 480 rows at a 16:9 aspect
 LIVE_STEPS = 16
 LIVE_MIN_FRAMES = 4
 # the loop pauses itself once it is this many steps ahead of the frames
@@ -3514,7 +3533,7 @@ def phase_live(torch, segscan, toy, run, baked_path) -> dict:
 
         if importlib.util.find_spec("matplotlib") is None:
             state.depth_colormap = "gray"
-        H, W = LIVE_PREVIEW
+        H, W = toy.LIVE_PREVIEW
         md = dataset.get_image_metadata(ctx["data_path"], P.downscale)[1][0]
         c2w = np.asarray(md.c2w, np.float32)  # origin 0, pose scale 1: the viewer's world
         cam = dict(c2w_rub_world=np.concatenate(
@@ -4339,9 +4358,6 @@ HASH_FLAG_CONFIGS = ("l16f8", "l40f3", "f1")  # phase 16's hash grids other than
 
 # ---------------------------------------------------------------- phase 16
 
-# the wide expert's frames at the viewer's size; k25's (13,500 hash launches
-# and 14-18 s a 1080p frame) at a quarter of the rows, cut for the smoke's time
-CONFIG_FRAMES = {"wide": LIVE_PREVIEW, "k25": (270, 1920)}
 CONFIG_STEPS = ("l40f3", "f1")  # a budget step each: the bf16 hash kernels at F = 3 and 1
 CONFIG_CPU_RAYS = 512  # card against CPU, as phase 4 (2,048 before; cut for time)
 
@@ -4404,7 +4420,7 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
         boxes, _ = toy.expert_layout(K)
         occ = toy.random_occ_states(boxes, occ_cfg, fill=0.10, seed=0, device="cuda")
         renderer = Renderer(cfg, P, occ_cfg)
-        Hf, Wf = CONFIG_FRAMES.get(name, (H, W))
+        Hf, Wf = toy.FLAG_FRAMES.get(name, (H, W))
         cam = toy.overhead_camera(Hf, Wf)
         chunks = -(-Hf // (renderer.chunk_rays // Wf))
         row = {"phase": "configs", "config": name, "flags": flags, "K": K, "H": Hf, "W": Wf,
@@ -4426,13 +4442,16 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             scans, (fwd, bwd, nl, cl, _) = _scan_counts(segscan), _kernel_counts()
+            split = net.split_launch_counts()
             path = f"{name}_{kind}_frame"
             note_hash(path, trains=False)
             counted[path] = scans
             check_packed(path, scans, dispatched, cl)
-            check(nl == dispatched and fwd == per_chunk * nl,
-                  f"{path}: network {nl}, hash forward {fwd} launches; want "
-                  f"{dispatched} and {per_chunk} × {dispatched}")
+            check(nl == dispatched and fwd == per_chunk * nl
+                  and split == (nl if row["wide_path"] else 0),
+                  f"{path}: network {nl}, hash forward {fwd}, split {split} launches; want "
+                  f"{dispatched}, {per_chunk} × {dispatched} and "
+                  f"{dispatched if row['wide_path'] else 0}")
             # the host's waits in a third frame: the dense one downloaded (its
             # download waits once, at the end); a routed frame stitches its
             # chunks on the host, so it is counted on the card and downloaded
@@ -4446,6 +4465,7 @@ def phase_configs(torch, segscan, toy, Renderer) -> dict:
                   and np.isfinite(depth).all() and np.isfinite(acc).all(),
                   f"{path}: the frame is not finite or has the wrong shape")
             row[f"{kind}_frame"] = {"chunks": dispatched, "ms": ms, "net_launches": nl,
+                                    "split_launches": split,
                                     "hash_fwd_launches": fwd, "composite_launches": cl,
                                     "scan_launches": scans[0],
                                     "host_syncs": syncs, "host_sync_sites": sites}
@@ -4550,11 +4570,123 @@ def phase_net(torch) -> dict:
             emit({"phase": "net_kernel", **row})
         del ins, fexperts
         torch.cuda.empty_cache()
-    emit({"phase": "net_checks", "cases": len(shapes) + len(flag_shapes), "rtol": NET_RTOL,
-          "wide_rtol": NET_WIDE_RTOL, "atol": NET_ATOL,
-          "max_abs_err": max(r["max_abs_err"] for r in shapes + flag_shapes),
+    edges = wide_edge_cases(torch, net, nb, gen)
+    split = split_case(torch, net, nb)
+    emit({"phase": "net_checks", "cases": len(shapes) + len(flag_shapes) + len(edges),
+          "rtol": NET_RTOL, "wide_rtol": NET_WIDE_RTOL, "atol": NET_ATOL,
+          "max_abs_err": max(r["max_abs_err"] for r in shapes + flag_shapes + edges),
           "phase_s": time.perf_counter() - t_start})
-    return {"shapes": shapes, "flag_shapes": flag_shapes}
+    return {"shapes": shapes, "flag_shapes": flag_shapes, "wide_edges": edges, "split": split}
+
+
+# the wide path's edges: point counts about a 64-point tile and a pass of
+# two, an expert with no point and one with one, and a width whose
+# activations spill (264: five blocks of 64)
+WIDE_EDGE_P = (63, 64, 65, 129, 64 * 7 + 1)
+
+
+def wide_edge_cases(torch, net, nb, gen) -> list:
+    """The wide path against its plain version in every mode at
+    ``WIDE_EDGE_P`` (the ``wide`` expert), with expert 2's list empty or of
+    one point, and at width 264 (two rounds of columns, activations in the
+    block's scratch), within ``NET_WIDE_RTOL``; one split launch a network
+    launch."""
+    import dataclasses
+
+    rows = []
+    cfg, ecfg = nb.config("wide")
+    K = cfg.num_submodules
+    experts = nb.net_params(ecfg, K, seed=19)
+    cases = [(f"P{P}", ecfg, experts, nb.inputs("random", P, K, gen, "wide"))
+             for P in WIDE_EDGE_P]
+    h, xd, w = nb.inputs("random", 3_000, K, gen, "wide")
+    for listed in (0, 1):
+        w2 = w.clone()
+        w2[:, 2] = 0.0
+        if listed:
+            w2[1_234, 2] = 0.5
+        cases.append((f"expert2_lists_{listed}", ecfg, experts, (h, xd, w2)))
+    wide264 = dataclasses.replace(ecfg, hidden=264, color_hidden=264, sigma_depth=2,
+                                  color_depth=2)
+    cases.append(("width264", wide264, nb.net_params(wide264, K, seed=19), (h, xd, w)))
+    for name, ec, ex, ins in cases:
+        err = 0.0
+        for mode in nb.MODES:
+            args = nb.call_args(mode, *ins, ex)
+            before = (net.launch_counts(), net.split_launch_counts())
+            got = net.ngp_net_kernel(mode, *args, ec)
+            want = net.ngp_net_plain(mode, *args, ec)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            e = max(float((g - x).abs().max()) for g, x in zip(got, want))
+            excess = max(float(((g - x).abs() - NET_ATOL - NET_WIDE_RTOL * x.abs()).max())
+                         for g, x in zip(got, want))
+            launched = (net.launch_counts() - before[0], net.split_launch_counts() - before[1])
+            check(excess <= 0.0 and launched == (1, 1)
+                  and all(bool(torch.isfinite(g).all()) for g in got),
+                  f"ngp_net wide path {name} {mode}: max |kernel − plain| {e}, over the "
+                  f"tolerance by {excess}; launches (network, split) {launched}")
+            err = max(err, e)
+        rows.append({"case": name, "P": int(ins[0].shape[1]), "max_abs_err": err,
+                     "rtol": NET_WIDE_RTOL})
+    emit({"phase": "net_wide_edges", "cases": rows})
+    return rows
+
+
+def split_case(torch, net, nb) -> dict:
+    """The wide path's split kernel at the ``wide`` expert's 4 experts:
+    bit-equal to ``wide_split_plain`` (its bits are cvt.rna.tf32's), timed
+    by ``hashgrid_bench``'s clock (warm: a call splits weights it reads
+    from L2 at these sizes) beside its plain version and its byte bound
+    (the f32 weights read once, the split image written once)."""
+    from acn_tpu_torch.ops import hashgrid_bench as hb
+
+    cfg, ecfg = nb.config("wide")
+    K = cfg.num_submodules
+    experts = nb.net_params(ecfg, K, seed=15)
+    row = {"config": "wide", "K": K}
+    for mode in ("sigma_blend", "density"):
+        got = net.wide_split_kernel(mode, experts, ecfg)
+        want = net.wide_split_plain(mode, experts, ecfg)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        check(same, f"ngp_net split kernel ({mode}) differs from wide_split_plain's bits")
+        weights = sum(int(t.numel()) for e in experts
+                      for layer in net._layers(e) for t in (layer["w"], layer["b"]))
+        row[mode] = {
+            "image_floats": int(got.shape[1]), "bit_equal": same, "max_abs_err": 0.0,
+            "ms": hb.device_ms([lambda: net.wide_split_kernel(mode, experts, ecfg)]),
+            "plain_ms": hb.device_ms([lambda: net.wide_split_plain(mode, experts, ecfg)], 3),
+            "bytes": 4 * weights + 4 * got.numel(),
+            "bound_ms": 1e3 * (4 * weights + 4 * got.numel()) / HBM_BYTES_PER_S}
+        del got, want
+    emit({"phase": "net_split", **row})
+    return row
+
+
+def net_split_entry(nk: dict, smi: str) -> dict:
+    """The kernels line's entry of the wide path's split kernel: launches
+    summed over the main paths (``SPLIT_BY_PATH``, one before each wide
+    network launch); times at the ``wide`` expert's 4 experts
+    (``sigma_blend``'s image, ``density``'s beside it)."""
+    sp = nk["split"]
+    at = sp["sigma_blend"]
+    return {"name": "ngp_net_wide_split", "route": "cuda",
+            "source": "acn_tpu_torch/csrc/ngp_net.cu",
+            "replaces": "none: the wide path's weights split once a call into TF32 parts in "
+                        "wgmma's layout (acn_tpu/models/ngp.py:112-156 has no TPU kernel)",
+            "launches": sum(SPLIT_BY_PATH.values()),
+            "launches_by_path": {k: v for k, v in SPLIT_BY_PATH.items() if v},
+            "max_abs_err": 0.0, "bit_equal_to_plain": at["bit_equal"],
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "no PyTorch call splits f32 into TF32 parts",
+            "bound_note": "the experts' f32 weights read once and the split image written "
+                          "once, over 3.35 TB/s",
+            "timing": "card ms per call over a run of calls between one pair of CUDA events, "
+                      "warm",
+            "density": sp["density"], "nvidia_smi": smi}
 
 
 def net_kernel_entry(nk: dict, smi: str) -> dict:
@@ -4588,7 +4720,8 @@ def net_kernel_entry(nk: dict, smi: str) -> dict:
                       "cycling over copies of the inputs that exceed the L2; host µs apart",
             "shapes": [{k: r[k] for k in keys} for r in nk["shapes"]],
             "flag_shapes": [{k: r[k] for k in ("config", "rtol") + keys}
-                            for r in nk["flag_shapes"]], "nvidia_smi": smi}
+                            for r in nk["flag_shapes"]],
+            "wide_edges": nk["wide_edges"], "nvidia_smi": smi}
 
 
 # ---------------------------------------------------------------- phase 17
@@ -4763,7 +4896,7 @@ def composite_backward_checks(torch, cases: dict, thre_cfg: float) -> dict:
         worst = max(worst, res["grad_err"])
         layouts[name] = res
     shapes = []
-    for kind in ("support", "query", "dense"):
+    for kind in (*cb.TRAIN_CHUNKS, "dense"):
         if kind == "dense":
             sig, rgb, smp, N, bg = cases["dense_chunk"]
             thre = thre_cfg
@@ -4833,7 +4966,7 @@ def composite_backward_entry(ck: dict, smi: str) -> dict:
     at = next(r for r in b["shapes"] if r["shape"] == "support")
     keys = ("shape", "N", "B", "n_real", "alpha_thre", "ms", "host_us", "plain_ms",
             "parent_fwd_bwd_ms", "kernels_fwd_bwd_ms", "library_ms", "bound_ms", "bound_by",
-            "grad_err", "plain_f32_grad_err")
+            "floor_ms", "grad_err", "plain_f32_grad_err")
     return {"name": "composite_packed_backward", "route": "cuda",
             "source": "acn_tpu_torch/csrc/composite.cu",
             "replaces": "acn_tpu/ops/segscan.py:251 (the Pallas scan's backward _bwd, the "
@@ -4845,6 +4978,9 @@ def composite_backward_entry(ck: dict, smi: str) -> dict:
             "plain_ms": at["plain_ms"], "parent_fwd_bwd_ms": at["parent_fwd_bwd_ms"],
             "kernels_fwd_bwd_ms": at["kernels_fwd_bwd_ms"],
             "bound_ms": at["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "floor_ms": at["floor_ms"],
+            "floor_note": "a one-element add by the same clock: at a support march the byte "
+                          "bound lies far below a launch's own cost",
             "library_note": "no single PyTorch call computes the composite's gradient",
             "max_abs_err_note": "the largest |kernel − plain float64| of each gradient over "
                                 "its largest magnitude, over every case",
@@ -5051,6 +5187,7 @@ def main() -> int:
                           for sh in train["shapes"]], **common},
         *hash_kernel_entries(hk, smi),
         net_kernel_entry(nk, smi),
+        net_split_entry(nk, smi),
         *composite_kernel_entries(ck, smi),
     ]})
     print(smi, flush=True)

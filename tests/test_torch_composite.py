@@ -168,6 +168,15 @@ def test_layouts_are_what_they_say(cases):
         elif name == "short_rays":
             assert N == 300 and counts.max() <= 3 and (counts == 1).sum() >= 43
             assert (counts == 0).sum() > 30 and B - n_real == 40
+        elif name == "step_edges":  # pairs of a warp: rays 2w and 2w + 1
+            assert {0, 1, 31, 32, 33, 64, 65} <= set(counts.tolist())
+            pairs = [tuple(counts[i:i + 2]) for i in range(0, N, 2)]
+            assert sum(0 in p and max(p) > 0 for p in pairs) >= 3
+            assert counts[-1] == 64 and n_real < B  # the last ray ends on a step edge
+        elif name == "step_overflow":
+            cut = int(np.flatnonzero(starts < B)[-1])
+            assert B - starts[cut] == 64 < counts[cut] and (starts[cut + 1:] >= B).sum() == 2
+            assert n_real == B
 
 
 def test_views_are_unaligned_strided_views(cases):
@@ -586,6 +595,28 @@ def test_backward_kernel_matches_plain_on_card(cases, name, thre, bg, which):
         sig.clone().masked_fill_(~real, nan), rgb.clone().masked_fill_(~real[:, None], nan),
         dirty, N, b, thre, acc, *g)
     assert all(torch.equal(x, y) for x, y in zip(got, got_nan) if x is not None)
+
+
+def test_train_chunks_are_the_marches_training_sends():
+    """``composite_bench.TRAIN_CHUNKS`` (the backward's timed shapes) are
+    the budget marches a training episode sends: ``configs/train_occ.json``'s
+    support and query rays, and the reference scale's (``configs/train.json``
+    and the parser's defaults, which ``train_occ.json`` takes with
+    ``--support_rays 4000 --query_rays 2000``), at ``train_occ.json``'s
+    slots a ray."""
+    import json
+
+    from acn_tpu_torch.utils import config
+
+    root = Path(__file__).resolve().parents[1] / "configs"
+    occ = json.loads((root / "train_occ.json").read_text())
+    ref = json.loads((root / "train.json").read_text())
+    parsed = config.build_parser().parse_args([])
+    assert (parsed.support_rays, parsed.query_rays) == (ref["support_rays"], ref["query_rays"])
+    rays = {"support": occ["support_rays"], "query": occ["query_rays"],
+            "support_4000": ref["support_rays"], "query_2000": ref["query_rays"]}
+    budget = occ["occ_budget_per_ray"]
+    assert cb.TRAIN_CHUNKS == {k: (n, n * budget) for k, n in rays.items()}
 
 
 @pytest.mark.requires_cuda

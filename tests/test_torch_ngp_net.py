@@ -751,8 +751,8 @@ def test_kernel_takes_one_hot_weights_in_random_order_on_card():
 
 
 SLAB_MAX, SLAB_MIN = 1024, 256  # kSlabMax, kSlabMin of csrc/ngp_net.cu
-WIDE_SLAB_MAX = 4096  # kWideSlabMax
-SLICE_LAND, SLICE_SPLIT = 8 * 8 * 68 + 64, 128 * 8 * 8 + 64  # the wide path's slice
+WIDE_SLAB_MAX, WIDE_SLAB_MIN = 4096, 128  # kWideSlabMax, kWideSlabMin
+WIDE_STAGES, STAGE_FLOATS = 3, 4 * 2 * 512  # kWideStages, kStageFloats
 
 
 def _width_class(cfg, mode):
@@ -778,12 +778,38 @@ def _shapes(cfg, mode, W):
     return shapes
 
 
+def _wide_plan(cfg, mode, smem):
+    """csrc/ngp_net.cu's ``wide_plan`` before the call's own size: (the
+    full slab, whether the activations stay on chip). Shared memory holds
+    the layers' shapes and the ring's barriers, the ring, the two tiles'
+    activations (on chip where every layer is at most 4 blocks of 64 wide
+    and a slab of ``WIDE_SLAB_MIN`` fits beside them), the two tiles'
+    direction encodings, then the slab."""
+    tiles = lambda n: (n + 7) // 8
+    shapes, _ = ngp_net.wide_shapes(mode, cfg)
+    kw = max(max(kt, 8 * nb) for _, _, kt, nb, _, _ in shapes)
+    fits = all(nb <= ngp_net.ROUND_BLOCKS for _, _, _, nb, _, _ in shapes)
+    es = 0 if mode == "density" else 8 * tiles(1 + ngp_net.GEO + cfg.dir_enc_dim) - 16 + 2
+    per_point = 4 * 4 + 3  # the accumulators, the list, the ballots
+    ring_off = (4 * len(shapes) + 4 * WIDE_STAGES + 31) // 32 * 32
+    act_off, act = ring_off + WIDE_STAGES * STAGE_FLOATS, 2 * 4 * kw * 32 * 4
+    enc = 2 * 64 * es  # a tile's direction encodings, each warpgroup's
+
+    def beside(front):
+        if 4 * front + 32 * per_point > smem:
+            return 0
+        return min((smem - 4 * front) // per_point // 32 * 32, WIDE_SLAB_MAX)
+
+    onchip = fits and beside(act_off + act + enc) >= WIDE_SLAB_MIN
+    return beside(act_off + (act if onchip else 0) + enc), onchip
+
+
 def _slab(cfg, mode, P, smem, sms):
     """The points a slab that ``plan()`` in csrc/ngp_net.cu takes for this
     net, mode and P on a card of ``smem`` bytes of shared memory a block and
-    ``sms`` SMs: the layers' shapes, the expert's pointer table and the
-    weights' staged images (f32 landing and split; on the wide path one
-    slice), then as many points as
+    ``sms`` SMs: in a width class the layers' shapes, the expert's pointer
+    table and the weights' staged images (f32 landing and split), on the
+    wide path ``_wide_plan``'s, then as many points as
     fit beside them, fewer where the call has less than a full slab an SM.
     Its arithmetic, step for step."""
     tiles = lambda n: (n + 7) // 8
@@ -800,10 +826,10 @@ def _slab(cfg, mode, P, smem, sms):
         wbytes = 4 * (floats + shape_floats)
         if wbytes + 32 * per_point > smem:
             return 0
-        return min((smem - wbytes) // per_point // 32 * 32, WIDE_SLAB_MAX if W == 0 else SLAB_MAX)
+        return min((smem - wbytes) // per_point // 32 * 32, SLAB_MAX)
 
     if W == 0:
-        S = beside(SLICE_LAND + SLICE_SPLIT)
+        S = _wide_plan(cfg, mode, smem)[0]
         if S:  # whole rounds of slabs over one block an SM
             rounds = -(-P // (S * sms))
             S = min(S, (-(-P // (rounds * sms)) + 31) // 32 * 32)
@@ -937,9 +963,9 @@ WIDE_EDGES = ["1", "15", "17", "pass+1", "min_slab+1", "full_slabs+1"]
 @pytest.mark.parametrize("edge", WIDE_EDGES)
 def test_wide_path_at_tile_pass_and_slab_edges_on_card(edge):
     """The wide path (width 160) at a partial tile, one point past a pass of
-    16 tiles (256 points), two slabs of the least size, and one point past
-    a full slab on every SM, each mode at its own slab as ``plan()`` sizes
-    it."""
+    two 64-point tiles (128 points), two slabs of the least size, and one
+    point past a full slab on every SM, each mode at its own slab as
+    ``plan()`` sizes it."""
     dev = _card()
     cfg = _ngp_cfg(hidden=160, color_hidden=136, sigma_depth=3, color_depth=3)
     props = torch.cuda.get_device_properties(dev)
@@ -948,7 +974,7 @@ def test_wide_path_at_tile_pass_and_slab_edges_on_card(edge):
                         ("linear_blend", True), ("density", True)):
         assert _width_class(cfg, mode) == 0
         full = _slab(cfg, mode, 1 << 40, smem, sms)
-        P = {"1": 1, "15": 15, "17": 17, "pass+1": 257, "min_slab+1": SLAB_MIN + 1,
+        P = {"1": 1, "15": 15, "17": 17, "pass+1": 129, "min_slab+1": SLAB_MIN + 1,
              "full_slabs+1": full * sms + 1}[edge]
         experts, h, d, w = _net_inputs(cfg, 4 if blend else 1, P, 30 + WIDE_EDGES.index(edge),
                                        dev, margin=1.05)
@@ -958,18 +984,169 @@ def test_wide_path_at_tile_pass_and_slab_edges_on_card(edge):
 
 @pytest.mark.requires_cuda
 def test_wide_path_is_deterministic_and_sizes_its_scratch_on_card():
-    """Two launches of the wide path give the same bits; its scratch is two
-    buffers of 16 tiles × the widest layer's tiles × 32 lanes × 16 bytes a
-    block, a block an SM at most."""
+    """Two launches of the wide path give the same bits; its device buffer
+    is the experts' split images alone where the activations stay on chip
+    (no scratch), and nothing in the width classes."""
     dev = _card()
     cfg = _ngp_cfg(hidden=256, color_hidden=128, sigma_depth=3, color_depth=2)
     experts, h, d, w = _net_inputs(cfg, 4, 50_000, 40, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert ngp_net.scratch_bytes("sigma_blend", cfg, 4, 50_000) <= sms * 2 * 16 * 32 * 32 * 16
-    assert ngp_net.scratch_bytes("sigma_blend", _ngp_cfg(), 4, 50_000) == 0
+    assert _wide_plan(cfg, "sigma_blend", 232_448)[1]
+    assert ngp_net.wide_bytes("sigma_blend", cfg, 4, 50_000) \
+        == 4 * 4 * ngp_net.wide_shapes("sigma_blend", cfg)[1]
+    assert ngp_net.wide_bytes("sigma_blend", _ngp_cfg(), 4, 50_000) == 0
     for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts) + [
             ("single", h[:1], d, None, experts[:1])]:
         a = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
         b = ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg)
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y), mode
+
+
+# the wide path's design: the weights split once a call into the layout
+# wgmma reads, 64-point tiles two a pass, activations on chip up to 256
+# wide and spilled above
+
+
+def _read_as_the_kernel_does(img: torch.Tensor, shape: tuple) -> tuple:
+    """A layer's (big, small) weights (8 kt rows, 64 nb columns) read back
+    from an expert's split image the way the wide kernel reads them, written
+    independently of ``wide_split_plain``: the producer copies, for each
+    round of up to 4 blocks and each k-step j, 2 × 512 × its blocks floats
+    from off + 1024 (kt·4·round + j·blocks); a warpgroup's wgmma reads
+    block b's big part at b × 512 floats of the stage and its small part at
+    (blocks + b) × 512, K-major without swizzle (element (k-slot s, column
+    n) at (n / 8)·64 + (s / 4)·32 + (n % 8)·4 + s % 4, the layout the
+    card's probe of m64n64k8 confirmed); its A fragment puts input row
+    8j + 2t in k-slot t and 8j + 2t + 1 in k-slot t + 4."""
+    _, _, kt, nb, off, _ = shape
+    big = torch.zeros((8 * kt, 64 * nb))
+    small = torch.zeros_like(big)
+    for r in range(-(-nb // 4)):
+        nbr = min(4, nb - 4 * r)
+        for j in range(kt):
+            stage = img[off + 1024 * (kt * 4 * r + j * nbr):][:1024 * nbr]
+            for b in range(nbr):
+                for part, base in ((big, b * 512), (small, (nbr + b) * 512)):
+                    for slot in range(8):
+                        row = 8 * j + (2 * slot if slot < 4 else 2 * (slot - 4) + 1)
+                        n = torch.arange(64)
+                        at = base + (n // 8) * 64 + (slot // 4) * 32 + (n % 8) * 4 + slot % 4
+                        part[row, 64 * (4 * r + b) + n] = stage[at]
+    return big, small
+
+
+@pytest.mark.parametrize("name", ["wide", "w264d1", "w136d2"])
+def test_wide_split_plain_is_the_layout_the_kernel_reads(name):
+    """``wide_split_plain``'s image, read back as the kernel reads it
+    (``_read_as_the_kernel_does``), is each staged layer split into its
+    TF32 parts (σ and geo side by side, the colour input behind a zero row),
+    zeros past its rows and columns, and the biases after the layers; its
+    size is the C side's ``wide_shapes``."""
+    cfg = {"wide": _wide_cfg(),
+           "w264d1": _ngp_cfg(hidden=264, color_hidden=264, sigma_depth=1, color_depth=1),
+           "w136d2": _ngp_cfg(hidden=136, color_hidden=72, sigma_depth=2, color_depth=2,
+                              dir_encoding="frequency", freq_pe_dim=3)}[name]
+    experts = _net_inputs(cfg, 2, 4, 3, "cpu")[0]
+    for mode in ("sigma_blend", "density"):
+        shapes, floats = ngp_net.wide_shapes(mode, cfg)
+        img = ngp_net.wide_split_plain(mode, experts, cfg)
+        assert img.shape == (2, floats)
+        for k, e in enumerate(experts):
+            staged = ngp_net._staged(e, cfg, mode)
+            assert len(staged) == len(shapes)
+            for shape, (wt, bt) in zip(shapes, staged):
+                n_in, n_out, kt, nb, _, boff = shape
+                full = torch.zeros((8 * kt, 64 * nb))
+                full[:n_in, :n_out] = wt
+                big, small = _read_as_the_kernel_does(img[k], shape)
+                assert torch.equal(big, _tf32(full)) and torch.equal(small, _tf32(full - big))
+                assert torch.equal(img[k, boff:boff + 64 * nb][:n_out], bt)
+                assert not img[k, boff + n_out:boff + 64 * nb].any()
+        heads = ngp_net._staged(experts[0], cfg, mode)[cfg.sigma_depth]
+        assert torch.equal(heads[0][:, 0], experts[0]["sigma_head"]["w"][:, 0])
+        if mode != "density":
+            first = ngp_net._staged(experts[0], cfg, mode)[cfg.sigma_depth + 1][0]
+            assert not first[0].any() and torch.equal(first[1:], experts[0]["color_mlp"][0]["w"])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["sigma_blend", "density"])
+@pytest.mark.parametrize("name", ["wide", "w264d1", "w136d2"])
+def test_wide_split_kernel_matches_plain_bits_on_card(name, mode):
+    """The split kernel writes ``wide_split_plain``'s bits (cvt.rna.tf32 is
+    ``tf32_plain``), counted once a launch."""
+    dev = _card()
+    cfg = {"wide": _wide_cfg(),
+           "w264d1": _ngp_cfg(hidden=264, color_hidden=264, sigma_depth=1, color_depth=1),
+           "w136d2": _ngp_cfg(hidden=136, color_hidden=72, sigma_depth=2, color_depth=2,
+                              dir_encoding="frequency", freq_pe_dim=3)}[name]
+    experts = _net_inputs(cfg, 3, 4, 5, dev)[0]
+    before = ngp_net.split_launch_counts()
+    got = ngp_net.wide_split_kernel(mode, experts, cfg)
+    torch.cuda.synchronize()
+    assert ngp_net.split_launch_counts() == before + 1
+    want = ngp_net.wide_split_plain(mode, experts, cfg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [63, 64, 65, 127, 129, 64 * 7 - 1, 64 * 7 + 1])
+def test_wide_path_at_wgmma_tile_edges_on_card(P):
+    """The ``wide`` expert at point counts on each side of a 64-point tile
+    and of a pass (two tiles): every mode against the plain version, each
+    call one network and one split launch."""
+    _card()
+    before = ngp_net.split_launch_counts()
+    _run_modes(_wide_cfg(), 4, P, seed=50 + P, rtol=WIDE_RTOL)
+    assert ngp_net.split_launch_counts() - before == 5
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("listed", [0, 1])
+def test_wide_path_with_an_expert_of_no_or_one_point_on_card(listed):
+    """Expert 2's weight is 0 at every point but ``listed`` of them: its
+    list is empty, or one point (a tile of one row)."""
+    dev = _card()
+    cfg = _wide_cfg()
+    experts, h, d, w = _net_inputs(cfg, 4, 3_000, 60 + listed, dev)
+    w = w.clone()
+    w[:, 2] = 0.0
+    if listed:
+        w[1_234, 2] = 0.5
+    for mode, hh, dd, ww, ee in _blend_calls(h, d, w, experts):
+        _close(ngp_net.ngp_net_kernel(mode, hh, dd, ww, ee, cfg),
+               ngp_net.ngp_net_plain(mode, hh, dd, ww, ee, cfg), WIDE_RTOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("depth", [1, 8])
+@pytest.mark.parametrize("width", [136, 192, 256, 264])
+def test_wide_path_at_widths_and_depths_on_card(width, depth):
+    """Widths 136, 192 and 256 (activations on chip: 3 and 4 blocks of 64)
+    and 264 (5 blocks: two rounds of columns, the activations spilled to the
+    block's scratch) at depths 1 and 8, every mode."""
+    _card()
+    cfg = _ngp_cfg(hidden=width, color_hidden=width, sigma_depth=depth, color_depth=depth)
+    assert _wide_plan(cfg, "sigma_blend", 232_448)[1] == (width <= 256)
+    assert (ngp_net.wide_bytes("sigma_blend", cfg, 3, 2_000)
+            > 4 * 3 * ngp_net.wide_shapes("sigma_blend", cfg)[1]) == (width > 256)
+    _run_modes(cfg, 3, 2_000, seed=70 + width + depth, rtol=WIDE_RTOL)
+
+
+@pytest.mark.requires_cuda
+def test_wide_path_sees_a_weight_updated_in_place_on_card():
+    """A TTO step or a viewer publish updates weights in place (same
+    tensors, same device table): the next call splits them again and
+    matches the plain version on the new weights."""
+    dev = _card()
+    cfg = _wide_cfg()
+    experts, h, d, w = _net_inputs(cfg, 4, 2_000, 80, dev)
+    first = ngp_net.ngp_net_kernel("sigma_blend", h, d, w, experts, cfg)
+    with torch.no_grad():
+        for e in experts:
+            e["sigma_trunk"][3]["w"].mul_(1.5)
+            e["color_mlp"][1]["b"].add_(0.25)
+    again = ngp_net.ngp_net_kernel("sigma_blend", h, d, w, experts, cfg)
+    torch.cuda.synchronize()
+    assert not torch.equal(first[0], again[0])
+    _close(again, ngp_net.ngp_net_plain("sigma_blend", h, d, w, experts, cfg), WIDE_RTOL)
