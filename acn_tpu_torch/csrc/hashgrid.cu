@@ -56,26 +56,60 @@
 // in a copy of the tree and time it with scripts/bench_hashgrid.py, that
 // copy first on PYTHONPATH.
 //
-// Every F takes this design where a row's 16-byte pieces spread over a
-// power-of-two group of lanes and a corner over at most 4 lanes: F = 1, 2,
-// 4, 8 and 16 (a row of 1 to 32 pieces in f32, 1 to 16 in bf16). Any other
-// F (a row of 2F pieces in f32, F in bf16, a corner straddling pieces) takes
-// one general kernel of each direction, F a runtime argument: the forward
-// stages its tasks' rows in shared memory a piece a thread (rows above
-// kStageBytes are read where they lie), then one thread a (task, feature)
-// sums the eight corners in corner order and stores one value (the output
-// offsets of odd F are not 16-byte aligned: no vector stores); the
-// cotangent gives one thread a (run of kRun neighbouring points of one
-// level, piece j), computes each of the piece's values with its own corner
-// and feature (a bf16x2 pair may span two corners) and adds the piece with
-// one vector reduction when its row changes.
+// The forward takes this design at F = 2, 4, 8 and 16, where a row's
+// 16-byte pieces spread over a power-of-two group of lanes and a corner over
+// at most 4 lanes (a row of 2 to 32 pieces in f32, 2 to 16 in bf16); the
+// cotangent at F = 1 too. Two other forwards, each chosen among variants of
+// itself timed on the card (PERF.md section 6), which showed both bound by
+// their instruction count as much as by L2: with no row read at all, each
+// took over half of its time.
+//
+// F = 1 (hash_cell_fwd_one_kernel): a row is 32 bytes in f32, 16 in bf16,
+// one or two 16-byte loads, so a task's cost is its cell, its weights and
+// its products, not its row, and moving the weights through shared memory
+// and a barrier, as the template does, costs more than the gather. One
+// thread takes a (point, run of levels), no shared memory, no barrier: it
+// reads x01 and its levels' constants together, locates every row of its
+// run and starts all their loads before it uses one, weighs them in registers
+// and stores its run of outputs (16 bytes where aligned: an out= slice, or
+// an odd level count, may not be, and then value by value). f32: two lanes
+// of four levels a point, whole rows (two 16-byte loads each); bf16: eight
+// lanes of one level, each bf16x2 multiply weighing two corners (a quarter
+// of the instructions of converting each product, bit for bit the same). A
+// grid row takes 8 levels.
+//
+// Any other F (a row of 2F pieces in f32, F in bf16, a corner straddling
+// pieces), F a runtime argument: hash_cell_fwd_any_kernel. A row's pieces
+// are not a power of two and a feature's eight values lie F apart, so the
+// products of one feature meet only through shared memory; what must not
+// happen is one load in flight at a time, or a block waiting at barriers.
+// Each warp works alone on 4 points by 8 levels: one lane a task computes
+// the row and weights into shared memory, the warp copies its 32 rows into
+// its own stage by cp.async, consecutive lanes on consecutive 16-byte pieces
+// (a copy instruction reads 32 / pieces whole rows, all in flight together,
+// no registers held), and one lane an output sums the eight corners in
+// corner order, so that a store instruction writes the warp's points' 8F
+// values contiguous (whole sectors at F = 3 in f32). A staged row takes an
+// odd count of 16-byte units (one unit of padding at even counts), which
+// halves the bank conflicts of those sums. No block barrier; one round for
+// rows of up to 7 units (F = 3 in f32, F ≤ 7 in bf16), rounds of fewer
+// tasks for wider rows up to the stage's 4 KB, past that rows read where
+// they lie; divisions by F and by the pieces done as multiplications by
+// reciprocals made on the host. 8 levels a grid row beat 4 (whole output
+// sectors at F = 3, x01 read half as often) though the tables resident
+// together double. The general cotangent gives one thread a
+// (run of kRun neighbouring points of one level, piece j), computes each of
+// the piece's values with its own corner and feature (a bf16x2 pair may span
+// two corners) and adds the piece with one vector reduction when its row
+// changes.
 //
 // The per-level constants (scale, resolution, dense flag) and the forward's
 // table pointers live in device memory (the wrappers keep them on the card,
 // the pointers cached by value), so the level count is bounded by memory
 // alone; the cotangent's tables are row blocks of one allocation, given as
-// its base and each level's offset. A grid row takes kLevelGroup levels, the
-// last one ragged where L is not a multiple.
+// its base and each level's offset. A grid row takes kLevelGroup levels (8
+// in the F = 1 and the general forwards), the last one ragged where L is not
+// a multiple.
 //
 // The cotangent's phase B is level-major: a group walks G neighbouring
 // points of one level, and lane j adds its 16 bytes of the row with one
@@ -114,7 +148,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kZeroBlocks = 1024;  // grid-stride over the cotangent's tables
 constexpr int kLevelGroup = 4;  // levels per grid row
-constexpr int kStageBytes = 16384;  // the general forward's staged rows
 constexpr int kRun = 8;  // the general cotangent's points a thread
 
 enum Interp { kLinear = 0, kSmoothstep = 1, kNearest = 2 };
@@ -178,17 +211,30 @@ __device__ __forceinline__ unsigned bf16_word(const float* v) {
          | ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[1])) << 16);
 }
 
-// The row and the per-axis factors (1 - f, f) of point x at level l, as
-// `_cell_index` and `_interp_frac` compute them.
+// A level's constants: its scale (the resolution rounded to x01's type), its
+// resolution, its dense flag and its table. The kernels that take several
+// levels a thread read them all before they locate any.
+struct Level {
+  float scale;
+  int res, dense;
+  const void* table;
+};
+
+__device__ __forceinline__ Level level_at(const Levels& lv, int l) {
+  const unsigned long long t = __ldg(reinterpret_cast<const unsigned long long*>(lv.table) + l);
+  return {__ldg(lv.scale + l), __ldg(lv.res + l), __ldg(lv.dense + l),
+          reinterpret_cast<const void*>(t)};
+}
+
+// The row of point x at a level and the interpolated fraction f of each
+// axis, as `_cell_index` and `_interp_frac` compute them.
 template <typename XT>
-__device__ __forceinline__ long long locate(const float xf[3], const Levels& lv, int l,
-                                            int interp, uint32_t mask, float A[3][2]) {
-  const float scale = __ldg(lv.scale + l);
-  float f[3];
+__device__ __forceinline__ long long locate_at(const float xf[3], const Level& lc, int interp,
+                                               uint32_t mask, float f[3]) {
   int c[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float s = rnd<XT>(__fmul_rn(xf[a], scale));
+    const float s = rnd<XT>(__fmul_rn(xf[a], lc.scale));
     const float cell = floorf(s);
     float fr = rnd<XT>(__fsub_rn(s, cell));
     if (interp == kSmoothstep) {  // frac * frac * (3 - 2 * frac), op by op
@@ -201,22 +247,35 @@ __device__ __forceinline__ long long locate(const float xf[3], const Levels& lv,
     f[a] = fr;
     c[a] = (int)cell;
   }
-  long long h;
-  if (__ldg(lv.dense + l)) {
-    const long long r = __ldg(lv.res + l);
+  if (lc.dense) {
+    const long long r = lc.res;
     long long ci[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) ci[a] = c[a] < 0 ? 0 : (c[a] > r - 1 ? r - 1 : c[a]);
-    h = (ci[0] * r + ci[1]) * r + ci[2];
-  } else {  // uint32 wraparound: the low 32 bits of the int64 hash
-    h = (long long)((((uint32_t)c[0] * 1u) ^ ((uint32_t)c[1] * 2654435761u)
-                     ^ ((uint32_t)c[2] * 805459861u)) & mask);
+    return (ci[0] * r + ci[1]) * r + ci[2];
   }
+  // uint32 wraparound: the low 32 bits of the int64 hash
+  return (long long)((((uint32_t)c[0] * 1u) ^ ((uint32_t)c[1] * 2654435761u)
+                      ^ ((uint32_t)c[2] * 805459861u)) & mask);
+}
+
+// The per-axis corner factors (1 - f, f).
+template <typename XT>
+__device__ __forceinline__ void factors(const float f[3], float A[3][2]) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     A[a][0] = rnd<XT>(__fsub_rn(1.0f, f[a]));
     A[a][1] = f[a];
   }
+}
+
+// The row and the per-axis factors (1 - f, f) of point x at level l.
+template <typename XT>
+__device__ __forceinline__ long long locate(const float xf[3], const Levels& lv, int l,
+                                            int interp, uint32_t mask, float A[3][2]) {
+  float f[3];
+  const long long h = locate_at<XT>(xf, level_at(lv, l), interp, mask, f);
+  factors<XT>(f, A);
   return h;
 }
 
@@ -525,52 +584,217 @@ hash_cell_bwd_kernel(const XT* __restrict__ x, const TT* __restrict__ g,
   }
 }
 
+// ------------------------------------------------------------------ F = 1
+
+// m values of v (f32, rounded here to TT) to dst, a run of M (2 or 16
+// bytes): one 16-byte store where the run is whole and dst 16-byte aligned,
+// else value by value (an out= slice at any offset, a point's row of an odd
+// level count).
+template <typename TT, int M>
+__device__ __forceinline__ void store_run(TT* dst, const float* v, int m) {
+  if constexpr (M * sizeof(TT) == 16) {
+    if (m == M && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      if constexpr (sizeof(TT) == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(bf16_word(v), bf16_word(v + 2), bf16_word(v + 4), bf16_word(v + 6));
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < M; ++k)
+    if (k < m) dst[k] = from_f<TT>(v[k]);
+}
+
+// The F = 1 forward's geometry: kLanes lanes a point, kRun levels a lane,
+// kLanes * kRun levels a grid row. f32 tables: two lanes of four levels (a
+// lane's outputs one 16-byte store; a row is two 16-byte loads); bf16: eight
+// lanes of one level (a row is one 16-byte load). Both were the fastest of
+// the geometries timed (PERF.md section 6).
+template <typename TT> struct One {
+  static constexpr bool kF32 = sizeof(TT) == 4;
+  static constexpr int kLanes = kF32 ? 2 : 8;       // lanes a point
+  static constexpr int kRun = kF32 ? 4 : 1;         // levels a lane
+  static constexpr int kLevels = kLanes * kRun;     // levels a grid row
+  static constexpr int kPieces = kF32 ? 2 : 1;      // 16-byte loads a row
+  static constexpr int kPoints = kThreads / kLanes;  // points a block
+};
+
+// One thread a (point, kRun levels): it reads x01 and its levels' constants
+// together, locates its rows and starts all their loads before it uses one,
+// then weighs them in registers; no shared memory, no barrier. Each lane's
+// kRun outputs are contiguous, a point's grid row of outputs is its lanes'
+// in order. bf16 rows are weighed two corners a bf16x2 multiply, which
+// rounds the exact product of two bf16 values once, as rnd<bf16>(v * w) in
+// f32 does, at a quarter of the instructions.
+template <typename XT, typename TT>
+__global__ void __launch_bounds__(kThreads)
+hash_cell_fwd_one_kernel(const XT* __restrict__ x, const Levels lv, int levels, int interp,
+                         uint32_t mask, long long n, TT* __restrict__ out) {
+  using O = One<TT>;
+  constexpr int V = 16 / (int)sizeof(TT);  // values a 16-byte load
+  const int j = threadIdx.x % O::kLanes;
+  const long long p = (long long)blockIdx.x * O::kPoints + threadIdx.x / O::kLanes;
+  const int l0 = blockIdx.y * O::kLevels + O::kRun * j;  // the lane's first level
+  const int nl = p < n ? min(O::kRun, levels - l0) : 0;  // levels the lane gathers
+  if (nl <= 0) return;
+  float xf[3];
+  load_point<XT>(x, p, xf);
+  Level lc[O::kRun];
+#pragma unroll
+  for (int i = 0; i < O::kRun; ++i)
+    if (i < nl) lc[i] = level_at(lv, l0 + i);
+  float fr[O::kRun][3];
+  uint4 raw[O::kRun][O::kPieces];
+#pragma unroll
+  for (int i = 0; i < O::kRun; ++i) {
+    if (i < nl) {
+      const long long row = locate_at<XT>(xf, lc[i], interp, mask, fr[i]);
+      const TT* table = static_cast<const TT*>(lc[i].table);
+      const uint4* src = reinterpret_cast<const uint4*>(table + row * 8);
+#pragma unroll
+      for (int q = 0; q < O::kPieces; ++q) raw[i][q] = __ldg(src + q);
+    }
+  }
+  float o[O::kRun];
+#pragma unroll
+  for (int i = 0; i < O::kRun; ++i) {
+    o[i] = 0.0f;
+    if (i < nl) {
+      float A[3][2];
+      factors<XT>(fr[i], A);
+      if constexpr (O::kF32) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          o[i] = __fadd_rn(o[i], __fmul_rn(lane_value<TT>(raw[i][k / V], k % V),
+                                           corner_weight<XT>(A, k)));
+      } else {
+        const unsigned* vw = reinterpret_cast<const unsigned*>(&raw[i][0]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // corners 2q and 2q + 1
+          __nv_bfloat162 v2;
+          *reinterpret_cast<unsigned*>(&v2) = vw[q];
+          const __nv_bfloat162 w2 = __floats2bfloat162_rn(corner_weight<XT>(A, 2 * q),
+                                                          corner_weight<XT>(A, 2 * q + 1));
+          const __nv_bfloat162 p2 = __hmul2(v2, w2);
+          o[i] = __fadd_rn(__fadd_rn(o[i], __low2float(p2)), __high2float(p2));
+        }
+      }
+    }
+  }
+  store_run<TT, O::kRun>(out + p * levels + l0, o, nl);
+}
+
 // ------------------------------------------------------------------ any F
 
-// The forward for any F (a runtime argument). Phase A as above. Phase B in
-// passes of the tasks whose rows fit in kStageBytes: the block loads their
-// rows a 16-byte piece a thread into shared memory (rows of more than
-// kStageBytes are read where they lie), then one thread a (task, feature)
-// sums the eight corners' products in corner order in f32 and stores one
-// value.
+// The general forward's geometry: a warp takes kAnyPoints points by
+// kAnyLevels levels (32 tasks, point-major), a grid row kAnyLevels levels;
+// a warp stages at most kStagePieces 16-byte pieces of rows at a time.
+constexpr int kAnyLevels = 8;
+constexpr int kAnyPoints = 32 / kAnyLevels;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStagePieces = 256;  // 4 KB a warp
+
+// A staged row's 16-byte units: its pieces, one more where they are even, so
+// that 8 lanes reading their own rows' unit u hit 8 different 16-byte bank
+// groups (phase C's reads of a feature across tasks conflict at most twice).
+__host__ __device__ constexpr int stage_stride(int pieces) { return pieces | 1; }
+
+__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+               :: "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem) : "memory");
+}
+
+// The forward for any F ≥ 3 (a runtime argument), each warp on its own (no
+// block barrier). Phase A: lane t of the warp computes its task's row and
+// eight weights into shared memory. Then in rounds of `round` tasks (all 32
+// where the rows fit in the warp's stage): phase B, the round's rows into the
+// stage by asynchronous 16-byte copies (no registers held while they fly),
+// piece k of the round (task k / pieces, piece k % pieces) on lane k % 32;
+// phase C, output k of the round (task k / F, feature k % F) on lane k % 32,
+// the eight products summed in corner order, so that a warp's store covers
+// its points' kAnyLevels * F values, contiguous. Rows wider than the stage
+// (F > 127 in f32) are read where they lie. The divisions are
+// multiplications by host-made reciprocals (f_inv, p_inv: ceil(2^32 / d),
+// exact for the warp's counts). The stage is dynamic shared memory,
+// `round` rows of stage_stride(pieces) units a warp.
 template <typename XT, typename TT>
 __global__ void __launch_bounds__(kThreads)
 hash_cell_fwd_any_kernel(const XT* __restrict__ x, const Levels lv, int levels, int F,
-                         int interp, uint32_t mask, long long n, TT* __restrict__ out) {
-  __shared__ __align__(16) float s_w[kTasks * 8];
-  __shared__ int s_row[kTasks];
-  __shared__ const TT* s_table[kLevelGroup];
-  __shared__ uint4 s_stage[kStageBytes / 16];
-  const int l0 = blockIdx.y * kLevelGroup;
-  const long long p0 = (long long)blockIdx.x * kPoints;
-  fwd_phase_a<XT, TT>(x, lv, levels, interp, mask, n, l0, p0, s_w, s_row, s_table);
-  const int row_vals = 8 * F, pieces = F * (int)sizeof(TT) / 2;  // a row's 16-byte pieces
-  const bool staged = 16 * pieces <= kStageBytes;
-  const int tp = staged ? min(kTasks, kStageBytes / (16 * pieces)) : kTasks;
-  for (int t0 = 0; t0 < kTasks; t0 += tp) {
-    const int nt = min(tp, kTasks - t0);
-    if (staged) {
-      for (int i = threadIdx.x; i < nt * pieces; i += kThreads) {
-        const int tl = i / pieces, t = t0 + tl, row = s_row[t];
-        if (row >= 0)
-          s_stage[i] = __ldg(reinterpret_cast<const uint4*>(
-              s_table[t % kLevelGroup] + (long long)row * row_vals) + (i - tl * pieces));
-      }
-      __syncthreads();
-    }
-    for (int e = threadIdx.x; e < nt * F; e += kThreads) {
-      const int tl = e / F, f = e - tl * F, t = t0 + tl, row = s_row[t];
-      if (row < 0) continue;
-      const TT* src = staged ? reinterpret_cast<const TT*>(s_stage + tl * pieces)
-                             : s_table[t % kLevelGroup] + (long long)row * row_vals;
-      const float* w = s_w + 8 * t;
-      float v = 0.0f;
+                         uint32_t f_inv, uint32_t p_inv, int round, int interp, uint32_t mask,
+                         long long n, TT* __restrict__ out) {
+  __shared__ __align__(16) float s_w[kThreads * 8];
+  __shared__ int s_row[kThreads];
+  __shared__ const TT* s_table[kWarps][kAnyLevels];
+  extern __shared__ uint4 s_stage[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l0 = blockIdx.y * kAnyLevels;
+  const long long pw = ((long long)blockIdx.x * kWarps + w) * kAnyPoints;  // the warp's first point
+  {  // phase A: task `lane` = (point lane / kAnyLevels, level lane % kAnyLevels)
+    const long long p = pw + lane / kAnyLevels;
+    const int l = l0 + lane % kAnyLevels;
+    int row = -1;
+    if (p < n && l < levels) {
+      float xf[3], f[3], A[3][2];
+      load_point<XT>(x, p, xf);
+      const Level lc = level_at(lv, l);
+      row = (int)locate_at<XT>(xf, lc, interp, mask, f);
+      factors<XT>(f, A);
+      float wk[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) v = __fadd_rn(v, rnd<TT>(__fmul_rn(to_f(src[c * F + f]), w[c])));
-      out[(p0 + t / kLevelGroup) * (long long)(levels * F) + (l0 + t % kLevelGroup) * F + f] =
+      for (int k = 0; k < 8; ++k) wk[k] = rnd<TT>(corner_weight<XT>(A, k));
+      float4* ws = reinterpret_cast<float4*>(s_w + 8 * threadIdx.x);
+      ws[0] = make_float4(wk[0], wk[1], wk[2], wk[3]);
+      ws[1] = make_float4(wk[4], wk[5], wk[6], wk[7]);
+      if (lane < kAnyLevels) s_table[w][lane] = static_cast<const TT*>(lc.table);
+    }
+    s_row[threadIdx.x] = row;
+  }
+  __syncwarp();
+  const int row_vals = 8 * F, pieces = F * (int)sizeof(TT) / 2;  // a row's 16-byte pieces
+  const int stride = stage_stride(pieces);
+  const bool staged = stride <= kStagePieces;
+  const int* rows = s_row + 32 * w;
+  const float* wts = s_w + 8 * 32 * w;
+  uint4* stage = s_stage + (staged ? w * round * stride : 0);
+  const long long out_row = (long long)levels * F;
+  for (int r0 = 0; r0 < 32; r0 += round) {
+    const int nt = min(round, 32 - r0);
+    if (staged) {  // phase B
+      for (int k = lane; k < nt * pieces; k += 32) {
+        const int ti = (int)__umulhi((unsigned)k, p_inv), j = k - ti * pieces;
+        const int row = rows[r0 + ti];
+        if (row >= 0)
+          copy16(stage + ti * stride + j, reinterpret_cast<const uint4*>(
+              s_table[w][(r0 + ti) % kAnyLevels] + (long long)row * row_vals) + j);
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      __syncwarp();
+    }
+    for (int k = lane; k < nt * F; k += 32) {  // phase C
+      const int ti = (int)__umulhi((unsigned)k, f_inv), f = k - ti * F, t = r0 + ti;
+      const int row = rows[t];
+      if (row < 0) continue;
+      const float4 wa = reinterpret_cast<const float4*>(wts + 8 * t)[0];
+      const float4 wb = reinterpret_cast<const float4*>(wts + 8 * t)[1];
+      const float wk[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      float v = 0.0f;
+      if (staged) {
+        const TT* src = reinterpret_cast<const TT*>(stage + ti * stride) + f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) v = __fadd_rn(v, rnd<TT>(__fmul_rn(to_f(src[c * F]), wk[c])));
+      } else {
+        const TT* src = s_table[w][t % kAnyLevels] + (long long)row * row_vals + f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          v = __fadd_rn(v, rnd<TT>(__fmul_rn(to_f(__ldg(src + c * F)), wk[c])));
+      }
+      out[(pw + t / kAnyLevels) * out_row + (long long)(l0 + t % kAnyLevels) * F + f] =
           from_f<TT>(v);
     }
-    if (staged) __syncthreads();
+    __syncwarp();  // the next round rewrites the stage
   }
 }
 
@@ -665,20 +889,41 @@ void fwd_one(const XT* x, const Levels& lv, int levels, int interp, uint32_t mas
       x, lv, levels, interp, mask, n, out);
 }
 
+// ceil(2^32 / d) for d ≥ 2: k * it >> 32 is k / d for every k < 2^32 / d.
+uint32_t reciprocal(int d) { return (uint32_t)(((1ull << 32) + (uint64_t)d - 1) / (uint64_t)d); }
+
 template <typename XT, typename TT>
 int launch_fwd(const void* x, const Levels& lv, int levels, int features, int interp,
                uint32_t mask, long long n, void* out, cudaStream_t s) {
   const XT* xp = static_cast<const XT*>(x);
   TT* o = static_cast<TT*>(out);
   switch (features) {
-    case 1: fwd_one<XT, TT, 1>(xp, lv, levels, interp, mask, n, o, s); break;
+    case 1: {
+      using O = One<TT>;
+      const dim3 grid((unsigned)((n + O::kPoints - 1) / O::kPoints),
+                      (unsigned)((levels + O::kLevels - 1) / O::kLevels));
+      hash_cell_fwd_one_kernel<XT, TT><<<grid, kThreads, 0, s>>>(xp, lv, levels, interp, mask,
+                                                                  n, o);
+      break;
+    }
     case 2: fwd_one<XT, TT, 2>(xp, lv, levels, interp, mask, n, o, s); break;
     case 4: fwd_one<XT, TT, 4>(xp, lv, levels, interp, mask, n, o, s); break;
     case 8: fwd_one<XT, TT, 8>(xp, lv, levels, interp, mask, n, o, s); break;
     case 16: fwd_one<XT, TT, 16>(xp, lv, levels, interp, mask, n, o, s); break;
-    default:
-      hash_cell_fwd_any_kernel<XT, TT><<<task_grid(n, levels), kThreads, 0, s>>>(
-          xp, lv, levels, features, interp, mask, n, o);
+    default: {
+      constexpr long long kBlockPoints = kWarps * kAnyPoints;
+      const long long cols = (n + kBlockPoints - 1) / kBlockPoints;
+      if (cols > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      if (features > 4096) return (int)cudaErrorInvalidValue;  // the reciprocals' range
+      const int pieces = features * (int)sizeof(TT) / 2, stride = stage_stride(pieces);
+      const int fit = kStagePieces / stride;  // tasks whose rows the stage holds
+      const int round = fit < 1 ? 32 : (fit < 32 ? fit : 32);
+      const dim3 grid((unsigned)cols, (unsigned)((levels + kAnyLevels - 1) / kAnyLevels));
+      const size_t stage = fit < 1 ? 0 : (size_t)kWarps * round * stride * 16;
+      hash_cell_fwd_any_kernel<XT, TT><<<grid, kThreads, stage, s>>>(
+          xp, lv, levels, features, reciprocal(features), reciprocal(pieces), round, interp,
+          mask, n, o);
+    }
   }
   return (int)cudaGetLastError();
 }

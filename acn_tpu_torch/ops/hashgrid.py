@@ -22,7 +22,10 @@ hand-written CUDA kernels for ``sm_90a`` (``csrc/hashgrid.cu``), built by
 design: a group of lanes per (point, level), each lane one 16-byte piece of
 the row, so a warp reads and adds whole rows, and the cotangent sums the
 lanes that share a row before one of them adds (F = 1, 2, 4, 8, 16; any
-other F takes a general kernel of each direction). Both recompute the cell and
+other F takes a general kernel of each direction). The forward at F = 1
+has a kernel of its own (a thread a point and run of levels, every row in
+registers), and the general forward copies each warp's rows into shared
+memory with all the copies in flight. Both recompute the cell and
 the weights from x01, so nothing but x01 is kept between the forward and
 the backward. The x cotangent, asked for only when x01 needs a gradient
 (never in training), stays PyTorch: ``hash_cell_bwd_x``.
@@ -69,7 +72,10 @@ from acn_tpu_torch.ops import cuda_lib
 # Instant-NGP 3D spatial hash primes.
 HASH_PRIMES = (1, 2654435761, 805459861)
 INTERPOLATIONS = ("Linear", "Smoothstep", "Nearest")
-FEATURES = (1, 2, 4, 8, 16)  # F with a kernel of their own; any other F: the general one
+# F with a templated kernel of their own: the forward's at 2 to 16 (F = 1 has
+# a forward of its own), the cotangent's at all five; any other F takes the
+# general kernel of each direction
+FEATURES = (1, 2, 4, 8, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # corner sign per axis in packing order (dz fastest): +1 where the corner

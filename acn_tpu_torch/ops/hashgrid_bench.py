@@ -5,7 +5,9 @@ and phase 14 of ``chip_smoke.py`` share.
 * Configs: ``smoke``, ``toy.train_occ_config``'s (8 levels, F = 4, 2^17
   rows, dense levels: 833,403 rows of 32 values); ``l16f2``, the same with
   the parser's default 16 levels of F = 2; ``l16f8``, ``l40f3`` and ``f1``,
-  the hash grids of ``toy.FLAG_SETS``.
+  the hash grids of ``toy.FLAG_SETS``; ``f16``, the smoke's grid at
+  ``--hash_features 16`` (833,403 rows of 128 values: the widest row the
+  kernels' templates take).
 * Point sets: ``random``, P = 983,040 (one expert of a serving chunk),
   32,768 and 16,384 (a support and a query march) uniform points, the first
   on cell faces of every level and at 1 − 1e-6, a quarter of the cotangent
@@ -55,17 +57,20 @@ L2_BYTES = 50 * 2**20  # H100 SXM
 COLD_BYTES = 4 * L2_BYTES  # what the copies of a timed run's inputs span
 MAX_COPIES = 16
 EDGE = 1e-6
-CONFIGS = ("smoke", "l16f2", "l16f8", "l40f3", "f1")
+CONFIGS = ("smoke", "l16f2", "l16f8", "l40f3", "f1", "f16")
 
 
 def hash_config(name: str = "smoke"):
     """The smoke model's hash config, or (``l16f2``) the same at 16 levels
-    of F = 2, or that of a ``toy.FLAG_SETS`` configuration."""
+    of F = 2, (``f16``) at F = 16, or that of a ``toy.FLAG_SETS``
+    configuration."""
     cfg = toy.train_occ_config()[0]
     hcfg = cfg.expert.hash
     if name == "l16f2":
         return dataclasses.replace(hcfg, levels=16, features_per_level=2)
-    if name in CONFIGS[2:]:
+    if name == "f16":
+        return dataclasses.replace(hcfg, features_per_level=16)
+    if name in toy.FLAG_SETS:
         return toy.flag_config(cfg, **toy.FLAG_SETS[name]).expert.hash
     if name != "smoke":
         raise ValueError(f"unknown hash config {name!r}, want one of {CONFIGS}")

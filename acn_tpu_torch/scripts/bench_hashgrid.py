@@ -5,7 +5,9 @@
 
 For each config (``smoke``: the smoke model's 8 levels of F = 4, 2^17 rows,
 dense levels; ``l16f2``: the same at the parser's default 16 levels of
-F = 2), tables U(±1e-3) from seed 14, and each point set of
+F = 2; ``f16``: the same at F = 16; ``l16f8``, ``l40f3`` and ``f1``: the
+hash grids of ``toy.FLAG_SETS``, ``l40f3`` and ``f1`` the general and the
+F = 1 forward), tables U(±1e-3) from seed 14, and each point set of
 ``ops/hashgrid_bench.py`` (random points at 983,040, 32,768 and 16,384;
 the ray-ordered packed samples of a budget march at 983,040 and 32,768) in
 float32 and bfloat16: one JSON line with the card time per call of the

@@ -600,7 +600,7 @@ def test_every_row_width_on_card(xt, tt, F):
     bf16 lane a task, 8 corners a lane) and 16 (32 f32 lanes, a corner over
     4); and the general kernels at F = 3, 5 and 31 (a corner straddles
     16-byte pieces, a bf16x2 pair two corners; 31 f32 rows of 992 bytes,
-    16 staged at a time)."""
+    4 a round in a warp's stage)."""
     _card()
     _hold_to_plain(*_card_pair(xt, tt, F, 777))
 
@@ -613,6 +613,90 @@ def test_many_levels_on_card(tt, F):
     a kernel of its own, over a few blocks of points."""
     _card()
     _hold_to_plain(*_card_pair("float32", tt, F, 300, levels=37))
+
+
+def _hold_fwd_to_plain(cfg, x, tabs, got):
+    """A forward against the plain version at the card tests' limits:
+    float32 within 2e-6 of the largest |out|, bfloat16 within one ulp."""
+    want = hg.hash_cell_fwd_plain(tabs, x, cfg)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.numel() == 0:
+        return
+    if got.dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    else:
+        assert float(_ulps_apart_bf16(got, want).max()) <= 1.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P", [0, 1, 63, 65, 129, 1000])
+@pytest.mark.parametrize("levels", [1, 8, 16, 37])
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_f1_and_general_forward_on_and_off_their_tiling_on_card(tt, F, levels, P):
+    """The F = 1 forward (128 points a block, grid rows of 8 levels in float32
+    and 16 in bfloat16, two lanes a point) and the general one (8 points by 4
+    levels a warp, 64 points a block) at point counts on and off a block and
+    a warp, level counts of one, whole and ragged grid rows; the cotangent
+    beside them."""
+    _card()
+    cfg, x, tabs, g = _card_pair("float32", tt, F, P, levels=levels)
+    before = hg.launch_counts()
+    _hold_to_plain(cfg, x, tabs, g)
+    assert hg.launch_counts() == (before[0] + (1 if P else 0), before[1] + 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("interpolation", INTERPOLATIONS)
+@pytest.mark.parametrize("xt,tt", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16"), ("bfloat16", "float32")])
+@pytest.mark.parametrize("F", [1, 3])
+def test_f1_and_general_forward_every_interpolation_and_type_pair_on_card(
+        F, xt, tt, interpolation, dense):
+    """F = 1 and F = 3 on ``_points``' cell faces and clamp ends, in every
+    interpolation, x01 and tables in each of the four type pairs, dense
+    levels on and off."""
+    dev = _card()
+    cfg, _, (x, tabs, _), _ = _both(xt, tt, F, interpolation, dense, seed=13)
+    xc, tc = x.to(dev), [t.to(dev) for t in tabs]
+    got = hg.hash_cell_fwd_kernel(tc, xc, cfg)
+    torch.cuda.synchronize()
+    _hold_fwd_to_plain(cfg, xc, tc, got)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("F,levels", [(3, 37), (1, 37), (1, 16)])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_forward_into_the_second_experts_slice_on_card(tt, F, levels):
+    """``out=`` as expert 1's slice of a (2, P, L·F) buffer, P = 63: at an
+    odd L·F the slice and most points' rows are not 16-byte aligned (stores
+    narrow to single values), at L = 16, F = 1 they are (16-byte vectors);
+    expert 0's slice keeps its bits."""
+    _card()
+    cfg, x, tabs, _ = _card_pair("float32", tt, F, 63, levels=levels)
+    buf = torch.full((2, 63, cfg.out_dim), 7.0, dtype=tabs[0].dtype, device="cuda")
+    aligned = buf[1].data_ptr() % 16 == 0
+    assert aligned == (levels * F % 4 == 0 if tt == "float32" else levels * F % 8 == 0)
+    got = hg.hash_cell_fwd_kernel(tabs, x, cfg, out=buf[1])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf[1].data_ptr()
+    _hold_fwd_to_plain(cfg, x, tabs, buf[1])
+    assert bool((buf[0] == 7.0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("tt", ["float32", "bfloat16"])
+def test_two_forward_launches_are_bit_equal_on_card(tt, F):
+    """No atomics and a fixed order of every sum: two launches on the same
+    inputs give the same bits."""
+    _card()
+    cfg, x, tabs, _ = _card_pair("float32", tt, F, 1000, levels=37)
+    a = hg.hash_cell_fwd_kernel(tabs, x, cfg)
+    b = hg.hash_cell_fwd_kernel(tabs, x, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.requires_cuda
@@ -697,6 +781,28 @@ def test_timing_copies_span_the_cold_bytes():
     assert hb.copies_for(hb.COLD_BYTES) == hb.copies_for(10 * hb.COLD_BYTES) == 1
     assert hb.copies_for(hb.COLD_BYTES / 3) == 3 and hb.copies_for(hb.COLD_BYTES / 2.5) == 3
     assert hb.copies_for(1.0) == hb.copies_for(0) == hb.MAX_COPIES
+
+
+def test_bench_configs_are_the_smoke_grid_or_a_flag_sets():
+    """``f16`` is the smoke's grid at F = 16 (rows of 128 values, the widest
+    the templates take), ``l16f2`` at 16 levels of F = 2; ``l40f3`` and
+    ``f1`` are ``toy.flag_config``'s grids; other names are refused."""
+    from acn_tpu_torch.ops import hashgrid_bench as hb
+
+    smoke, f16 = hb.hash_config("smoke"), hb.hash_config("f16")
+    assert (f16.levels, f16.features_per_level, f16.out_dim) == \
+        (smoke.levels, 16, 16 * smoke.levels)
+    assert [f16.level_rows(l) for l in range(f16.levels)] == \
+        [smoke.level_rows(l) for l in range(smoke.levels)]
+    l16f2 = hb.hash_config("l16f2")
+    assert (l16f2.levels, l16f2.features_per_level) == (16, 2)
+    for name, (L, F) in {"l40f3": (40, 3), "f1": (16, 1), "l16f8": (16, 8)}.items():
+        h = hb.hash_config(name)
+        assert (h.levels, h.features_per_level, h.log2_hashmap_size) == \
+            (L, F, smoke.log2_hashmap_size), name
+    assert {"f16", "l40f3", "f1"} <= set(hb.CONFIGS)
+    with pytest.raises(ValueError, match="unknown hash config"):
+        hb.hash_config("f32")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
